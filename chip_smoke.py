@@ -9,12 +9,23 @@
    CPU) on the same packed inputs of four worlds: integer state exactly,
    float state bit for bit (the float32 operations and their order are the
    same on both sides, so no tolerance is allowed);
-4. drives the slice's entry point, ``allocate(preempt_mix(50_000, 5_000),
-   device="cuda")``, with the launch counter zeroed just before, checks the
-   binds (no node past its idle capacity + eps, every bound job at its gang
-   minimum), and holds the kernel against the plain version at that size;
+4. drives the slice's entry point, ``allocate(..., device="cuda")``, on
+   two worlds at 50k pending pods with the launch counter zeroed just
+   before: ``preempt_mix(50_000, 5_000)`` (the headline: capacity to
+   spare) and ``preempt_mix(50_000, 1_000)`` (capacity runs short, so
+   tasks pipeline onto releasing capacity); checks the binds (no node past
+   its idle or releasing capacity + eps, every bound job at its gang
+   minimum), and holds the kernel against the plain version on both;
 5. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
+
+Each kernel-vs-plain record carries the roofline bound (``bound_ms``: the
+larger of bytes over the HBM rate and float32 operations over the float32
+rate, with the operations counted from the node-axis work the plain run
+reports for these inputs) and, for the main-path worlds, a latency bound
+(``latency_bound_ms``: the world's dependent iterations times the
+kernel's time per iteration on a world whose node axis fits one node per
+thread, measured in the same run).
 
 Any failed phase raises and exits non-zero. Without a CUDA device it exits
 with code 2 before printing any result.
@@ -30,12 +41,21 @@ import sys
 import time
 
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
-# float32 operations the kernel spends per node and popped task: per
-# resource dim two adds and two compares for the idle/releasing fits, plus
-# the score (2 adds, 2 divides, 1 subtract, 1 multiply per LeastRequested
-# dim; 2 divides, 2 subtracts, 1 multiply for Balanced; 3 multiply-adds).
-SCORE_OPS_PER_NODE = 23
+# The data sheet's 67 TFLOP/s float32 (outside the tensor cores) counts an
+# FMA as two operations. The kernel is built with -fmad=false and issues no
+# FMA, so its peak is one float32 instruction per lane and clock: 33.5e12/s.
+H100_FP32_OPS_PER_S = 67e12 / 2
+# float32 operations (add, subtract, multiply, divide, compare, floor, abs:
+# one each) the solve needs per node of the node axis and popped task:
+# - each node whose fit has to be tested (statically compatible, with pod
+#   room and free ports): per resource dim, idle + eps and releasing + eps,
+#   and a compare against each;
+# - each feasible node, scored: 2 adds (requested); per LeastRequested dim
+#   2 compares, subtract, multiply, divide, floor; 2 compares and 2
+#   divides (fractions); Balanced 2 compares, subtract, abs, multiply,
+#   subtract; 2 multiplies and 2 adds (score sum); 1 compare (arg-max).
+FIT_OPS_PER_DIM = 4
+SCORE_OPS_PER_NODE = 29
 
 
 def emit(obj: dict) -> None:
@@ -51,25 +71,11 @@ def card_line() -> str:
 
 
 def encoded_arrays(cluster):
-    """The entry point's steps up to the solver input, for the comparisons."""
-    import numpy as np
-
+    """The entry point's solver input, for the comparisons."""
     from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
-    from kube_batch_tpu_torch.ops.encode import encode_session
-    from kube_batch_tpu_torch.plugins.drf import drf_state
-    from kube_batch_tpu_torch.plugins.proportion import proportion_state
-    from kube_batch_tpu_torch.solve import valid_jobs
+    from kube_batch_tpu_torch.solve import solver_arrays
 
-    enc = encode_session(
-        valid_jobs(cluster), cluster.nodes, cluster.queues,
-        drf=drf_state(cluster.jobs, cluster.nodes),
-        proportion=proportion_state(cluster.jobs, cluster.nodes, cluster.queues),
-    )
-    a = dict(enc.arrays)
-    a.pop("task_created")
-    one = np.float32(1)
-    a.update(w_least=one, w_balanced=one, w_aff=one, w_podaff=one)
-    return arrays_from_numpy(a)
+    return arrays_from_numpy(solver_arrays(cluster)[1])
 
 
 def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1) -> dict:
@@ -85,7 +91,8 @@ def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1) -> dict:
 
     t0 = time.perf_counter()
     plain = fs.PackedState(packed.dims, init.istate.clone(), init.fstate.clone())
-    fs.fused_solve(packed, plain)
+    work = {"fit_nodes": 0, "scored_nodes": 0}
+    fs.fused_solve_plain(packed, plain, work)
     plain_ms = (time.perf_counter() - t0) * 1e3
 
     dev = packed.to("cuda")
@@ -119,7 +126,7 @@ def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1) -> dict:
         packed.istatic.numel() + packed.fstatic.numel()
         + 2 * (init.istate.numel() + init.fstate.numel())
     )
-    ops = popped * d.N * (4 * d.R + SCORE_OPS_PER_NODE)
+    ops = work["fit_nodes"] * FIT_OPS_PER_DIM * d.R + work["scored_nodes"] * SCORE_OPS_PER_NODE
     t_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP32_OPS_PER_S * 1e3
     return {
@@ -131,7 +138,7 @@ def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1) -> dict:
         "first_ms": times[0],
         "plain_ms": plain_ms,
         "max_abs_err": max_abs_err,
-        "bytes": bytes_moved, "ops": ops,
+        "bytes": bytes_moved, "ops": ops, **work,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "match": True,
@@ -139,8 +146,9 @@ def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1) -> dict:
 
 
 def check_binds(res) -> dict:
-    """Host-side checks of the entry point's result: capacity per node and
-    the gang barrier per job."""
+    """Host-side checks of the entry point's result: capacity per node
+    (idle for allocated tasks, releasing for pipelined ones) and the gang
+    barrier per job."""
     import numpy as np
 
     enc, st = res.encoded, res.state
@@ -196,35 +204,57 @@ def main() -> int:
         ("synthetic_1k_100", lambda: models.synthetic(1000, 100)),
         ("multi_queue_10k_1k", lambda: models.multi_queue(10_000, 1000)),
         ("multi_tenant_ml_200_500", lambda: models.multi_tenant_ml(200, 500)),
-        ("preempt_mix_2k_40_seed1", lambda: models.preempt_mix(2000, 40, seed=1)),
     ]
     for name, make in worlds:
         rec = kernel_vs_plain(name, encoded_arrays(make()))
         emit({"phase": "kernel_vs_plain", **rec})
+    # the per-iteration floor: a world whose node axis fits one node per
+    # thread, so an iteration is the barriers and the dependent loads alone
+    floor = kernel_vs_plain("preempt_mix_2k_40_seed1", encoded_arrays(models.preempt_mix(2000, 40, seed=1)),
+                            timed_runs=4)
+    floor_ms_per_iter = floor["ms"] / floor["iterations"]
+    emit({"phase": "kernel_vs_plain", **floor, "ms_per_iteration": floor_ms_per_iter})
 
     # -- the main path, through the entry point ------------------------------
-    t0 = time.perf_counter()
-    cluster = models.preempt_mix(50_000, 5_000)
-    generate_s = time.perf_counter() - t0
+    main_worlds = [
+        ("preempt_mix_50k_5k", lambda: models.preempt_mix(50_000, 5_000)),
+        ("preempt_mix_50k_1k", lambda: models.preempt_mix(50_000, 1_000)),
+    ]
+    clusters, generate_s = {}, {}
+    for name, make in main_worlds:
+        t0 = time.perf_counter()
+        clusters[name] = make()
+        generate_s[name] = time.perf_counter() - t0
+    results, phases = {}, []
     torch.cuda.synchronize()
     fs.fused_solve.launches = 0
-    t0 = time.perf_counter()
-    res = allocate(cluster, device="cuda")
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
+    for name, _ in main_worlds:
+        before = fs.fused_solve.launches
+        t0 = time.perf_counter()
+        results[name] = allocate(clusters[name], device="cuda")
+        torch.cuda.synchronize()
+        phases.append((name, time.perf_counter() - t0, fs.fused_solve.launches - before))
     launches = fs.fused_solve.launches
-    if launches < 1:
-        raise AssertionError("the main path did not launch the fused-solve kernel")
-    checks = check_binds(res)
-    emit({
-        "phase": "allocate_preempt_mix_50k_5k", "generate_s": generate_s, "total_s": total_s,
-        **res.timings, "binds": len(res.binds), "pipelined": len(res.pipelined),
-        "tasks": res.encoded.n_tasks, "nodes": res.encoded.n_nodes, "launches": launches,
-        **checks,
-    })
+    for name, total_s, n_launch in phases:
+        if n_launch < 1:
+            raise AssertionError(f"allocate on {name} did not launch the fused-solve kernel")
+        res = results[name]
+        emit({
+            "phase": f"allocate_{name}", "generate_s": generate_s[name], "total_s": total_s,
+            **res.timings, "binds": len(res.binds), "pipelined": len(res.pipelined),
+            "tasks": res.encoded.n_tasks, "nodes": res.encoded.n_nodes, "launches": n_launch,
+            **check_binds(res),
+        })
+    if not results["preempt_mix_50k_1k"].pipelined:
+        raise AssertionError("preempt_mix_50k_1k pipelined nothing: the releasing branch did not run")
 
-    head = kernel_vs_plain("preempt_mix_50k_5k", encoded_arrays(cluster), timed_runs=4)
-    emit({"phase": "kernel_vs_plain", **head})
+    recs = {}
+    for name, _ in main_worlds:
+        rec = kernel_vs_plain(name, encoded_arrays(clusters[name]), timed_runs=4)
+        rec["latency_bound_ms"] = rec["iterations"] * floor_ms_per_iter
+        emit({"phase": "kernel_vs_plain", **rec})
+        recs[name] = rec
+    head = recs["preempt_mix_50k_5k"]
 
     emit({"kernels": [{
         "name": "fused_solve",
@@ -232,12 +262,13 @@ def main() -> int:
         "source": "kube_batch_tpu_torch/csrc/fused_solve.cu",
         "replaces": "kube_batch_tpu/ops/pallas_solve.py:442",
         "launches": launches,
-        "max_abs_err": head["max_abs_err"],
+        "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
+        "latency_bound_ms": head["latency_bound_ms"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -18,9 +18,8 @@ only for the TPU's lane rules and is not kept):
 - the static compat verdict and the pre-weighted affinity score are
   expanded per node, ``[GT, N]``;
 - all statics live in one int32 and one float32 buffer, all state in one
-  int32 and one float32 buffer: two uploads per solve, and one fetch of
-  the integer state at the end (a second only when the float state is
-  asked for).
+  int32 and one float32 buffer: two uploads per solve, and two fetches
+  at the end.
 
 ``fused_solve(packed, state)`` launches the kernel when the buffers lie on
 a CUDA device and runs ``fused_solve_plain`` — the twin's loop over the
@@ -367,12 +366,13 @@ def _state_of(ps: PackedState) -> SolveState:
     )
 
 
-def fused_solve_plain(packed: Packed, state: PackedState) -> PackedState:
+def fused_solve_plain(packed: Packed, state: PackedState, work: dict | None = None) -> PackedState:
     """Plain version of the kernel: the twin's loop over the same packed
-    inputs, updating `state` in place as the kernel does."""
+    inputs, updating `state` in place as the kernel does. ``work`` is the
+    twin's node-axis work counter (see ``solve_allocate_step``)."""
     d = packed.dims
     v = packed.views()
-    s = solve_allocate_step(_twin_arrays(packed), _state_of(state), d.drf, d.proportion)
+    s = solve_allocate_step(_twin_arrays(packed), _state_of(state), d.drf, d.proportion, work)
     out = pack_state(d, s, v["jqueue"])
     out.views()["scal"][3] = int(s.paused_at)
     state.istate.copy_(out.istate)
@@ -499,10 +499,8 @@ class FusedSolver:
 
     Speaks the twin's `SolveState` protocol: `solve(state)` takes and
     returns a SolveState of CPU tensors, with `paused_at >= 0` when the
-    solve stopped at a host-only task. The integer state comes back in
-    one fetch; the float state (idle/rel/used/job_alloc/q_alloc) only on
-    a pause or with `fetch_f32`, otherwise the entry state's floats are
-    carried forward.
+    solve stopped at a host-only task. The state comes back in two
+    fetches, one integer and one float buffer.
     """
 
     def __init__(
@@ -511,13 +509,11 @@ class FusedSolver:
         enable_drf: bool,
         enable_proportion: bool,
         device: str | torch.device | None = None,
-        fetch_f32: bool = False,
     ) -> None:
         self.a = a
         self.enable_drf = enable_drf
         self.enable_proportion = enable_proportion
         self.device = torch.device("cuda" if device is None else device)
-        self._fetch_f32 = fetch_f32
         self._pod_sc = a["pod_sc"]  # identity marker for refresh
         self.packed = pack(a, enable_drf, enable_proportion).to(self.device)
         self.timings: dict[str, float] = {}  # seconds per phase of the last solve
@@ -540,15 +536,8 @@ class FusedSolver:
         if ps.istate.is_cuda:
             torch.cuda.synchronize(ps.istate.device)
         t2 = time.perf_counter()
-        host.istate.copy_(ps.istate)  # ONE fetch for everything integer
+        host.istate.copy_(ps.istate)
+        host.fstate.copy_(ps.fstate)
         out = _state_of(host)
-        if int(out.paused_at) >= 0 or self._fetch_f32:
-            host.fstate.copy_(ps.fstate)
-            out = _state_of(host)
-        else:
-            out = out._replace(
-                idle=state.idle, rel=state.rel, used=state.used,
-                job_alloc=state.job_alloc, q_alloc=state.q_alloc,
-            )
         self.timings = {"state_upload_s": t1 - t0, "fused_solve_s": t2 - t1, "fetch_s": time.perf_counter() - t2}
         return out

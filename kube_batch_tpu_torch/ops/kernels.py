@@ -244,6 +244,7 @@ def solve_allocate_step(
     state: SolveState | None = None,
     enable_drf: bool = False,
     enable_proportion: bool = False,
+    work: dict | None = None,
 ) -> SolveState:
     """The full allocate solve.
 
@@ -252,6 +253,12 @@ def solve_allocate_step(
     the head of its job — then returns with `paused_at` set so the caller
     can step it on the host and resume (`state=` carries everything
     forward). The caller's state tensors are not modified.
+
+    ``work``, when given, accumulates what the solve needs of the node
+    axis: ``fit_nodes`` (nodes whose fit against idle/releasing had to be
+    tested: statically compatible, with pod room and free ports) and
+    ``scored_nodes`` (feasible nodes that had to be scored), summed over
+    the popped tasks.
     """
     T = a["task_req"].shape[0]
     J = a["job_min"].shape[0]
@@ -328,6 +335,9 @@ def solve_allocate_step(
             room = s.ntasks < node_max_tasks
             port_ok = ~(task_ports[t][None, :] & s.nports).any(dim=1)
             cand = static_ok & room & port_ok & (fits_idle | fits_rel)
+            if work is not None:
+                work["fit_nodes"] = work.get("fit_nodes", 0) + int((static_ok & room & port_ok).sum())
+                work["scored_nodes"] = work.get("scored_nodes", 0) + int(cand.sum())
 
             # -- score (HOT LOOP #2) + deterministic best node --------------
             res = task_res[t]

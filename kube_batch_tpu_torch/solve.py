@@ -30,7 +30,7 @@ from kube_batch_tpu_torch.plugins.proportion import proportion_state
 
 @dataclass
 class AllocateResult:
-    state: SolveState | None  # None when nothing was pending
+    state: SolveState | None  # post-solve, floats included; None when nothing was pending
     binds: dict[str, str]  # "namespace/name" -> node, in dispatch order
     pipelined: dict[str, str]  # tasks pipelined onto releasing capacity
     encoded: EncodedSnapshot
@@ -49,6 +49,32 @@ def valid_jobs(cluster: ClusterInfo) -> dict:
         if pending_pg or job.valid_task_num() >= job.min_available:
             out[uid] = job
     return out
+
+
+def solver_arrays(
+    cluster: ClusterInfo,
+    enable_drf: bool = True,
+    enable_proportion: bool = True,
+    weights: tuple[float, float, float, float] = (1, 1, 1, 1),
+) -> tuple[EncodedSnapshot, dict]:
+    """The solver's input for one allocate cycle over `cluster`: the drf
+    and proportion open-session state, the JobValid gate, the encode, and
+    nodeorder's weights. Returns the snapshot and its numpy arrays."""
+    drf = drf_state(cluster.jobs, cluster.nodes) if enable_drf else None
+    prop = (
+        proportion_state(cluster.jobs, cluster.nodes, cluster.queues)
+        if enable_proportion
+        else None
+    )
+    enc = encode_session(
+        valid_jobs(cluster), cluster.nodes, cluster.queues,
+        drf=drf, proportion=prop,
+    )
+    arrays = dict(enc.arrays)
+    arrays.pop("task_created")  # host metadata, not a solve input
+    w = np.asarray(weights, np.float32)
+    arrays.update(w_least=w[0], w_balanced=w[1], w_aff=w[2], w_podaff=w[3])
+    return enc, arrays
 
 
 def allocate(
@@ -72,24 +98,10 @@ def allocate(
     """
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
-    drf = drf_state(cluster.jobs, cluster.nodes) if enable_drf else None
-    prop = (
-        proportion_state(cluster.jobs, cluster.nodes, cluster.queues)
-        if enable_proportion
-        else None
-    )
-    enc = encode_session(
-        valid_jobs(cluster), cluster.nodes, cluster.queues,
-        drf=drf, proportion=prop,
-    )
+    enc, arrays = solver_arrays(cluster, enable_drf, enable_proportion, weights)
     timings["encode_s"] = time.perf_counter() - t0
     if not enc.tasks:
         return AllocateResult(None, {}, {}, enc, timings)
-
-    arrays = dict(enc.arrays)
-    arrays.pop("task_created")  # host metadata, not a solve input
-    w = np.asarray(weights, np.float32)
-    arrays.update(w_least=w[0], w_balanced=w[1], w_aff=w[2], w_podaff=w[3])
 
     t0 = time.perf_counter()
     solver = FusedSolver(arrays_from_numpy(arrays), enable_drf, enable_proportion, device=device)

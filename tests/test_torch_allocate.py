@@ -93,3 +93,21 @@ def test_nothing_pending_is_an_empty_result():
     cluster.jobs.clear()
     res = allocate(cluster, device="cpu")
     assert res.state is None and res.binds == {} and res.pipelined == {}
+
+
+def test_result_state_is_post_solve():
+    """AllocateResult.state carries the solve's float state too: idle
+    drops by what was allocated and releasing by what was pipelined."""
+    import numpy as np
+
+    from kube_batch_tpu_torch.ops.kernels import KIND_ALLOCATED, KIND_PIPELINED
+
+    res = allocate(torch_models.preempt_mix(2000, 40, seed=1), device="cpu")
+    a, st, n = res.encoded.arrays, res.state, res.encoded.n_tasks
+    node, kind = st.assigned_node[:n].numpy(), st.assigned_kind[:n].numpy()
+    for k, pool, got in ((KIND_ALLOCATED, "node_idle", st.idle), (KIND_PIPELINED, "node_rel", st.rel)):
+        rows = kind == k
+        assert rows.any()
+        want = a[pool].astype(np.float64)
+        np.subtract.at(want, node[rows], a["task_res"][:n][rows].astype(np.float64))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1.0)

@@ -11,18 +11,14 @@ run the same float32 operations in the same order (the kernel is built
 without FMA contraction and divides with correct rounding).
 """
 
-import numpy as np
 import pytest
 import torch
 
 from kube_batch_tpu_torch import models
 from kube_batch_tpu_torch.ops import fused_solve as fs
 from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
-from kube_batch_tpu_torch.ops.encode import encode_session
 from kube_batch_tpu_torch.ops.kernels import init_state
-from kube_batch_tpu_torch.plugins.drf import drf_state
-from kube_batch_tpu_torch.plugins.proportion import proportion_state
-from kube_batch_tpu_torch.solve import valid_jobs
+from kube_batch_tpu_torch.solve import solver_arrays
 
 WORLDS = {
     "synthetic_200_20": lambda: models.synthetic(200, 20),
@@ -33,15 +29,7 @@ WORLDS = {
 
 
 def _arrays(cluster) -> dict:
-    enc = encode_session(
-        valid_jobs(cluster), cluster.nodes, cluster.queues,
-        drf=drf_state(cluster.jobs, cluster.nodes),
-        proportion=proportion_state(cluster.jobs, cluster.nodes, cluster.queues),
-    )
-    a = {k: v for k, v in enc.arrays.items() if k != "task_created"}
-    one = np.float32(1)
-    a.update(w_least=one, w_balanced=one, w_aff=one, w_podaff=one)
-    return arrays_from_numpy(a)
+    return arrays_from_numpy(solver_arrays(cluster)[1])
 
 
 @pytest.mark.cuda

@@ -126,9 +126,27 @@ def test_fused_plain_matches_pallas_interpret(case):
     a, twin, pallas = reference(case)
     _, drf, prop, with_pallas = CASES[case]
     launches = fs.fused_solve.launches
-    got = fs.FusedSolver(carry.arrays_from_numpy(a), drf, prop, device="cpu", fetch_f32=True).solve()
+    got = fs.FusedSolver(carry.arrays_from_numpy(a), drf, prop, device="cpu").solve()
     assert fs.fused_solve.launches == launches  # CPU tensors never launch
     assert_states_equal(pallas if with_pallas else twin, carry.state_to_numpy(got), case)
+
+
+@pytest.mark.parametrize("case", ["more_tasks_than_capacity", "preempt_mix_pipelines"])
+def test_work_counter_leaves_the_solve_unchanged(case):
+    """The twin's node-axis work counter (the operation count of the
+    kernel's roofline bound) changes nothing in the solve, and its counts
+    are ordered: every assignment scored at least one node, every scored
+    node was fit-tested, and no popped task tested more than the valid
+    nodes."""
+    a, twin, _ = reference(case)
+    _, drf, prop, _ = CASES[case]
+    work = {}
+    got = tk.solve_allocate_step(carry.arrays_from_numpy(a), None, drf, prop, work)
+    assert_states_equal(twin, carry.state_to_numpy(got), case)
+    popped = int((got.ptr.numpy() - a["job_start"]).sum())
+    valid_nodes = int((a["node_ok"] & a["node_valid"]).sum())
+    assert int(got.step) <= work["scored_nodes"] <= work["fit_nodes"] <= popped * valid_nodes
+    assert work["scored_nodes"] > 0
 
 
 def test_pause_resume_carries_jax_state():
@@ -140,7 +158,7 @@ def test_pause_resume_carries_jax_state():
     ta = carry.arrays_from_numpy(a)
     for resumed in (
         tk.solve_allocate_state(ta, carry.state_from_numpy(twin), True, True),
-        fs.FusedSolver(ta, True, True, device="cpu", fetch_f32=True).solve(carry.state_from_numpy(twin)),
+        fs.FusedSolver(ta, True, True, device="cpu").solve(carry.state_from_numpy(twin)),
     ):
         r = carry.state_to_numpy(resumed)
         assert int(r.paused_at) == int(twin.paused_at)
@@ -153,7 +171,7 @@ def test_port_encode_feeds_the_same_solve():
     port's own world solves to the JAX reference's state."""
     a, twin, _ = reference("preempt_mix_pipelines")
     ta = carry.arrays_from_numpy(solver_arrays(torch_encode(torch_models.preempt_mix(2000, 40, seed=1))))
-    got = fs.FusedSolver(ta, True, True, device="cpu", fetch_f32=True).solve()
+    got = fs.FusedSolver(ta, True, True, device="cpu").solve()
     assert int((got.assigned_kind == tk.KIND_PIPELINED).sum()) > 0
     assert_states_equal(twin, carry.state_to_numpy(got), "port encode")
 
@@ -166,7 +184,7 @@ def test_pod_sc_refresh_refolds_affinity():
     rng = np.random.default_rng(5)
     pod_sc = rng.integers(0, 11, a["pod_sc"].shape).astype(np.float32)
     ta = carry.arrays_from_numpy(a)
-    solver = fs.FusedSolver(ta, True, True, device="cpu", fetch_f32=True)
+    solver = fs.FusedSolver(ta, True, True, device="cpu")
     solver.solve()
     ta["pod_sc"] = torch.from_numpy(pod_sc)
     got = carry.state_to_numpy(solver.solve())
