@@ -4,31 +4,59 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the fused-solve kernel from csrc/fused_solve.cu;
-3. holds the kernel against its plain version (fused_solve_plain, on the
-   CPU) on the same packed inputs of four worlds: integer state exactly,
-   float state bit for bit (the float32 operations and their order are the
-   same on both sides, so no tolerance is allowed);
-4. drives the slice's entry point, ``allocate(..., device="cuda")``, on
-   two worlds at 50k pending pods with the launch counter zeroed just
-   before: ``preempt_mix(50_000, 5_000)`` (the headline: capacity to
-   spare) and ``preempt_mix(50_000, 1_000)`` (capacity runs short, so
-   tasks pipeline onto releasing capacity); checks the binds (no node past
-   its idle or releasing capacity + eps, every bound job at its gang
-   minimum), and holds the kernel against the plain version on both;
-5. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+2. builds both kernels from their sources, one nvcc each, at once:
+   csrc/fused_solve.cu (B1, the whole solve) and csrc/block_step.cu (B2,
+   one shard's block step), and prints their ptxas lines;
+3. holds B1 against its plain version (fused_solve_plain, on the CPU) on
+   the same packed inputs of five worlds, ``preempt_mix(50_000, 1_000)``
+   the largest: integer state exactly, float state bit for bit (the
+   float32 operations and their order are the same on both sides, so no
+   tolerance is allowed). At 50k x 5k the whole solve's plain run takes
+   minutes of host CPU, so there B1 is held against it over a prefix (the
+   first sixteenth of the job rows active) and, over the whole solve,
+   through the sharded path (5), whose kernel shares B1's node arithmetic;
+4. holds B2 against its plain version (block_step_plain, on the CPU), bit
+   for bit, on full-width blocks: the 5,120-node block of
+   ``preempt_mix(50_000, 5_000)`` from its entry state and from a
+   mid-solve state for one task of every class, the same state split into
+   four blocks (non-zero offsets), ``multi_tenant_ml(200, 500)`` (scalar
+   resources) with host-port collisions, and a block with no candidate;
+   times one call with CUDA events over a batch of calls;
+5. drives the entry point on each of its two device rungs, with the launch
+   counters zeroed just before each path and read just after:
+   - the fused rung, ``allocate(..., device="cuda")``, on
+     ``preempt_mix(50_000, 5_000)`` (capacity to spare) and
+     ``preempt_mix(50_000, 1_000)`` (capacity runs short, so tasks
+     pipeline onto releasing capacity);
+   - the sharded rung, ``allocate(..., mesh=...)``, on 50k x 5k with one
+     shard and with four shards on cuda:0, and on 50k x 1k with four;
+     each must launch B2 once per shard per placing iteration and give
+     the fused rung's binds, pipelined tasks and SolveState, integers
+     exactly and floats as values;
+   and checks every result's binds (no node past its idle or releasing
+   capacity + eps, every bound job at its gang minimum);
+6. runs the per-iteration exchange and the K-deep batched exchange
+   (``preempt_mix(2000, 40, seed=1)``, four shards, K = 1 and K = 4),
+   each timed and held against the fused rung;
+7. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
-Each kernel-vs-plain record carries the roofline bound (``bound_ms``: the
-larger of bytes over the HBM rate and float32 operations over the float32
-rate, with the operations counted from the node-axis work the plain run
-reports for these inputs) and, for the main-path worlds, a latency bound
-(``latency_bound_ms``: the world's dependent iterations times the
-kernel's time per iteration on a world whose node axis fits one node per
-thread, measured in the same run).
+Each kernel record carries the roofline bound (``bound_ms``: the larger of
+bytes over the HBM rate and float32 operations over the float32 rate, with
+the operations counted from the node-axis work these inputs need) and, for
+B1, a latency bound (``latency_bound_ms``: the world's dependent
+iterations times the kernel's time per iteration on a world whose node
+axis fits one node per thread, measured in the same run).
 
 Any failed phase raises and exits non-zero. Without a CUDA device it exits
 with code 2 before printing any result.
+
+    python3 chip_smoke.py --cards
+
+runs instead the sharded rung over every visible card, one shard each
+(two or more cards): ``allocate(preempt_mix(50_000, 5_000),
+mesh=make_mesh())`` against the fused rung on cuda:0, and the fused rung
+on the last card against it too.
 """
 
 from __future__ import annotations
@@ -56,6 +84,7 @@ H100_FP32_OPS_PER_S = 67e12 / 2
 #   subtract; 2 multiplies and 2 adds (score sum); 1 compare (arg-max).
 FIT_OPS_PER_DIM = 4
 SCORE_OPS_PER_NODE = 29
+B2_TIMED_CALLS = 200  # block-step launches per CUDA-event timing
 
 
 def emit(obj: dict) -> None:
@@ -78,16 +107,17 @@ def encoded_arrays(cluster):
     return arrays_from_numpy(solver_arrays(cluster)[1])
 
 
-def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1) -> dict:
+def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1, state=None) -> dict:
     """Run the kernel (card) and the plain version (CPU) on the same packed
-    inputs; raise on any difference. Returns the comparison record."""
+    inputs, from ``state`` (default: the entry state); raise on any
+    difference. Returns the comparison record."""
     import torch
 
     from kube_batch_tpu_torch.ops import fused_solve as fs
     from kube_batch_tpu_torch.ops.kernels import init_state
 
     packed = fs.pack(a, True, True)
-    init = fs.pack_state(packed.dims, init_state(a, True, True), a["job_queue"])
+    init = fs.pack_state(packed.dims, init_state(a, True, True) if state is None else state, a["job_queue"])
 
     t0 = time.perf_counter()
     plain = fs.PackedState(packed.dims, init.istate.clone(), init.fstate.clone())
@@ -178,17 +208,228 @@ def check_binds(res) -> dict:
     return {"capacity_ok": True, "gang_ok": True, "bound_jobs": len(bound_jobs)}
 
 
-def main() -> int:
+def block_work(block, task) -> dict:
+    """What the block step needs to read and compute for these inputs,
+    node by node as csrc/node_sweep.cuh's ``node_score`` short-circuits:
+    every node's compat word; for the statically compatible ones, the pod
+    count and limit; for those with pod room, the port mask; for those
+    (the fit-tested nodes) the scalar-map flags when the task asks for
+    scalars, and R idle and R releasing values; for the scored nodes (the
+    ones that fit), 2 used and 2 allocatable values and the affinity
+    score. Returns the node counts and the bytes (each input once, plus
+    the record written)."""
+    import torch
+
+    from kube_batch_tpu_torch.ops.block_step import RECORD
+
+    R = block.idle.shape[0]
+    req = torch.tensor(task.req[:R], dtype=torch.float32, device=block.idle.device)[:, None]
+    eps = torch.tensor(task.eps[:R], dtype=torch.float32, device=block.idle.device)[:, None]
+    compat = block.cnode[task.gid] != 0
+    room = compat & (block.ntasks < block.nmax)
+    base = room & ((block.nports & task.tports) == 0)
+    fi = (req < block.idle + eps).all(0)
+    fr = (req < block.rel + eps).all(0)
+    if task.has_sc:
+        fi, fr = fi & (block.nihs != 0), fr & (block.nrhs != 0)
+    n = {"nodes": block.cnode.shape[1], "compat_nodes": int(compat.sum()), "room_nodes": int(room.sum()),
+         "fit_nodes": int(base.sum()), "scored_nodes": int((base & (fi | fr)).sum())}
+    words = (
+        n["nodes"] + 2 * n["compat_nodes"] + n["room_nodes"]
+        + n["fit_nodes"] * (2 * R + (2 if task.has_sc else 0))
+        + n["scored_nodes"] * 5
+    )
+    return {**n, "bytes": 4 * (words + RECORD)}
+
+
+def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
+    """B2 on the card against its plain version on the CPU, on the same
+    block and task; raises on any difference. With ``timed``, one call's
+    time from CUDA events over a batch of calls, the plain version's from
+    the host clock, and the roofline bound."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import block_step as bs
+
+    host = bs.Block(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in block.__dict__.items()})
+    out = torch.zeros(bs.RECORD, dtype=torch.int32, device=block.idle.device)
+    step = bs.BlockStep(block, out)
+    launches = bs.block_step.launches
+    got = bs.read_record(step(task).cpu())
+    t0 = time.perf_counter()
+    want = bs.block_step_plain(host, task)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError(f"{name}: block step kernel {got} != plain {want}")
+    rec = {"case": name, "N": block.cnode.shape[1], "off": block.off, "gid": task.gid,
+           "score": got[0], "index": got[1], "fits_idle": got[2], "max_abs_err": 0.0}
+    if timed:
+        for _ in range(10):
+            step(task)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(B2_TIMED_CALLS):
+            step(task)
+        end.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            bs.block_step_plain(host, task)
+        plain_ms = (time.perf_counter() - t0) * 1e3 / 5
+        work = block_work(host, task)
+        ops = work["fit_nodes"] * FIT_OPS_PER_DIM * block.idle.shape[0] + work["scored_nodes"] * SCORE_OPS_PER_NODE
+        t_bytes = work["bytes"] / H100_HBM_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+        rec.update({
+            "ms": start.elapsed_time(end) / B2_TIMED_CALLS, "plain_ms": plain_ms, **work, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        })
+    rec["plain_ms"] = plain_ms
+    bs.block_step.launches = launches  # comparison launches are not the main path's
+    return rec
+
+
+def b2_comparisons(arrays_5k, arrays_ml) -> list[dict]:
+    """B2 against its plain version on every listed input (see the module
+    docstring, step 4). Returns the records; the first is the timed one
+    (the main path's 5,120-node block at its entry state)."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
+    from kube_batch_tpu_torch.ops.kernels import init_state
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver
+
+    cuda = torch.device("cuda", 0)
+    recs = []
+    entry = init_state(arrays_5k, True, True)
+    # a mid-solve node state: the fused kernel's solve of the first half
+    # of the jobs
+    half = entry._replace(job_active=entry.job_active.clone())
+    half.job_active[half.job_active.shape[0] // 2 :] = False
+    mid = FusedSolver(arrays_5k, True, True, device=cuda).solve(half)
+    one = ShardedBlockSolver(arrays_5k, [cuda], True, True)
+    four = ShardedBlockSolver(arrays_5k, [cuda] * 4, True, True)
+    for label, state in (("entry", entry), ("mid", mid)):
+        one._upload(state)
+        four._upload(state)
+        for c, task in enumerate(one._tasks):
+            recs.append(block_vs_plain(f"preempt_mix_50k_5k_{label}_class{c}", one.blocks[0], task,
+                                       timed=(label == "entry" and c == 0)))
+            for k, blk in enumerate(four.blocks):
+                recs.append(block_vs_plain(f"preempt_mix_50k_5k_{label}_class{c}_shard{k}of4", blk, task))
+    # no candidate: nothing idle or releasing anywhere, for the task with
+    # the largest cpu request (the encoder's pad rows request nothing, and
+    # nothing fits within eps)
+    blk = one.blocks[0]
+    empty = bs.Block(**{**blk.__dict__, "idle": torch.zeros_like(blk.idle), "rel": torch.zeros_like(blk.rel)})
+    rec = block_vs_plain("preempt_mix_50k_5k_no_candidate", empty, max(one._tasks, key=lambda t: t.req[0]))
+    if rec["score"] != float("-inf") or rec["index"] != one.n_pad or rec["fits_idle"] != 0:
+        raise AssertionError(f"no-candidate block gave {rec}")
+    recs.append(rec)
+    # scalar resources (GPU/TPU dims, has_sc) and host-port collisions: half
+    # the nodes hold port bit 0 or 1, and each task asks for bit 0
+    ml = ShardedBlockSolver(arrays_ml, [cuda], True, True)
+    ml._upload(init_state(arrays_ml, True, True))
+    rng = np.random.default_rng(0)
+    ml.blocks[0].nports.copy_(torch.from_numpy(rng.integers(0, 3, ml.n_loc).astype(np.int32)))
+    for c, task in enumerate(ml._tasks):
+        recs.append(block_vs_plain(f"multi_tenant_ml_200_500_class{c}", ml.blocks[0], task))
+        ported = bs.Task.from_buffer_copy(task)
+        ported.tports = 1
+        recs.append(block_vs_plain(f"multi_tenant_ml_200_500_class{c}_port_collision", ml.blocks[0], ported))
+    if not any(t.has_sc for t in ml._tasks):
+        raise AssertionError("multi_tenant_ml_200_500 has no task with scalar requests")
+    return recs
+
+
+def same_state(name: str, want, got) -> None:
+    """Every SolveState field equal: integers exactly, floats as values."""
+    import torch
+
+    for f in want._fields:
+        x, y = getattr(want, f), getattr(got, f)
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{name}: SolveState.{f} differs from the fused rung's")
+
+
+def distinct_cards(card: str) -> int:
+    """The sharded rung over every visible card, one shard each (see the
+    module docstring)."""
+    import torch
+
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+    from kube_batch_tpu_torch.parallel import make_mesh
+    from kube_batch_tpu_torch.solve import allocate
+
+    t_start = time.perf_counter()
+    m = torch.cuda.device_count()
+    if m < 2:
+        raise AssertionError(f"--cards needs two or more cards, found {m}")
+    nvcc.build(["fused_solve", "block_step"])
+    cluster = models.preempt_mix(50_000, 5_000)
+    fused = allocate(cluster, device="cuda:0")
+    last = torch.device("cuda", m - 1)
+    on_last = allocate(cluster, device=last)
+    if (on_last.binds, on_last.pipelined) != (fused.binds, fused.pipelined):
+        raise AssertionError(f"the fused rung on {last} differs from cuda:0's")
+    same_state(f"fused on {last}", fused.state, on_last.state)
+    mesh = make_mesh()
+    if len(set(mesh)) != m:
+        raise AssertionError(f"make_mesh() gave {mesh}, not {m} distinct cards")
+    torch.cuda.set_device(0)
+    torch.cuda.synchronize()
+    fs.fused_solve.launches = bs.block_step.launches = 0
+    t0 = time.perf_counter()
+    res = allocate(cluster, mesh=mesh)
+    for d in mesh:
+        torch.cuda.synchronize(d)
+    total_s = time.perf_counter() - t0
+    launches, stray = bs.block_step.launches, fs.fused_solve.launches
+    placing = int((res.state.ptr.numpy() - res.encoded.arrays["job_start"]).sum())
+    if stray or launches != placing * m:
+        raise AssertionError(f"{launches} block-step and {stray} fused launches; expected {placing} x {m} and 0")
+    if (res.binds, res.pipelined) != (fused.binds, fused.pipelined):
+        raise AssertionError("the sharded rung over distinct cards differs from the fused rung's binds")
+    same_state(f"mesh over {m} cards", fused.state, res.state)
+    emit({
+        "phase": f"allocate_mesh_preempt_mix_50k_5k_{m}cards", "mesh": [str(d) for d in mesh],
+        "total_s": total_s, **res.timings, "iterations": int(res.state.it), "placing_iterations": placing,
+        "launches": launches, "binds": len(res.binds), "equal_to_fused": True, **check_binds(res),
+    })
+    emit({"phase": "total", "s": time.perf_counter() - t_start})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": m}})
+    return 0
+
+
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if argv == ["--cards"]:
+        card = card_line()
+        emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+        return distinct_cards(card)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards]", file=sys.stderr)
+        return 2
     from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+    from kube_batch_tpu_torch.ops.kernels import init_state
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver, make_mesh
     from kube_batch_tpu_torch.solve import allocate
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -196,10 +437,15 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
+    logs = nvcc.build(["fused_solve", "block_step"])
     fs._library.load()
-    ptxas = [ln.strip() for ln in fs._library.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "s": time.perf_counter() - t0, "ptxas": ptxas})
+    bs._library.load()
+    emit({"phase": "build", "s": time.perf_counter() - t0, "ptxas": {
+        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        for name, log in logs.items()
+    }})
 
+    # -- B1 against its plain version ----------------------------------------
     worlds = [
         ("synthetic_1k_100", lambda: models.synthetic(1000, 100)),
         ("multi_queue_10k_1k", lambda: models.multi_queue(10_000, 1000)),
@@ -215,7 +461,6 @@ def main() -> int:
     floor_ms_per_iter = floor["ms"] / floor["iterations"]
     emit({"phase": "kernel_vs_plain", **floor, "ms_per_iteration": floor_ms_per_iter})
 
-    # -- the main path, through the entry point ------------------------------
     main_worlds = [
         ("preempt_mix_50k_5k", lambda: models.preempt_mix(50_000, 5_000)),
         ("preempt_mix_50k_1k", lambda: models.preempt_mix(50_000, 1_000)),
@@ -225,16 +470,39 @@ def main() -> int:
         t0 = time.perf_counter()
         clusters[name] = make()
         generate_s[name] = time.perf_counter() - t0
+    arrays = {name: encoded_arrays(clusters[name]) for name, _ in main_worlds}
+
+    b1_head = kernel_vs_plain("preempt_mix_50k_1k", arrays["preempt_mix_50k_1k"], timed_runs=4)
+    b1_head["latency_bound_ms"] = b1_head["iterations"] * floor_ms_per_iter
+    emit({"phase": "kernel_vs_plain", **b1_head})
+    # B1 at the headline's full width, over a prefix of its work: only the
+    # first sixteenth of the job rows active (the whole solve's plain run
+    # takes minutes of host CPU)
+    prefix = init_state(arrays["preempt_mix_50k_5k"], True, True)
+    prefix = prefix._replace(job_active=prefix.job_active.clone())
+    prefix.job_active[prefix.job_active.shape[0] // 16 :] = False
+    emit({"phase": "kernel_vs_plain", "jobs_active": int(prefix.job_active.sum()),
+          **kernel_vs_plain("preempt_mix_50k_5k_jobs_prefix", arrays["preempt_mix_50k_5k"], state=prefix)})
+
+    # -- B2 against its plain version ----------------------------------------
+    b2 = b2_comparisons(arrays["preempt_mix_50k_5k"], encoded_arrays(models.multi_tenant_ml(200, 500)))
+    for rec in b2:
+        emit({"phase": "block_vs_plain", **rec})
+    b2_head = b2[0]
+
+    # -- the fused rung's main path, through the entry point -----------------
     results, phases = {}, []
     torch.cuda.synchronize()
-    fs.fused_solve.launches = 0
+    fs.fused_solve.launches = bs.block_step.launches = 0
     for name, _ in main_worlds:
         before = fs.fused_solve.launches
         t0 = time.perf_counter()
         results[name] = allocate(clusters[name], device="cuda")
         torch.cuda.synchronize()
         phases.append((name, time.perf_counter() - t0, fs.fused_solve.launches - before))
-    launches = fs.fused_solve.launches
+    b1_launches, stray = fs.fused_solve.launches, bs.block_step.launches
+    if stray:
+        raise AssertionError(f"the fused rung launched the block step {stray} times")
     for name, total_s, n_launch in phases:
         if n_launch < 1:
             raise AssertionError(f"allocate on {name} did not launch the fused-solve kernel")
@@ -247,33 +515,101 @@ def main() -> int:
         })
     if not results["preempt_mix_50k_1k"].pipelined:
         raise AssertionError("preempt_mix_50k_1k pipelined nothing: the releasing branch did not run")
+    b1_ms_5k = []
+    for _ in range(2):  # B1 at the headline, kernel only (its plain run is the sharded path's job)
+        packed = fs.pack(arrays["preempt_mix_50k_5k"], True, True)
+        init = fs.pack_state(packed.dims, init_state(arrays["preempt_mix_50k_5k"], True, True),
+                             arrays["preempt_mix_50k_5k"]["job_queue"])
+        dev, st = packed.to("cuda"), fs.PackedState(packed.dims, init.istate.cuda(), init.fstate.cuda())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fs.fused_solve(dev, st)
+        end.record()
+        torch.cuda.synchronize()
+        b1_ms_5k.append(start.elapsed_time(end))
+    fs.fused_solve.launches = b1_launches  # timing launches are not the main path's
+    emit({"phase": "fused_solve_50k_5k", "ms": b1_ms_5k})
 
-    recs = {}
-    for name, _ in main_worlds:
-        rec = kernel_vs_plain(name, encoded_arrays(clusters[name]), timed_runs=4)
-        rec["latency_bound_ms"] = rec["iterations"] * floor_ms_per_iter
-        emit({"phase": "kernel_vs_plain", **rec})
-        recs[name] = rec
-    head = recs["preempt_mix_50k_5k"]
+    # -- the sharded rung's main path ----------------------------------------
+    cuda0 = torch.device("cuda", 0)
+    b2_launches = 0
+    for name, m in (("preempt_mix_50k_5k", 1), ("preempt_mix_50k_5k", 4), ("preempt_mix_50k_1k", 4)):
+        torch.cuda.synchronize()
+        fs.fused_solve.launches = bs.block_step.launches = 0
+        t0 = time.perf_counter()
+        res = allocate(clusters[name], device="cuda", mesh=make_mesh(devices=[cuda0] * m))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches, stray = bs.block_step.launches, fs.fused_solve.launches
+        placing = int((res.state.ptr - arrays[name]["job_start"]).sum())
+        if stray:
+            raise AssertionError(f"the sharded rung launched the fused solve {stray} times")
+        if launches < 1 or launches != placing * m:
+            raise AssertionError(f"{name} m={m}: {launches} block-step launches, expected {placing} x {m}")
+        fused = results[name]
+        if (res.binds, res.pipelined) != (fused.binds, fused.pipelined):
+            raise AssertionError(f"{name} m={m}: binds or pipelined tasks differ from the fused rung's")
+        same_state(f"{name} m={m}", fused.state, res.state)
+        b2_launches += launches
+        emit({
+            "phase": f"allocate_mesh_{name}_m{m}", "total_s": total_s, **res.timings,
+            "iterations": int(res.state.it), "placing_iterations": placing, "launches": launches,
+            "binds": len(res.binds), "pipelined": len(res.pipelined),
+            "equal_to_fused": True, **check_binds(res),
+        })
 
-    emit({"kernels": [{
-        "name": "fused_solve",
-        "route": "cuda",
-        "source": "kube_batch_tpu_torch/csrc/fused_solve.cu",
-        "replaces": "kube_batch_tpu/ops/pallas_solve.py:442",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": None,
-        "latency_bound_ms": head["latency_bound_ms"],
-    }]})
+    # -- the K-deep batched exchange, beside the per-iteration exchange -----
+    small = encoded_arrays(models.preempt_mix(2000, 40, seed=1))
+    want = fs.FusedSolver(small, True, True, device=cuda0).solve()
+    saved = bs.block_step.launches
+    for k in (1, 4):
+        solver = ShardedBlockSolver(small, [cuda0] * 4, True, True, exchange_batch=k)
+        t0 = time.perf_counter()
+        same_state(f"preempt_mix_2k_40_seed1 m=4 K={k}", want, solver.solve())
+        solve_s = time.perf_counter() - t0
+        if k > 1 and solver.batched_iters < 1:
+            raise AssertionError("the batched exchange committed no iteration from a batch")
+        emit({"phase": f"exchange_preempt_mix_2k_40_seed1_m4_k{k}", "s": solve_s,
+              "batched_iters": solver.batched_iters, **solver.counts, "equal_to_fused": True})
+    bs.block_step.launches = saved
+
+    emit({"kernels": [
+        {
+            "name": "fused_solve",
+            "route": "cuda",
+            "source": "kube_batch_tpu_torch/csrc/fused_solve.cu",
+            "replaces": "kube_batch_tpu/ops/pallas_solve.py:442",
+            "launches": b1_launches,
+            "max_abs_err": b1_head["max_abs_err"],
+            "ms": b1_head["ms"],
+            "plain_ms": b1_head["plain_ms"],
+            "bound_ms": b1_head["bound_ms"],
+            "bound_by": b1_head["bound_by"],
+            "library_ms": None,
+            "world": "preempt_mix_50k_1k",
+            "latency_bound_ms": b1_head["latency_bound_ms"],
+            "ms_preempt_mix_50k_5k": b1_ms_5k[-1],
+        },
+        {
+            "name": "block_step",
+            "route": "cuda",
+            "source": "kube_batch_tpu_torch/csrc/block_step.cu",
+            "replaces": "kube_batch_tpu/ops/pallas_solve.py:914",
+            "launches": b2_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in b2),
+            "ms": b2_head["ms"],
+            "plain_ms": b2_head["plain_ms"],
+            "bound_ms": b2_head["bound_ms"],
+            "bound_by": b2_head["bound_by"],
+            "library_ms": None,
+            "world": "preempt_mix_50k_5k, one 5,120-node block, entry state",
+        },
+    ]})
+    emit({"phase": "total", "s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -29,16 +29,18 @@
 // arithmetic also uses the explicit round-to-nearest intrinsics, so every
 // float32 operation rounds exactly as the plain version's does. Division
 // is __fdiv_rn (correctly rounded). Float comparisons, not bit patterns,
-// pick the arg-max, so -0.0 and +0.0 tie and the lower index wins.
+// pick the arg-max, so -0.0 and +0.0 tie and the lower index wins. The
+// node sweep (feasibility, score, arg-max, fits-idle) lives in
+// node_sweep.cuh, shared with the sharded block step (block_step.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+#include "node_sweep.cuh"
+
 #define NT 1024
 #define NWARPS (NT / 32)
-#define R8 8
-#define MAX_PRIORITY 10.0f
-#define NONE 0x7fffffff
 
 extern "C" {
 
@@ -83,19 +85,6 @@ __device__ __forceinline__ bool key_less(const Key& a, const Key& b) {
   return a.idx < b.idx;
 }
 
-// Node candidate: higher score wins, the lower index on equal scores.
-struct Best {
-  float score;
-  int idx;
-};
-
-__device__ __forceinline__ bool best_better(const Best& a, const Best& b) {
-  if (a.idx == NONE) return false;
-  if (b.idx == NONE) return true;
-  if (a.score != b.score) return a.score > b.score;
-  return a.idx < b.idx;
-}
-
 __device__ Key block_min_key(Key k, Key* scratch) {
   const unsigned full = 0xffffffffu;
   for (int off = 16; off > 0; off >>= 1) {
@@ -125,40 +114,6 @@ __device__ Key block_min_key(Key k, Key* scratch) {
   Key out = scratch[NWARPS];
   __syncthreads();  // scratch is free for the next reduction
   return out;
-}
-
-__device__ Best block_max_best(Best b, Best* scratch) {
-  const unsigned full = 0xffffffffu;
-  for (int off = 16; off > 0; off >>= 1) {
-    Best o;
-    o.score = __shfl_down_sync(full, b.score, off);
-    o.idx = __shfl_down_sync(full, b.idx, off);
-    if (best_better(o, b)) b = o;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = b;
-  __syncthreads();
-  if (warp == 0) {
-    b = scratch[lane];
-    for (int off = 16; off > 0; off >>= 1) {
-      Best o;
-      o.score = __shfl_down_sync(full, b.score, off);
-      o.idx = __shfl_down_sync(full, b.idx, off);
-      if (best_better(o, b)) b = o;
-    }
-    if (lane == 0) scratch[NWARPS] = b;
-  }
-  __syncthreads();
-  Best out = scratch[NWARPS];
-  __syncthreads();
-  return out;
-}
-
-// k8s LeastRequested per dimension: floor((cap - req) * 10 / cap), 0 when
-// cap == 0 or req > cap.
-__device__ __forceinline__ int least_dim(float rq, float cp) {
-  if (cp == 0.0f || rq > cp) return 0;
-  return (int)floorf(__fdiv_rn(__fmul_rn(__fsub_rn(cp, rq), MAX_PRIORITY), cp));
 }
 
 __global__ void __launch_bounds__(NT, 1) fused_solve_kernel(const SolveArgs a) {
@@ -257,47 +212,26 @@ __global__ void __launch_bounds__(NT, 1) fused_solve_kernel(const SolveArgs a) {
     const bool proc = t_any && !pause;
 
     Best best = {-INFINITY, NONE};
-    float req[R8], res[R8];
-    bool has_sc = false;
-    int tports = 0;
+    TaskView task;
+    task.R = R;
+    task.has_sc = false;
+    task.tports = 0;
+    task.eps = a.eps;
+    task.w_least = w_least;
+    task.w_bal = w_bal;
     if (proc) {
 #pragma unroll
       for (int r = 0; r < R8; ++r) {
-        req[r] = r < R ? a.creq[r * a.C + cls] : 0.0f;
-        res[r] = r < R ? a.cres[r * a.C + cls] : 0.0f;
+        task.req[r] = r < R ? a.creq[r * a.C + cls] : 0.0f;
+        task.res[r] = r < R ? a.cres[r * a.C + cls] : 0.0f;
       }
-      has_sc = a.chs[cls] != 0;
-      tports = a.cpt[cls];
+      task.has_sc = a.chs[cls] != 0;
+      task.tports = a.cpt[cls];
       const int gid = a.cgid[cls];
-      const int* cnode = a.cnode + (size_t)gid * N;
-      const float* affw = a.affw + (size_t)gid * N;
-
-      // -- feasibility + score over this thread's nodes -------------------
-      for (int n = tid; n < N; n += NT) {
-        if (cnode[n] == 0 || a.ntasks[n] >= a.nmax[n] || (a.nports[n] & tports) != 0) continue;
-        bool fi = !(has_sc && a.nihs[n] == 0);
-        bool fr = !(has_sc && a.nrhs[n] == 0);
-#pragma unroll
-        for (int r = 0; r < R8; ++r) {
-          if (r >= R) break;
-          fi = fi && req[r] < __fadd_rn(a.idle[r * N + n], a.eps[r]);
-          fr = fr && req[r] < __fadd_rn(a.rel[r * N + n], a.eps[r]);
-        }
-        if (!(fi || fr)) continue;
-        const float req_c = __fadd_rn(a.used[n], res[0]);
-        const float req_m = __fadd_rn(a.used[N + n], res[1]);
-        const float cap_c = a.nalloc[n], cap_m = a.nalloc[N + n];
-        const int least = (least_dim(req_c, cap_c) + least_dim(req_m, cap_m)) / 2;
-        const float cpu_f = cap_c != 0.0f ? __fdiv_rn(req_c, cap_c) : 1.0f;
-        const float mem_f = cap_m != 0.0f ? __fdiv_rn(req_m, cap_m) : 1.0f;
-        int bal = 0;
-        if (!(cpu_f >= 1.0f || mem_f >= 1.0f))
-          bal = (int)__fsub_rn(MAX_PRIORITY, __fmul_rn(fabsf(__fsub_rn(cpu_f, mem_f)), MAX_PRIORITY));
-        const float score = __fadd_rn(
-            __fadd_rn(__fmul_rn((float)least, w_least), __fmul_rn((float)bal, w_bal)), affw[n]);
-        if (score > best.score || best.idx == NONE) best = {score, n};
-      }
-      best = block_max_best(best, best_scratch);
+      // -- feasibility + score over the node axis, block arg-max ----------
+      const NodeAxis nodes = {N, a.cnode + (size_t)gid * N, a.nmax, a.nihs, a.nrhs, a.ntasks, a.nports,
+                              a.affw + (size_t)gid * N, a.nalloc, a.idle, a.rel, a.used};
+      best = sweep_best<NT>(nodes, task, best_scratch);
     }
 
     // -- scalar state update (thread 0) ----------------------------------
@@ -312,10 +246,8 @@ __global__ void __launch_bounds__(NT, 1) fused_solve_kernel(const SolveArgs a) {
       const bool abandon = proc && best.idx == NONE;  // serial `break`
       if (assign) {
         const int nb = best.idx;
-        bool fits_idle = !(has_sc && a.nihs[nb] == 0);
-#pragma unroll
-        for (int r = 0; r < R8; ++r)
-          if (r < R) fits_idle = fits_idle && req[r] < __fadd_rn(a.idle[r * N + nb], a.eps[r]);
+        const bool fits_idle = fits_idle_at(a.nihs, a.idle, N, nb, task);
+        const float* res = task.res;
 #pragma unroll
         for (int r = 0; r < R8; ++r) {
           if (r >= R) break;
@@ -326,7 +258,7 @@ __global__ void __launch_bounds__(NT, 1) fused_solve_kernel(const SolveArgs a) {
           a.used[r * N + nb] = __fadd_rn(a.used[r * N + nb], res[r]);
         }
         a.ntasks[nb] += 1;
-        a.nports[nb] |= tports;
+        a.nports[nb] |= task.tports;
         a.tnode[t] = nb;
         a.tkind[t] = fits_idle ? 1 : 2;
         a.tpos[t] = step;
@@ -374,8 +306,11 @@ __global__ void __launch_bounds__(NT, 1) fused_solve_kernel(const SolveArgs a) {
 
 extern "C" {
 
-// Launch on `stream`; returns the launch's cudaError_t (0 on success).
-int kbt_fused_solve(const SolveArgs* args, void* stream) {
+// Launch on `stream` of `device`; returns the launch's cudaError_t (0 on
+// success).
+int kbt_fused_solve(const SolveArgs* args, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   fused_solve_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

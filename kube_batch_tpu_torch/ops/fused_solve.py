@@ -29,23 +29,18 @@ same packed inputs — when they lie on the CPU.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch.ops import nvcc
 from kube_batch_tpu_torch.ops.kernels import SolveState, init_state, solve_allocate_step
 
 R8 = 8  # largest resource rank the kernel takes (cpu, memory, <= 6 scalars)
 MAX_PORTS = 31  # host ports ride an int32 bitmask per node
 _INT32_MAX = np.iinfo(np.int32).max
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "fused_solve.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 
 
 @dataclass(frozen=True)
@@ -401,53 +396,12 @@ class _Args(ctypes.Structure):
     ]
 
 
-class _Library:
-    """The kernel's shared library, built with nvcc into the package's
-    _build directory on first use (the file name carries the source hash,
-    so an edited source rebuilds)."""
-
-    def __init__(self) -> None:
-        self.lib = None
-        self.build_log = ""
-
-    def load(self):
-        if self.lib is None:
-            path, self.build_log = build()
-            lib = ctypes.CDLL(path)
-            lib.kbt_fused_solve.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-            lib.kbt_fused_solve.restype = ctypes.c_int
-            lib.kbt_error_string.argtypes = [ctypes.c_int]
-            lib.kbt_error_string.restype = ctypes.c_char_p
-            self.lib = lib
-        return self.lib
+def _bind(lib) -> None:
+    lib.kbt_fused_solve.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
+    lib.kbt_fused_solve.restype = ctypes.c_int
 
 
-_library = _Library()
-
-
-def build() -> tuple[str, str]:
-    """Compile csrc/fused_solve.cu for sm_90a into _build/ (once per source
-    version); returns (library path, compiler output). No FMA contraction
-    (-fmad=false) and no fast math: the kernel's float32 results must
-    equal the plain version's bit for bit."""
-    with open(_CSRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    path = os.path.join(_BUILD_DIR, f"libfused_solve_{digest}.so")
-    if os.path.exists(path):
-        return path, ""
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [
-        nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", tmp, _CSRC,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+_library = nvcc.Library("fused_solve", _bind)
 
 
 def _check(packed: Packed, state: PackedState) -> str:
@@ -471,7 +425,8 @@ def _check(packed: Packed, state: PackedState) -> str:
 
 def fused_solve(packed: Packed, state: PackedState) -> PackedState:
     """Run the whole solve, updating `state` in place. CUDA buffers launch
-    the kernel on the current stream (asynchronously); CPU buffers run the
+    the kernel on their device's current stream (asynchronously, whatever
+    device is current); CPU buffers run the
     plain version. Any other device raises."""
     kind = _check(packed, state)
     if kind == "cpu":
@@ -483,10 +438,12 @@ def fused_solve(packed: Packed, state: PackedState) -> PackedState:
     args = _Args(**{f: int(getattr(d, f)) for f in _DIM_FIELDS})
     for name, view in {**packed.views(), **state.views()}.items():
         setattr(args, name, view.data_ptr())
-    stream = torch.cuda.current_stream(packed.istatic.device).cuda_stream
-    err = lib.kbt_fused_solve(ctypes.byref(args), stream)
+    device = packed.istatic.device
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    err = lib.kbt_fused_solve(ctypes.byref(args), index, stream)
     if err != 0:
-        raise RuntimeError(f"fused_solve launch failed: {lib.kbt_error_string(err).decode()}")
+        raise RuntimeError(f"fused_solve launch failed: {_library.error(err)}")
     fused_solve.launches += 1
     return state
 

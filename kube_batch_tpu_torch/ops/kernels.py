@@ -39,6 +39,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 MAX_PRIORITY = 10  # schedulerapi.MaxPriority (nodeorder.py)
@@ -81,28 +82,31 @@ class SolveState(NamedTuple):
     paused_at: torch.Tensor  # task row the solve paused on (host-only), or -1
 
 
-def _lex_argmin(mask: torch.Tensor, *keys: torch.Tensor) -> tuple[int, bool]:
+def _np(x) -> np.ndarray:
+    """A host array view of a CPU tensor (or an array-like)."""
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _lex_argmin(mask: np.ndarray, *keys: np.ndarray) -> tuple[int, bool]:
     """Index of the mask=True element minimizing keys lexicographically;
     first index wins ties. Returns (index, any) — index is garbage when
     any is False."""
     m = mask
     for k in keys:
-        if k.dtype.is_floating_point:
-            sentinel = torch.tensor(float("inf"), dtype=k.dtype, device=k.device)
-        else:
-            sentinel = torch.tensor(torch.iinfo(k.dtype).max, dtype=k.dtype, device=k.device)
-        kmin = torch.where(m, k, sentinel).min()
+        sentinel = np.inf if k.dtype.kind == "f" else np.iinfo(k.dtype).max
+        kmin = np.where(m, k, k.dtype.type(sentinel)).min()
         m = m & (k == kmin)
-    return int(m.to(torch.int8).argmax()), bool(mask.any())
+    return int(m.argmax()), bool(mask.any())
 
 
-def ieee_div(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def ieee_div(x, y):
     """Correctly-rounded x/y, kept from the reference twin: one Newton
-    correction with a Dekker/Veltkamp two-product residual. torch's
-    float32 divide is already correctly rounded on the CPU, where the
-    correction is then exact and leaves the quotient unchanged."""
+    correction with a Dekker/Veltkamp two-product residual. torch's (and
+    numpy's) float32 divide is already correctly rounded on the CPU, where
+    the correction is then exact and leaves the quotient unchanged. Takes
+    torch tensors or numpy arrays."""
     q = x / y
-    split = 134217729.0 if q.dtype == torch.float64 else 4097.0
+    split = 134217729.0 if q.dtype in (torch.float64, np.float64) else 4097.0
     c = split * q
     qh = c - (c - q)
     ql = q - qh
@@ -121,54 +125,61 @@ def _le_eps(req: torch.Tensor, pool: torch.Tensor, eps: torch.Tensor) -> torch.T
     return (req[None, :] < pool + eps[None, :]).all(dim=1)
 
 
-def _share_rows(alloc: torch.Tensor, denom: torch.Tensor, dims: torch.Tensor) -> torch.Tensor:
+def _share_rows(alloc: np.ndarray, denom: np.ndarray, dims: np.ndarray) -> np.ndarray:
     """Vectorized api.helpers.share over rows: max over masked dims of
     share(alloc, denom) with 0/0 -> 0, x/0 -> 1 (helpers.go:43-60,
     drf.go:161-171, proportion.go:211-223)."""
-    safe = torch.where(denom == 0, torch.ones_like(denom), denom)
-    zero_denom = (alloc != 0).to(alloc.dtype)
-    s = torch.where(denom == 0, zero_denom, ieee_div(alloc, safe))
-    s = torch.where(dims, s, torch.full_like(s, float("-inf")))
-    return s.max(dim=-1).values.clamp_min(0.0)
+    safe = np.where(denom == 0, np.ones_like(denom), denom)
+    zero_denom = (alloc != 0).astype(alloc.dtype)
+    s = np.where(denom == 0, zero_denom, ieee_div(alloc, safe))
+    s = np.where(dims, s, np.full_like(s, -np.inf))
+    return np.maximum(s.max(axis=-1), s.dtype.type(0))
 
 
 def select_queue_job(a: dict, s: SolveState, enable_drf: bool, enable_proportion: bool):
     """Queue + job selection (proportion share asc -> overused gate ->
     priority/gang/drf keys). Returns (qsel, q_any, overused, jsel, j_any)
     as Python values; qsel/jsel are garbage when the matching `any` is
-    False."""
+    False.
+
+    Runs on the host, in numpy over views of the CPU tensors: it is a
+    handful of tiny vector operations per call, which numpy runs at a
+    fraction of torch's per-operation cost, and the sharded solve calls it
+    once per job change. ``ieee_div`` takes numpy arrays as they are."""
     Q = a["queue_rank"].shape[0]
-    job_queue = a["job_queue"]
-    eps = a["eps"]
-    counts = torch.zeros(Q, dtype=torch.int64, device=job_queue.device)
-    counts.index_add_(0, job_queue.long(), s.job_active.long())
-    q_has = (counts > 0) & ~s.q_dropped
+    job_queue = _np(a["job_queue"])
+    eps = _np(a["eps"])
+    job_active = _np(s.job_active)
+    q_alloc = _np(s.q_alloc)
+    counts = np.bincount(job_queue[job_active], minlength=Q)[:Q]
+    q_has = (counts > 0) & ~_np(s.q_dropped)
     if enable_proportion:
-        q_share = _share_rows(s.q_alloc, a["q_deserved"], a["q_dims"])
-        qsel, q_any = _lex_argmin(q_has, q_share, a["queue_rank"])
+        q_deserved = _np(a["q_deserved"])
+        q_share = _share_rows(q_alloc, q_deserved, _np(a["q_dims"]))
+        qsel, q_any = _lex_argmin(q_has, q_share, _np(a["queue_rank"]))
     else:
-        qsel, q_any = _lex_argmin(q_has, a["queue_rank"])
+        qsel, q_any = _lex_argmin(q_has, _np(a["queue_rank"]))
 
     overused = False
     if enable_proportion:
         # Overused gate: deserved.LessEqual(allocated) with the Go
         # nil-scalar-map branch (proportion.go:188-199 +
         # resource_info.go:255-278).
-        d_row = a["q_deserved"][qsel]
-        a_row = s.q_alloc[qsel]
-        dim_ok = (d_row < a_row) | ((a_row - d_row).abs() < eps)
-        if dim_ok.shape[0] > 2 and not bool(s.q_alloc_has_sc[qsel]):
+        d_row = q_deserved[qsel]
+        a_row = q_alloc[qsel]
+        dim_ok = (d_row < a_row) | (np.abs(a_row - d_row) < eps)
+        if dim_ok.shape[0] > 2 and not bool(_np(s.q_alloc_has_sc)[qsel]):
             dim_ok[2:] = False
-        overused = bool(torch.where(a["q_dims"][qsel], dim_ok, True).all())
+        overused = bool(np.where(_np(a["q_dims"])[qsel], dim_ok, True).all())
 
-    ready_bit = (s.ready_cnt >= a["job_min"]).to(torch.int32)
-    jmask = s.job_active & (job_queue == qsel)
-    jkeys = [-a["job_prio"], ready_bit]
+    ready_bit = (_np(s.ready_cnt) >= _np(a["job_min"])).astype(np.int32)
+    jmask = job_active & (job_queue == qsel)
+    jkeys = [-_np(a["job_prio"]), ready_bit]
     if enable_drf:
         jkeys.append(
-            _share_rows(s.job_alloc, a["drf_total"][None, :], a["drf_dims"][None, :])
+            _share_rows(_np(s.job_alloc), _np(a["drf_total"])[None, :], _np(a["drf_dims"])[None, :])
         )
-    jkeys.append(a["job_rank"])
+    jkeys.append(_np(a["job_rank"]))
     jsel, j_any = _lex_argmin(jmask, *jkeys)
     return qsel, q_any, overused, jsel, j_any
 

@@ -1,13 +1,18 @@
-"""The slice's entry point: a cluster snapshot in, the allocate action's
-binds out, with the solve in one CUDA launch.
+"""The port's entry point: a cluster snapshot in, the allocate action's
+binds out.
 
 ``allocate`` does the work of one allocate cycle of the reference
 scheduler under the default conf (priority, gang, conformance / drf,
 predicates, proportion, nodeorder): the drf and proportion open-session
 state over the whole snapshot, the gang JobValid gate, the encode, the
-fused solve, and the gang dispatch barrier — a job's allocated tasks are
-bound only once its ready count reaches its minimum
-(actions/allocate.go:182-190, session.go:262-300).
+solve, and the gang dispatch barrier — a job's allocated tasks are bound
+only once its ready count reaches its minimum (actions/allocate.go:182-190,
+session.go:262-300).
+
+The solve runs on one of two device rungs: without a mesh, the whole solve
+in one CUDA launch (``ops/fused_solve.py``); with one, the node-sharded
+blocked solve (``parallel/sharded_block.py``), one block-step launch per
+shard per placing iteration.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
 from kube_batch_tpu_torch.ops.encode import EncodedSnapshot, encode_session
 from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
 from kube_batch_tpu_torch.ops.kernels import KIND_ALLOCATED, KIND_PIPELINED, SolveState
+from kube_batch_tpu_torch.parallel.sharded_block import ShardedBlockSolver
 from kube_batch_tpu_torch.plugins.drf import drf_state
 from kube_batch_tpu_torch.plugins.proportion import proportion_state
 
@@ -34,8 +40,10 @@ class AllocateResult:
     binds: dict[str, str]  # "namespace/name" -> node, in dispatch order
     pipelined: dict[str, str]  # tasks pipelined onto releasing capacity
     encoded: EncodedSnapshot
-    # seconds per phase: encode_s, pack_s (pack + static upload), solve_s
-    # (state_upload_s + fused_solve_s + fetch_s), dispatch_s
+    # seconds per phase: encode_s, pack_s (pack + static upload), solve_s,
+    # dispatch_s, and the solver's own split of solve_s (FusedSolver:
+    # state_upload_s, fused_solve_s, fetch_s; ShardedBlockSolver:
+    # state_upload_s, loop_s = select_s + exchange_s + update_s, fetch_s)
     timings: dict[str, float] = field(default_factory=dict)
 
 
@@ -84,6 +92,7 @@ def allocate(
     enable_proportion: bool = True,
     weights: tuple[float, float, float, float] = (1, 1, 1, 1),
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> AllocateResult:
     """One allocate cycle over `cluster` (not modified).
 
@@ -91,6 +100,11 @@ def allocate(
     nodeaffinity, podaffinity) weights; the defaults are the plugin's
     defaults (nodeorder.go:139-153). ``device`` defaults to "cuda"; the
     tests pass "cpu", which runs the kernel's plain version.
+
+    ``mesh`` (``parallel.make_mesh``) runs the solve node-sharded over its
+    devices with ``ShardedBlockSolver``: the block-step kernel on a CUDA
+    mesh, its plain version on a CPU mesh. ``device``, when given, must
+    then be of the mesh's device type.
 
     Raises NotImplementedError when a host-only task (pod affinity or
     volumes) reaches the head of its job: stepping such a task on the host
@@ -104,7 +118,13 @@ def allocate(
         return AllocateResult(None, {}, {}, enc, timings)
 
     t0 = time.perf_counter()
-    solver = FusedSolver(arrays_from_numpy(arrays), enable_drf, enable_proportion, device=device)
+    if mesh is None:
+        solver = FusedSolver(arrays_from_numpy(arrays), enable_drf, enable_proportion, device=device)
+    else:
+        kinds = {torch.device(d).type for d in mesh}
+        if device is not None and kinds != {torch.device(device).type}:
+            raise ValueError(f"device={device!r} but the mesh's devices are {sorted(kinds)}")
+        solver = ShardedBlockSolver(arrays_from_numpy(arrays), mesh, enable_drf, enable_proportion)
     timings["pack_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     state = solver.solve()

@@ -70,8 +70,11 @@ def test_running_the_port_loads_no_jax():
         "            raise ImportError(f'the port imported {name}')\n"
         "sys.meta_path.insert(0, Block())\n"
         "from kube_batch_tpu_torch.models import gang_example\n"
+        "from kube_batch_tpu_torch.parallel import make_mesh\n"
         "from kube_batch_tpu_torch.solve import allocate\n"
         "res = allocate(gang_example(), device='cpu')\n"
+        "assert len(res.binds) == 3, res.binds\n"
+        "res = allocate(gang_example(), mesh=make_mesh(devices=['cpu'] * 2))\n"
         "assert len(res.binds) == 3, res.binds\n"
         "bad = [m for m in sys.modules if forbidden(m)]\n"
         "print('LOADED', bad)\n"
