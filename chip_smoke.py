@@ -6,7 +6,12 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds both kernels from their sources, one nvcc each, at once:
    csrc/fused_solve.cu (B1, the whole solve) and csrc/block_step.cu (B2,
-   one shard's block step), and prints their ptxas lines;
+   one shard's block step), and prints each entry function's registers,
+   spills and static shared memory from ptxas;
+   then runs the card tests of both kernels (the ``cuda``-marked tests of
+   tests/test_torch_kernel.py and tests/test_torch_block_step.py, pytest
+   in a subprocess): bit-equality at the cluster's slice bounds, ties
+   across CTAs, pauses, global scratch;
 3. holds B1 against its plain version (fused_solve_plain, on the CPU) on
    the same packed inputs of five worlds, ``preempt_mix(50_000, 1_000)``
    the largest: integer state exactly, float state bit for bit (the
@@ -21,7 +26,10 @@
    mid-solve state for one task of every class, the same state split into
    four blocks (non-zero offsets), ``multi_tenant_ml(200, 500)`` (scalar
    resources) with host-port collisions, and a block with no candidate;
-   times one call with CUDA events over a batch of calls;
+   times one call at each block width the main path launches (5,120,
+   1,280 and 256 nodes): the time per call of back-to-back launches (CUDA
+   events) here, and the kernel's own time from the profiler's device
+   trace after every main path has run (so the profiler cannot slow them);
 5. drives the entry point on each of its two device rungs, with the launch
    counters zeroed just before each path and read just after:
    - the fused rung, ``allocate(..., device="cuda")``, on
@@ -41,12 +49,13 @@
 7. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
-Each kernel record carries the roofline bound (``bound_ms``: the larger of
-bytes over the HBM rate and float32 operations over the float32 rate, with
-the operations counted from the node-axis work these inputs need) and, for
-B1, a latency bound (``latency_bound_ms``: the world's dependent
-iterations times the kernel's time per iteration on a world whose node
-axis fits one node per thread, measured in the same run).
+Each kernel record carries its cluster size ``k`` (CTAs per launch), the
+roofline bound (``bound_ms``: the larger of bytes over the HBM rate and
+float32 operations over the float32 rate, with the operations counted from
+the node-axis work these inputs need) and, for B1, the time per iteration
+of every world it times and a latency bound (``latency_bound_ms``: the
+world's dependent iterations times the kernel's time per iteration on a
+128-node world, measured in the same run).
 
 Any failed phase raises and exits non-zero. Without a CUDA device it exits
 with code 2 before printing any result.
@@ -84,7 +93,8 @@ H100_FP32_OPS_PER_S = 67e12 / 2
 #   subtract; 2 multiplies and 2 adds (score sum); 1 compare (arg-max).
 FIT_OPS_PER_DIM = 4
 SCORE_OPS_PER_NODE = 29
-B2_TIMED_CALLS = 200  # block-step launches per CUDA-event timing
+B2_TIMED_CALLS = 200  # block-step launches per timing
+CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py"]
 
 
 def emit(obj: dict) -> None:
@@ -97,6 +107,43 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list[dict]:
+    """Per entry function in an ``nvcc -Xptxas=-v`` log: registers, spill
+    bytes (stores, loads) and static shared memory bytes."""
+    import re
+
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append({"function": m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and out:
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def card_tests() -> dict:
+    """The card tests of both kernels, in a subprocess; raises on any
+    failure."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q", "-m", "cuda", *CARD_TESTS],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    tail = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+    if run.returncode != 0:
+        raise AssertionError(f"card tests failed ({run.returncode}):\n{run.stdout[-4000:]}\n{run.stderr[-2000:]}")
+    return {"phase": "card_tests", "files": CARD_TESTS, "summary": tail, "s": time.perf_counter() - t0}
 
 
 def encoded_arrays(cluster):
@@ -126,6 +173,7 @@ def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1, state=None) -> dict
     plain_ms = (time.perf_counter() - t0) * 1e3
 
     dev = packed.to("cuda")
+    geo = fs.solve_geometry(packed.dims)
     times = []
     for _ in range(timed_runs):
         st = fs.PackedState(packed.dims, init.istate.cuda(), init.fstate.cuda())
@@ -159,12 +207,14 @@ def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1, state=None) -> dict
     ops = work["fit_nodes"] * FIT_OPS_PER_DIM * d.R + work["scored_nodes"] * SCORE_OPS_PER_NODE
     t_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    ms = times[-1] if timed_runs == 1 else statistics.median(times[1:])
     return {
         "world": name,
         "T": d.T, "N": d.N, "J": d.J, "Q": d.Q, "C": d.C, "R": d.R,
+        "k": geo.shape.k, "smem_bytes": geo.smem_bytes, "rep_in_smem": geo.rep_in_smem,
         "iterations": int(scal[0]), "assigned": int(scal[1]), "popped": popped,
         "pipelined": int((kv["tkind"] == 2).sum()),
-        "ms": times[-1] if timed_runs == 1 else statistics.median(times[1:]),
+        "ms": ms, "ms_per_iteration": ms / max(int(scal[0]), 1),
         "first_ms": times[0],
         "plain_ms": plain_ms,
         "max_abs_err": max_abs_err,
@@ -209,14 +259,15 @@ def check_binds(res) -> dict:
 
 
 def block_work(block, task) -> dict:
-    """What the block step needs to read and compute for these inputs,
-    node by node as csrc/node_sweep.cuh's ``node_score`` short-circuits:
-    every node's compat word; for the statically compatible ones, the pod
-    count and limit; for those with pod room, the port mask; for those
-    (the fit-tested nodes) the scalar-map flags when the task asks for
-    scalars, and R idle and R releasing values; for the scored nodes (the
-    ones that fit), 2 used and 2 allocatable values and the affinity
-    score. Returns the node counts and the bytes (each input once, plus
+    """The least the block step must read and compute for these inputs,
+    node by node as a test that stops at the first failing condition
+    would: every node's compat word; for the statically compatible ones,
+    the pod count and limit; for those with pod room, the port mask; for
+    those (the fit-tested nodes) the scalar-map flags when the task asks
+    for scalars, and R idle and R releasing values; for the scored nodes
+    (the ones that fit), 2 used and 2 allocatable values and the affinity
+    score. (The kernel issues all of a node's loads at once, so it reads
+    more.) Returns the node counts and the bytes (each input once, plus
     the record written)."""
     import torch
 
@@ -242,11 +293,30 @@ def block_work(block, task) -> dict:
     return {**n, "bytes": 4 * (words + RECORD)}
 
 
+def kernel_device_ms(fn, calls: int, name: str) -> float | None:
+    """Mean device time of the kernels whose name holds ``name`` over
+    ``calls`` calls of ``fn``, from the profiler's trace of the card; None
+    when the trace holds no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if name in e.key and e.count > 0]
+    total = sum(e.device_time_total for e in events)  # microseconds
+    count = sum(e.count for e in events)
+    return total / count / 1e3 if count and total > 0 else None
+
+
 def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
     """B2 on the card against its plain version on the CPU, on the same
-    block and task; raises on any difference. With ``timed``, one call's
-    time from CUDA events over a batch of calls, the plain version's from
-    the host clock, and the roofline bound."""
+    block and task; raises on any difference. With ``timed``: the time
+    per call of back-to-back launches from CUDA events (``call_ms``,
+    which holds the host's cost of each launch too), the plain version's
+    from the host clock, the roofline bound, and the prepared step under
+    ``"step"`` for ``time_b2_kernel``."""
     import torch
 
     from kube_batch_tpu_torch.ops import block_step as bs
@@ -261,7 +331,8 @@ def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     if got != want:
         raise AssertionError(f"{name}: block step kernel {got} != plain {want}")
-    rec = {"case": name, "N": block.cnode.shape[1], "off": block.off, "gid": task.gid,
+    rec = {"case": name, "N": block.cnode.shape[1], "k": bs.block_geometry(block.cnode.shape[1]).k,
+           "off": block.off, "gid": task.gid,
            "score": got[0], "index": got[1], "fits_idle": got[2], "max_abs_err": 0.0}
     if timed:
         for _ in range(10):
@@ -272,6 +343,7 @@ def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
             step(task)
         end.record()
         torch.cuda.synchronize()
+        call_ms = start.elapsed_time(end) / B2_TIMED_CALLS
         t0 = time.perf_counter()
         for _ in range(5):
             bs.block_step_plain(host, task)
@@ -281,7 +353,7 @@ def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
         t_bytes = work["bytes"] / H100_HBM_BYTES_PER_S * 1e3
         t_ops = ops / H100_FP32_OPS_PER_S * 1e3
         rec.update({
-            "ms": start.elapsed_time(end) / B2_TIMED_CALLS, "plain_ms": plain_ms, **work, "ops": ops,
+            "step": (step, task), "call_ms": call_ms, "plain_ms": plain_ms, **work, "ops": ops,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         })
     rec["plain_ms"] = plain_ms
@@ -289,10 +361,26 @@ def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
     return rec
 
 
-def b2_comparisons(arrays_5k, arrays_ml) -> list[dict]:
+def time_b2_kernel(rec: dict) -> None:
+    """Set ``ms`` of a timed B2 record: the kernel's device time per launch
+    from the profiler's trace, or, where the trace has none, the time per
+    call (``ms_source`` says which)."""
+    from kube_batch_tpu_torch.ops import block_step as bs
+
+    step, task = rec.pop("step")
+    launches = bs.block_step.launches
+    kernel_ms = kernel_device_ms(lambda: step(task), B2_TIMED_CALLS, "block_step_kernel")
+    bs.block_step.launches = launches  # timing launches are not the main path's
+    rec["ms"] = rec["call_ms"] if kernel_ms is None else kernel_ms
+    rec["ms_source"] = "events" if kernel_ms is None else "profiler"
+
+
+def b2_comparisons(arrays_5k, arrays_1k, arrays_ml) -> list[dict]:
     """B2 against its plain version on every listed input (see the module
-    docstring, step 4). Returns the records; the first is the timed one
-    (the main path's 5,120-node block at its entry state)."""
+    docstring, step 4). Returns the records; the timed ones (``call_ms``
+    set) are the main path's blocks at their entry state: 50k x 5k's
+    5,120-node block (one shard) and 1,280-node blocks (four), and
+    50k x 1k's 256-node blocks (four)."""
     import numpy as np
     import torch
 
@@ -315,10 +403,16 @@ def b2_comparisons(arrays_5k, arrays_ml) -> list[dict]:
         one._upload(state)
         four._upload(state)
         for c, task in enumerate(one._tasks):
-            recs.append(block_vs_plain(f"preempt_mix_50k_5k_{label}_class{c}", one.blocks[0], task,
-                                       timed=(label == "entry" and c == 0)))
+            timed = label == "entry" and c == 0
+            recs.append(block_vs_plain(f"preempt_mix_50k_5k_{label}_class{c}", one.blocks[0], task, timed=timed))
             for k, blk in enumerate(four.blocks):
-                recs.append(block_vs_plain(f"preempt_mix_50k_5k_{label}_class{c}_shard{k}of4", blk, task))
+                recs.append(block_vs_plain(f"preempt_mix_50k_5k_{label}_class{c}_shard{k}of4", blk, task,
+                                           timed=timed and k == 0))
+    four_1k = ShardedBlockSolver(arrays_1k, [cuda] * 4, True, True)
+    four_1k._upload(init_state(arrays_1k, True, True))
+    for k, blk in enumerate(four_1k.blocks):
+        recs.append(block_vs_plain(f"preempt_mix_50k_1k_entry_class0_shard{k}of4", blk, four_1k._tasks[0],
+                                   timed=k == 0))
     # no candidate: nothing idle or releasing anywhere, for the task with
     # the largest cpu request (the encoder's pad rows request nothing, and
     # nothing fits within eps)
@@ -440,10 +534,9 @@ def main(argv: list[str]) -> int:
     logs = nvcc.build(["fused_solve", "block_step"])
     fs._library.load()
     bs._library.load()
-    emit({"phase": "build", "s": time.perf_counter() - t0, "ptxas": {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        for name, log in logs.items()
-    }})
+    emit({"phase": "build", "s": time.perf_counter() - t0,
+          "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
+    emit(card_tests())
 
     # -- B1 against its plain version ----------------------------------------
     worlds = [
@@ -458,8 +551,8 @@ def main(argv: list[str]) -> int:
     # thread, so an iteration is the barriers and the dependent loads alone
     floor = kernel_vs_plain("preempt_mix_2k_40_seed1", encoded_arrays(models.preempt_mix(2000, 40, seed=1)),
                             timed_runs=4)
-    floor_ms_per_iter = floor["ms"] / floor["iterations"]
-    emit({"phase": "kernel_vs_plain", **floor, "ms_per_iteration": floor_ms_per_iter})
+    floor_ms_per_iter = floor["ms_per_iteration"]
+    emit({"phase": "kernel_vs_plain", **floor})
 
     main_worlds = [
         ("preempt_mix_50k_5k", lambda: models.preempt_mix(50_000, 5_000)),
@@ -485,10 +578,11 @@ def main(argv: list[str]) -> int:
           **kernel_vs_plain("preempt_mix_50k_5k_jobs_prefix", arrays["preempt_mix_50k_5k"], state=prefix)})
 
     # -- B2 against its plain version ----------------------------------------
-    b2 = b2_comparisons(arrays["preempt_mix_50k_5k"], encoded_arrays(models.multi_tenant_ml(200, 500)))
-    for rec in b2:
-        emit({"phase": "block_vs_plain", **rec})
-    b2_head = b2[0]
+    b2 = b2_comparisons(arrays["preempt_mix_50k_5k"], arrays["preempt_mix_50k_1k"],
+                        encoded_arrays(models.multi_tenant_ml(200, 500)))
+    b2_timed = {r["N"]: r for r in b2 if "call_ms" in r}
+    emit({"phase": "block_vs_plain", "inputs": len(b2), "bit_equal": True})
+    b2_head = b2_timed[max(b2_timed)]
 
     # -- the fused rung's main path, through the entry point -----------------
     results, phases = {}, []
@@ -515,7 +609,7 @@ def main(argv: list[str]) -> int:
         })
     if not results["preempt_mix_50k_1k"].pipelined:
         raise AssertionError("preempt_mix_50k_1k pipelined nothing: the releasing branch did not run")
-    b1_ms_5k = []
+    b1_ms_5k, b1_iters_5k = [], 0
     for _ in range(2):  # B1 at the headline, kernel only (its plain run is the sharded path's job)
         packed = fs.pack(arrays["preempt_mix_50k_5k"], True, True)
         init = fs.pack_state(packed.dims, init_state(arrays["preempt_mix_50k_5k"], True, True),
@@ -527,8 +621,13 @@ def main(argv: list[str]) -> int:
         end.record()
         torch.cuda.synchronize()
         b1_ms_5k.append(start.elapsed_time(end))
+        b1_iters_5k = int(st.istate[0])
     fs.fused_solve.launches = b1_launches  # timing launches are not the main path's
-    emit({"phase": "fused_solve_50k_5k", "ms": b1_ms_5k})
+    geo_5k = fs.solve_geometry(packed.dims)
+    b1_5k = {"ms": b1_ms_5k[-1], "iterations": b1_iters_5k, "ms_per_iteration": b1_ms_5k[-1] / b1_iters_5k,
+             "latency_bound_ms": b1_iters_5k * floor_ms_per_iter, "k": geo_5k.shape.k,
+             "smem_bytes": geo_5k.smem_bytes}
+    emit({"phase": "fused_solve_50k_5k", "runs_ms": b1_ms_5k, **b1_5k})
 
     # -- the sharded rung's main path ----------------------------------------
     cuda0 = torch.device("cuda", 0)
@@ -573,6 +672,10 @@ def main(argv: list[str]) -> int:
               "batched_iters": solver.batched_iters, **solver.counts, "equal_to_fused": True})
     bs.block_step.launches = saved
 
+    for rec in b2_timed.values():  # B2's device time, with the profiler, last
+        time_b2_kernel(rec)
+        emit({"phase": "block_step_timed", **rec})
+
     emit({"kernels": [
         {
             "name": "fused_solve",
@@ -587,8 +690,14 @@ def main(argv: list[str]) -> int:
             "bound_by": b1_head["bound_by"],
             "library_ms": None,
             "world": "preempt_mix_50k_1k",
+            "k": b1_head["k"],
+            "ms_per_iteration": b1_head["ms_per_iteration"],
             "latency_bound_ms": b1_head["latency_bound_ms"],
-            "ms_preempt_mix_50k_5k": b1_ms_5k[-1],
+            "floor_ms_per_iteration": floor_ms_per_iter,
+            "ms_preempt_mix_50k_5k": b1_5k["ms"],
+            "ms_per_iteration_preempt_mix_50k_5k": b1_5k["ms_per_iteration"],
+            "latency_bound_ms_preempt_mix_50k_5k": b1_5k["latency_bound_ms"],
+            "k_preempt_mix_50k_5k": b1_5k["k"],
         },
         {
             "name": "block_step",
@@ -603,11 +712,18 @@ def main(argv: list[str]) -> int:
             "bound_by": b2_head["bound_by"],
             "library_ms": None,
             "world": "preempt_mix_50k_5k, one 5,120-node block, entry state",
+            "k": b2_head["k"],
+            "ms_source": b2_head["ms_source"],
+            "call_ms": b2_head["call_ms"],
+            "widths": [
+                {key: r[key] for key in ("N", "k", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bytes")}
+                for _, r in sorted(b2_timed.items(), reverse=True)
+            ],
         },
     ]})
     emit({"phase": "total", "s": time.perf_counter() - t_start})
     print(card, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})  # the one card driven
     return 0
 
 

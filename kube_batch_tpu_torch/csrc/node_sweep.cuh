@@ -1,52 +1,63 @@
 // The float32 node arithmetic that both kernels share: feasibility, the
-// LeastRequested + BalancedResource + affinity score, the first-index
-// arg-max and the fits-idle bit at the winner.
+// LeastRequested + BalancedResource + affinity score, the fits-idle bit,
+// and the first-index arg-max across a thread-block cluster.
 //
 // fused_solve.cu (the whole solve, B1) and block_step.cu (one shard's node
-// block, B2) both sweep a node axis laid out as [R, N] rows (one row per
+// block, B2) both sweep a node axis laid out as [R, X] rows (one row per
 // resource dim) plus [GT, N] for the static compat verdict and the
-// pre-weighted affinity score. Keeping the sweep here keeps the two
-// kernels from drifting: the sharded solve must equal the fused one bit
-// for bit.
+// pre-weighted affinity score. Both run it as a cluster of k CTAs, each
+// owning a contiguous slice of the axis, one node per thread. Keeping the
+// sweep here keeps the two kernels from drifting: the sharded solve must
+// equal the fused one bit for bit.
 //
 // Numerics: every score operation is an explicit round-to-nearest
 // intrinsic (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn), and the sources
 // are built with -fmad=false, so nothing is contracted into an FMA and
 // every float32 result rounds as the plain versions' do. The arg-max
-// compares floats, so -0.0 and +0.0 tie and the lower index wins.
+// compares floats, so -0.0 and +0.0 tie and the lower index wins; that
+// order is total, so the result does not depend on how the reduction is
+// grouped across warps and CTAs.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 #define R8 8
 #define MAX_PRIORITY 10.0f
 #define NONE 0x7fffffff
+#define PORTABLE_CLUSTER 8  // the largest cluster every sm_90 card launches
+#define MAX_CLUSTER 16  // the largest an H100 launches (non-portable past 8)
 
-// One node axis: [GT, N] statics already offset to the task's group,
-// [R, N] float state, [N] int state.
+// One CTA's slice of a node axis, indexed by the node's local index n:
+// the statics ([GT, N] rows already offset to the task's group, nalloc
+// [2, N]) step rows by N; the node state ([R, S] rows) by S. Pointers may
+// point into global or shared memory.
 struct NodeAxis {
-  int N;
+  int N, S;
   const int *cnode, *nmax, *nihs, *nrhs, *ntasks, *nports;
   const float *affw, *nalloc, *idle, *rel, *used;
 };
 
-// The popped task, as the sweep reads it (req/res padded to R8; eps
-// points at R per-dim tolerances in global or shared memory).
+// The popped task, as the sweep reads it (req/res/eps padded to R8; only
+// the first R dims are read).
 struct TaskView {
   int R;
   bool has_sc;
   int tports;
-  float req[R8], res[R8];
-  const float* eps;
+  float req[R8], res[R8], eps[R8];
   float w_least, w_bal;
 };
 
 // Node candidate: higher score wins, the lower index on equal scores.
-struct Best {
+// `fits` is the fits-idle bit of node `idx`, computed in the sweep.
+struct __align__(16) Best {
   float score;
   int idx;
+  int fits;
+  int pad;
 };
 
 __device__ __forceinline__ bool best_better(const Best& a, const Best& b) {
@@ -54,35 +65,6 @@ __device__ __forceinline__ bool best_better(const Best& a, const Best& b) {
   if (b.idx == NONE) return true;
   if (a.score != b.score) return a.score > b.score;
   return a.idx < b.idx;
-}
-
-// Block-wide arg-max of `b` over NT threads; `scratch` holds NT/32 + 1.
-template <int NT>
-__device__ __forceinline__ Best block_max_best(Best b, Best* scratch) {
-  const unsigned full = 0xffffffffu;
-  for (int off = 16; off > 0; off >>= 1) {
-    Best o;
-    o.score = __shfl_down_sync(full, b.score, off);
-    o.idx = __shfl_down_sync(full, b.idx, off);
-    if (best_better(o, b)) b = o;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = b;
-  __syncthreads();
-  if (warp == 0) {
-    b = lane < NT / 32 ? scratch[lane] : Best{-INFINITY, NONE};
-    for (int off = 16; off > 0; off >>= 1) {
-      Best o;
-      o.score = __shfl_down_sync(full, b.score, off);
-      o.idx = __shfl_down_sync(full, b.idx, off);
-      if (best_better(o, b)) b = o;
-    }
-    if (lane == 0) scratch[NT / 32] = b;
-  }
-  __syncthreads();
-  Best out = scratch[NT / 32];
-  __syncthreads();  // scratch is free for the next reduction
-  return out;
 }
 
 // k8s LeastRequested per dimension: floor((cap - req) * 10 / cap), 0 when
@@ -106,58 +88,130 @@ __device__ __forceinline__ float score_sum(int least, int bal, float w_least, fl
   return __fadd_rn(__fadd_rn(__fmul_rn((float)least, w_least), __fmul_rn((float)bal, w_bal)), affw);
 }
 
-// Does the task fit `pool` (idle or releasing) + eps in every dim of node n?
-__device__ __forceinline__ bool fits_pool(const float* pool, int N, int n, const TaskView& t) {
-  bool ok = true;
+// Feasibility, score and fits-idle bit of local node n; false when n is no
+// candidate (static compat, pod room, host ports, fit on idle or releasing
+// capacity). Every load is issued before any test, so a node costs one
+// round of loads, not a chain; the result equals the short-circuit test.
+// *fits_idle is the task's fit on the node's idle capacity + eps in every
+// dim, with the idle scalar map present when the task asks for scalars.
+__device__ __forceinline__ bool node_score(const NodeAxis& v, int n, const TaskView& t, float* score,
+                                           bool* fits_idle) {
+  const int N = v.N, S = v.S;
+  const int cnode = v.cnode[n], ntasks = v.ntasks[n], nmax = v.nmax[n], nports = v.nports[n];
+  const int nihs = v.nihs[n], nrhs = v.nrhs[n];
+  const float used_c = v.used[n], used_m = v.used[S + n];
+  const float cap_c = v.nalloc[n], cap_m = v.nalloc[N + n], affw = v.affw[n];
+  bool fi = !(t.has_sc && nihs == 0);
+  bool fr = !(t.has_sc && nrhs == 0);
 #pragma unroll
   for (int r = 0; r < R8; ++r) {
     if (r >= t.R) break;
-    ok = ok && t.req[r] < __fadd_rn(pool[r * N + n], t.eps[r]);
+    const float idle = v.idle[r * S + n], rel = v.rel[r * S + n];
+    fi = fi & (t.req[r] < __fadd_rn(idle, t.eps[r]));
+    fr = fr & (t.req[r] < __fadd_rn(rel, t.eps[r]));
   }
-  return ok;
-}
-
-// The fits-idle bit at node n of an N-node axis: idle capacity + eps in
-// every dim, and the node's idle scalar map present when the task asks
-// for scalars.
-__device__ __forceinline__ bool fits_idle_at(const int* nihs, const float* idle, int N, int n,
-                                             const TaskView& t) {
-  return !(t.has_sc && nihs[n] == 0) && fits_pool(idle, N, n, t);
-}
-
-// Feasibility and score of node n; false when n is no candidate (static
-// compat, pod room, host ports, fit on idle or releasing capacity).
-__device__ __forceinline__ bool node_score(const NodeAxis& v, int n, const TaskView& t, float* score) {
-  const int N = v.N;
-  if (v.cnode[n] == 0 || v.ntasks[n] >= v.nmax[n] || (v.nports[n] & t.tports) != 0) return false;
-  // both pools in one pass over the dims, so their loads overlap
-  bool fi = !(t.has_sc && v.nihs[n] == 0);
-  bool fr = !(t.has_sc && v.nrhs[n] == 0);
-#pragma unroll
-  for (int r = 0; r < R8; ++r) {
-    if (r >= t.R) break;
-    fi = fi && t.req[r] < __fadd_rn(v.idle[r * N + n], t.eps[r]);
-    fr = fr && t.req[r] < __fadd_rn(v.rel[r * N + n], t.eps[r]);
-  }
-  if (!(fi || fr)) return false;
-  const float req_c = __fadd_rn(v.used[n], t.res[0]);
-  const float req_m = __fadd_rn(v.used[N + n], t.res[1]);
-  const float cap_c = v.nalloc[n], cap_m = v.nalloc[N + n];
+  *fits_idle = fi;
+  if (cnode == 0 || ntasks >= nmax || (nports & t.tports) != 0 || !(fi || fr)) return false;
+  const float req_c = __fadd_rn(used_c, t.res[0]);
+  const float req_m = __fadd_rn(used_m, t.res[1]);
   const int least = (least_dim(req_c, cap_c) + least_dim(req_m, cap_m)) / 2;
   const int bal = balanced_score(req_c, req_m, cap_c, cap_m);
-  *score = score_sum(least, bal, t.w_least, t.w_bal, v.affw[n]);
+  *score = score_sum(least, bal, t.w_least, t.w_bal, affw);
   return true;
 }
 
-// The block's best candidate over the node axis: a strided sweep (each
-// thread keeps its first best, scanning upward) and a block arg-max.
-template <int NT>
-__device__ __forceinline__ Best sweep_best(const NodeAxis& v, const TaskView& t, Best* scratch) {
-  Best best = {-INFINITY, NONE};
-  for (int n = threadIdx.x; n < v.N; n += NT) {
+// This thread's best over the slice's local nodes [0, n_local): node
+// threadIdx.x, then upward with a stride of blockDim.x (only past 1,024
+// nodes per CTA), keeping the first best. `base` turns a local index into
+// the record's index.
+__device__ __forceinline__ Best thread_best(const NodeAxis& v, int n_local, int base, const TaskView& t) {
+  Best best = {-INFINITY, NONE, 0, 0};
+  for (int n = threadIdx.x; n < n_local; n += blockDim.x) {
     float score;
-    if (!node_score(v, n, t, &score)) continue;
-    if (score > best.score || best.idx == NONE) best = {score, n};
+    bool fits;
+    if (!node_score(v, n, t, &score, &fits)) continue;
+    const Best cand = {score, base + n, fits ? 1 : 0, 0};
+    if (best_better(cand, best)) best = cand;
   }
-  return block_max_best<NT>(best, scratch);
+  return best;
+}
+
+// An int whose order is the float order of `s` (not NaN), with -0.0 and
+// +0.0 on one key, as they tie.
+__device__ __forceinline__ int score_key(float s) {
+  const int i = __float_as_int(s);
+  return s == 0.0f ? 0 : (i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// Warp arg-max in best_better's order, returned to every lane: the warp
+// reductions (redux.sync) take the largest score key, then the lowest
+// index among the lanes that hold it; score and fits come from that lane.
+__device__ __forceinline__ Best warp_max_best(const Best& b) {
+  const unsigned full = 0xffffffffu;
+  const int key = b.idx == NONE ? INT_MIN : score_key(b.score);
+  const int top = __reduce_max_sync(full, key);
+  const int idx = (int)__reduce_min_sync(full, key == top ? (unsigned)b.idx : (unsigned)NONE);
+  const int src = __ffs(__ballot_sync(full, key == top && b.idx == idx)) - 1;
+  Best o;
+  o.score = __shfl_sync(full, b.score, src);
+  o.idx = idx;
+  o.fits = __shfl_sync(full, b.fits, src);
+  o.pad = 0;
+  return o;
+}
+
+// Split cluster barrier: arrive, then wait (with acquire semantics). Every
+// thread of every CTA calls one arrive and then the wait, in turn. A
+// relaxed arrive orders no memory; a releasing one makes the thread's
+// earlier writes (to peers' shared memory too) visible to every thread
+// past the wait, and costs a GPU-wide memory barrier (MEMBAR.ALL.GPU) in
+// its warp, so only the warp that wrote takes it.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
+// The cluster-wide arg-max of every thread's `b`, returned to every thread
+// of every CTA. Each CTA reduces its threads: a warp reduction, one
+// __syncthreads, then every warp reduces the warps' records itself. A
+// cluster of one CTA is done there. Otherwise warp 0 of each CTA pushes
+// its record into slot [rank] of every CTA's `slots[phase & 1]` through
+// distributed shared memory; one cluster barrier makes the k records
+// visible (warp 0 arrives with release semantics, the other warps, which
+// wrote nothing a peer reads, relaxed; every thread waits with acquire),
+// and every warp reduces them from its own CTA.
+//
+// `scratch` is a [2][32] array of warp records and `slots` a
+// [2][MAX_CLUSTER] array at the same offset in every CTA; the caller
+// passes phase = 0, 1, 2, ... on its successive calls. Call p writes
+// scratch[p & 1] and slots[p & 1] only after the barrier of call p - 1,
+// which every thread (and every peer CTA) passes only after reading them
+// in call p - 2, so the double buffers need no second barrier. Before its
+// first call every CTA of the cluster must have started (a cluster
+// barrier, or cluster_arrive_relaxed at entry and cluster_wait before
+// this call).
+__device__ __forceinline__ Best cluster_max_best(Best b, Best (*scratch)[32], Best (*slots)[MAX_CLUSTER],
+                                                 unsigned phase) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned k = cluster.num_blocks(), rank = cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Best* warps = scratch[phase & 1];
+  b = warp_max_best(b);
+  if (lane == 0) warps[warp] = b;
+  __syncthreads();
+  b = warp_max_best(lane < (int)(blockDim.x >> 5) ? warps[lane] : Best{-INFINITY, NONE, 0, 0});
+  if (k == 1) return b;
+  Best* slot = slots[phase & 1];
+  if (warp == 0) {
+    if (lane < (int)k) *cluster.map_shared_rank(&slot[rank], lane) = b;
+    cluster_arrive_release();
+  } else {
+    cluster_arrive_relaxed();
+  }
+  cluster_wait();
+  return warp_max_best(lane < (int)k ? slot[lane] : Best{-INFINITY, NONE, 0, 0});
 }

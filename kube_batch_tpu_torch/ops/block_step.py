@@ -20,7 +20,8 @@ block's offset, or the sentinel), the fits-idle bit, and 0.
 
 ``block_step(block, task, out)`` (or a prepared ``BlockStep``) launches
 the kernel when the block lies on a CUDA device and runs
-``block_step_plain`` when it lies on the CPU.
+``block_step_plain`` when it lies on the CPU. A launch is one thread-block
+cluster over the block, one node per thread (``block_geometry``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from dataclasses import dataclass
 import torch
 
 from kube_batch_tpu_torch.ops import nvcc
+from kube_batch_tpu_torch.ops.cluster import ClusterShape, cluster_shape
 from kube_batch_tpu_torch.ops.fused_solve import R8
 from kube_batch_tpu_torch.ops.kernels import node_scores
 
@@ -157,7 +159,15 @@ def read_record(rec: torch.Tensor) -> tuple[float, int, int]:
     return float(rec[0:1].view(torch.float32)), int(rec[1]), int(rec[2])
 
 
-# -- the CUDA kernel: bind, launch ------------------------------------------
+# -- the CUDA kernel: geometry, bind, launch --------------------------------
+
+
+def block_geometry(n: int) -> ClusterShape:
+    """The kernel's cluster over an n-node block: k = ceil(n / 512) CTAs
+    (at most 16), each a contiguous slice of ceil(n / k) nodes with one
+    thread per node, rounded up to whole warps."""
+    return cluster_shape(n)
+
 
 _PTR_FIELDS = (
     "cnode", "nmax", "nihs", "nrhs", "affw", "nalloc", "idle", "rel", "used", "ntasks", "nports", "out",
@@ -169,6 +179,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = [
         ("N", ctypes.c_int), ("R", ctypes.c_int), ("off", ctypes.c_int), ("sent", ctypes.c_int),
+        ("k", ctypes.c_int), ("threads", ctypes.c_int), ("slice", ctypes.c_int), ("pad0", ctypes.c_int),
         ("task", Task),
     ] + [(f, ctypes.c_void_p) for f in _PTR_FIELDS]
 
@@ -176,9 +187,31 @@ class _Args(ctypes.Structure):
 def _bind(lib) -> None:
     lib.kbt_block_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
     lib.kbt_block_step.restype = ctypes.c_int
+    lib.kbt_block_step_max_clusters.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    ]
+    lib.kbt_block_step_max_clusters.restype = ctypes.c_int
 
 
 _library = nvcc.Library("block_step", _bind)
+_fits_card: set[tuple[int, ClusterShape]] = set()  # (device, shape) checked
+
+
+def _check_occupancy(index: int, shape: ClusterShape) -> None:
+    """Raise unless device ``index`` can hold at least one cluster of this
+    shape (asked once per device and shape, before the first launch: the
+    query also allows clusters past 8 CTAs on that device)."""
+    if (index, shape) in _fits_card:
+        return
+    n = ctypes.c_int(0)
+    err = _library.load().kbt_block_step_max_clusters(shape.k, shape.threads, index, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"block_step occupancy query failed: {_library.error(err)}")
+    if n.value < 1:
+        raise RuntimeError(
+            f"cuda:{index} cannot hold a cluster of {shape.k} CTAs of {shape.threads} threads"
+        )
+    _fits_card.add((index, shape))
 
 
 class BlockStep:
@@ -209,12 +242,15 @@ class BlockStep:
         if device.type == "cuda":
             self._lib = _library.load()
             N = block.cnode.shape[1]
-            args = _Args(N=N, R=block.idle.shape[0], off=block.off, sent=block.sent)
+            self._index = torch.cuda.current_device() if device.index is None else device.index
+            shape = block_geometry(N)
+            _check_occupancy(self._index, shape)
+            args = _Args(N=N, R=block.idle.shape[0], off=block.off, sent=block.sent,
+                         k=shape.k, threads=shape.threads, slice=shape.slice)
             for name in _PTR_FIELDS:
                 setattr(args, name, (out if name == "out" else getattr(block, name)).data_ptr())
             self._args = args
             self._ref = ctypes.byref(args)
-            self._index = torch.cuda.current_device() if device.index is None else device.index
             self._stream = torch.cuda.current_stream(self._index).cuda_stream
 
     def __call__(self, task: Task) -> torch.Tensor:

@@ -4,8 +4,10 @@ wrapper and its plain version.
 The kernel (csrc/fused_solve.cu) runs the same algorithm, the same policy
 and the same float32 arithmetic as the torch twin (ops/kernels.py
 ``solve_allocate_step``): the entire loop of dependent iterations runs in
-one launch of one persistent thread block, so an iteration costs a few
-block barriers instead of a host round trip.
+one launch of one persistent thread-block cluster, each CTA a shard of the
+node axis with its node state in shared memory (``solve_geometry``), so an
+iteration costs a sweep and one cluster barrier instead of a host round
+trip.
 
 Layout (the kernel's own; the reference's [R8, N/128, 128] folding exists
 only for the TPU's lane rules and is not kept):
@@ -36,11 +38,15 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch.ops import nvcc
+from kube_batch_tpu_torch.ops.cluster import CTA_WIDTH, ClusterShape, cluster_shape
 from kube_batch_tpu_torch.ops.kernels import SolveState, init_state, solve_allocate_step
 
 R8 = 8  # largest resource rank the kernel takes (cpu, memory, <= 6 scalars)
 MAX_PORTS = 31  # host ports ride an int32 bitmask per node
 _INT32_MAX = np.iinfo(np.int32).max
+SMEM_OPTIN = 232_448  # the most shared memory one H100 CTA may take (227 KB)
+SMEM_STATIC = 4_096  # kept back for the kernel's static shared memory (1,792 B)
+SMEM_BUDGET = SMEM_OPTIN - SMEM_STATIC  # dynamic shared memory per CTA
 
 
 @dataclass(frozen=True)
@@ -145,15 +151,57 @@ def _class_inverse(a: dict):
     return tports, first, inv.reshape(-1)
 
 
+@dataclass(frozen=True)
+class SolveGeometry:
+    """The kernel's cluster and each CTA's dynamic shared memory: the node
+    slice's mutable state, (3R + 2) words per node, and, where it fits
+    beside it, the replicated job, queue and class state (``rep_words``;
+    otherwise that lives in the CTA's slice of a global scratch buffer)."""
+
+    shape: ClusterShape
+    node_words: int
+    rep_words: int
+    rep_in_smem: bool
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * (self.node_words + (self.rep_words if self.rep_in_smem else 0))
+
+
+def _rep_words(J: int, Q: int, C: int, R: int) -> int:
+    """Words of one CTA's replicated state (the kernel's ``rep_layout``):
+    7 int and R + 1 float vectors over jobs, 3 int and 3R int or float
+    over queues, 5 int and 2 x 8 float (request and resource rows padded
+    to R8) over classes."""
+    return J * (8 + R) + Q * (3 + 3 * R) + C * (5 + 2 * R8)
+
+
+def solve_geometry(dims: Dims) -> SolveGeometry:
+    """One cluster of k = ceil(N / 512) CTAs (at most 16) of 512 threads,
+    each owning ceil(N / k) nodes."""
+    shape = cluster_shape(dims.N, threads=CTA_WIDTH)
+    node_words = (3 * dims.R + 2) * shape.slice
+    rep_words = _rep_words(dims.J, dims.Q, dims.C, dims.R)
+    return SolveGeometry(shape, node_words, rep_words, 4 * (node_words + rep_words) <= SMEM_BUDGET)
+
+
 def check_envelope(dims: Dims) -> None:
     """The kernel's limits, from its layout: resource rank <= 8 (per-task
     vectors live in registers), <= 31 distinct host ports (an int32 bitmask
-    per node), and every packed buffer indexable by int32. Raises
-    ValueError naming the limit that does not hold."""
+    per node), each CTA's node slice in its shared memory (at most 16 CTAs
+    of ``SMEM_BUDGET`` bytes), and every packed buffer indexable by int32.
+    Raises ValueError naming the limit that does not hold."""
     if dims.R > R8:
         raise ValueError(f"resource rank {dims.R} exceeds the kernel's limit of {R8}")
     if dims.P > MAX_PORTS:
         raise ValueError(f"{dims.P} host ports exceed the kernel's limit of {MAX_PORTS}")
+    geo = solve_geometry(dims)
+    if 4 * geo.node_words > SMEM_BUDGET:
+        raise ValueError(
+            f"{dims.N} nodes over a cluster of {geo.shape.k} CTAs leave {geo.shape.slice} nodes per CTA, "
+            f"whose state at resource rank {dims.R} needs {4 * geo.node_words} B of shared memory; "
+            f"the kernel's limit is {SMEM_BUDGET} B per CTA"
+        )
     for spec in (dims.istatic(), dims.fstatic(), dims.istate(), dims.fstate()):
         total = _offsets(spec)[1]
         if total > _INT32_MAX:
@@ -386,22 +434,48 @@ _PTR_FIELDS = (
     "idle", "rel", "used", "jalloc", "qalloc",
 )
 _DIM_FIELDS = ("T", "N", "J", "Q", "C", "GT", "R", "max_iter", "drf", "proportion")
+_GEOMETRY_FIELDS = ("k", "S", "smem_bytes", "rep_words", "rep_in_smem")
 
 
 class _Args(ctypes.Structure):
     """Mirror of `struct SolveArgs` in csrc/fused_solve.cu (same order)."""
 
-    _fields_ = [(f, ctypes.c_int) for f in _DIM_FIELDS] + [
-        (f, ctypes.c_void_p) for f in _PTR_FIELDS
-    ]
+    _fields_ = (
+        [(f, ctypes.c_int) for f in _DIM_FIELDS + _GEOMETRY_FIELDS]
+        + [(f, ctypes.c_void_p) for f in _PTR_FIELDS]
+        + [("scratch", ctypes.c_void_p)]
+    )
 
 
 def _bind(lib) -> None:
     lib.kbt_fused_solve.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
     lib.kbt_fused_solve.restype = ctypes.c_int
+    lib.kbt_fused_solve_max_clusters.argtypes = [
+        ctypes.POINTER(_Args), ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    ]
+    lib.kbt_fused_solve_max_clusters.restype = ctypes.c_int
 
 
 _library = nvcc.Library("fused_solve", _bind)
+_fits_card: set[tuple[int, int, int]] = set()  # (device, k, shared bytes) checked
+
+
+def _check_occupancy(index: int, args: _Args) -> None:
+    """Raise unless device ``index`` can hold the solve's cluster (asked
+    once per device, cluster size and shared-memory size)."""
+    key = (index, args.k, args.smem_bytes)
+    if key in _fits_card:
+        return
+    n = ctypes.c_int(0)
+    err = _library.load().kbt_fused_solve_max_clusters(ctypes.byref(args), index, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"fused_solve occupancy query failed: {_library.error(err)}")
+    if n.value < 1:
+        raise RuntimeError(
+            f"cuda:{index} cannot hold a cluster of {args.k} CTAs of {CTA_WIDTH} threads "
+            f"with {args.smem_bytes} B of shared memory each"
+        )
+    _fits_card.add(key)
 
 
 def _check(packed: Packed, state: PackedState) -> str:
@@ -435,11 +509,22 @@ def fused_solve(packed: Packed, state: PackedState) -> PackedState:
         raise ValueError(f"fused_solve runs on cuda or cpu, not {kind}")
     lib = _library.load()
     d = packed.dims
-    args = _Args(**{f: int(getattr(d, f)) for f in _DIM_FIELDS})
+    geo = solve_geometry(d)
+    args = _Args(
+        **{f: int(getattr(d, f)) for f in _DIM_FIELDS},
+        k=geo.shape.k, S=geo.shape.slice, smem_bytes=geo.smem_bytes,
+        rep_words=geo.rep_words, rep_in_smem=int(geo.rep_in_smem),
+    )
     for name, view in {**packed.views(), **state.views()}.items():
         setattr(args, name, view.data_ptr())
     device = packed.istatic.device
     index = torch.cuda.current_device() if device.index is None else device.index
+    if not geo.rep_in_smem:
+        # freed on return: the caching allocator hands it out again only to
+        # work queued on this stream after the kernel
+        scratch = torch.empty(geo.shape.k * geo.rep_words, dtype=torch.int32, device=device)
+        args.scratch = scratch.data_ptr()
+    _check_occupancy(index, args)
     stream = torch.cuda.current_stream(index).cuda_stream
     err = lib.kbt_fused_solve(ctypes.byref(args), index, stream)
     if err != 0:

@@ -30,8 +30,8 @@ NR, LANES, GT = 2, 128, 3
 N = NR * LANES  # nodes per block
 
 
-def make_case(case: str):
-    """(Block, Task) of one case; all quantities float32."""
+def make_case(case: str, N: int = N):
+    """(Block, Task) of one case over N nodes; all quantities float32."""
     rng = np.random.default_rng(_SEEDS[case])
     R = 4 if case in ("has_sc", "releasing_only") else 2
     f32 = np.float32
@@ -203,3 +203,103 @@ def test_kernel_matches_plain_on_card(case):
     torch.cuda.synchronize()
     assert bs.block_step.launches == launches + 1
     assert bs.read_record(out.cpu()) == want
+
+
+# -- blocks wide enough for a cluster of several CTAs -------------------------
+
+WIDE = 1536  # three CTAs of 512 nodes
+
+
+def _pick(block: bs.Block, task: bs.Task, nodes, score_sign=None) -> None:
+    """Make `nodes` the block's only candidates, each with the same node
+    state (that of the first); with `score_sign`, zero allocatable and
+    negative weights make every score -0.0 + affw, with affw = +-0.0."""
+    keep = torch.zeros(block.cnode.shape[1], dtype=torch.bool)
+    keep[nodes] = True
+    block.cnode[:, ~keep] = 0
+    block.cnode[:, keep] = 1
+    block.ntasks[nodes] = 0
+    for x in (block.idle, block.rel, block.used, block.nalloc):
+        x[:, nodes] = x[:, nodes[:1]]
+    block.affw[:, nodes] = 1.0
+    if score_sign is not None:
+        block.nalloc[:] = 0.0
+        task.w_least = task.w_bal = -1.0
+        block.affw[:, nodes] = torch.tensor([0.0 * s for s in score_sign])
+
+
+def wide_case(case: str):
+    """(Block, Task) over WIDE nodes (or past 16 x 512 nodes), built to hit
+    the cluster's slice bounds; see ``BOUNDARY_CASES``."""
+    n = 9000 if case == "strided" else WIDE
+    block, task = make_case("random_0", n)
+    g = bs.block_geometry(n)
+    (lo0, hi0), (lo1, hi1), (lo2, hi2) = g.bounds(n)[:3]
+    if case == "first_of_slice":
+        _pick(block, task, [lo1, lo1 + 1, hi1 - 1])
+    elif case == "last_of_slice":
+        _pick(block, task, [hi0 - 1, lo2 + 5])
+        block.affw[:, hi0 - 1] = 2.0
+    elif case == "tie_across_ctas":
+        _pick(block, task, [lo2 + 7, lo1 + 3])
+    elif case in ("minus_zero_first", "plus_zero_first"):
+        first = -1.0 if case == "minus_zero_first" else 1.0
+        _pick(block, task, [lo1 + 9, lo2 + 1], score_sign=[first, -first])
+    elif case == "no_candidate":
+        block.idle[:] = 0
+        block.rel[:] = 0
+    elif case == "pad_slice":  # the last CTA's slice is all pad nodes
+        lo, hi = g.bounds(n)[-1]
+        block.cnode[:, lo:hi] = 0
+        block.nmax[lo:hi] = 0
+        for x in (block.idle, block.rel, block.used, block.nalloc):
+            x[:, lo:hi] = 0
+    return block, task
+
+
+BOUNDARY_CASES = [
+    "first_of_slice", "last_of_slice", "tie_across_ctas", "minus_zero_first", "plus_zero_first",
+    "no_candidate", "pad_slice", "strided",
+]
+# the winner each case is built for (None: whatever the random block gives)
+_WINNER = {
+    "first_of_slice": lambda g: g.bounds(WIDE)[1][0],
+    "last_of_slice": lambda g: g.bounds(WIDE)[0][1] - 1,
+    "tie_across_ctas": lambda g: g.bounds(WIDE)[1][0] + 3,
+    "minus_zero_first": lambda g: g.bounds(WIDE)[1][0] + 9,
+    "plus_zero_first": lambda g: g.bounds(WIDE)[1][0] + 9,
+    "no_candidate": lambda g: WIDE,
+}
+
+
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+def test_boundary_cases_reach_their_winner(case):
+    """On the CPU: each wide case's plain result is the one it is built for."""
+    block, task = wide_case(case)
+    g = bs.block_geometry(block.cnode.shape[1])
+    assert g.k >= 3
+    score, idx, fits = bs.block_step_plain(block, task)
+    if case in _WINNER:
+        assert idx == _WINNER[case](g)
+    if case.endswith("zero_first"):
+        assert score == 0.0
+    if case == "strided":
+        assert g.slice > g.threads and score > float("-inf")
+    if case == "pad_slice":
+        assert idx < g.bounds(WIDE)[-1][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+def test_kernel_matches_plain_across_cluster_slices(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    block, task = wide_case(case)
+    want = bs.block_step_plain(block, task)
+    dev = bs.Block(**{
+        k: (v.cuda() if isinstance(v, torch.Tensor) else v) for k, v in block.__dict__.items()
+    })
+    got = bs.read_record(bs.block_step(dev, task).cpu())
+    assert got == want
+    if case.endswith("zero_first"):  # the winner's own score, sign and all
+        assert np.signbit(got[0]) == (case == "minus_zero_first")
