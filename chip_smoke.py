@@ -27,9 +27,11 @@
    four blocks (non-zero offsets), ``multi_tenant_ml(200, 500)`` (scalar
    resources) with host-port collisions, and a block with no candidate;
    times one call at each block width the main path launches (5,120,
-   1,280 and 256 nodes): the time per call of back-to-back launches (CUDA
-   events) here, and the kernel's own time from the profiler's device
-   trace after every main path has run (so the profiler cannot slow them);
+   1,280 and 256 nodes): ``ms`` is the time per call of back-to-back
+   launches from Python (CUDA events), as in every earlier run, and
+   ``device_ms`` the kernel's own time per launch from the profiler's
+   device trace, taken after every main path has run (so the profiler
+   cannot slow them), null where the trace holds none;
 5. drives the entry point on each of its two device rungs, with the launch
    counters zeroed just before each path and read just after:
    - the fused rung, ``allocate(..., device="cuda")``, on
@@ -313,13 +315,14 @@ def kernel_device_ms(fn, calls: int, name: str) -> float | None:
 def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
     """B2 on the card against its plain version on the CPU, on the same
     block and task; raises on any difference. With ``timed``: the time
-    per call of back-to-back launches from CUDA events (``call_ms``,
-    which holds the host's cost of each launch too), the plain version's
-    from the host clock, the roofline bound, and the prepared step under
+    per call of back-to-back launches from CUDA events (``ms``, which
+    holds the host's cost of each launch too), the plain version's from
+    the host clock, the roofline bound, and the prepared step under
     ``"step"`` for ``time_b2_kernel``."""
     import torch
 
     from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops.cluster import cluster_shape
 
     host = bs.Block(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in block.__dict__.items()})
     out = torch.zeros(bs.RECORD, dtype=torch.int32, device=block.idle.device)
@@ -331,7 +334,7 @@ def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     if got != want:
         raise AssertionError(f"{name}: block step kernel {got} != plain {want}")
-    rec = {"case": name, "N": block.cnode.shape[1], "k": bs.block_geometry(block.cnode.shape[1]).k,
+    rec = {"case": name, "N": block.cnode.shape[1], "k": cluster_shape(block.cnode.shape[1]).k,
            "off": block.off, "gid": task.gid,
            "score": got[0], "index": got[1], "fits_idle": got[2], "max_abs_err": 0.0}
     if timed:
@@ -343,7 +346,7 @@ def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
             step(task)
         end.record()
         torch.cuda.synchronize()
-        call_ms = start.elapsed_time(end) / B2_TIMED_CALLS
+        ms = start.elapsed_time(end) / B2_TIMED_CALLS
         t0 = time.perf_counter()
         for _ in range(5):
             bs.block_step_plain(host, task)
@@ -353,7 +356,7 @@ def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
         t_bytes = work["bytes"] / H100_HBM_BYTES_PER_S * 1e3
         t_ops = ops / H100_FP32_OPS_PER_S * 1e3
         rec.update({
-            "step": (step, task), "call_ms": call_ms, "plain_ms": plain_ms, **work, "ops": ops,
+            "step": (step, task), "ms": ms, "plain_ms": plain_ms, **work, "ops": ops,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         })
     rec["plain_ms"] = plain_ms
@@ -362,22 +365,20 @@ def block_vs_plain(name: str, block, task, timed: bool = False) -> dict:
 
 
 def time_b2_kernel(rec: dict) -> None:
-    """Set ``ms`` of a timed B2 record: the kernel's device time per launch
-    from the profiler's trace, or, where the trace has none, the time per
-    call (``ms_source`` says which)."""
+    """Set ``device_ms`` of a timed B2 record: the kernel's device time per
+    launch from the profiler's trace (None where the trace has none)."""
     from kube_batch_tpu_torch.ops import block_step as bs
 
     step, task = rec.pop("step")
     launches = bs.block_step.launches
     kernel_ms = kernel_device_ms(lambda: step(task), B2_TIMED_CALLS, "block_step_kernel")
     bs.block_step.launches = launches  # timing launches are not the main path's
-    rec["ms"] = rec["call_ms"] if kernel_ms is None else kernel_ms
-    rec["ms_source"] = "events" if kernel_ms is None else "profiler"
+    rec["device_ms"] = kernel_ms
 
 
 def b2_comparisons(arrays_5k, arrays_1k, arrays_ml) -> list[dict]:
     """B2 against its plain version on every listed input (see the module
-    docstring, step 4). Returns the records; the timed ones (``call_ms``
+    docstring, step 4). Returns the records; the timed ones (``step``
     set) are the main path's blocks at their entry state: 50k x 5k's
     5,120-node block (one shard) and 1,280-node blocks (four), and
     50k x 1k's 256-node blocks (four)."""
@@ -580,7 +581,7 @@ def main(argv: list[str]) -> int:
     # -- B2 against its plain version ----------------------------------------
     b2 = b2_comparisons(arrays["preempt_mix_50k_5k"], arrays["preempt_mix_50k_1k"],
                         encoded_arrays(models.multi_tenant_ml(200, 500)))
-    b2_timed = {r["N"]: r for r in b2 if "call_ms" in r}
+    b2_timed = {r["N"]: r for r in b2 if "step" in r}
     emit({"phase": "block_vs_plain", "inputs": len(b2), "bit_equal": True})
     b2_head = b2_timed[max(b2_timed)]
 
@@ -713,10 +714,9 @@ def main(argv: list[str]) -> int:
             "library_ms": None,
             "world": "preempt_mix_50k_5k, one 5,120-node block, entry state",
             "k": b2_head["k"],
-            "ms_source": b2_head["ms_source"],
-            "call_ms": b2_head["call_ms"],
+            "device_ms": b2_head["device_ms"],
             "widths": [
-                {key: r[key] for key in ("N", "k", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bytes")}
+                {key: r[key] for key in ("N", "k", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes")}
                 for _, r in sorted(b2_timed.items(), reverse=True)
             ],
         },

@@ -24,8 +24,8 @@
 // iteration.
 //
 // What the design does about it: one launch of a thread-block cluster of
-// k CTAs (ops/block_step.py block_geometry: k = ceil(N / 512), at most
-// 16), each CTA owning a contiguous slice of the block with one node per
+// k CTAs (ops/cluster.py cluster_shape: k = ceil(N / 512), at most 16),
+// each CTA owning a contiguous slice of the block with one node per
 // thread (a strided walk only past 16 x 512 nodes). A thread issues all
 // of its node's loads at once and computes the fits-idle bit from the idle
 // values it loaded, so nothing is loaded after the arg-max. Each CTA
@@ -62,7 +62,7 @@ struct TaskFields {
 // Mirror of ops/block_step.py::_Args (same field order).
 struct BlockArgs {
   int N, R, off, sent;
-  int k, threads, slice, pad0;  // the cluster's geometry (block_geometry)
+  int k, threads, slice, pad0;  // the cluster's geometry (cluster_shape)
   TaskFields task;
   const int *cnode, *nmax, *nihs, *nrhs;  // cnode [GT, N]
   const float *affw, *nalloc;             // affw [GT, N], nalloc [2, N]

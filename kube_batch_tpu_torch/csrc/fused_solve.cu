@@ -105,7 +105,9 @@ struct SolveArgs {
 // total is ops/fused_solve.py _rep_words): int jptr, jready, jactive,
 // jend, jmin, jprio, jqueue [J]; qdropped, qcount, qahs [Q]; qdim [R, Q];
 // cgid, chs, crhs, cho, cpt [C]; float jshare [J], jalloc [R, J]; qalloc,
-// qdes [R, Q]; creq, cres [C, R8]. jshare is each job's drf share, kept
+// qdes [R, Q]; creq, cres [C, R8]; `end` is one past the region (the
+// kernel checks it against SolveArgs.rep_words, and a CPU test parses this
+// function against _rep_words). jshare is each job's drf share, kept
 // up to date as jalloc changes (one job per assignment), so a job
 // selection reads it instead of dividing for every job. A class's R8
 // request (and resource) values lie in a row, 0 past R, so the pop reads
@@ -115,6 +117,7 @@ struct Rep {
   int *qdropped, *qcount, *qahs, *qdim;
   int *cgid, *chs, *crhs, *cho, *cpt;
   float *jshare, *jalloc, *qalloc, *qdes, *creq, *cres;
+  int* end;
 };
 
 __device__ __forceinline__ Rep rep_layout(int* w, int J, int Q, int C, int R) {
@@ -141,7 +144,8 @@ __device__ __forceinline__ Rep rep_layout(int* w, int J, int Q, int C, int R) {
   p.qalloc = f; f += R * Q;
   p.qdes = f; f += R * Q;
   p.creq = f; f += C * R8;
-  p.cres = f;
+  p.cres = f; f += C * R8;
+  p.end = reinterpret_cast<int*>(f);
   return p;
 }
 
@@ -252,6 +256,12 @@ __global__ void __launch_bounds__(NT, 1) fused_solve_kernel(const SolveArgs a) {
   // -- the CTA's copy of the replicated state ---------------------------
   int* rep_base = kRepInSmem ? s_nports + S : a.scratch + (size_t)rank * a.rep_words;
   const Rep rep = rep_layout(rep_base, J, Q, C, R);
+  // the layout's extent against the sizes the launch was given
+  // (solve_geometry): a mismatch would overrun shared memory or the
+  // scratch slice, so it stops the kernel instead
+  if (rep.end - rep_base != a.rep_words ||
+      (s_nports + S - smem) + (kRepInSmem ? a.rep_words : 0) != a.smem_bytes / 4)
+    __trap();
   copy_words(rep.jptr, a.jptr, J);
   copy_words(rep.jready, a.jready, J);
   copy_words(rep.jactive, a.jactive, J);
@@ -530,7 +540,7 @@ int kbt_fused_solve(const SolveArgs* args, int device, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// How many of the solve's clusters (args->k CTAs of 1,024 threads with
+// How many of the solve's clusters (args->k CTAs of NT threads with
 // args->smem_bytes of dynamic shared memory each) `device` can hold at
 // once, into *out; returns the first failing call's cudaError_t.
 int kbt_fused_solve_max_clusters(const SolveArgs* args, int device, int* out) {

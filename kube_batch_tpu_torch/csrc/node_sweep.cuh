@@ -210,6 +210,12 @@ __device__ __forceinline__ Best cluster_max_best(Best b, Best (*scratch)[32], Be
     if (lane < (int)k) *cluster.map_shared_rank(&slot[rank], lane) = b;
     cluster_arrive_release();
   } else {
+    // Relaxed: these warps wrote nothing a peer reads. What a peer's next
+    // write to `slot` (two calls on) must follow is their read of it
+    // below; that write comes after this warp's next arrive, which the
+    // warp reaches only once the read's value has fed warp_max_best. The
+    // order rests on that data dependence in program order, not on a
+    // release in the PTX memory model.
     cluster_arrive_relaxed();
   }
   cluster_wait();

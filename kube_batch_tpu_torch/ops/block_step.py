@@ -21,7 +21,8 @@ block's offset, or the sentinel), the fits-idle bit, and 0.
 ``block_step(block, task, out)`` (or a prepared ``BlockStep``) launches
 the kernel when the block lies on a CUDA device and runs
 ``block_step_plain`` when it lies on the CPU. A launch is one thread-block
-cluster over the block, one node per thread (``block_geometry``).
+cluster over the block, one node per thread (``ops/cluster.py``
+``cluster_shape``).
 """
 
 from __future__ import annotations
@@ -159,15 +160,7 @@ def read_record(rec: torch.Tensor) -> tuple[float, int, int]:
     return float(rec[0:1].view(torch.float32)), int(rec[1]), int(rec[2])
 
 
-# -- the CUDA kernel: geometry, bind, launch --------------------------------
-
-
-def block_geometry(n: int) -> ClusterShape:
-    """The kernel's cluster over an n-node block: k = ceil(n / 512) CTAs
-    (at most 16), each a contiguous slice of ceil(n / k) nodes with one
-    thread per node, rounded up to whole warps."""
-    return cluster_shape(n)
-
+# -- the CUDA kernel: bind, launch -------------------------------------------
 
 _PTR_FIELDS = (
     "cnode", "nmax", "nihs", "nrhs", "affw", "nalloc", "idle", "rel", "used", "ntasks", "nports", "out",
@@ -243,7 +236,7 @@ class BlockStep:
             self._lib = _library.load()
             N = block.cnode.shape[1]
             self._index = torch.cuda.current_device() if device.index is None else device.index
-            shape = block_geometry(N)
+            shape = cluster_shape(N)
             _check_occupancy(self._index, shape)
             args = _Args(N=N, R=block.idle.shape[0], off=block.off, sent=block.sent,
                          k=shape.k, threads=shape.threads, slice=shape.slice)

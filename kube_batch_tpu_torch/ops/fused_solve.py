@@ -178,30 +178,33 @@ def _rep_words(J: int, Q: int, C: int, R: int) -> int:
 
 def solve_geometry(dims: Dims) -> SolveGeometry:
     """One cluster of k = ceil(N / 512) CTAs (at most 16) of 512 threads,
-    each owning ceil(N / k) nodes."""
+    each owning ceil(N / k) nodes. Raises ValueError when a CTA's node
+    slice does not fit its shared memory (``SMEM_BUDGET``): the kernel's
+    own limit, which neither plain version nor the block step shares, so
+    only the kernel's launch asks for it."""
     shape = cluster_shape(dims.N, threads=CTA_WIDTH)
     node_words = (3 * dims.R + 2) * shape.slice
+    if 4 * node_words > SMEM_BUDGET:
+        raise ValueError(
+            f"{dims.N} nodes over a cluster of {shape.k} CTAs leave {shape.slice} nodes per CTA, "
+            f"whose state at resource rank {dims.R} needs {4 * node_words} B of shared memory; "
+            f"the fused-solve kernel's limit is {SMEM_BUDGET} B per CTA"
+        )
     rep_words = _rep_words(dims.J, dims.Q, dims.C, dims.R)
     return SolveGeometry(shape, node_words, rep_words, 4 * (node_words + rep_words) <= SMEM_BUDGET)
 
 
 def check_envelope(dims: Dims) -> None:
-    """The kernel's limits, from its layout: resource rank <= 8 (per-task
-    vectors live in registers), <= 31 distinct host ports (an int32 bitmask
-    per node), each CTA's node slice in its shared memory (at most 16 CTAs
-    of ``SMEM_BUDGET`` bytes), and every packed buffer indexable by int32.
-    Raises ValueError naming the limit that does not hold."""
+    """The packed layout's limits, which the kernels and their plain
+    versions share: resource rank <= 8 (per-task vectors live in
+    registers), <= 31 distinct host ports (an int32 bitmask per node), and
+    every packed buffer indexable by int32. Raises ValueError naming the
+    limit that does not hold. The fused-solve kernel's shared-memory limit
+    is ``solve_geometry``'s."""
     if dims.R > R8:
         raise ValueError(f"resource rank {dims.R} exceeds the kernel's limit of {R8}")
     if dims.P > MAX_PORTS:
         raise ValueError(f"{dims.P} host ports exceed the kernel's limit of {MAX_PORTS}")
-    geo = solve_geometry(dims)
-    if 4 * geo.node_words > SMEM_BUDGET:
-        raise ValueError(
-            f"{dims.N} nodes over a cluster of {geo.shape.k} CTAs leave {geo.shape.slice} nodes per CTA, "
-            f"whose state at resource rank {dims.R} needs {4 * geo.node_words} B of shared memory; "
-            f"the kernel's limit is {SMEM_BUDGET} B per CTA"
-        )
     for spec in (dims.istatic(), dims.fstatic(), dims.istate(), dims.fstate()):
         total = _offsets(spec)[1]
         if total > _INT32_MAX:
@@ -558,6 +561,8 @@ class FusedSolver:
         self.device = torch.device("cuda" if device is None else device)
         self._pod_sc = a["pod_sc"]  # identity marker for refresh
         self.packed = pack(a, enable_drf, enable_proportion).to(self.device)
+        if self.device.type == "cuda":
+            solve_geometry(self.packed.dims)  # the kernel's shared-memory limit
         self.timings: dict[str, float] = {}  # seconds per phase of the last solve
 
     def solve(self, state: SolveState | None = None) -> SolveState:

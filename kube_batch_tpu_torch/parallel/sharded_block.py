@@ -148,8 +148,9 @@ class ShardedBlockSolver:
         self.P = n["task_ports"].shape[1]
         J, Q = n["job_min"].shape[0], n["queue_rank"].shape[0]
         self.max_iter = T + J + Q + 1 + int(n["task_host_only"].sum())
-        # the kernels' envelope at one shard's size (every shard has it);
-        # the block step reads no class table
+        # the packed layout's envelope at one shard's size (every shard has
+        # it); the block step reads no class table and keeps no node state
+        # in shared memory, so the fused-solve kernel's limit is not its
         fs.check_envelope(fs.Dims(
             T=T, N=self.n_loc, J=J, Q=Q, C=1, GT=GT, R=R, P=self.P, max_iter=self.max_iter,
             drf=bool(enable_drf), proportion=bool(enable_proportion),

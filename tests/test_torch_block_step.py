@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from kube_batch_tpu_torch.ops import block_step as bs
+from kube_batch_tpu_torch.ops.cluster import cluster_shape
 
 NR, LANES, GT = 2, 128, 3
 N = NR * LANES  # nodes per block
@@ -233,7 +234,7 @@ def wide_case(case: str):
     the cluster's slice bounds; see ``BOUNDARY_CASES``."""
     n = 9000 if case == "strided" else WIDE
     block, task = make_case("random_0", n)
-    g = bs.block_geometry(n)
+    g = cluster_shape(n)
     (lo0, hi0), (lo1, hi1), (lo2, hi2) = g.bounds(n)[:3]
     if case == "first_of_slice":
         _pick(block, task, [lo1, lo1 + 1, hi1 - 1])
@@ -276,7 +277,7 @@ _WINNER = {
 def test_boundary_cases_reach_their_winner(case):
     """On the CPU: each wide case's plain result is the one it is built for."""
     block, task = wide_case(case)
-    g = bs.block_geometry(block.cnode.shape[1])
+    g = cluster_shape(block.cnode.shape[1])
     assert g.k >= 3
     score, idx, fits = bs.block_step_plain(block, task)
     if case in _WINNER:

@@ -28,7 +28,7 @@ def dims(N: int, R: int = 2, J: int = 2048, Q: int = 1, C: int = 4) -> fs.Dims:
 
 @pytest.mark.parametrize("N", SIZES)
 def test_block_geometry(N):
-    g = bs.block_geometry(N)
+    g = cluster_shape(N)
     assert g.k == min(MAX_CLUSTER, -(-N // CTA_WIDTH))
     assert g.slice == -(-N // g.k)
     assert g.threads % 32 == 0 and g.threads <= CTA_WIDTH
@@ -44,7 +44,7 @@ def test_block_geometry(N):
 @pytest.mark.parametrize("N", SIZES)
 def test_solve_geometry(N):
     g = fs.solve_geometry(dims(N))
-    assert (g.shape.k, g.shape.slice) == (bs.block_geometry(N).k, bs.block_geometry(N).slice)
+    assert (g.shape.k, g.shape.slice) == (cluster_shape(N).k, cluster_shape(N).slice)
     assert g.shape.threads == CTA_WIDTH
     assert g.node_words == (3 * 2 + 2) * g.shape.slice
     assert g.rep_words == 2048 * (8 + 2) + 1 * (3 + 3 * 2) + 4 * (5 + 2 * 8)
@@ -64,12 +64,51 @@ def test_replicated_state_moves_to_global_scratch_when_it_does_not_fit():
 def test_envelope_names_the_shared_memory_limit():
     # 16 CTAs of 8,192 nodes at R = 8: 104 B per node is 851,968 B per CTA
     with pytest.raises(ValueError, match="shared memory"):
-        fs.check_envelope(dims(16 * 8192, R=8))
+        fs.solve_geometry(dims(16 * 8192, R=8))
     # the largest node axis at R = 2 that fits: 32 B per node
     per_cta = fs.SMEM_BUDGET // 32
-    fs.check_envelope(dims(MAX_CLUSTER * per_cta))
+    fs.solve_geometry(dims(MAX_CLUSTER * per_cta))
     with pytest.raises(ValueError, match="shared memory"):
-        fs.check_envelope(dims(MAX_CLUSTER * (per_cta + 1)))
+        fs.solve_geometry(dims(MAX_CLUSTER * (per_cta + 1)))
+    # the limit is the fused-solve kernel's alone: the packed layout (the
+    # plain versions, the block step) takes the same dims
+    fs.check_envelope(dims(16 * 8192, R=8))
+    fs.check_envelope(dims(MAX_CLUSTER * (per_cta + 1)))
+
+
+def test_world_past_the_kernels_shared_memory_still_solves_on_the_cpu():
+    """A world whose node slices overflow B1's shared memory packs and
+    solves through both plain paths (the fused rung's and the sharded
+    rung's, which launch no fused-solve kernel); only the kernel's launch
+    geometry refuses it."""
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.parallel import make_mesh
+    from kube_batch_tpu_torch.solve import allocate, solver_arrays
+
+    n_nodes = MAX_CLUSTER * (fs.SMEM_BUDGET // 32) + 1  # R = 2: 32 B per node
+    cluster = models.synthetic(40, n_nodes, tasks_per_job=4)
+    fused = allocate(cluster, device="cpu")
+    sharded = allocate(cluster, mesh=make_mesh(devices=["cpu"] * 2))
+    assert fused.encoded.n_nodes == n_nodes
+    assert len(fused.binds) == 40
+    assert (sharded.binds, sharded.pipelined) == (fused.binds, fused.pipelined)
+    dims = fs.pack(solver_arrays(cluster)[1], True, True).dims
+    with pytest.raises(ValueError, match="shared memory"):
+        fs.solve_geometry(dims)
+
+
+@pytest.mark.parametrize("J, Q, C, R", [(2048, 1, 4, 2), (37, 5, 9, 8), (1, 1, 1, 1), (6000, 3, 2, 4)])
+def test_replicated_layout_matches_the_kernels(J, Q, C, R):
+    """``_rep_words`` sizes each CTA's replicated region; the kernel lays
+    it out in ``rep_layout`` (and traps on a launch whose sizes disagree).
+    The sum of the source's strides must equal it."""
+    with open(f"{nvcc.CSRC_DIR}/fused_solve.cu") as f:
+        text = f.read()
+    body = re.search(r"Rep rep_layout\(.*?\{(.*?)\n\}", text, re.S).group(1)
+    strides = re.findall(r"\b[wf] \+= ([^;]+);", body)
+    assert len(strides) == 22  # one per array of the Rep struct
+    env = {"J": J, "Q": Q, "C": C, "R": R, "R8": fs.R8}
+    assert sum(eval(e, {}, env) for e in strides) == fs._rep_words(J, Q, C, R)
 
 
 def test_empty_axis_counts_as_one_node():
