@@ -48,7 +48,28 @@
 6. runs the per-iteration exchange and the K-deep batched exchange
    (``preempt_mix(2000, 40, seed=1)``, four shards, K = 1 and K = 4),
    each timed and held against the fused rung;
-7. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+7. drives the scheduling cycle, ``Scheduler(FakeCache(world),
+   conf).run_once()`` with ``examples/scheduler-conf-torch.yaml``, the
+   counters zeroed just before each cycle and read just after:
+   - ``scheduler_fused``: ``preempt_mix(50_000, 5_000)`` on the fused
+     rung, one B1 launch, binds equal to ``allocate``'s (step 5);
+   - ``scheduler_sharded``: ``preempt_mix(50_000, 1_000)`` with
+     ``mesh: cuda:4`` (four shards on the one card), as many B2 launches
+     as ``allocate`` made on that mesh, binds equal to the fused rung's;
+   - ``scheduler_affinity``: ``preempt_mix(10_000, 1_000)`` with 36 pods
+     carrying required pod (anti-)affinity terms, on both rungs: host
+     steps (each a pause, a serial step of the task, a resume), the same
+     count, binds and final SolveState on both;
+   each prints ``run_once``'s wall clock and its split (snapshot, plugins,
+   the JobValid gate, the action's own split, backfill, close);
+   - ``size_floor`` (a measurement, not a main path): ``run_once`` with
+     the serial allocate against the fused rung on six small
+     ``preempt_mix`` worlds (100 to 102,400 pending tasks x nodes), three
+     cycles each, equal binds, and the example conf as it is on each, which
+     must run serially exactly below torch_allocate's size floor;
+   a failed cycle phase does not stop the others; the script then exits
+   non-zero;
+8. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -96,7 +117,10 @@ H100_FP32_OPS_PER_S = 67e12 / 2
 FIT_OPS_PER_DIM = 4
 SCORE_OPS_PER_NODE = 29
 B2_TIMED_CALLS = 200  # block-step launches per timing
-CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py"]
+CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py", "tests/test_torch_cycle_card.py"]
+AFFINITY_PODS = 36  # pods of scheduler_affinity's world with required pod (anti-)affinity
+# size_floor's preempt_mix(pods, nodes) worlds: 100 to 102,400 pending x nodes
+FLOOR_WORLDS = ((25, 4), (50, 8), (100, 16), (200, 32), (400, 64), (800, 128))
 
 
 def emit(obj: dict) -> None:
@@ -449,6 +473,219 @@ def same_state(name: str, want, got) -> None:
             raise AssertionError(f"{name}: SolveState.{f} differs from the fused rung's")
 
 
+def affinity_world():
+    """``preempt_mix(10_000, 1_000)`` with the first task of every tenth
+    job (36 jobs) labelled ``app: spread-<k % 3>``: three of every four
+    repel their own label on the host (required anti-affinity), the fourth
+    is drawn to the previous label (required affinity). Each of them is
+    stepped on the host when it reaches the head of its job."""
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.apis.types import Affinity, PodAffinityTerm
+
+    cluster = models.preempt_mix(10_000, 1_000)
+    jobs = sorted((j for j in cluster.jobs.values() if j.name.startswith("job-")), key=lambda j: j.uid)
+    for k, job in enumerate(jobs[::10][:AFFINITY_PODS]):
+        pod = min(job.tasks.values(), key=lambda t: t.uid).pod
+        pod.metadata.labels = {"app": f"spread-{k % 3}"}
+        if k % 4 == 3:
+            pod.affinity = Affinity(pod_affinity_required=[PodAffinityTerm(label_selector={"app": f"spread-{(k - 1) % 3}"})])
+        else:
+            pod.affinity = Affinity(pod_anti_affinity_required=[PodAffinityTerm(label_selector={"app": f"spread-{k % 3}"})])
+    return cluster
+
+
+def conf_file(mesh: str | None = None, actions: str | None = None, **args) -> str:
+    """examples/scheduler-conf-torch.yaml, with ``actions`` in place of its
+    pipeline and ``mesh`` and torch_allocate's other ``args`` set when
+    given (written beside the kernels' build, inside the checkout)."""
+    import zlib
+
+    from kube_batch_tpu_torch.ops import nvcc
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "examples", "scheduler-conf-torch.yaml")
+    if mesh is not None:
+        args = {"mesh": mesh, **args}
+    if actions is None and not args:
+        return path
+    with open(path) as f:
+        text = f.read()
+    if actions is not None:
+        text = text.replace('"torch_allocate, backfill"', f'"{actions}"')
+    if args:
+        text += "actionArguments:\n  torch_allocate:\n" + "".join(f"    {k}: {v}\n" for k, v in args.items())
+    os.makedirs(nvcc.BUILD_DIR, exist_ok=True)
+    out = os.path.join(nvcc.BUILD_DIR, f"scheduler-conf-torch-{zlib.crc32(text.encode()):08x}.yaml")
+    with open(out, "w") as f:
+        f.write(text)
+    return out
+
+
+def size_floor() -> dict:
+    """The serial allocate against the fused rung, ``run_once`` for
+    ``run_once``, over small ``preempt_mix`` worlds around torch_allocate's
+    size floor (pending tasks x nodes below which it runs serially): three
+    cycles per arm and world, each over a fresh world, equal binds. Then
+    one cycle per world with the example conf as it is, which must route
+    serially exactly below ``DEFAULT_MIN_DEVICE_PAIRS`` and solve on the
+    fused rung from it up."""
+    import torch
+
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.actions.torch_allocate import DEFAULT_MIN_DEVICE_PAIRS
+    from kube_batch_tpu_torch.api.types import TaskStatus
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    arms = {"serial": conf_file(actions="allocate, backfill"), "fused": conf_file(min_device_pairs=0),
+            "default": conf_file()}
+
+    def cycle(arm, pods, nodes):
+        cache = FakeCache(models.preempt_mix(pods, nodes))
+        sched = Scheduler(cache, arms[arm])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        act = sched.actions[0]
+        tier = act.last_solver_tier if act.name == "torch_allocate" else "serial"
+        return time.perf_counter() - t0, tier, dict(cache.binder.binds)
+
+    rows = []
+    for pods, nodes in FLOOR_WORLDS:
+        world = models.preempt_mix(pods, nodes)
+        pairs = sum(len(j.task_status_index.get(TaskStatus.PENDING, {})) for j in world.jobs.values()) * nodes
+        times = {"serial": [], "fused": []}
+        for _ in range(3):
+            for arm in times:
+                s, tier, binds = cycle(arm, pods, nodes)
+                if tier != arm:
+                    raise AssertionError(f"preempt_mix({pods}, {nodes}) on the {arm} arm solved by {tier!r}")
+                if arm == "serial":
+                    want = binds
+                elif binds != want:
+                    raise AssertionError(f"preempt_mix({pods}, {nodes}): the fused rung's binds differ from serial's")
+                times[arm].append(s)
+        s, tier, binds = cycle("default", pods, nodes)
+        expect = "serial" if pairs < DEFAULT_MIN_DEVICE_PAIRS else "fused"
+        if tier != expect or binds != want:
+            raise AssertionError(f"preempt_mix({pods}, {nodes}), {pairs} pairs: the default conf solved on the "
+                                 f"{tier!r} rung, expected {expect!r} below a floor of {DEFAULT_MIN_DEVICE_PAIRS}")
+        rows.append({"pods": pods, "nodes": nodes, "pairs": pairs, "binds": len(want),
+                     "serial_s": statistics.median(times["serial"]), "fused_s": statistics.median(times["fused"]),
+                     "serial_runs_s": times["serial"], "fused_runs_s": times["fused"], "default_tier": tier,
+                     "default_s": s})
+    serial_wins = [r["pairs"] for r in rows if r["serial_s"] <= r["fused_s"]]
+    return {"phase": "size_floor", "min_device_pairs": DEFAULT_MIN_DEVICE_PAIRS, "worlds": rows,
+            "serial_wins_up_to_pairs": max(serial_wins, default=0),
+            "fused_wins_from_pairs": min((r["pairs"] for r in rows if r["pairs"] > max(serial_wins, default=0)),
+                                         default=None)}
+
+
+def scheduler_cycle(phase: str, cluster, mesh: str | None, tier: str) -> tuple[dict, object, object]:
+    """One ``run_once`` over ``FakeCache(cluster)``, the launch counters
+    zeroed just before and read just after. Returns the phase record, the
+    cache and the action."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    cache = FakeCache(cluster)
+    sched = Scheduler(cache, conf_file(mesh))
+    torch.cuda.synchronize()
+    fs.fused_solve.launches = bs.block_step.launches = 0
+    t0 = time.perf_counter()
+    sched.run_once()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    b1, b2 = fs.fused_solve.launches, bs.block_step.launches
+    act = sched.actions[0]
+    if act.name != "torch_allocate" or act.last_solver_tier != tier:
+        raise AssertionError(f"{phase}: solved by {act.name} on the {act.last_solver_tier!r} rung, not {tier!r}")
+    if "aborted" in sched.last_timings:
+        raise AssertionError(f"{phase}: the cycle aborted: {sched.last_timings['aborted']}")
+    rec = {
+        "phase": phase, "mesh": mesh or "off", "tier": act.last_solver_tier, "run_once_s": wall_s,
+        "cycle": dict(sched.last_timings), "torch_allocate": dict(act.last_timings),
+        "b1_launches": b1, "b2_launches": b2, **({"counts": act.last_counts} if act.last_counts else {}),
+        "binds": len(cache.binder.binds),
+    }
+    return rec, cache, act
+
+
+def cycle_phases(clusters: dict, results: dict, mesh_launches: dict) -> tuple[list[str], dict]:
+    """The three scheduling-cycle phases (module docstring, step 7). Each
+    runs whatever the others did; returns the failures and the launches
+    of each phase's main path."""
+    failures, launches = [], {}
+
+    def run(name, fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 - every phase runs; the script fails at the end
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            print(f"chip_smoke: {name} failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+
+    def fused():
+        rec, cache, _ = scheduler_cycle("scheduler_fused", clusters["preempt_mix_50k_5k"], None, "fused")
+        launches["scheduler_fused"] = (rec["b1_launches"], rec["b2_launches"])
+        if (rec["b1_launches"], rec["b2_launches"]) != (1, 0):
+            raise AssertionError(f"{rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches; expected 1 and 0")
+        if cache.binder.binds != results["preempt_mix_50k_5k"].binds:
+            raise AssertionError("the cycle's binds differ from allocate()'s on the fused rung")
+        emit({**rec, "equal_to_allocate": True})
+
+    def sharded():
+        rec, cache, _ = scheduler_cycle("scheduler_sharded", clusters["preempt_mix_50k_1k"], "cuda:4", "sharded")
+        launches["scheduler_sharded"] = (rec["b1_launches"], rec["b2_launches"])
+        want = mesh_launches[("preempt_mix_50k_1k", 4)]
+        if (rec["b1_launches"], rec["b2_launches"]) != (0, want):
+            raise AssertionError(f"{rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches; expected 0 and {want}")
+        if cache.binder.binds != results["preempt_mix_50k_1k"].binds:
+            raise AssertionError("the cycle's binds differ from the fused rung's")
+        emit({**rec, "equal_to_fused": True})
+
+    ends = {}
+
+    def affinity(label, mesh, tier):
+        def go():
+            rec, cache, act = scheduler_cycle(f"scheduler_affinity_{label}", affinity_world(), mesh, tier)
+            launches[f"scheduler_affinity_{label}"] = (rec["b1_launches"], rec["b2_launches"])
+            steps = act.last_timings["host_steps"]
+            if steps < 1:
+                raise AssertionError("no host step: no affinity task reached the head of its job")
+            if tier == "fused" and rec["b1_launches"] != steps + 1:
+                raise AssertionError(f"{rec['b1_launches']} B1 launches for {steps} host steps")
+            if tier == "sharded" and rec["b2_launches"] != 4 * act.last_counts["placing_iterations"]:
+                raise AssertionError(f"{rec['b2_launches']} B2 launches for {act.last_counts} on four shards")
+            ends[label] = (steps, dict(cache.binder.binds), act.last_state)
+            emit({**rec, "host_steps": steps, "affinity_pods": AFFINITY_PODS})
+        return go
+
+    run("scheduler_fused", fused)
+    run("scheduler_sharded", sharded)
+    run("scheduler_affinity_fused", affinity("fused", None, "fused"))
+    run("scheduler_affinity_sharded", affinity("sharded", "cuda:4", "sharded"))
+
+    def compare():
+        if set(ends) != {"fused", "sharded"}:
+            raise AssertionError("a rung of scheduler_affinity failed; nothing to compare")
+        (fs_, fb, fst), (ss_, sb, sst) = ends["fused"], ends["sharded"]
+        if fs_ != ss_:
+            raise AssertionError(f"{fs_} host steps on the fused rung, {ss_} on the sharded rung")
+        if fb != sb:
+            raise AssertionError("the rungs' binds differ")
+        same_state("scheduler_affinity sharded", fst, sst)
+        emit({"phase": "scheduler_affinity", "host_steps": fs_, "binds": len(fb), "rungs_equal": True})
+
+    run("scheduler_affinity", compare)
+    run("size_floor", lambda: emit(size_floor()))
+    return failures, launches
+
+
 def distinct_cards(card: str) -> int:
     """The sharded rung over every visible card, one shard each (see the
     module docstring)."""
@@ -633,6 +870,7 @@ def main(argv: list[str]) -> int:
     # -- the sharded rung's main path ----------------------------------------
     cuda0 = torch.device("cuda", 0)
     b2_launches = 0
+    mesh_launches = {}
     for name, m in (("preempt_mix_50k_5k", 1), ("preempt_mix_50k_5k", 4), ("preempt_mix_50k_1k", 4)):
         torch.cuda.synchronize()
         fs.fused_solve.launches = bs.block_step.launches = 0
@@ -651,6 +889,7 @@ def main(argv: list[str]) -> int:
             raise AssertionError(f"{name} m={m}: binds or pipelined tasks differ from the fused rung's")
         same_state(f"{name} m={m}", fused.state, res.state)
         b2_launches += launches
+        mesh_launches[(name, m)] = launches
         emit({
             "phase": f"allocate_mesh_{name}_m{m}", "total_s": total_s, **res.timings,
             "iterations": int(res.state.it), "placing_iterations": placing, "launches": launches,
@@ -673,6 +912,14 @@ def main(argv: list[str]) -> int:
               "batched_iters": solver.batched_iters, **solver.counts, "equal_to_fused": True})
     bs.block_step.launches = saved
 
+    # -- the scheduling cycle: session, plugins, torch_allocate, replay ----
+    failures, cycle_launches = cycle_phases(clusters, results, mesh_launches)
+    if failures:
+        print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
+        return 1
+    b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
+    b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
+
     for rec in b2_timed.values():  # B2's device time, with the profiler, last
         time_b2_kernel(rec)
         emit({"phase": "block_step_timed", **rec})
@@ -683,7 +930,8 @@ def main(argv: list[str]) -> int:
             "route": "cuda",
             "source": "kube_batch_tpu_torch/csrc/fused_solve.cu",
             "replaces": "kube_batch_tpu/ops/pallas_solve.py:442",
-            "launches": b1_launches,
+            "launches": sum(b1_by_path.values()),
+            "launches_by_path": b1_by_path,
             "max_abs_err": b1_head["max_abs_err"],
             "ms": b1_head["ms"],
             "plain_ms": b1_head["plain_ms"],
@@ -705,7 +953,8 @@ def main(argv: list[str]) -> int:
             "route": "cuda",
             "source": "kube_batch_tpu_torch/csrc/block_step.cu",
             "replaces": "kube_batch_tpu/ops/pallas_solve.py:914",
-            "launches": b2_launches,
+            "launches": sum(b2_by_path.values()),
+            "launches_by_path": b2_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in b2),
             "ms": b2_head["ms"],
             "plain_ms": b2_head["plain_ms"],

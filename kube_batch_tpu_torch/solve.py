@@ -1,5 +1,6 @@
-"""The port's entry point: a cluster snapshot in, the allocate action's
-binds out.
+"""The port's lower entry point: a cluster snapshot in, the allocate
+action's binds out, with no session (the scheduling cycle,
+``scheduler.Scheduler``, is the normal one).
 
 ``allocate`` does the work of one allocate cycle of the reference
 scheduler under the default conf (priority, gang, conformance / drf,
@@ -24,13 +25,14 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
-from kube_batch_tpu_torch.apis.types import PodGroupPhase
+from kube_batch_tpu_torch.framework.session import gate_exempt
 from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
 from kube_batch_tpu_torch.ops.encode import EncodedSnapshot, encode_session
 from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
 from kube_batch_tpu_torch.ops.kernels import KIND_ALLOCATED, KIND_PIPELINED, SolveState
 from kube_batch_tpu_torch.parallel.sharded_block import ShardedBlockSolver
 from kube_batch_tpu_torch.plugins.drf import drf_state
+from kube_batch_tpu_torch.plugins.gang import job_valid
 from kube_batch_tpu_torch.plugins.proportion import proportion_state
 
 
@@ -48,15 +50,22 @@ class AllocateResult:
 
 
 def valid_jobs(cluster: ClusterInfo) -> dict:
-    """The gang plugin's JobValid gate (gang.go:48-69, session.go:90-112):
-    a job with fewer valid tasks than its minimum is left out of the
-    cycle; Pending-phase PodGroups are exempt (enqueue owns them)."""
-    out = {}
-    for uid, job in cluster.jobs.items():
-        pending_pg = job.pod_group is not None and job.pod_group.status.phase == PodGroupPhase.PENDING
-        if pending_pg or job.valid_task_num() >= job.min_available:
-            out[uid] = job
-    return out
+    """The session's JobValid gate with the gang plugin's rule
+    (gang.go:48-69, session.go:90-112): a job with fewer valid tasks than
+    its minimum is left out of the cycle; Pending-phase PodGroups are
+    exempt (enqueue owns them)."""
+    return {uid: job for uid, job in cluster.jobs.items() if gate_exempt(job) or job_valid(job) is None}
+
+
+def solver_inputs(enc: EncodedSnapshot, weights) -> dict:
+    """The solve's input arrays from an encoded snapshot: the encoder's
+    arrays less its host metadata, plus nodeorder's (leastrequested,
+    balancedresource, nodeaffinity, podaffinity) weights as float32."""
+    arrays = dict(enc.arrays)
+    arrays.pop("task_created", None)  # host metadata, not a solve input
+    w = np.asarray(weights, np.float32)
+    arrays.update(w_least=w[0], w_balanced=w[1], w_aff=w[2], w_podaff=w[3])
+    return arrays
 
 
 def solver_arrays(
@@ -78,11 +87,7 @@ def solver_arrays(
         valid_jobs(cluster), cluster.nodes, cluster.queues,
         drf=drf, proportion=prop,
     )
-    arrays = dict(enc.arrays)
-    arrays.pop("task_created")  # host metadata, not a solve input
-    w = np.asarray(weights, np.float32)
-    arrays.update(w_least=w[0], w_balanced=w[1], w_aff=w[2], w_podaff=w[3])
-    return enc, arrays
+    return enc, solver_inputs(enc, weights)
 
 
 def allocate(
@@ -108,7 +113,8 @@ def allocate(
 
     Raises NotImplementedError when a host-only task (pod affinity or
     volumes) reaches the head of its job: stepping such a task on the host
-    and resuming belongs to the session layer.
+    and resuming belongs to the session layer (the ``torch_allocate``
+    action, driven by ``scheduler.Scheduler``).
     """
     timings: dict[str, float] = {}
     t0 = time.perf_counter()

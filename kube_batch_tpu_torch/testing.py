@@ -1,10 +1,14 @@
-"""Cluster builders used by the workload generators and the tests
-(reference pkg/scheduler/api/test_utils.go and pkg/scheduler/util/test_utils.go).
+"""Cluster builders used by the workload generators and the tests, and a
+session-facing fake cache (reference pkg/scheduler/api/test_utils.go and
+pkg/scheduler/util/test_utils.go).
 """
 
 from __future__ import annotations
 
+import queue
 import re
+import threading
+from collections import deque
 from typing import Optional, Union
 
 from kube_batch_tpu_torch.apis.types import (
@@ -193,3 +197,176 @@ def build_cluster(
         if task.node_name and task.node_name in cluster.nodes:
             cluster.nodes[task.node_name].add_task(task)
     return cluster
+
+
+class _Channel:
+    """One-signal-per-bind channel (the reference's Go test channel,
+    util/test_utils.go:95-117): SimpleQueue's get/get_nowait/empty
+    surface plus a bulk `extend` — one lock round for a 200k-bind batch
+    instead of 200k `put` calls."""
+
+    __slots__ = ("_items", "_cond")
+
+    def __init__(self) -> None:
+        self._items: deque = deque()
+        self._cond = threading.Condition()
+
+    def put(self, item) -> None:
+        with self._cond:
+            self._items.append(item)
+            self._cond.notify()
+
+    def extend(self, items) -> None:
+        with self._cond:
+            self._items.extend(items)
+            self._cond.notify_all()
+
+    def get(self, timeout: Optional[float] = None):
+        with self._cond:
+            if not self._cond.wait_for(lambda: self._items, timeout):
+                raise queue.Empty
+            return self._items.popleft()
+
+    def get_nowait(self):
+        with self._cond:
+            if not self._items:
+                raise queue.Empty
+            return self._items.popleft()
+
+    def empty(self) -> bool:
+        with self._cond:
+            return not self._items
+
+
+class FakeBinder:
+    """Records binds instead of calling an API server; delivers one signal
+    per bind, like the reference's Go channel (util/test_utils.go:95-117) —
+    a latching Event would let a test waiting for N binds pass after one."""
+
+    def __init__(self) -> None:
+        self.binds: dict[str, str] = {}  # "ns/name" -> node
+        self.channel = _Channel()
+        self._lock = threading.Lock()
+
+    def bind(self, pod: Pod, hostname: str) -> None:
+        key = f"{pod.namespace}/{pod.name}"
+        with self._lock:
+            self.binds[key] = hostname
+        self.channel.put(key)
+
+    def bind_many(self, pairs: list, keys: "Optional[list[str]]" = None) -> None:
+        """Bulk form: one lock acquisition, same one-signal-per-bind
+        channel contract. ``keys`` (parallel "ns/name" strings) skips
+        200k per-pod f-string constructions when the caller already
+        holds them (the replay path does)."""
+        if keys is not None:
+            keyed = list(zip(keys, (hostname for _, hostname in pairs)))
+        else:
+            keyed = [
+                (f"{pod.namespace}/{pod.name}", hostname) for pod, hostname in pairs
+            ]
+        with self._lock:
+            self.binds.update(keyed)
+        self.channel.extend(k for k, _ in keyed)
+
+    def bind_many_keyed(self, keys: list, hostnames: list) -> None:
+        """Column form of bind_many: binds.update from an iterator, one
+        channel extend — no intermediate pair list at all."""
+        with self._lock:
+            self.binds.update(zip(keys, hostnames))
+        self.channel.extend(keys)
+
+
+class FakeEvictor:
+    """reference util/test_utils.go:120-140; one signal per evict."""
+
+    def __init__(self) -> None:
+        self.evicts: list[str] = []
+        self.channel: "queue.SimpleQueue[str]" = queue.SimpleQueue()
+        self._lock = threading.Lock()
+
+    def evict(self, pod: Pod) -> None:
+        key = f"{pod.namespace}/{pod.name}"
+        with self._lock:
+            self.evicts.append(key)
+        self.channel.put(key)
+
+
+class FakeStatusUpdater:
+    """no-op (reference util/test_utils.go:143-153)."""
+
+    def update_pod_condition(self, pod: Pod, condition) -> None:
+        return None
+
+    def update_pod_group(self, pg: PodGroup) -> None:
+        return None
+
+
+class FakeVolumeBinder:
+    """no-op (reference util/test_utils.go:156-166)."""
+
+    def allocate_volumes(self, task, hostname: str) -> None:
+        return None
+
+    def bind_volumes(self, task) -> None:
+        return None
+
+
+class FakeCache:
+    """Session-facing cache with fake write-side, for action-level tests
+    (the pattern of reference actions/allocate/allocate_test.go:38-212:
+    real model, fake Binder/Evictor)."""
+
+    def __init__(
+        self,
+        cluster,
+        binder: Optional[FakeBinder] = None,
+        evictor: Optional[FakeEvictor] = None,
+        status_updater: Optional[FakeStatusUpdater] = None,
+        volume_binder: Optional[FakeVolumeBinder] = None,
+    ) -> None:
+        self.cluster = cluster
+        self.binder = binder or FakeBinder()
+        self.evictor = evictor or FakeEvictor()
+        self.status_updater = status_updater or FakeStatusUpdater()
+        self.volume_binder = volume_binder or FakeVolumeBinder()
+
+    def snapshot(self):
+        from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
+
+        return ClusterInfo(
+            jobs={uid: job.clone() for uid, job in self.cluster.jobs.items()},
+            nodes={name: node.clone() for name, node in self.cluster.nodes.items()},
+            queues={name: q.clone() for name, q in self.cluster.queues.items()},
+        )
+
+    def bind(self, task, hostname: str) -> None:
+        self.binder.bind(task.pod, hostname)
+
+    def bind_many(self, pairs: list, keys=None) -> None:
+        if keys is not None:
+            # keyed fast path: the binder never touches the pods
+            self.binder.bind_many(pairs, keys=keys)
+            return
+        self.binder.bind_many([(task.pod, hostname) for task, hostname in pairs])
+
+    def bind_many_keyed(self, tasks: list, hostnames: list, keys: list) -> None:
+        """Parallel-list bulk bind (replay fast path): tasks/hostnames/
+        keys are same-length columns; no per-bind tuple objects."""
+        self.binder.bind_many_keyed(keys, hostnames)
+
+    def evict(self, task, reason: str) -> None:
+        self.evictor.evict(task.pod)
+
+    def update_job_status(self, job):
+        self.status_updater.update_pod_group(job.pod_group)
+        return job
+
+    def record_job_status_event(self, job) -> None:
+        return None
+
+    def allocate_volumes(self, task, hostname: str) -> None:
+        self.volume_binder.allocate_volumes(task, hostname)
+
+    def bind_volumes(self, task) -> None:
+        self.volume_binder.bind_volumes(task)
