@@ -69,7 +69,32 @@
      must run serially exactly below torch_allocate's size floor;
    a failed cycle phase does not stop the others; the script then exits
    non-zero;
-8. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+8. drives the whole pipeline, ``Scheduler(FakeCache(world),
+   "examples/scheduler-conf-torch-pipeline.yaml").run_once()`` (enqueue,
+   torch_reclaim, torch_allocate, torch_backfill, torch_preempt with
+   tensorscore), the counters zeroed just before each cycle and read just
+   after; each phase prints ``run_once``'s wall clock, the per-action
+   split (``<action>_s``, and each scan action's float64 encode and
+   walk), binds, evicts by reason, ``check_binds``' verdict on the
+   allocate step, and the launches, and fails without a B1 launch:
+   - ``pipeline_fused_50k_5k``: ``preempt_mix(50_000, 5_000)``, one B1
+     launch, binds equal to ``allocate``'s (and so ``scheduler_fused``'s);
+   - ``pipeline_fused_50k_1k``: ``preempt_mix(50_000, 1_000)``: starved
+     gangs remain, torch_preempt evicts priority-1 residents (about two
+     minutes of host work), binds equal to ``allocate``'s;
+   - ``pipeline_reclaim``: ``reclaim_world(38_500, 1_000)`` (cut from
+     50,000 pods, ``reduced`` in its record), config 4 with its residents
+     in running gang jobs of an over-served second queue; torch_reclaim
+     evicts;
+   - ``pipeline_parity``: the twin conf against the serial scans around
+     the same device allocate (``enqueue, reclaim, torch_allocate,
+     backfill, preempt`` with nodeorder), both with ``min_device_pairs:
+     0``, on seeds 0-11 of ``gen_contended_cluster`` and
+     ``gen_contended_reclaim_cluster`` and on ``preempt_mix(2000, 40,
+     seed=1)``: equal task states, binds and evict lists, more than 10
+     binds and 10 evicts over the sweep;
+   a failed pipeline phase does not stop the others either;
+9. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -89,6 +114,17 @@ runs instead the sharded rung over every visible card, one shard each
 (two or more cards): ``allocate(preempt_mix(50_000, 5_000),
 mesh=make_mesh())`` against the fused rung on cuda:0, and the fused rung
 on the last card against it too.
+
+    python3 chip_smoke.py --pipeline-uncut
+
+runs only ``pipeline_reclaim`` on the card at 50,000 pods: the uncut
+reclaim pass and the preempt walk after it, minutes of host work.
+
+    python3 chip_smoke.py --rehearse CUT
+
+needs no card: the pipeline phases (step 8) on the CPU, every world's pod
+and node counts divided by CUT, torch_allocate on the kernels' plain
+versions; the host actions' times predict the card run's.
 """
 
 from __future__ import annotations
@@ -121,6 +157,11 @@ CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py", "t
 AFFINITY_PODS = 36  # pods of scheduler_affinity's world with required pod (anti-)affinity
 # size_floor's preempt_mix(pods, nodes) worlds: 100 to 102,400 pending x nodes
 FLOOR_WORLDS = ((25, 4), (50, 8), (100, 16), (200, 32), (400, 64), (800, 128))
+# pending pods of pipeline_reclaim's reclaim_world on 1,000 nodes, cut from
+# 50,000 so that torch_preempt's walk over the starved tasks (each against
+# every node; about two minutes in pipeline_fused_50k_1k) is not run twice;
+# ``--pipeline-uncut`` runs it at 50,000
+RECLAIM_PODS = 38_500
 
 
 def emit(obj: dict) -> None:
@@ -494,16 +535,19 @@ def affinity_world():
     return cluster
 
 
-def conf_file(mesh: str | None = None, actions: str | None = None, **args) -> str:
-    """examples/scheduler-conf-torch.yaml, with ``actions`` in place of its
-    pipeline and ``mesh`` and torch_allocate's other ``args`` set when
-    given (written beside the kernels' build, inside the checkout)."""
+def conf_file(mesh: str | None = None, actions: str | None = None, base: str = "scheduler-conf-torch.yaml",
+              **args) -> str:
+    """examples/<base> (the cycle's conf by default), with ``actions`` in
+    place of its pipeline and ``mesh`` and torch_allocate's other ``args``
+    set when given (written beside the kernels' build, inside the
+    checkout)."""
+    import re
     import zlib
 
     from kube_batch_tpu_torch.ops import nvcc
 
     root = os.path.dirname(os.path.abspath(__file__))
-    path = os.path.join(root, "examples", "scheduler-conf-torch.yaml")
+    path = os.path.join(root, "examples", base)
     if mesh is not None:
         args = {"mesh": mesh, **args}
     if actions is None and not args:
@@ -511,11 +555,11 @@ def conf_file(mesh: str | None = None, actions: str | None = None, **args) -> st
     with open(path) as f:
         text = f.read()
     if actions is not None:
-        text = text.replace('"torch_allocate, backfill"', f'"{actions}"')
+        text = re.sub(r'^actions: ".*"$', f'actions: "{actions}"', text, count=1, flags=re.M)
     if args:
         text += "actionArguments:\n  torch_allocate:\n" + "".join(f"    {k}: {v}\n" for k, v in args.items())
     os.makedirs(nvcc.BUILD_DIR, exist_ok=True)
-    out = os.path.join(nvcc.BUILD_DIR, f"scheduler-conf-torch-{zlib.crc32(text.encode()):08x}.yaml")
+    out = os.path.join(nvcc.BUILD_DIR, f"{base[:-5]}-{zlib.crc32(text.encode()):08x}.yaml")
     with open(out, "w") as f:
         f.write(text)
     return out
@@ -686,6 +730,266 @@ def cycle_phases(clusters: dict, results: dict, mesh_launches: dict) -> tuple[li
     return failures, launches
 
 
+PIPELINE_CONF = "scheduler-conf-torch-pipeline.yaml"
+# the serial-action pipeline pipeline_parity holds the twin conf against:
+# the serial scans around the same device allocate, with nodeorder
+SERIAL_SCANS_ACTIONS = "enqueue, reclaim, torch_allocate, backfill, preempt"
+PARITY_SEEDS = 12
+
+
+def reclaim_world(n_pods: int, n_nodes: int, seed: int = 0):
+    """``preempt_mix(n_pods, n_nodes)`` with its residents moved into
+    running gang jobs of a second queue, ``batch``, which holds more than
+    its deserved share: the residents keep their shapes and nodes (one
+    4-cpu, 8 GiB pod on every other node, none terminating), four to a
+    gang of minimum one; ``batch`` has weight 1 against ``default``'s 9,
+    so its deserved share is a tenth of the cluster while both queues ask
+    for more. The pending work stays in ``default``: each of its jobs
+    reclaims one resident for its first pending task (the first tier's
+    gang and conformance plugins pass every resident, so, as in the
+    reference's tiered Reclaimable, proportion's share is not consulted)."""
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.apis.types import PodPhase
+    from kube_batch_tpu_torch.testing import (
+        build_cluster,
+        build_pod,
+        build_pod_group,
+        build_queue,
+        build_resource_list,
+    )
+
+    cluster = models.preempt_mix(n_pods, n_nodes, seed=seed)
+    pods = [t.pod for job in cluster.jobs.values() for t in job.tasks.values() if not t.pod.node_name]
+    pgs = [job.pod_group for job in cluster.jobs.values() if job.name.startswith("job-")]
+    default, batch = build_queue("default", weight=9), build_queue("batch", weight=1)
+    batch.metadata.creation_timestamp = default.metadata.creation_timestamp + 1.0
+    nodes = [n.node for n in cluster.nodes.values()]
+    for k, i in enumerate(range(0, n_nodes, 2)):
+        gang = f"batch-{k // 4:05d}"
+        if k % 4 == 0:
+            pgs.append(build_pod_group(gang, queue="batch", min_member=1))
+        pods.append(build_pod(
+            name=f"resident-{i:05d}", group_name=gang, node_name=f"node-{i:05d}", phase=PodPhase.RUNNING,
+            req=build_resource_list(cpu=4, memory="8192Mi"), priority=1,
+        ))
+    return build_cluster(pods, nodes, pgs, [default, batch])
+
+
+def pipeline_cycle(phase: str, cluster, conf: str, device: str) -> tuple[dict, object, object]:
+    """One ``run_once`` over ``FakeCache(cluster)`` with ``conf``, the
+    launch counters zeroed just before and read just after; evictions
+    counted by reason (``reclaim``, ``preempt``); every task's status and
+    node read just before the session closes. Returns the phase record,
+    the cache and the final task states."""
+    import collections
+    from types import SimpleNamespace
+
+    import torch
+
+    import kube_batch_tpu_torch.scheduler as sched_mod
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    cache = FakeCache(cluster)
+    reasons = collections.Counter()
+    cache_evict = cache.evict
+
+    def evict(task, reason):
+        reasons[reason] += 1
+        cache_evict(task, reason)
+
+    cache.evict = evict
+    states = {}
+    close = sched_mod.close_session
+
+    def close_reading_states(ssn, discard=False):
+        states.update({t.uid: (t.status.name, t.node_name) for j in ssn.jobs.values() for t in j.tasks.values()})
+        close(ssn, discard=discard)
+
+    sched = sched_mod.Scheduler(cache, conf)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    sched_mod.close_session = close_reading_states
+    fs.fused_solve.launches = bs.block_step.launches = 0
+    try:
+        t0 = time.perf_counter()
+        sched.run_once()
+        sync()
+        wall_s = time.perf_counter() - t0
+    finally:
+        sched_mod.close_session = close
+    b1, b2 = fs.fused_solve.launches, bs.block_step.launches
+    if "aborted" in sched.last_timings:
+        raise AssertionError(f"{phase}: the cycle aborted: {sched.last_timings['aborted']}")
+    acts = {a.name: a for a in sched.actions}
+    alloc = acts["torch_allocate"]
+    binds = dict(cache.binder.binds)
+    rec = {
+        "phase": phase, "run_once_s": wall_s, "cycle": dict(sched.last_timings),
+        "actions": {name: dict(a.last_timings) for name, a in acts.items() if getattr(a, "last_timings", None)},
+        "tier": alloc.last_solver_tier, "b1_launches": b1, "b2_launches": b2, "binds": len(binds),
+        "evicts": len(cache.evictor.evicts), "evicts_by_reason": dict(reasons),
+    }
+    if alloc.last_encoded is not None:
+        rows = {f"{t.namespace}/{t.name}" for t in alloc.last_encoded.tasks}
+        rec["check_binds"] = check_binds(SimpleNamespace(
+            encoded=alloc.last_encoded, state=alloc.last_state, binds={k: v for k, v in binds.items() if k in rows}))
+    return rec, cache, states
+
+
+def pipeline_phases(clusters: dict, results: dict, device: str = "cuda", cut: int = 1,
+                    reclaim_pods: int = RECLAIM_PODS, only: tuple = ()) -> tuple[list[str], dict]:
+    """The twin pipeline's phases (module docstring, step 8): the whole
+    pipeline of examples/scheduler-conf-torch-pipeline.yaml through
+    ``Scheduler.run_once``. ``device: cpu`` with ``cut`` > 1 is the CPU
+    rehearsal (``--rehearse``): the worlds' pod and node counts divided by
+    ``cut``, the kernels' plain versions, no launches to count.
+    ``reclaim_pods`` is reclaim_world's pod count, ``only`` a subset of
+    the phases to run. Returns the failures and the launches of each
+    phase's main path."""
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch import testing as tt
+
+    failures, launches = [], {}
+    on_card = device == "cuda"
+    twin = conf_file(base=PIPELINE_CONF, **({} if on_card else {"device": "cpu"}))
+
+    def run(name, fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 - every phase runs; the script fails at the end
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            print(f"chip_smoke: {name} failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+
+    def world(name, nodes, pods=50_000, make=models.preempt_mix):
+        """A config-4 world of ``nodes`` nodes with ``pods`` of its 50,000
+        pods, divided by ``cut``, and what was cut (``reduced``, empty
+        when nothing was); an uncut main world is reused."""
+        p, n = pods // cut, nodes // cut
+        reduced = {key: [full, got] for key, full, got in (("pods", 50_000, p), ("nodes", nodes, n)) if full != got}
+        if not reduced and name in clusters:
+            return clusters[name], reduced
+        return make(p, n), reduced
+
+    def launched(rec, want_b1=None):
+        launches[rec["phase"]] = (rec["b1_launches"], rec["b2_launches"])
+        if not on_card:
+            return
+        if rec["b1_launches"] < 1 or rec["b2_launches"]:
+            raise AssertionError(f"{rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches on the fused rung")
+        if want_b1 is not None and rec["b1_launches"] != want_b1:
+            raise AssertionError(f"{rec['b1_launches']} B1 launches; expected {want_b1}")
+
+    def fused(name, nodes, want_b1=None):
+        """The twin pipeline on a preempt_mix main world: uncut, its binds
+        must equal allocate()'s (single queue: reclaim has no victims and
+        preempt only pipelines, so the allocate step decides the binds)."""
+        cluster, reduced = world(name, nodes)
+        rec, cache, _ = pipeline_cycle(f"pipeline_fused_50k_{nodes // 1000}k", cluster, twin, device)
+        launched(rec, want_b1)
+        if rec["tier"] != "fused":
+            raise AssertionError(f"torch_allocate solved on the {rec['tier']!r} rung")
+        if not reduced and cache.binder.binds != results[name].binds:
+            raise AssertionError("the pipeline's binds differ from allocate()'s (and the scheduler phase's)")
+        return {**rec, "reduced": reduced, **({} if reduced else {"equal_to_allocate": True})}
+
+    def fused_5k():
+        emit(fused("preempt_mix_50k_5k", 5_000, want_b1=1))
+
+    def fused_1k():
+        rec = fused("preempt_mix_50k_1k", 1_000)
+        if rec["evicts_by_reason"].get("preempt", 0) < 1:
+            raise AssertionError("torch_preempt evicted nothing")
+        emit(rec)
+
+    def reclaim():
+        cluster, reduced = world("reclaim_world_50k_1k", 1_000, reclaim_pods, make=reclaim_world)
+        rec, cache, _ = pipeline_cycle("pipeline_reclaim", cluster, twin, device)
+        launched(rec)
+        if rec["evicts_by_reason"].get("reclaim", 0) < 1:
+            raise AssertionError("torch_reclaim evicted nothing")
+        emit({**rec, "reduced": reduced})
+
+    def parity():
+        serial = conf_file(actions=SERIAL_SCANS_ACTIONS, min_device_pairs=0, **({} if on_card else {"device": "cpu"}))
+        twin0 = conf_file(base=PIPELINE_CONF, min_device_pairs=0, **({} if on_card else {"device": "cpu"}))
+        worlds = [(f"{gen}_{seed}", lambda gen=gen, seed=seed: getattr(tt, gen)(seed))
+                  for gen in ("gen_contended_cluster", "gen_contended_reclaim_cluster") for seed in range(PARITY_SEEDS)]
+        worlds.append(("preempt_mix_2000_40_seed1", lambda: models.preempt_mix(2000, 40, seed=1)))
+        binds = evicts = b1 = b2 = 0
+        t0 = time.perf_counter()
+        per_world = {}
+        for name, make in worlds:
+            want, want_cache, want_states = pipeline_cycle("serial_scans", make(), serial, device)
+            got, got_cache, got_states = pipeline_cycle("twin", make(), twin0, device)
+            if (got_states, got_cache.binder.binds, got_cache.evictor.evicts) != (
+                    want_states, want_cache.binder.binds, want_cache.evictor.evicts):
+                raise AssertionError(f"{name}: the twin conf's task states, binds or evicts differ from the serial scans'")
+            binds += got["binds"]
+            evicts += got["evicts"]
+            b1 += got["b1_launches"] + want["b1_launches"]
+            b2 += got["b2_launches"] + want["b2_launches"]
+            per_world[name] = {"binds": got["binds"], "evicts": got["evicts"],
+                               "twin_s": got["run_once_s"], "serial_scans_s": want["run_once_s"]}
+        launches["pipeline_parity"] = (b1, b2)
+        if on_card and (b1 < 1 or b2):
+            raise AssertionError(f"{b1} B1 and {b2} B2 launches over the sweep")
+        if per_world["preempt_mix_2000_40_seed1"]["evicts"] < 1:
+            raise AssertionError("preempt_mix(2000, 40, seed=1) evicted nothing")
+        if binds <= 10 or evicts <= 10:
+            raise AssertionError(f"sweep too tame: {binds} binds, {evicts} evicts")
+        emit({"phase": "pipeline_parity", "worlds": len(worlds), "binds": binds, "evicts": evicts,
+              "b1_launches": b1, "b2_launches": b2, "s": time.perf_counter() - t0, "equal": True,
+              "per_world": per_world})
+
+    for name, fn in (("pipeline_fused_50k_5k", fused_5k), ("pipeline_fused_50k_1k", fused_1k),
+                     ("pipeline_reclaim", reclaim), ("pipeline_parity", parity)):
+        if not only or name in only:
+            run(name, fn)
+    return failures, launches
+
+
+def pipeline_uncut(card: str, kind: str) -> int:
+    """``--pipeline-uncut``: pipeline_reclaim on the card at 50,000 pods,
+    the cost of the uncut reclaim pass and of the preempt walk after it
+    (minutes of host work; not part of the smoke run)."""
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+
+    t_start = time.perf_counter()
+    nvcc.build(["fused_solve", "block_step"])
+    fs._library.load()
+    bs._library.load()
+    failures, _ = pipeline_phases({}, {}, reclaim_pods=50_000, only=("pipeline_reclaim",))
+    emit({"phase": "total", "s": time.perf_counter() - t_start})
+    if failures:
+        return 1
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})
+    return 0
+
+
+def rehearse(argv: list[str]) -> int:
+    """``--rehearse CUT``: the pipeline phases on the CPU, every world's pod
+    and node counts divided by CUT, torch_allocate on the kernels' plain
+    versions. A prediction of the host actions' cost, not a measurement
+    of the card."""
+    try:
+        cut = int(argv[1]) if len(argv) == 2 else 0
+    except ValueError:
+        cut = 0
+    if cut < 2:
+        print("chip_smoke: usage: chip_smoke.py --rehearse CUT (an integer of 2 or more)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    failures, _ = pipeline_phases({}, {}, device="cpu", cut=cut)
+    emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
+    return 1 if failures else 0
+
+
 def distinct_cards(card: str) -> int:
     """The sharded rung over every visible card, one shard each (see the
     module docstring)."""
@@ -742,16 +1046,21 @@ def distinct_cards(card: str) -> int:
 def main(argv: list[str]) -> int:
     import torch
 
+    if argv[:1] == ["--rehearse"]:
+        return rehearse(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if argv == ["--cards"]:
+    if argv in (["--cards"], ["--pipeline-uncut"]):
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
-        return distinct_cards(card)
+        if argv == ["--cards"]:
+            return distinct_cards(card)
+        return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
-        print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards]", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
+              "--rehearse CUT]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.ops import block_step as bs
@@ -914,9 +1223,13 @@ def main(argv: list[str]) -> int:
 
     # -- the scheduling cycle: session, plugins, torch_allocate, replay ----
     failures, cycle_launches = cycle_phases(clusters, results, mesh_launches)
+    # -- the twin pipeline: enqueue, reclaim, allocate, backfill, preempt ---
+    pipeline_failures, pipeline_launches = pipeline_phases(clusters, results)
+    failures += pipeline_failures
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
+    cycle_launches.update(pipeline_launches)
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 

@@ -1,28 +1,26 @@
-"""Policy-envelope checks of the device action.
+"""Policy-envelope checks shared by the device action and the scan actions.
 
-The device solve (torch_allocate's fused and sharded rungs) hardwires the
-reference's *default* conf semantics: priority/gang ordering,
-drf/proportion shares, the built-in predicate chain
-(predicates.go:57-203) and the nodeorder score formulas
-(nodeorder.go:155-222). A conf that registers anything else — an unknown
+The device solve (torch_allocate's fused and sharded rungs) and the
+vectorized node scan behind torch_reclaim, torch_backfill and
+torch_preempt (actions/scan.py) hardwire the reference's *default* conf
+semantics: priority/gang ordering, drf/proportion shares, the built-in
+predicate chain (predicates.go:57-203) and the nodeorder score formulas
+(nodeorder.go:155-222), which the ``tensorscore`` plugin serves as
+whole-node-axis vectors. A conf that registers anything else — an unknown
 plugin contributing predicate or node-order fns, or a non-default enable
-flag — would make the solve silently diverge from the serial oracle, so
-the action checks its envelope here and routes the cycle to the serial
+flag — would make them silently diverge from the serial oracle, so each
+action checks its envelope here and routes the cycle to its serial
 action when outside it.
-
-The JAX package's set also holds ``tensorscore`` (nodeorder's scores as
-vectors); this port has no such plugin yet, so a conf naming it is
-outside the envelope here.
 """
 
 from __future__ import annotations
 
 from kube_batch_tpu_torch.framework.session import Session
 
-# Plugins whose session hooks the solve models exactly (priority/gang
-# ordering + barrier, drf/proportion shares, predicates masks, nodeorder
-# score) or that register nothing the allocate loop consults
-# (conformance: victim vetting only).
+# Plugins whose session hooks the solve and the scan model exactly
+# (priority/gang ordering + barrier, drf/proportion shares, predicates
+# masks, nodeorder score) or that register nothing they consult beyond
+# victim vetting, which stays on the host (conformance).
 SUPPORTED_PLUGINS = {
     "priority",
     "gang",
@@ -31,6 +29,7 @@ SUPPORTED_PLUGINS = {
     "predicates",
     "proportion",
     "nodeorder",
+    "tensorscore",  # nodeorder's scores served as vectors: the same policy
 }
 
 # The per-plugin enable flags the conf schema knows (conf/__init__.py);
@@ -50,10 +49,12 @@ ENABLE_FLAGS = (
 
 def scan_supported(ssn: Session) -> bool:
     """True when every configured plugin's predicate/score contribution is
-    one the solve's node sweep models (the built-in predicate set and the
-    nodeorder score formulas), with default enable flags. The predicates
-    plugin must be *present*: without it the serial chain treats every
-    node as feasible while the solve would still apply its masks."""
+    one the solve's node sweep and the scan model (the built-in predicate
+    set and the nodeorder/tensorscore score formulas), with default enable
+    flags. Tier *order* does not matter to the scan, whose control flow
+    reads the session's fn chains, but the predicates plugin must be
+    *present*: without it the serial chain treats every node as feasible
+    while the solve and the scan would still apply their masks."""
     names = []
     for tier in ssn.tiers:
         for option in tier.plugins:

@@ -115,10 +115,11 @@ def _nonfinite_inputs(arrays: dict) -> list[str]:
 
 def _nodeorder_weights(ssn: Session) -> tuple[float, float, float, float]:
     """(w_least, w_balanced, w_aff, w_podaff) from the tiers, matching the
-    serial plugin's defaults (nodeorder.go:139-153)."""
+    serial plugin's defaults (nodeorder.go:139-153); tensorscore takes the
+    same arguments."""
     for tier in ssn.tiers:
         for option in tier.plugins:
-            if option.name == "nodeorder" and option.enabled_node_order:
+            if option.name in ("nodeorder", "tensorscore") and option.enabled_node_order:
                 args = Arguments(option.arguments)
                 return (
                     args.get_int(LEAST_REQUESTED_WEIGHT, 1),
@@ -149,8 +150,10 @@ class TorchAllocateAction(Action):
         # Which rung solved the last execute(): "fused", "sharded",
         # "serial", or "none" (nothing to solve).
         self.last_solver_tier = "none"
-        # The final SolveState (CPU tensors) of the last device solve.
+        # The final SolveState (CPU tensors) of the last device solve, and
+        # the encoded snapshot it solved (rows, node order, capacities).
         self.last_state: SolveState | None = None
+        self.last_encoded = None
         # Gang iterations committed from K-deep batched exchanges.
         self.last_batched_iters = 0
         # The sharded rung's counts summed over the last execute()'s solve
@@ -167,6 +170,7 @@ class TorchAllocateAction(Action):
         self.last_timings = {}
         self.last_solver_tier = "none"
         self.last_state = None
+        self.last_encoded = None
         self.last_mesh_size = 1
         self.last_batched_iters = 0
         self.last_counts = {}
@@ -258,6 +262,7 @@ class TorchAllocateAction(Action):
         timings.update(solve_s=time.perf_counter() - t0, **split, host_step_s=t_host, host_steps=host_steps)
         self.last_solver_tier = tier
         self.last_state = state
+        self.last_encoded = enc
         if isinstance(solver, ShardedBlockSolver):
             self.last_batched_iters = solver.batched_iters
         self.last_timings = timings

@@ -45,7 +45,8 @@ head of its job.
 
 Dtype: the solve runs in float32, which is exact for milli-CPU-granular
 cpu and MiB-granular memory (values stay on a 2^20-multiple grid well
-inside the 24-bit mantissa).
+inside the 24-bit mantissa). The scan actions encode at float64, the
+serial plugins' type (``encode_session(..., dtype=np.float64)``).
 """
 
 from __future__ import annotations
@@ -104,11 +105,12 @@ def group_by_signature(items, sig_fn):
     return gids, reps
 
 
-def build_static_compat(t_reps, n_reps, aff_sc):
+def build_static_compat(t_reps, n_reps, aff_sc=None):
     """[GT, GN] static predicate verdicts per (task-group, node-group)
     pair — `static_pod_node_compat` over the reps; a node group without
-    a Node object rejects everything (predicates.py). The
-    preferred-node-affinity score fills `aff_sc` in the same sweep."""
+    a Node object rejects everything (predicates.py). When `aff_sc` is
+    given, the preferred-node-affinity score fills it in the same sweep
+    (the encoder's form; torch_backfill needs the verdicts alone)."""
     from kube_batch_tpu_torch.plugins.nodeorder import node_affinity_score
 
     compat = np.zeros((max(len(t_reps), 1), max(len(n_reps), 1)), bool)
@@ -117,7 +119,8 @@ def build_static_compat(t_reps, n_reps, aff_sc):
             if nrep.node is None:
                 continue
             compat[gi, gj] = static_pod_node_compat(trep.pod, nrep.node)
-            aff_sc[gi, gj] = node_affinity_score(trep, nrep)
+            if aff_sc is not None:
+                aff_sc[gi, gj] = node_affinity_score(trep, nrep)
     return compat
 
 
@@ -319,6 +322,7 @@ def encode_session(
     queues: dict[str, QueueInfo],
     drf=None,
     proportion=None,
+    dtype=np.float32,
 ) -> EncodedSnapshot:
     """Build the SoA snapshot for one allocate solve.
 
@@ -329,10 +333,13 @@ def encode_session(
 
     ``drf`` / ``proportion`` are the plugins' open-session states
     (plugins/drf.drf_state, plugins/proportion.proportion_state), or None
-    when the conf does not enable them. Float arrays are float32, the
-    solve's type.
+    when the conf does not enable them.
+
+    ``dtype`` is the float arrays' type: float32, the solve's, by default;
+    float64 for the scan actions (actions/scan.py), whose float64 numpy
+    pass reproduces the serial float64 oracle bit for bit. Either way the
+    arrays are byte-identical to the reference encoder's at that dtype.
     """
-    dtype = np.float32
     node_list = [nodes[name] for name in sorted(nodes)]
     queue_list = sorted(
         queues.values(), key=lambda q: (q.queue.metadata.creation_timestamp, q.uid)

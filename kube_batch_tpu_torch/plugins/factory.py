@@ -14,6 +14,7 @@ def register_all_plugins() -> None:
         predicates,
         priority,
         proportion,
+        tensorscore,
     )
 
     register_plugin_builder("priority", priority.new)
@@ -23,3 +24,4 @@ def register_all_plugins() -> None:
     register_plugin_builder("proportion", proportion.new)
     register_plugin_builder("predicates", predicates.new)
     register_plugin_builder("nodeorder", nodeorder.new)
+    register_plugin_builder("tensorscore", tensorscore.new)

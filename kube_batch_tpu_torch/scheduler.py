@@ -24,9 +24,10 @@ Divergences from the reference, by design (as in the JAX package):
   ``torch_allocate, backfill`` over the reference's default tiers plus
   conformance, so a cycle with no conf solves on the card (and raises
   when no card is visible; ``device: cpu`` in a conf runs the kernels'
-  plain versions). The JAX package leads with ``enqueue``, which is not
-  ported yet (the port's builders give PodGroups the Inqueue phase the
-  enqueue action would).
+  plain versions). The JAX package's default leads with ``enqueue``; the
+  port's builders give PodGroups the Inqueue phase the enqueue action
+  would, and examples/scheduler-conf-torch-pipeline.yaml runs the whole
+  pipeline (enqueue, reclaim, allocate, backfill, preempt).
 
 The JAX package's scheduler also loops on a period, streams
 micro-cycles, fences pipelined dispatch, arms a solver-tier downgrade on

@@ -6,6 +6,7 @@ pkg/scheduler/util/test_utils.go).
 from __future__ import annotations
 
 import queue
+import random
 import re
 import threading
 from collections import deque
@@ -370,3 +371,217 @@ class FakeCache:
 
     def bind_volumes(self, task) -> None:
         self.volume_binder.bind_volumes(task)
+
+
+# -- randomized preempt / reclaim scenes ---------------------------------------
+# The JAX package's tests draw these worlds (tests/test_xla_preempt.py,
+# tests/test_xla_reclaim.py); the same seed gives the same world from
+# either package's builders.
+
+
+def gen_contended_cluster(seed: int):
+    """Random preemption scene: low-priority gang jobs running on full
+    nodes, starved higher-priority jobs pending in the same queues."""
+    rng = random.Random(seed)
+    n_queues = rng.randint(1, 2)
+    queues = [build_queue(f"q{i}", weight=rng.randint(1, 3)) for i in range(n_queues)]
+    for i, q in enumerate(queues):
+        q.metadata.creation_timestamp = float(i)
+
+    nodes, pods, pgs = [], [], []
+    n_nodes = rng.randint(2, 8)
+    for i in range(n_nodes):
+        labels = {"zone": rng.choice(["a", "b"])} if rng.random() < 0.3 else {}
+        nodes.append(
+            build_node(
+                f"n{i:02d}",
+                build_resource_list(cpu=2, memory="2Gi", pods=rng.randint(3, 8)),
+                labels=labels,
+            )
+        )
+
+    # running low-priority victims (grouped => preemptable via job filter);
+    # each node fits two 1cpu/1Gi runners
+    free = [2] * n_nodes
+    slot = 0
+    for j in range(rng.randint(1, 3)):
+        name = f"low{j}"
+        n_tasks = rng.randint(1, 4)
+        pgs.append(
+            build_pod_group(
+                name, queue=rng.choice(queues).name, min_member=rng.randint(0, 1)
+            )
+        )
+        for t in range(n_tasks):
+            while slot < 2 * n_nodes and free[slot % n_nodes] == 0:
+                slot += 1
+            if slot >= 2 * n_nodes:
+                break
+            node = nodes[slot % n_nodes]
+            free[slot % n_nodes] -= 1
+            slot += 1
+            pods.append(
+                build_pod(
+                    name=f"{name}-t{t}",
+                    group_name=name,
+                    node_name=node.name,
+                    phase=PodPhase.RUNNING,
+                    req=build_resource_list(cpu=1, memory="1Gi"),
+                    priority=1,
+                )
+            )
+
+    # pending high-priority preemptors
+    for j in range(rng.randint(1, 3)):
+        name = f"high{j}"
+        n_tasks = rng.randint(1, 3)
+        pgs.append(
+            build_pod_group(
+                name, queue=rng.choice(queues).name, min_member=rng.randint(1, n_tasks)
+            )
+        )
+        for t in range(n_tasks):
+            pod = build_pod(
+                name=f"{name}-t{t}",
+                group_name=name,
+                req=build_resource_list(
+                    cpu=rng.choice([1, 2]), memory=rng.choice(["512Mi", "1Gi"])
+                ),
+                priority=rng.choice([5, 9]),
+            )
+            if rng.random() < 0.2:
+                pod.node_selector = {"zone": rng.choice(["a", "b"])}
+            pods.append(pod)
+
+    return build_cluster(pods, nodes, pgs, queues)
+
+
+def gen_reclaim_cluster(seed: int):
+    """One queue hogging nodes past its deserved share, another starved —
+    the proportion plugin's Reclaimable working set."""
+    rng = random.Random(seed)
+    n_nodes = rng.randint(2, 6)
+    nodes = [
+        build_node(f"n{i:02d}", build_resource_list(cpu=2, memory="2Gi", pods=8))
+        for i in range(n_nodes)
+    ]
+    qa = build_queue("qa", weight=1)
+    qb = build_queue("qb", weight=rng.randint(2, 5))
+    qa.metadata.creation_timestamp = 0.0
+    qb.metadata.creation_timestamp = 1.0
+
+    pods, pgs = [], []
+    # qa holds every slot
+    slot = 0
+    for j in range((2 * n_nodes + 3) // 4):
+        name = f"hog{j}"
+        pgs.append(build_pod_group(name, queue="qa", min_member=0))
+        for t in range(4):
+            if slot >= 2 * n_nodes:
+                break
+            pods.append(
+                build_pod(
+                    name=f"{name}-t{t}",
+                    group_name=name,
+                    node_name=f"n{slot // 2:02d}",
+                    phase=PodPhase.RUNNING,
+                    req=build_resource_list(cpu=1, memory="1Gi"),
+                )
+            )
+            slot += 1
+    # qb starves
+    for j in range(rng.randint(1, 3)):
+        name = f"starved{j}"
+        n_tasks = rng.randint(1, 3)
+        pgs.append(build_pod_group(name, queue="qb", min_member=1))
+        for t in range(n_tasks):
+            pods.append(
+                build_pod(
+                    name=f"{name}-t{t}",
+                    group_name=name,
+                    req=build_resource_list(cpu=1, memory="1Gi"),
+                    priority=rng.choice([1, 5]),
+                )
+            )
+    return build_cluster(pods, nodes, pgs, [qa, qb])
+
+
+def gen_contended_reclaim_cluster(seed: int):
+    """Richer randomized multi-queue scene (the reclaim twin of
+    gen_contended_cluster's sweep): 2-4 queues with random weights,
+    randomly distributed running hogs of varied sizes, node selectors on
+    some starved pods, mixed priorities and gang minimums."""
+    rng = random.Random(10_000 + seed)
+    n_queues = rng.randint(2, 4)
+    queues = [build_queue(f"q{i}", weight=rng.randint(1, 5)) for i in range(n_queues)]
+    for i, q in enumerate(queues):
+        q.metadata.creation_timestamp = float(i)
+
+    nodes = []
+    n_nodes = rng.randint(3, 8)
+    for i in range(n_nodes):
+        labels = {"zone": rng.choice(["a", "b"])} if rng.random() < 0.3 else {}
+        nodes.append(
+            build_node(
+                f"n{i:02d}",
+                build_resource_list(cpu=4, memory="4Gi", pods=rng.randint(4, 10)),
+                labels=labels,
+            )
+        )
+
+    pods, pgs = [], []
+    # over-served queues: the first 1-2 queues hog most slots with
+    # variously sized running pods
+    hog_queues = queues[: rng.randint(1, 2)]
+    free = {n.name: 4 for n in nodes}
+    for j in range(rng.randint(2, 4)):
+        name = f"hog{j}"
+        pgs.append(
+            build_pod_group(
+                name,
+                queue=rng.choice(hog_queues).name,
+                min_member=rng.randint(0, 1),
+            )
+        )
+        for t in range(rng.randint(2, 5)):
+            hosts = [n for n, f in free.items() if f >= 1]
+            if not hosts:
+                break
+            host = rng.choice(hosts)
+            cpu = rng.choice([1, 2])
+            if free[host] < cpu:
+                cpu = 1
+            free[host] -= cpu
+            pods.append(
+                build_pod(
+                    name=f"{name}-t{t}",
+                    group_name=name,
+                    node_name=host,
+                    phase=PodPhase.RUNNING,
+                    req=build_resource_list(cpu=cpu, memory=f"{cpu}Gi"),
+                    priority=rng.choice([0, 1]),
+                )
+            )
+
+    # under-served queues starve with pending work
+    for j, q in enumerate(queues[len(hog_queues):]):
+        for k in range(rng.randint(1, 2)):
+            name = f"starved{j}-{k}"
+            n_tasks = rng.randint(1, 3)
+            pgs.append(
+                build_pod_group(name, queue=q.name, min_member=rng.randint(1, n_tasks))
+            )
+            for t in range(n_tasks):
+                pod = build_pod(
+                    name=f"{name}-t{t}",
+                    group_name=name,
+                    req=build_resource_list(
+                        cpu=rng.choice([1, 2]), memory=rng.choice(["512Mi", "1Gi", "2Gi"])
+                    ),
+                    priority=rng.choice([1, 5, 9]),
+                )
+                if rng.random() < 0.2:
+                    pod.node_selector = {"zone": rng.choice(["a", "b"])}
+                pods.append(pod)
+
+    return build_cluster(pods, nodes, pgs, queues)

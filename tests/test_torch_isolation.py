@@ -90,6 +90,15 @@ def test_running_the_port_loads_no_jax():
         "    act.execute(ssn)\n"
         "close_session(ssn)\n"
         "assert len(cache.binder.binds) == 3 and acts[0].last_solver_tier == 'fused'\n"
+        "from kube_batch_tpu_torch.testing import gen_contended_cluster\n"
+        "acts, tiers, _ = load_scheduler_conf(open('examples/scheduler-conf-torch-pipeline.yaml').read())\n"
+        "cache = FakeCache(gen_contended_cluster(0))\n"
+        "ssn = open_session(cache, tiers, {'torch_allocate': {'device': 'cpu', 'min_device_pairs': '0'}})\n"
+        "for act in acts:\n"
+        "    act.execute(ssn)\n"
+        "close_session(ssn)\n"
+        "assert [a.name for a in acts][1:] == ['torch_reclaim', 'torch_allocate', 'torch_backfill', 'torch_preempt']\n"
+        "assert cache.evictor.evicts and 'encode_s' in acts[-1].last_timings\n"
         "bad = [m for m in sys.modules if forbidden(m)]\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
