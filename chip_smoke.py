@@ -94,7 +94,28 @@
      seed=1)``: equal task states, binds and evict lists, more than 10
      binds and 10 evicts over the sweep;
    a failed pipeline phase does not stop the others either;
-9. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+9. drives the host fast paths (the native hot loops, built with g++ as
+   ``native_build`` beside the kernels' nvcc build, which fails the run if
+   they cannot be built or loaded, and the cross-cycle encode cache):
+   - ``encode_cache_100k_10k``: one session over ``preempt_mix(100_000,
+     10_000)``, at float32 and float64: a cold encode, a warm one, one
+     after replacing 1% of the Node objects, one after replacing 1% of the
+     pending pods (through the dirty feed), and a cold one again; every
+     warm encode byte-identical to a cold encode of the same world;
+   - ``warm_cycles_50k_5k``: the twin pipeline's ``Scheduler`` over
+     ``preempt_mix(50_000, 5_000)``, three ``run_once`` (cold; nothing
+     changed; 1% of the Node objects replaced and one new gang), the
+     counters zeroed just before each cycle and read just after, against
+     a second scheduler on a twin cache with the cache and the native
+     loops off: equal task states, binds and evicts cycle for cycle; each
+     cycle's encodes, warm fractions, ``pack_s``, ``replay_s`` and native
+     call counts;
+   - ``native_parity``: ``scheduler_fused`` and ``pipeline_parity``'s 25
+     worlds with the native loops on and off (equal), and B1 on two worlds
+     packed with native class numbering and with ``np.unique``'s, each
+     bit-equal to its plain version, equal states and binds;
+   any native fallback or fired fault point fails the run;
+10. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -122,9 +143,10 @@ reclaim pass and the preempt walk after it, minutes of host work.
 
     python3 chip_smoke.py --rehearse CUT
 
-needs no card: the pipeline phases (step 8) on the CPU, every world's pod
-and node counts divided by CUT, torch_allocate on the kernels' plain
-versions; the host actions' times predict the card run's.
+needs no card: the pipeline phases (step 8) and the fast paths' (step 9)
+on the CPU, every world's pod and node counts divided by CUT,
+torch_allocate on the kernels' plain versions; the host actions' times
+predict the card run's.
 """
 
 from __future__ import annotations
@@ -134,6 +156,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -813,10 +836,11 @@ def pipeline_cycle(phase: str, cluster, conf: str, device: str) -> tuple[dict, o
     sched_mod.close_session = close_reading_states
     fs.fused_solve.launches = bs.block_step.launches = 0
     try:
-        t0 = time.perf_counter()
-        sched.run_once()
-        sync()
-        wall_s = time.perf_counter() - t0
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            sched.run_once()
+            sync()
+            wall_s = time.perf_counter() - t0
     finally:
         sched_mod.close_session = close
     b1, b2 = fs.fused_solve.launches, bs.block_step.launches
@@ -829,7 +853,7 @@ def pipeline_cycle(phase: str, cluster, conf: str, device: str) -> tuple[dict, o
         "phase": phase, "run_once_s": wall_s, "cycle": dict(sched.last_timings),
         "actions": {name: dict(a.last_timings) for name, a in acts.items() if getattr(a, "last_timings", None)},
         "tier": alloc.last_solver_tier, "b1_launches": b1, "b2_launches": b2, "binds": len(binds),
-        "evicts": len(cache.evictor.evicts), "evicts_by_reason": dict(reasons),
+        "evicts": len(cache.evictor.evicts), "evicts_by_reason": dict(reasons), **gc_clock.record(),
     }
     if alloc.last_encoded is not None:
         rows = {f"{t.namespace}/{t.name}" for t in alloc.last_encoded.tasks}
@@ -950,6 +974,416 @@ def pipeline_phases(clusters: dict, results: dict, device: str = "cuda", cut: in
     return failures, launches
 
 
+# -- the host fast paths: native hot loops and the encode cache ---------------
+
+# encode_cache_100k_10k's world (the JAX package's own measurement of the
+# layer) and warm_cycles_50k_5k's; the share of nodes and of pending pods
+# replaced between encodes or cycles
+CACHE_WORLD = (100_000, 10_000)
+CYCLES_WORLD = (50_000, 5_000)
+CHURN = 0.01
+
+
+class GcClock:
+    """Wall time the interpreter's cyclic collector spent, by generation,
+    while installed (``gc.callbacks``): what a cycle's host layers lose to
+    collections of the objects the snapshot and the replay allocate."""
+
+    def __init__(self) -> None:
+        self.s = [0.0, 0.0, 0.0]
+        self.n = [0, 0, 0]
+        self._t0 = 0.0
+
+    def _cb(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            g = info["generation"]
+            self.s[g] += time.perf_counter() - self._t0
+            self.n[g] += 1
+
+    def __enter__(self) -> "GcClock":
+        import gc
+
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+    def record(self) -> dict:
+        return {"gc_s": sum(self.s), "gc_s_by_generation": self.s, "gc_collections": self.n}
+
+
+def native_build() -> dict:
+    """Build and load the port's native hot loops (native/build.py: g++
+    against this interpreter's headers, into the package's _build
+    directory). Raises when either fails: the run never carries on with
+    the Python loops on the quiet."""
+    from kube_batch_tpu_torch import native
+    from kube_batch_tpu_torch.native import build
+
+    t0 = time.perf_counter()
+    path = build.ensure()
+    build_s = time.perf_counter() - t0
+    lib = native.load()
+    return {"phase": "native_build", "s": build_s, "compiler": build.compiler_version(),
+            "artifact": os.path.relpath(path, os.path.dirname(os.path.abspath(__file__))),
+            "functions": sorted(n for n in dir(lib) if not n.startswith("_"))}
+
+
+def relabel(node_info, key: str) -> None:
+    """Replace the Node object under a NodeInfo by a relabelled copy (the
+    watch-event shape)."""
+    import dataclasses
+
+    n = node_info.node
+    labels = {**n.metadata.labels, key: "1"}
+    node_info.set_node(dataclasses.replace(n, metadata=dataclasses.replace(n.metadata, labels=labels)))
+
+
+def tolerate(task, key: str) -> None:
+    """Replace a task's Pod object by a copy with one more toleration."""
+    import dataclasses
+
+    from kube_batch_tpu_torch.apis.types import Toleration
+
+    task.pod = dataclasses.replace(
+        task.pod, tolerations=[*task.pod.tolerations, Toleration(key=key, operator="Exists", effect="NoSchedule")])
+
+
+def same_arrays(name: str, a, b) -> None:
+    """Every array of two encodes byte-identical, and the same rows."""
+    import numpy as np
+
+    if set(a.arrays) != set(b.arrays) or [t.uid for t in a.tasks] != [t.uid for t in b.tasks]:
+        raise AssertionError(f"{name}: the encodes' array sets or rows differ")
+    for k, x in a.arrays.items():
+        x, y = np.asarray(x), np.asarray(b.arrays[k])
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{name}: arrays[{k!r}] differs from the cold encode's")
+
+
+def encode_cache_phase(cut: int = 1) -> dict:
+    """``encode_cache_100k_10k``: one session over ``preempt_mix(100_000,
+    10_000)`` (pods and nodes divided by ``cut``), at float32 and float64:
+    a cold encode, a warm one (nothing changed), one after replacing the
+    Node object under 1% of nodes, one after replacing the Pod object of
+    1% of pending tasks (reported through the dirty feed), and a cold one
+    again. Every warm encode must be byte-identical to a cold encode of
+    the same world."""
+    import numpy as np
+
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch import plugins  # noqa: F401  (registers the plugins)
+    from kube_batch_tpu_torch.conf import parse_scheduler_conf
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    from kube_batch_tpu_torch.ops import encode_cache
+    from kube_batch_tpu_torch.ops.encode import encode_session
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    pods, nodes = CACHE_WORLD[0] // cut, CACHE_WORLD[1] // cut
+    t0 = time.perf_counter()
+    cache = FakeCache(models.preempt_mix(pods, nodes))
+    with open(conf_file(base=PIPELINE_CONF)) as f:
+        ssn = open_session(cache, parse_scheduler_conf(f.read()).tiers)
+    setup_s = time.perf_counter() - t0
+    ec = encode_cache.get()
+
+    def encode(dtype):
+        t = time.perf_counter()
+        enc = encode_session(ssn.jobs, ssn.nodes, ssn.queues, drf=ssn.plugins.get("drf"),
+                             proportion=ssn.plugins.get("proportion"), dtype=dtype, session=ssn)
+        return time.perf_counter() - t, enc
+
+    rec = {"phase": "encode_cache_100k_10k", "pods": pods, "nodes": nodes, "setup_s": setup_s}
+    if cut > 1:
+        rec["reduced"] = {"pods": [CACHE_WORLD[0], pods], "nodes": [CACHE_WORLD[1], nodes]}
+    for name, dtype in (("f32", np.float32), ("f64", np.float64)):
+        ec.invalidate_all("chip_smoke")
+        cold_s, cold = encode(dtype)
+        warm_s, warm = encode(dtype)
+        same_arrays(f"{name} warm", cold, warm)
+        warm_fraction = warm.warm_fraction
+        for node_name in sorted(ssn.nodes)[: max(int(nodes * CHURN), 1)]:
+            relabel(ssn.nodes[node_name], f"churn-{name}")
+        node_churn_s, node_churn = encode(dtype)
+        node_churn_fraction = node_churn.warm_fraction
+        ec.invalidate_all("chip_smoke")
+        cold_nodes_s, cold_nodes = encode(dtype)
+        same_arrays(f"{name} node churn", cold_nodes, node_churn)
+        churned = cold_nodes.tasks[:: max(int(1 / CHURN), 1)]
+        for task in churned:
+            tolerate(task, f"churn-{name}")
+            encode_cache.note_store_event("pods", task.uid, task.pod)
+        pod_churn_s, pod_churn = encode(dtype)
+        pod_churn_fraction = pod_churn.warm_fraction
+        ec.invalidate_all("chip_smoke")
+        cold_again_s, cold_again = encode(dtype)
+        same_arrays(f"{name} pod churn", cold_again, pod_churn)
+        if warm_fraction <= 0.5:
+            raise AssertionError(f"{name}: the warm encode served only {warm_fraction:.2%} of its units warm")
+        rec[name] = {
+            "cold_s": cold_s, "warm_s": warm_s, "node_churn_s": node_churn_s, "cold_after_node_churn_s": cold_nodes_s,
+            "pod_churn_s": pod_churn_s, "cold_again_s": cold_again_s, "warm_fraction": warm_fraction,
+            "node_churn_warm_fraction": node_churn_fraction, "pod_churn_warm_fraction": pod_churn_fraction,
+            "churned_nodes": max(int(nodes * CHURN), 1), "churned_pods": len(churned), "tasks": cold.n_tasks,
+            "byte_identical": True,
+        }
+    close_session(ssn)
+    return rec
+
+
+def add_gang(cluster, name: str, size: int) -> None:
+    """A new pending gang job of ``size`` pods (1 cpu, 1 GiB each) in the
+    first queue."""
+    from kube_batch_tpu_torch.testing import build_cluster, build_pod, build_pod_group, build_resource_list
+
+    queue = sorted(cluster.queues.values(), key=lambda q: q.name)[0]
+    gang = build_cluster(
+        [build_pod(name=f"{name}-{i}", group_name=name, req=build_resource_list(cpu=1, memory="1Gi"))
+         for i in range(size)],
+        [], [build_pod_group(name, queue=queue.name, min_member=size)], [queue.queue],
+    )
+    cluster.jobs.update(gang.jobs)
+
+
+def warm_cycles_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+    """``warm_cycles_50k_5k``: one Scheduler over the twin pipeline conf on
+    ``FakeCache(preempt_mix(50_000, 5_000))`` (divided by ``cut``), three
+    ``run_once``: cycle 1 cold, cycle 2 with nothing changed, and before
+    cycle 3 the Node object under 1% of nodes replaced and one new gang
+    job added. A second scheduler over a twin cache runs the same cycles
+    with the encode cache and the native loops off; binds, evicts and task
+    states must be equal cycle for cycle. The launch counters are zeroed
+    just before each cycle of the fast scheduler and read just after.
+    Returns the record and the B1 and B2 launches of those cycles."""
+    import torch
+
+    import kube_batch_tpu_torch.scheduler as sched_mod
+    from kube_batch_tpu_torch import metrics, models, native
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import encode_cache
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    on_card = device == "cuda"
+    conf = conf_file(base=PIPELINE_CONF, **({} if on_card else {"device": "cpu"}))
+    pods, nodes = CYCLES_WORLD[0] // cut, CYCLES_WORLD[1] // cut
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def arm(fast: bool):
+        cache = FakeCache(models.preempt_mix(pods, nodes))
+        return {"fast": fast, "cache": cache, "sched": sched_mod.Scheduler(cache, conf), "cycles": []}
+
+    arms = [arm(True), arm(False)]
+    close = sched_mod.close_session
+    b1 = b2 = 0
+    for cycle in range(3):
+        if cycle == 2:
+            for a in arms:
+                for node_name in sorted(a["cache"].cluster.nodes)[: max(int(nodes * CHURN), 1)]:
+                    relabel(a["cache"].cluster.nodes[node_name], "churn")
+                add_gang(a["cache"].cluster, "warm-cycles-new-gang", 8)
+        for a in arms:
+            native.set_enabled(a["fast"])
+            encode_cache.set_enabled(a["fast"])
+            if a["fast"] and cycle == 0:
+                encode_cache.get().invalidate_all("chip_smoke")
+            states = {}
+
+            def close_reading_states(ssn, discard=False):
+                states.update({t.uid: (t.status.name, t.node_name) for j in ssn.jobs.values()
+                               for t in j.tasks.values()})
+                close(ssn, discard=discard)
+
+            native.reset_counts()
+            faults_before = sum(metrics.fault_injections.samples().values())
+            sync()
+            sched_mod.close_session = close_reading_states
+            fs.fused_solve.launches = bs.block_step.launches = 0
+            try:
+                with GcClock() as gc_clock:
+                    t0 = time.perf_counter()
+                    a["sched"].run_once()
+                    sync()
+                    wall_s = time.perf_counter() - t0
+            finally:
+                sched_mod.close_session = close
+            launches = (fs.fused_solve.launches, bs.block_step.launches)
+            if "aborted" in a["sched"].last_timings:
+                raise AssertionError(f"cycle {cycle + 1}: the cycle aborted: {a['sched'].last_timings['aborted']}")
+            acts = {x.name: x for x in a["sched"].actions}
+            t = {name: dict(getattr(acts[name], "last_timings", {}))
+                 for name in ("torch_reclaim", "torch_allocate", "torch_preempt")}
+            rec = {
+                "run_once_s": wall_s, "snapshot_s": a["sched"].last_timings.get("snapshot_s"),
+                "encode_s": {name: t[name].get("encode_s") for name in t},
+                "warm_fraction": {name: t[name].get("warm_fraction") for name in t},
+                "pack_s": t["torch_allocate"].get("pack_s"), "solve_s": t["torch_allocate"].get("solve_s"),
+                "fused_solve_s": t["torch_allocate"].get("fused_solve_s"),
+                "replay_s": t["torch_allocate"].get("replay_s"),
+                "actions_s": {k: v for k, v in a["sched"].last_timings.items() if k.endswith("_s")},
+                "native_calls": dict(native.calls), "native_fallbacks": dict(native.fallbacks),
+                "faults_fired": sum(metrics.fault_injections.samples().values()) - faults_before,
+                "tier": acts["torch_allocate"].last_solver_tier, "b1_launches": launches[0],
+                "b2_launches": launches[1], "binds": len(a["cache"].binder.binds),
+                "evicts": len(a["cache"].evictor.evicts), **gc_clock.record(),
+            }
+            a["cycles"].append((rec, states, dict(a["cache"].binder.binds), list(a["cache"].evictor.evicts)))
+            if a["fast"]:
+                b1 += launches[0]
+                b2 += launches[1]
+                if on_card and (launches[0] < 1 or launches[1]):
+                    raise AssertionError(f"cycle {cycle + 1}: {launches[0]} B1 and {launches[1]} B2 launches")
+                if rec["native_fallbacks"] or rec["faults_fired"]:
+                    raise AssertionError(f"cycle {cycle + 1}: native fallbacks {rec['native_fallbacks']}, "
+                                         f"{rec['faults_fired']} faults fired")
+                if not rec["native_calls"].get("bulk_assign"):
+                    raise AssertionError(f"cycle {cycle + 1}: the replay did not run bulk_assign")
+            elif rec["native_calls"]:
+                raise AssertionError(f"cycle {cycle + 1}: native calls with the native loops off")
+    native.set_enabled(True)
+    encode_cache.set_enabled(True)
+    fast, slow = arms
+    for cycle, (f, s) in enumerate(zip(fast["cycles"], slow["cycles"])):
+        if f[1:] != s[1:]:
+            raise AssertionError(f"cycle {cycle + 1}: the fast paths' task states, binds or evicts differ")
+    cycle2 = fast["cycles"][1][0]["warm_fraction"]
+    if not any(v for v in cycle2.values()):
+        raise AssertionError(f"cycle 2 ran every encode cold: {cycle2}")
+    rec = {
+        "phase": "warm_cycles_50k_5k", "pods": pods, "nodes": nodes, "churned_nodes": max(int(nodes * CHURN), 1),
+        "new_gang": 8, "fast": [c[0] for c in fast["cycles"]], "off": [c[0] for c in slow["cycles"]],
+        "equal_cycle_for_cycle": True, "b1_launches": b1, "b2_launches": b2,
+        "binds_by_cycle": [len(c[2]) for c in fast["cycles"]],
+    }
+    if cut > 1:
+        rec["reduced"] = {"pods": [CYCLES_WORLD[0], pods], "nodes": [CYCLES_WORLD[1], nodes]}
+    return rec, (b1, b2)
+
+
+def native_parity_phase(clusters: dict, results: dict, device: str = "cuda") -> dict:
+    """``native_parity``: ``scheduler_fused`` at 50k x 5k and
+    ``pipeline_parity``'s 25 worlds with the native loops on and off
+    (equal binds, evicts and task states), and B1 on two worlds packed with
+    native class numbering and with ``np.unique`` numbering: each
+    bit-equal to its plain version, equal final states and binds."""
+    import numpy as np
+
+    from kube_batch_tpu_torch import models, native
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.solve import dispatch, solver_arrays
+
+    on_card = device == "cuda"
+    rec = {"phase": "native_parity"}
+    try:
+        if on_card:
+            got = []
+            for flag in (True, False):
+                native.set_enabled(flag)
+                r, cache, _ = scheduler_cycle(f"scheduler_fused_native_{'on' if flag else 'off'}",
+                                              clusters["preempt_mix_50k_5k"], None, "fused")
+                got.append((dict(cache.binder.binds), r["run_once_s"], r["torch_allocate"].get("replay_s")))
+            if got[0][0] != got[1][0] or got[0][0] != results["preempt_mix_50k_5k"].binds:
+                raise AssertionError("scheduler_fused: the binds differ with the native loops off")
+            rec["scheduler_fused"] = {"binds": len(got[0][0]), "run_once_s": [got[0][1], got[1][1]],
+                                      "replay_s": [got[0][2], got[1][2]], "equal": True}
+        twin0 = conf_file(base=PIPELINE_CONF, min_device_pairs=0, **({} if on_card else {"device": "cpu"}))
+        worlds = [(f"{gen}_{seed}", lambda gen=gen, seed=seed: getattr(tt, gen)(seed))
+                  for gen in ("gen_contended_cluster", "gen_contended_reclaim_cluster") for seed in range(PARITY_SEEDS)]
+        worlds.append(("preempt_mix_2000_40_seed1", lambda: models.preempt_mix(2000, 40, seed=1)))
+        binds = evicts = 0
+        for name, make in worlds:
+            outs = []
+            for flag in (True, False):
+                native.set_enabled(flag)
+                _, cache, states = pipeline_cycle("twin", make(), twin0, device)
+                outs.append((states, cache.binder.binds, cache.evictor.evicts))
+            if outs[0] != outs[1]:
+                raise AssertionError(f"{name}: the twin pipeline differs with the native loops off")
+            binds += len(outs[0][1])
+            evicts += len(outs[0][2])
+        rec["pipeline_parity"] = {"worlds": len(worlds), "binds": binds, "evicts": evicts, "equal": True}
+        numbering = {}
+        for name, make in (("preempt_mix_2k_40_seed1", lambda: models.preempt_mix(2000, 40, seed=1)),
+                           ("multi_tenant_ml_200_500", lambda: models.multi_tenant_ml(200, 500))):
+            a = encoded_arrays(make())
+            n = {k: np.asarray(v) for k, v in a.items()}
+            per = {}
+            for flag in (True, False):
+                native.set_enabled(flag)
+                _, first, _ = fs._class_inverse(n)
+                if on_card:
+                    cmp = kernel_vs_plain(f"{name}_native_{flag}", a)
+                    per[flag] = (first, cmp["iterations"], cmp["assigned"], cmp["ms"])
+                else:
+                    per[flag] = (first, None, None, None)
+            cluster = make()
+            states = {}
+            for flag in (True, False):
+                native.set_enabled(flag)
+                solver = fs.FusedSolver(a, True, True, device="cuda" if on_card else "cpu")
+                states[flag] = solver.solve()
+            same_state(f"{name}: native and np.unique class numbering", states[True], states[False])
+            enc, _ = solver_arrays(cluster)
+            if dispatch(enc, states[True]) != dispatch(enc, states[False]):
+                raise AssertionError(f"{name}: the binds differ between the class numberings")
+            numbering[name] = {"classes": int(per[True][0].shape[0]),
+                               "orders_differ": bool(not np.array_equal(per[True][0], per[False][0])),
+                               "iterations": per[True][1], "assigned": per[True][2],
+                               "ms_native": per[True][3], "ms_np_unique": per[False][3],
+                               "binds": len(dispatch(enc, states[True])[0]), "equal": True}
+        rec["class_numbering"] = numbering
+    finally:
+        native.set_enabled(True)
+    return rec
+
+
+def fast_path_phases(clusters: dict, results: dict, device: str = "cuda", cut: int = 1,
+                     only: tuple = ()) -> tuple[list[str], dict]:
+    """The host fast paths' phases: ``encode_cache_100k_10k``,
+    ``warm_cycles_50k_5k`` and ``native_parity`` (``native_build`` runs
+    with the kernels' build). Each runs whatever the others did; returns
+    the failures and the launches of the warm cycles' main path."""
+    failures, launches = [], {}
+
+    def run(name, fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 - every phase runs; the script fails at the end
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            print(f"chip_smoke: {name} failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+
+    def warm():
+        rec, launches["warm_cycles_50k_5k"] = warm_cycles_phase(device, cut)
+        emit(rec)
+
+    for name, fn in (("encode_cache_100k_10k", lambda: emit(encode_cache_phase(cut))),
+                     ("warm_cycles_50k_5k", warm),
+                     ("native_parity", lambda: emit(native_parity_phase(clusters, results, device)))):
+        if not only or name in only:
+            run(name, fn)
+    return failures, launches
+
+
+def fast_path_faults() -> list[str]:
+    """The run's native fallbacks and fired fault points: any is a
+    failure of the run."""
+    from kube_batch_tpu_torch import metrics, native
+
+    bad = []
+    if native.fallbacks:
+        bad.append(f"native fallbacks: {dict(native.fallbacks)}")
+    fired = {dict(k).get("point"): v for k, v in metrics.fault_injections.samples().items() if v}
+    if fired:
+        bad.append(f"fault points fired: {fired}")
+    return bad
+
+
 def pipeline_uncut(card: str, kind: str) -> int:
     """``--pipeline-uncut``: pipeline_reclaim on the card at 50,000 pods,
     the cost of the uncut reclaim pass and of the preempt walk after it
@@ -972,9 +1406,9 @@ def pipeline_uncut(card: str, kind: str) -> int:
 
 
 def rehearse(argv: list[str]) -> int:
-    """``--rehearse CUT``: the pipeline phases on the CPU, every world's pod
-    and node counts divided by CUT, torch_allocate on the kernels' plain
-    versions. A prediction of the host actions' cost, not a measurement
+    """``--rehearse CUT``: the pipeline and fast-path phases on the CPU,
+    every world's pod and node counts divided by CUT, torch_allocate on
+    the kernels' plain versions. A prediction of the host actions' cost, not a measurement
     of the card."""
     try:
         cut = int(argv[1]) if len(argv) == 2 else 0
@@ -985,7 +1419,10 @@ def rehearse(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t0 = time.perf_counter()
+    emit(native_build())
     failures, _ = pipeline_phases({}, {}, device="cpu", cut=cut)
+    fast_failures, _ = fast_path_phases({}, {}, device="cpu", cut=cut)
+    failures += fast_failures + fast_path_faults()
     emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
     return 1 if failures else 0
 
@@ -1078,11 +1515,25 @@ def main(argv: list[str]) -> int:
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
+    native_rec: dict = {}
+
+    def build_native():
+        try:
+            native_rec.update(native_build())
+        except Exception as e:  # noqa: BLE001 - raised below, after the kernels' build
+            native_rec["error"] = e
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()  # g++ beside the nvcc processes
     logs = nvcc.build(["fused_solve", "block_step"])
     fs._library.load()
     bs._library.load()
+    native_thread.join()
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
+    if "error" in native_rec:
+        raise RuntimeError(f"native_build: the native hot loops cannot be built or loaded: {native_rec['error']}")
+    emit(native_rec)
     emit(card_tests())
 
     # -- B1 against its plain version ----------------------------------------
@@ -1226,10 +1677,14 @@ def main(argv: list[str]) -> int:
     # -- the twin pipeline: enqueue, reclaim, allocate, backfill, preempt ---
     pipeline_failures, pipeline_launches = pipeline_phases(clusters, results)
     failures += pipeline_failures
+    # -- the host fast paths: encode cache, warm cycles, native parity ------
+    fast_failures, fast_launches = fast_path_phases(clusters, results)
+    failures += fast_failures + fast_path_faults()
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
     cycle_launches.update(pipeline_launches)
+    cycle_launches.update(fast_launches)
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 

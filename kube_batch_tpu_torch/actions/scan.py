@@ -50,9 +50,9 @@ class VectorScan:
         from kube_batch_tpu_torch.ops.encode import encode_session
 
         t0 = time.perf_counter()
-        # always a cold encode: the port has no cross-cycle encode cache
-        # (a warm encode gives the same bytes)
-        enc = encode_session(ssn.jobs, ssn.nodes, ssn.queues, dtype=np.float64)
+        # session=ssn: the cross-cycle encode cache shares signatures,
+        # group pairs and node statics with the cycle's other encodes
+        enc = encode_session(ssn.jobs, ssn.nodes, ssn.queues, dtype=np.float64, session=ssn)
         self.enc = enc
         a = enc.arrays
         N = enc.n_nodes
@@ -89,6 +89,7 @@ class VectorScan:
         self.w_least, self.w_balanced, self.w_aff, _ = _nodeorder_weights(ssn)
         # wall clock of the float64 encode and mirror set-up
         self.encode_s = time.perf_counter() - t0
+        self.warm_fraction = enc.warm_fraction
         # tasks scanned serially (host-only, or the whole scan disabled)
         self.serial_scans = 0
 

@@ -48,10 +48,15 @@ runs the serial inner loop for that one task against the live session
 (allocate.go:139-180), patches a copy of the solver state, refreshes the
 InterPodAffinity scores in the solver's own arrays, and resumes.
 
-The JAX package's action also keeps a device-resident arena, a ladder of
-solver tiers with circuit breakers and fault points, node-class
-compression, native replay fast paths, pipelined dispatch, forensics and
-metrics; those belong to later slices of this port.
+The encode shares the cross-cycle encode cache (``session=ssn``,
+ops/encode_cache.py), and the replay runs the native hot loops
+(native/_hotloops.cpp: ``bulk_res_axpy``, ``bulk_assign``,
+``bulk_dispatch``, ``bulk_set_slot``, ``finish_columns``), each beside its
+Python twin, behind the fault points ``native.load``, ``native.prepass``
+and ``native.dispatch``. The JAX package's action also keeps a
+device-resident arena, a ladder of solver tiers with circuit breakers,
+node-class compression, pipelined dispatch and forensics; those belong to
+later slices of this port.
 """
 
 from __future__ import annotations
@@ -62,6 +67,8 @@ import time
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch import faults, metrics, native
+from kube_batch_tpu_torch import log as pkg_log
 from kube_batch_tpu_torch.actions.envelope import kernel_supported
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.arguments import Arguments
@@ -139,7 +146,8 @@ class TorchAllocateAction(Action):
     the size floor, or on non-finite inputs."""
 
     def __init__(self) -> None:
-        # Wall-clock split of the last execute(): encode_s, pack_s, solve_s
+        # Wall-clock split of the last execute(): encode_s, warm_fraction
+        # (the encode's share of cache units served warm), pack_s, solve_s
         # (every segment and host step) with the solver's own split summed
         # over segments, host_step_s, host_steps, replay_s; or, when the
         # cycle was routed to serial, serial_routed_s / serial_degraded_s
@@ -210,10 +218,11 @@ class TorchAllocateAction(Action):
             ssn.queues,
             drf=ssn.plugins.get("drf") if enable_drf else None,
             proportion=ssn.plugins.get("proportion") if enable_proportion else None,
+            session=ssn,
         )
         t_encode = time.perf_counter() - t0
         if not enc.tasks:
-            self.last_timings = {"encode_s": t_encode}
+            self.last_timings = {"encode_s": t_encode, "warm_fraction": enc.warm_fraction}
             return
 
         arrays = solver_inputs(enc, _nodeorder_weights(ssn))
@@ -228,7 +237,7 @@ class TorchAllocateAction(Action):
 
         replay = _Replayer(ssn, enc, arrays, enable_drf, enable_proportion)
         budget = ssn.cycle_budget
-        timings: dict = {"encode_s": t_encode}
+        timings: dict = {"encode_s": t_encode, "warm_fraction": enc.warm_fraction}
         t0 = time.perf_counter()
         solver, tier = self._make_solver(arrays, enable_drf, enable_proportion, device, mesh, args)
         timings["pack_s"] = time.perf_counter() - t0
@@ -521,11 +530,27 @@ class _Replayer:
         self.job_queue = np.asarray(arrays["job_queue"])
         self.drf = ssn.plugins.get("drf") if enable_drf else None
         self.prop = ssn.plugins.get("proportion") if enable_prop else None
+        # Native extension boundary: the 'native.load' fault point
+        # simulates the extension failing to load for this replay — every
+        # native fast path below runs its Python twin at once.
+        self._native = native.get()
+        if self._native is not None and faults.should_fire("native.load"):
+            native.note_fallback("load", faults.FaultInjected("native.load"))
+            self._native = None
         self.node_idx = {name: i for i, name in enumerate(enc.node_names)}
+        # Row-indexed hot lookups for the bulk loop. row_of is lazy: the
+        # numeric dispatch-column path never needs it.
         self.task_keys = [f"{t.namespace}/{t.name}" for t in enc.tasks]
+        self._row_of: dict | None = None
         self.node_by_row = [ssn.nodes[name] for name in enc.node_names]
+        self.node_tasks_by_row = [n.tasks for n in self.node_by_row]
         self.replayed = 0  # assignment events already applied
         self.alloc_jobs: set[str] = set()  # jobs with >=1 Allocated event
+        # vectorized twin of alloc_jobs (job-row indexed) + the bulk
+        # replay's per-segment Allocated event log — what the dispatch
+        # barrier's mask and numeric bind columns are built from
+        self._alloc_flags = np.zeros(len(enc.jobs), bool)
+        self._bulk_alloc_log: list[tuple] = []  # (rows, nrows, jrows) per segment
         # jobs that took a host-stepped (apply_immediate) event: their
         # allocated tasks may carry volume claims, so finish() keeps the
         # per-task volume checks for them
@@ -534,6 +559,31 @@ class _Replayer:
         self._node_buf: dict[int, _NodeDelta] = {}
         self._touched_drf: set[str] = set()
         self._touched_prop: set[str] = set()
+        # wall time each task's assignment came off the device (its solve
+        # segment's completion): the per-task schedule timestamp of the
+        # bulk path (reference metrics.go:66-72 stamps at dispatch)
+        self.decided_at = np.zeros(len(enc.tasks))
+
+    @property
+    def row_of(self) -> dict:
+        if self._row_of is None:
+            self._row_of = {t.uid: r for r, t in enumerate(self.enc.tasks)}
+        return self._row_of
+
+    def _native_try(self, fn: str, *args, fault: str | None = None):
+        """``self._native.<fn>(*args)`` behind the fault point ``fault``;
+        None when it raised the pre-mutation errors (ValueError, TypeError,
+        AttributeError) every native entry point raises before touching
+        anything — counted, and the caller runs its Python twin."""
+        try:
+            if fault is not None and faults.should_fire(fault):
+                raise faults.FaultInjected(fault)
+            out = getattr(self._native, fn)(*args)
+        except (faults.FaultInjected, ValueError, TypeError, AttributeError) as e:
+            native.note_fallback(fn, e)
+            return None
+        native.note_call(fn)
+        return True if out is None else out
 
     # -- one event -----------------------------------------------------------
 
@@ -547,6 +597,7 @@ class _Replayer:
         if kind == KIND_ALLOCATED:
             ssn.cache.allocate_volumes(task, hostname)
             self.alloc_jobs.add(job.uid)
+            self._alloc_flags[self.task_job[row]] = True
         self.stepped_jobs.add(job.uid)
 
         # status index surgery == update_task_status's net effect
@@ -589,6 +640,7 @@ class _Replayer:
         """One host-stepped event, applied and flushed right away (the next
         host step's predicates need the node state current)."""
         self.apply_one(row, nrow, kind)
+        self.decided_at[row] = time.time()
         self.replayed = pos + 1
         self._flush_nodes()
         # Invalidate state_seq-keyed score memos (nodeorder): the replay
@@ -612,6 +664,7 @@ class _Replayer:
         self.replayed = step
         if rows.size == 0:
             return
+        self.decided_at[rows] = time.time()  # this segment's solve completion
         # Same memo invalidation as apply_immediate: bulk replay mutates
         # node.used/tasks behind the session's back.
         self.ssn.bump_state()
@@ -645,10 +698,22 @@ class _Replayer:
         compn = np.searchsorted(touched_n, nrows)
         n_alloc_vec = _segment_sum(compn[alloc], res[alloc], touched_n.size, R)
         n_pipe_vec = _segment_sum(compn[~alloc], res[~alloc], touched_n.size, R)
+        # The dense cpu/mem columns update natively in one pass per pool
+        # (identical float64 adds, without the interpreter round trips);
+        # scalar dimensions keep the Go nil-map semantics on the Python
+        # side and only run for the pools whose key sets are non-empty.
+
+        def axpy(objs, mat, sign) -> None:
+            # Per-pool fallback: the native prepass guarantees failures
+            # are pre-mutation, so a variant Resource pool runs the Python
+            # twin without double-applying sibling pools.
+            if self._native is None or not self._native_try("bulk_res_axpy", objs, mat, sign):
+                _axpy(objs, mat, sign)
+
         nodes_t = [self.node_by_row[nrow] for nrow in touched_n.tolist()]
-        _axpy([n.idle for n in nodes_t], n_alloc_vec, -1)
-        _axpy([n.releasing for n in nodes_t], n_pipe_vec, -1)
-        _axpy([n.used for n in nodes_t], n_alloc_vec + n_pipe_vec, 1)
+        axpy([n.idle for n in nodes_t], n_alloc_vec, -1)
+        axpy([n.releasing for n in nodes_t], n_pipe_vec, -1)
+        axpy([n.used for n in nodes_t], n_alloc_vec + n_pipe_vec, 1)
         for nrow in set(nkeys_alloc) | set(nkeys_pipe):
             k = int(np.searchsorted(touched_n, nrow))
             node = self.node_by_row[nrow]
@@ -666,14 +731,15 @@ class _Replayer:
         j_tot = _segment_sum(compj, res, touched_j.size, R)
         j_alloc = _segment_sum(compj[alloc], res[alloc], touched_j.size, R)
         wa = np.unique(tjob[alloc])
+        self._alloc_flags[wa] = True
         drf = self.drf
         jobs_t = [self.enc.jobs[jrow] for jrow in touched_j.tolist()]
         wa_pos = np.searchsorted(touched_j, wa)
         jobs_wa = [jobs_t[p] for p in wa_pos.tolist()]
-        _axpy([j.allocated for j in jobs_wa], j_alloc[wa_pos], 1)
+        axpy([j.allocated for j in jobs_wa], j_alloc[wa_pos], 1)
         self.alloc_jobs.update(j.uid for j in jobs_wa)
         if drf is not None:
-            _axpy([drf.job_attrs[j.uid].allocated for j in jobs_t], j_tot, 1)
+            axpy([drf.job_attrs[j.uid].allocated for j in jobs_t], j_tot, 1)
             self._touched_drf.update(j.uid for j in jobs_t)
         for jrow in jkeys_alloc:
             k = int(np.searchsorted(touched_j, jrow))
@@ -698,7 +764,7 @@ class _Replayer:
                 prop.queue_attrs[self.enc.queues[qrow].name]
                 for qrow in touched_q.tolist()
             ]
-            _axpy([a.allocated for a in attrs_q], q_tot, 1)
+            axpy([a.allocated for a in attrs_q], q_tot, 1)
             self._touched_prop.update(a.name for a in attrs_q)
             for qrow in qkeys:
                 k = int(np.searchsorted(touched_q, qrow))
@@ -710,13 +776,35 @@ class _Replayer:
         # Rows grouped per job (stable sort preserves assign order within
         # a job, which is what fixes the status index's insertion order
         # and therefore dispatch/bind order); the status-index moves then
-        # land as one dict.update per (job, status).
+        # land as one dict.update per (job, status). The per-event body —
+        # status flip, node_name set, residency clone, node task-map
+        # insert — runs in the native bulk_assign, with the Python loop as
+        # its twin.
         jobs_l = self.enc.jobs
         order = np.argsort(compj, kind="stable")
         counts = np.bincount(compj, minlength=touched_j.size).tolist()
-        segments = self._assign_segments_py(
-            rows[order].tolist(), nrows[order].tolist(), alloc[order].tolist(), counts
-        )
+        rows_a = np.ascontiguousarray(rows[order], np.int64)
+        nrows_a = np.ascontiguousarray(nrows[order], np.int64)
+        alloc_a = alloc[order]
+        # this segment's Allocated events (job-major, assign order within
+        # a job: the status-index insertion order), for the dispatch
+        # barrier's numeric bind columns
+        self._bulk_alloc_log.append((rows_a[alloc_a], nrows_a[alloc_a], tjob[order][alloc_a]))
+        segments = None
+        if self._native is not None:
+            # index vectors go down as int64 buffers; trusted: the port's
+            # encoder routes volume-carrying tasks host_only, so bulk rows
+            # are volume-free by construction and the prepass skips its
+            # per-event pod.volumes read ("task_created" marks that
+            # encoder; any other EncodedSnapshot keeps the guard)
+            segments = self._native_try(
+                "bulk_assign", self.enc.tasks, self.task_keys, self.node_tasks_by_row,
+                self.enc.node_names, rows_a, nrows_a, alloc_a.astype(np.uint8).tobytes(),
+                counts, TaskStatus.ALLOCATED, TaskStatus.PIPELINED,
+                "task_created" in self.enc.arrays, fault="native.prepass",
+            )
+        if segments is None:
+            segments = self._assign_segments_py(rows_a.tolist(), nrows_a.tolist(), alloc_a.tolist(), counts)
         for k, jrow in enumerate(touched_j.tolist()):
             alloc_d, pipe_d = segments[k]
             sidx = jobs_l[jrow].task_status_index
@@ -748,9 +836,9 @@ class _Replayer:
                     d.update(pipe_d)
 
     def _assign_segments_py(self, rows_o, nrows_o, alloc_o, counts):
-        """Per-event status flip, node_name set, residency clone, node
-        task-map insert; returns one (alloc_d, pipe_d) pair per job
-        segment."""
+        """Python twin of native bulk_assign: per-event status flip,
+        node_name set, residency clone, node task-map insert; returns one
+        (alloc_d, pipe_d) pair per job segment."""
         tasks = self.enc.tasks
         tkeys = self.task_keys
         node_by_row = self.node_by_row
@@ -802,8 +890,46 @@ class _Replayer:
 
     # -- end of action -------------------------------------------------------
 
-    def _finish_dispatch_py(self, ready_cnt_l, job_min_l, to_bind, pure_bulk) -> None:
-        """The per-job dispatch barrier loop."""
+    def _numeric_columns(self, mask_arr, to_bind):
+        """(rows, keys, hostnames, created) for the pure-bulk dispatch
+        list, rebuilt from the replay's Allocated event log by array
+        gathers alone. Valid only when the log covers the whole dispatch
+        list (a prior action in the actions string can leave Allocated
+        tasks this encode never saw; the count check detects that and the
+        caller takes the per-task column pass). Order matches
+        bulk_dispatch's list: both are job-major with status-index
+        insertion order within a job."""
+        if not self._bulk_alloc_log or "task_created" not in self.enc.arrays:
+            return None
+        if len(self._bulk_alloc_log) == 1:
+            rows_all, nrows_all, jrows_all = self._bulk_alloc_log[0]
+        else:
+            rows_all = np.concatenate([seg[0] for seg in self._bulk_alloc_log])
+            nrows_all = np.concatenate([seg[1] for seg in self._bulk_alloc_log])
+            jrows_all = np.concatenate([seg[2] for seg in self._bulk_alloc_log])
+        sel = mask_arr[jrows_all]
+        if int(sel.sum()) != len(to_bind):
+            return None
+        rows_b = rows_all[sel]
+        nrows_b = nrows_all[sel]
+        if len(self._bulk_alloc_log) > 1:
+            # job-major across segments, keeping each segment's (= bucket
+            # insertion) order within a job
+            order = np.argsort(jrows_all[sel], kind="stable")
+            rows_b = rows_b[order]
+            nrows_b = nrows_b[order]
+        tasks = self.enc.tasks
+        if to_bind and (to_bind[0] is not tasks[int(rows_b[0])] or to_bind[-1] is not tasks[int(rows_b[-1])]):
+            return None  # order drift: take the per-task pass
+        keys = np.asarray(self.task_keys, dtype=object)[rows_b].tolist()
+        hostnames = np.asarray(self.enc.node_names, dtype=object)[nrows_b].tolist()
+        created = np.asarray(self.enc.arrays["task_created"], np.float64)[rows_b]
+        return rows_b, keys, hostnames, created
+
+    def _finish_dispatch_py(self, ready_cnt_l, job_min_l, to_bind, pure_bulk, debug_on) -> None:
+        """The per-job dispatch barrier loop (Python twin of the native
+        bulk_dispatch; also the only path for host-stepped jobs, whose
+        tasks may carry volumes)."""
         ssn = self.ssn
         BINDING = TaskStatus.BINDING
         for i, job in enumerate(self.enc.jobs):
@@ -826,7 +952,8 @@ class _Replayer:
                 binding = job.task_status_index.setdefault(BINDING, {})
                 binding.update(allocated)
                 job.task_status_index.pop(TaskStatus.ALLOCATED, None)
-                log.debug("dispatched gang job %s (%d tasks)", job.uid, ready_cnt_l[i])
+                if debug_on:
+                    log.debug("dispatched gang job %s (%d tasks)", job.uid, ready_cnt_l[i])
                 continue
             dispatched = []
             failed = False
@@ -858,7 +985,17 @@ class _Replayer:
                 for task in dispatched:
                     allocated.pop(task.uid, None)
                     binding[task.uid] = task
-            log.debug("dispatched gang job %s (%d tasks)", job.uid, ready_cnt_l[i])
+            if debug_on:
+                log.debug("dispatched gang job %s (%d tasks)", job.uid, ready_cnt_l[i])
+
+    def _flip_binding(self, tasks: list) -> None:
+        """status = Binding for every task: one native bulk_set_slot, or
+        its Python twin."""
+        if not tasks:
+            return
+        if self._native is None or not self._native_try("bulk_set_slot", tasks, "status", TaskStatus.BINDING):
+            for task in tasks:
+                task.status = TaskStatus.BINDING
 
     def finish(self, ready_cnt) -> None:
         """Final share sync + the gang dispatch barrier + one bulk bind."""
@@ -893,22 +1030,64 @@ class _Replayer:
             for qname in self._touched_prop:
                 self.prop._update_share(self.prop.queue_attrs[qname])
 
+        job_min = np.asarray(self.arrays["job_min"])
+        ready_cnt = np.asarray(ready_cnt)
+        BINDING = TaskStatus.BINDING
         to_bind: list = []  # dispatched tasks, in dispatch order
         pure_bulk: list = []  # pure-bulk gangs' tasks: one status flip below
-        self._finish_dispatch_py(
-            np.asarray(ready_cnt).tolist(), np.asarray(self.arrays["job_min"]).tolist(), to_bind, pure_bulk
-        )
+        # Per-gang narration is gated on the package verbosity, never on
+        # whether some logger is enabled for DEBUG: a host application's
+        # logging setup must not turn the native dispatch off.
+        debug_on = pkg_log.get_verbosity() >= 4
+        mask_arr = None
+        native_dispatched = False
+        if not self.stepped_jobs and not debug_on and self._native is not None:
+            # Every gang is pure-bulk (no volumes, no host steps): the
+            # whole dispatch barrier is one native pass — per gang the
+            # ALLOCATED bucket moves wholesale under BINDING (a dict move
+            # when no bucket exists), tasks returned in dispatch order.
+            jn = len(self.enc.jobs)
+            mask_arr = self._alloc_flags[:jn] & (ready_cnt[:jn] >= job_min[:jn])
+            out = self._native_try(
+                "bulk_dispatch", self.enc.jobs, mask_arr.astype(np.uint8).tobytes(),
+                TaskStatus.ALLOCATED, BINDING, fault="native.dispatch",
+            )
+            if out is not None:
+                to_bind = pure_bulk = out
+                native_dispatched = True
+        if not native_dispatched:
+            self._finish_dispatch_py(ready_cnt.tolist(), job_min.tolist(), to_bind, pure_bulk, debug_on)
+        # Status flip + bind columns (rows / created / keys / hostnames).
+        # Preferred: the numeric rebuild from the bulk replay's own
+        # Allocated event log (array gathers, no per-task lookups) with
+        # one native bulk_set_slot flip; then the native finish_columns
+        # single pass; then the Python per-task loop. The flip covers
+        # every dispatched task: stepped-path tasks are already Binding,
+        # and setting the same value again changes nothing.
+        rows_b = created = keys = hostnames = None
+        if to_bind and native_dispatched:
+            cols = self._numeric_columns(mask_arr, to_bind)
+            if cols is not None:
+                rows_b, keys, hostnames, created = cols
+                self._flip_binding(to_bind)
+        if to_bind and rows_b is None and self._native is not None:
+            cols = self._native_try("finish_columns", to_bind, self.row_of, self.task_keys, BINDING)
+            if cols is not None:
+                rb, cb, keys, hostnames = cols
+                rows_b = np.frombuffer(rb, np.int64)
+                created = np.frombuffer(cb, np.float64)
+        if to_bind and rows_b is None:
+            self._flip_binding(pure_bulk)
+            row_of = self.row_of
+            tk = self.task_keys
+            rows_b = np.fromiter((row_of.get(t.uid, -1) for t in to_bind), np.int64, count=len(to_bind))
+            created = np.fromiter(
+                (t.pod.metadata.creation_timestamp for t in to_bind), np.float64, count=len(to_bind)
+            )
+            keys = [tk[r] if r >= 0 else f"{t.namespace}/{t.name}" for t, r in zip(to_bind, rows_b.tolist())]
+            hostnames = [t.node_name for t in to_bind]
         if not to_bind:
             return
-        BINDING = TaskStatus.BINDING
-        for task in pure_bulk:
-            task.status = BINDING
-        row_of = {t.uid: r for r, t in enumerate(self.enc.tasks)}
-        keys = []
-        for t in to_bind:
-            r = row_of.get(t.uid, -1)
-            keys.append(self.task_keys[r] if r >= 0 else f"{t.namespace}/{t.name}")
-        hostnames = [t.node_name for t in to_bind]
         # Bulk bind: one cache call for the whole action's dispatches.
         keyed_bind = getattr(ssn.cache, "bind_many_keyed", None)
         bind_many = getattr(ssn.cache, "bind_many", None)
@@ -923,6 +1102,12 @@ class _Replayer:
         else:
             for t, h in zip(to_bind, hostnames):
                 ssn.cache.bind(t, h)
+        # Scheduling latency per dispatched pod, one vector op: each task's
+        # latency ends at its own solve segment's completion (decided_at).
+        # A gang can carry tasks a prior action allocated that this encode
+        # never saw: those stamp at dispatch, as the serial path would.
+        decided = np.where(rows_b >= 0, self.decided_at[np.maximum(rows_b, 0)], time.time())
+        metrics.update_task_schedule_durations(np.maximum(0.0, decided - created))
 
 
 def _accepts_keys(bind_many) -> bool:

@@ -31,7 +31,8 @@ dynamic (predicates.go:187-199) and scan serially, exactly like the
 allocate action steps them on the host.
 
 ``last_timings`` holds the last execute's wall clock: ``encode_s`` (the
-scan's float64 encode), ``preempt_s`` (`run_preempt`), ``serial_scans``
+scan's float64 encode), ``warm_fraction`` (its share of encode-cache
+units served warm), ``preempt_s`` (`run_preempt`), ``serial_scans``
 (preemptor scans that walked serially); or, when the conf is outside the
 scan's envelope, ``serial_routed_s`` and ``serial_reason``.
 """
@@ -89,7 +90,8 @@ class TorchPreemptAction(Action):
             candidates_fn=candidates,
         )
         self.last_timings = {
-            "encode_s": scan.encode_s, "preempt_s": time.perf_counter() - t0, "serial_scans": scan.serial_scans,
+            "encode_s": scan.encode_s, "warm_fraction": scan.warm_fraction,
+            "preempt_s": time.perf_counter() - t0, "serial_scans": scan.serial_scans,
         }
 
 

@@ -14,7 +14,8 @@ pipelines update the scan mirrors through the on_pipeline hook. Host-only
 tasks and out-of-envelope snapshots walk serially per task.
 
 ``last_timings`` holds the last execute's wall clock: ``encode_s`` (the
-scan's float64 encode), ``reclaim_s`` (`run_reclaim`), ``serial_scans``
+scan's float64 encode), ``warm_fraction`` (its share of encode-cache
+units served warm), ``reclaim_s`` (`run_reclaim`), ``serial_scans``
 (tasks that walked serially); or, when the conf is outside the scan's
 envelope, ``serial_routed_s`` and ``serial_reason``.
 """
@@ -59,7 +60,8 @@ class TorchReclaimAction(Action):
         t0 = time.perf_counter()
         run_reclaim(ssn, feasible_fn=feasible, on_pipeline=scan.on_pipeline)
         self.last_timings = {
-            "encode_s": scan.encode_s, "reclaim_s": time.perf_counter() - t0, "serial_scans": scan.serial_scans,
+            "encode_s": scan.encode_s, "warm_fraction": scan.warm_fraction,
+            "reclaim_s": time.perf_counter() - t0, "serial_scans": scan.serial_scans,
         }
 
 

@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch import faults, native
 from kube_batch_tpu_torch.ops import nvcc
 from kube_batch_tpu_torch.ops.cluster import CTA_WIDTH, ClusterShape, cluster_shape
 from kube_batch_tpu_torch.ops.kernels import SolveState, init_state, solve_allocate_step
@@ -127,9 +128,13 @@ _CLASS_KEYS = (
 
 def _class_inverse(a: dict):
     """Dedup tasks into classes by (req, res, gid, flags, ports): returns
-    (tports, first_indices, inverse) as np.unique does. Any consistent
-    (first, inverse) pairing is equivalent — class order carries no
-    meaning in the packed layout."""
+    (tports, first_indices, inverse). Any consistent (first, inverse)
+    pairing is equivalent — class order carries no meaning in the packed
+    layout. The native ``class_dedup`` (one O(T) hash pass) numbers
+    classes in first-occurrence order, ``np.unique`` (its twin, with the
+    native module off or the ``native.class_dedup`` fault fired) in
+    sorted-key order: the packed class tables differ, the solve's binds
+    and SolveState do not."""
     n = {k: np.asarray(a[k]) for k in _CLASS_KEYS}
     tports = _ports_mask(n["task_ports"])
     key = np.ascontiguousarray(
@@ -146,6 +151,17 @@ def _class_inverse(a: dict):
             axis=1,
         )
     )
+    lib = native.get()
+    if lib is not None and not faults.should_fire("native.class_dedup"):
+        try:
+            first_b, inv_b = lib.class_dedup(key)
+        except Exception as e:  # noqa: BLE001 -- np.unique gives an equivalent pairing
+            native.note_fallback("class_dedup", e)
+        else:
+            native.note_call("class_dedup")
+            first = np.frombuffer(first_b, np.int64)
+            inv = np.frombuffer(inv_b, np.int32).astype(np.int64)
+            return tports, first, inv
     void = key.view(np.dtype((np.void, key.dtype.itemsize * key.shape[1])))
     _, first, inv = np.unique(void.ravel(), return_index=True, return_inverse=True)
     return tports, first, inv.reshape(-1)

@@ -117,6 +117,26 @@ def build_pod(
     )
 
 
+def build_task(
+    namespace: str = "default",
+    name: str = "task",
+    req: Optional[dict[str, float]] = None,
+    node_name: str = "",
+    phase: PodPhase = PodPhase.PENDING,
+    group_name: str = "",
+    priority: Optional[int] = None,
+):
+    """One TaskInfo over a `build_pod` pod."""
+    from kube_batch_tpu_torch.api.job_info import TaskInfo
+
+    return TaskInfo(
+        build_pod(
+            namespace=namespace, name=name, node_name=node_name, phase=phase,
+            req=req, group_name=group_name, priority=priority,
+        )
+    )
+
+
 def build_node(
     name: str,
     alloc: Optional[dict[str, float]] = None,

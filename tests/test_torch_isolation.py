@@ -52,6 +52,29 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+# the host fast paths: each is a copy of a jax-free JAX-package
+# module, held to the same rule as the rest of the port
+FAST_PATH_MODULES = [
+    "native/__init__.py", "native/build.py", "ops/encode_cache.py", "faults/__init__.py", "metrics/__init__.py",
+]
+
+
+@pytest.mark.parametrize("rel", FAST_PATH_MODULES)
+def test_fast_path_modules_are_checked(rel):
+    path = os.path.join(PORT, rel)
+    assert path in list(_sources())
+    test_no_jax_import_in_source(path)
+
+
+def test_native_source_names_no_jax_package_path():
+    """The C++ copy names no file of the JAX package (its comments speak
+    of the port's own modules)."""
+    with open(os.path.join(PORT, "native", "_hotloops.cpp")) as f:
+        text = f.read()
+    assert "kube_batch_tpu/" not in text and "kube_batch_tpu." not in text
+    assert "xla_allocate" not in text and "pallas_solve" not in text
+
+
 def test_forbidden_names_match_exactly():
     assert _forbidden("kube_batch_tpu") and _forbidden("kube_batch_tpu.ops.kernels")
     assert _forbidden("jax") and _forbidden("jax.numpy")
@@ -99,6 +122,11 @@ def test_running_the_port_loads_no_jax():
         "close_session(ssn)\n"
         "assert [a.name for a in acts][1:] == ['torch_reclaim', 'torch_allocate', 'torch_backfill', 'torch_preempt']\n"
         "assert cache.evictor.evicts and 'encode_s' in acts[-1].last_timings\n"
+        "from kube_batch_tpu_torch import faults, metrics, native\n"
+        "from kube_batch_tpu_torch.ops import encode_cache\n"
+        "assert native.get() is not None and native.calls['bulk_assign'] and not native.fallbacks\n"
+        "assert acts[-1].last_timings['warm_fraction'] > 0 and metrics.encode_cache_hits.value() > 0\n"
+        "assert not faults.registry.active() and encode_cache.enabled()\n"
         "bad = [m for m in sys.modules if forbidden(m)]\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -48,7 +48,7 @@ def test_contended_sweep_evicts():
 def test_reclaim_records_its_split():
     torch_run(["torch_reclaim"], torch_testing.gen_reclaim_cluster(1), RECLAIM_TIERS)
     t = torch_get_action("torch_reclaim").last_timings
-    assert set(t) == {"encode_s", "reclaim_s", "serial_scans"}
+    assert set(t) == {"encode_s", "warm_fraction", "reclaim_s", "serial_scans"}
     assert t["serial_scans"] == 0
 
 
