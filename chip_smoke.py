@@ -115,7 +115,41 @@
      packed with native class numbering and with ``np.unique``'s, each
      bit-equal to its plain version, equal states and binds;
    any native fallback or fired fault point fails the run;
-10. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+10. drives the solver ladder under injected faults and the cycle under
+   trace (the twin pipeline's ``Scheduler`` throughout):
+   - ``ladder_drills``: on ``preempt_mix(2000, 40, seed=1)``, each drill
+     under a fresh solver ladder (threshold 3), the process ladder
+     restored after: (a) ``solve.fused`` once, a serial cycle
+     (``solve_failed``); (b) three such cycles open the ``fused`` breaker,
+     the next cycle runs serially (``breaker_open``) with no launch, and
+     after the backoff the probe cycle launches B1 once and closes it
+     (closed -> open -> half_open -> closed); (c) ``mesh: cuda:4`` with
+     ``solve.sharded`` once, B2 launches and the fused rung resumes in the
+     same cycle with one B1 launch; (d) ``solve.nan``, serial
+     (``nonfinite``) with no launch; (e) ``cycle.overrun``, an aborted
+     cycle with no bind and PodGroup phases as before, then a cycle that
+     binds; (f) a soft deadline of 1 us for three cycles: on ``mesh:
+     cuda:4`` it trips the ``sharded`` tier and the next cycle solves on
+     the fused rung; on the fused rung the overruns are counted and the
+     cycles stay on the card (the rung below is the CPU); (g) ``python -m
+     kube_batch_tpu_torch.faults.smoke`` on the card passes its five
+     drills; every cycle's binds and task states equal an undisturbed
+     fused cycle's;
+   - ``overrun_50k_5k``: (e) at ``preempt_mix(50_000, 5_000)``, the second
+     cycle's binds equal ``allocate``'s;
+   - ``traced_cycles_50k_5k``: warm_cycles_50k_5k's three cycles with
+     ``trace: "on"`` against the same cycles with tracing off (equal binds,
+     evicts and task states): ``check_tree``, the span tree per cycle,
+     each span beside its ``last_timings`` entry, the Chrome trace written
+     to ``chiprun_out/traced_cycles_50k_5k.trace.json``, and the
+     exposition after the traced cycles (``schedule_attempts`` up by 3,
+     ``breaker_state{tier="fused"}`` 0, no degraded cycle, five action
+     latencies per cycle), then the warm cycle traced and untraced in
+     alternation (``KBT_TRACE`` flipped), with the cyclic collector on
+     and held off during the cycle, their medians and spreads;
+   every phase outside the drills fails on any degraded cycle, breaker
+   transition, fired fault point or native fallback during it;
+11. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -141,10 +175,17 @@ on the last card against it too.
 runs only ``pipeline_reclaim`` on the card at 50,000 pods: the uncut
 reclaim pass and the preempt walk after it, minutes of host work.
 
+    python3 chip_smoke.py --ab-warm DIR
+
+runs instead ``warm_cycles_50k_5k`` of the checkout at DIR (the parent
+commit, unpacked with ``git archive``) and of this one, in the order DIR,
+this, this, DIR, each in a process of its own.
+
     python3 chip_smoke.py --rehearse CUT
 
-needs no card: the pipeline phases (step 8) and the fast paths' (step 9)
-on the CPU, every world's pod and node counts divided by CUT,
+needs no card: the pipeline phases (step 8), the fast paths' (step 9)
+and the ladder's and the trace's (step 10) on the CPU, every world's pod
+and node counts divided by CUT (the drills' small world is not cut),
 torch_allocate on the kernels' plain versions; the host actions' times
 predict the card run's.
 """
@@ -559,11 +600,11 @@ def affinity_world():
 
 
 def conf_file(mesh: str | None = None, actions: str | None = None, base: str = "scheduler-conf-torch.yaml",
-              **args) -> str:
+              trace: str | None = None, **args) -> str:
     """examples/<base> (the cycle's conf by default), with ``actions`` in
-    place of its pipeline and ``mesh`` and torch_allocate's other ``args``
-    set when given (written beside the kernels' build, inside the
-    checkout)."""
+    place of its pipeline, its ``trace:`` key, and ``mesh`` and
+    torch_allocate's other ``args`` set when given (written beside the
+    kernels' build, inside the checkout)."""
     import re
     import zlib
 
@@ -573,10 +614,12 @@ def conf_file(mesh: str | None = None, actions: str | None = None, base: str = "
     path = os.path.join(root, "examples", base)
     if mesh is not None:
         args = {"mesh": mesh, **args}
-    if actions is None and not args:
+    if actions is None and trace is None and not args:
         return path
     with open(path) as f:
         text = f.read()
+    if trace is not None:
+        text = f'trace: "{trace}"\n' + text
     if actions is not None:
         text = re.sub(r'^actions: ".*"$', f'actions: "{actions}"', text, count=1, flags=re.M)
     if args:
@@ -690,11 +733,7 @@ def cycle_phases(clusters: dict, results: dict, mesh_launches: dict) -> tuple[li
     failures, launches = [], {}
 
     def run(name, fn):
-        try:
-            fn()
-        except Exception as e:  # noqa: BLE001 - every phase runs; the script fails at the end
-            failures.append(f"{name}: {type(e).__name__}: {e}")
-            print(f"chip_smoke: {name} failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+        run_phase(failures, name, fn)
 
     def fused():
         rec, cache, _ = scheduler_cycle("scheduler_fused", clusters["preempt_mix_50k_5k"], None, "fused")
@@ -880,11 +919,7 @@ def pipeline_phases(clusters: dict, results: dict, device: str = "cuda", cut: in
     twin = conf_file(base=PIPELINE_CONF, **({} if on_card else {"device": "cpu"}))
 
     def run(name, fn):
-        try:
-            fn()
-        except Exception as e:  # noqa: BLE001 - every phase runs; the script fails at the end
-            failures.append(f"{name}: {type(e).__name__}: {e}")
-            print(f"chip_smoke: {name} failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+        run_phase(failures, name, fn)
 
     def world(name, nodes, pods=50_000, make=models.preempt_mix):
         """A config-4 world of ``nodes`` nodes with ``pods`` of its 50,000
@@ -1352,11 +1387,7 @@ def fast_path_phases(clusters: dict, results: dict, device: str = "cuda", cut: i
     failures, launches = [], {}
 
     def run(name, fn):
-        try:
-            fn()
-        except Exception as e:  # noqa: BLE001 - every phase runs; the script fails at the end
-            failures.append(f"{name}: {type(e).__name__}: {e}")
-            print(f"chip_smoke: {name} failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+        run_phase(failures, name, fn)
 
     def warm():
         rec, launches["warm_cycles_50k_5k"] = warm_cycles_phase(device, cut)
@@ -1370,18 +1401,646 @@ def fast_path_phases(clusters: dict, results: dict, device: str = "cuda", cut: i
     return failures, launches
 
 
-def fast_path_faults() -> list[str]:
-    """The run's native fallbacks and fired fault points: any is a
-    failure of the run."""
+def degradations() -> dict:
+    """The process's counts of degradations so far: cycles the solver
+    ladder ran below their rung, breaker transitions, fired fault points,
+    abandoned native calls."""
+    from kube_batch_tpu_torch import metrics, native
+
+    return {
+        "degraded_cycles": sum(metrics.degraded_cycles.samples().values()),
+        "breaker_transitions": sum(metrics.breaker_transitions.samples().values()),
+        "fault_injections": sum(metrics.fault_injections.samples().values()),
+        "native_fallbacks": sum(native.fallbacks.values()),
+    }
+
+
+def run_phase(failures: list, name: str, fn, drill: bool = False) -> None:
+    """Run one phase whatever the others did; a raise is a failure of the
+    run, recorded in ``failures``. Outside the drills (which inject their
+    faults and check their own degradations), a degradation during the
+    phase is a failure too."""
+    before = degradations()
+    try:
+        fn()
+        grew = {k: v - before[k] for k, v in degradations().items() if v != before[k]}
+        if grew and not drill:
+            raise AssertionError(f"degraded with no fault injected: {grew}")
+    except Exception as e:  # noqa: BLE001 - every phase runs; the script fails at the end
+        failures.append(f"{name}: {type(e).__name__}: {e}")
+        print(f"chip_smoke: {name} failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+
+
+def degradation_failures() -> list[str]:
+    """The run's degradations before the drills: any is a failure."""
     from kube_batch_tpu_torch import metrics, native
 
     bad = []
     if native.fallbacks:
         bad.append(f"native fallbacks: {dict(native.fallbacks)}")
-    fired = {dict(k).get("point"): v for k, v in metrics.fault_injections.samples().items() if v}
-    if fired:
-        bad.append(f"fault points fired: {fired}")
+    for name in ("fault_injections", "degraded_cycles", "breaker_transitions"):
+        got = {str(dict(k)): v for k, v in getattr(metrics, name).samples().items() if v}
+        if got:
+            bad.append(f"{name}: {got}")
     return bad
+
+
+# -- the solver ladder under faults, and the cycle under trace ----------------
+
+DRILL_WORLD = (2000, 40, 1)  # preempt_mix(2000, 40, seed=1)
+DRILL_RESET_S = 5.0  # the drills' breaker backoff, skipped on the drills' clock
+
+
+class DrillClock:
+    """The drill ladder's clock: the monotonic clock plus an offset that a
+    drill advances past a backoff instead of sleeping through it."""
+
+    def __init__(self) -> None:
+        self.offset = 0.0
+
+    def __call__(self) -> float:
+        return time.monotonic() + self.offset
+
+
+def pg_phases(cluster) -> dict:
+    """Each PodGroup's phase and running, failed and succeeded counts."""
+    return {uid: (j.pod_group.status.phase.value, j.pod_group.status.running, j.pod_group.status.failed,
+                  j.pod_group.status.succeeded) for uid, j in cluster.jobs.items() if j.pod_group is not None}
+
+
+def drill_cycle(sched, cluster, device: str) -> dict:
+    """One ``sched.run_once()`` over a fresh ``FakeCache(cluster)``, the
+    launch counters zeroed just before and read just after; every task's
+    state read just before the session closes; the cycle's binds, evicts,
+    torch_allocate's rung and serial reason, and its degradations."""
+    import torch
+
+    import kube_batch_tpu_torch.scheduler as sched_mod
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    sched.cache = FakeCache(cluster)
+    states = {}
+    close = sched_mod.close_session
+
+    def close_reading_states(ssn, discard=False):
+        states.update({t.uid: (t.status.name, t.node_name) for j in ssn.jobs.values() for t in j.tasks.values()})
+        close(ssn, discard=discard)
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    before = degradations()
+    sync()
+    sched_mod.close_session = close_reading_states
+    fs.fused_solve.launches = bs.block_step.launches = 0
+    try:
+        t0 = time.perf_counter()
+        sched.run_once()
+        sync()
+        wall_s = time.perf_counter() - t0
+    finally:
+        sched_mod.close_session = close
+    b1, b2 = fs.fused_solve.launches, bs.block_step.launches
+    alloc = next(a for a in sched.actions if a.name == "torch_allocate")
+    return {
+        "run_once_s": wall_s, "tier": alloc.last_solver_tier, "reason": alloc.last_timings.get("serial_reason"),
+        "aborted": sched.last_timings.get("aborted"), "b1_launches": b1, "b2_launches": b2,
+        "degradations": {k: v - before[k] for k, v in degradations().items() if v != before[k]},
+        "binds": dict(sched.cache.binder.binds), "evicts": list(sched.cache.evictor.evicts), "states": states,
+    }
+
+
+def ladder_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``ladder_drills``: the twin pipeline's Scheduler over
+    ``preempt_mix(2000, 40, seed=1)`` (``min_device_pairs: 0``), each drill
+    under a fresh solver ladder (threshold 3, a backoff of DRILL_RESET_S on
+    a clock the drill advances), the process ladder restored after. Every
+    cycle's binds and task states equal an undisturbed fused cycle's on the
+    same world:
+
+    (a) ``solve.fused`` once: a serial cycle (``solve_failed``), B1 ran and
+        its result was not used;
+    (b) three failing cycles open the ``fused`` breaker; the next cycle is
+        serial (``breaker_open``) with no launch; after the backoff the
+        probe cycle launches B1 once and closes it: closed -> open ->
+        half_open -> closed;
+    (c) ``mesh: <device>:4`` with ``solve.sharded`` once: B2 launches, then
+        the fused rung resumes in the same cycle with one B1 launch;
+    (d) ``solve.nan``: serial (``nonfinite``), no launch;
+    (e) ``cycle.overrun``: an aborted cycle with no bind and no evict,
+        PodGroup phases as before; the next cycle binds what an
+        undisturbed cycle binds;
+    (f) a soft deadline of 1 us for three cycles: on ``mesh:
+        <device>:4`` the ``sharded`` tier trips and the next cycle solves
+        on the fused rung; on the fused rung the card's cycles are counted
+        as soft overruns and stay on the card (the rung below is the CPU),
+        while on the CPU (``--rehearse``) the ``fused`` tier trips and the
+        next cycle is serial;
+    (g) ``python -m kube_batch_tpu_torch.faults.smoke`` on the device, in
+        a process of its own: its five drills pass.
+
+    Returns the record and the B1 and B2 launches of its cycles."""
+    from kube_batch_tpu_torch import faults, metrics, models
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    on_card = device == "cuda"
+    pods, nodes, seed = DRILL_WORLD
+    conf = conf_file(base=PIPELINE_CONF, min_device_pairs=0, **({} if on_card else {"device": "cpu"}))
+    mesh_conf = conf_file(base=PIPELINE_CONF, min_device_pairs=0, mesh=f"{device}:4",
+                          **({} if on_card else {"device": "cpu"}))
+
+    def world():
+        return models.preempt_mix(pods, nodes, seed=seed)
+
+    launches = [0, 0]
+    cycles: dict[str, list] = {}
+    process_ladder = faults.solver_ladder
+
+    def cycle(drill, sched, expect_tier, expect_reason=None, b1=None, b2=0, cluster=None):
+        rec = drill_cycle(sched, cluster if cluster is not None else world(), device)
+        launches[0] += rec["b1_launches"]
+        launches[1] += rec["b2_launches"]
+        cycles.setdefault(drill, []).append({k: v for k, v in rec.items() if k not in ("binds", "evicts", "states")})
+        if rec["aborted"] is None and (rec["tier"], rec["reason"]) != (expect_tier, expect_reason):
+            raise AssertionError(f"({drill}): solved on {rec['tier']!r} ({rec['reason']}), expected "
+                                 f"{expect_tier!r} ({expect_reason})")
+        if on_card and b1 is not None and (rec["b1_launches"] != b1 or b2 is not None and rec["b2_launches"] != b2):
+            raise AssertionError(f"({drill}): {rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches, "
+                                 f"expected {b1} and {b2}")
+        if rec["degradations"].get("native_fallbacks"):
+            raise AssertionError(f"({drill}): native fallbacks {rec['degradations']}")
+        return rec
+
+    def same_as_clean(drill, rec):
+        if (rec["binds"], rec["evicts"], rec["states"]) != (clean["binds"], clean["evicts"], clean["states"]):
+            raise AssertionError(f"({drill}): binds, evicts or task states differ from the undisturbed cycle's")
+
+    def fresh(drill):
+        faults.registry.reset()
+        clock = DrillClock()
+        ladder = faults.DegradationLadder(("sharded", "fused", "serial"), failure_threshold=3,
+                                          reset_timeout=DRILL_RESET_S, clock=clock)
+        history = []
+        for b in ladder.breakers.values():
+            real = b._transition
+
+            def transition(to, b=b, real=real):
+                history.append((b.name, b.state, to))
+                real(to)
+
+            b._transition = transition
+        faults.set_solver_ladder(ladder)
+        return ladder, clock, history
+
+    rec = {"phase": "ladder_drills", "world": f"preempt_mix({pods}, {nodes}, seed={seed})",
+           "breaker": {"failure_threshold": 3, "reset_timeout_s": DRILL_RESET_S}}
+    try:
+        fresh("clean")
+        clean = cycle("clean", Scheduler(None, conf), "fused", b1=1)
+        if not clean["binds"]:
+            raise AssertionError("the undisturbed cycle bound nothing")
+
+        ladder, _, history = fresh("a")
+        faults.registry.arm("solve.fused", count=1)
+        same_as_clean("a", cycle("a", Scheduler(None, conf), "serial", "solve_failed", b1=1))
+        rec["a"] = {"history": history, "fused_failures": ladder.breakers["fused"].failures}
+        if ladder.breakers["fused"].failures != 1 or history:
+            raise AssertionError(f"(a): fused breaker {ladder.breakers['fused'].failures} failures, {history}")
+
+        ladder, clock, history = fresh("b")
+        faults.registry.arm("solve.fused", count=3)
+        for _ in range(3):
+            same_as_clean("b", cycle("b", Scheduler(None, conf), "serial", "solve_failed", b1=1))
+        if ladder.state("fused") != "open":
+            raise AssertionError(f"(b): three failures left the fused breaker {ladder.state('fused')}")
+        same_as_clean("b", cycle("b", Scheduler(None, conf), "serial", "breaker_open", b1=0))
+        clock.offset += DRILL_RESET_S
+        same_as_clean("b", cycle("b", Scheduler(None, conf), "fused", b1=1))
+        want = [("fused", "closed", "open"), ("fused", "open", "half_open"), ("fused", "half_open", "closed")]
+        rec["b"] = {"history": history}
+        if history != want:
+            raise AssertionError(f"(b): breaker history {history}, expected {want}")
+
+        ladder, _, history = fresh("c")
+        faults.registry.arm("solve.sharded", count=1)
+        got = cycle("c", Scheduler(None, mesh_conf), "fused", b1=1, b2=None)
+        same_as_clean("c", got)
+        if on_card and got["b2_launches"] < 1:
+            raise AssertionError("(c): the sharded rung launched no block step before it failed")
+        rec["c"] = {"history": history, "b2_launches": got["b2_launches"], "b1_launches": got["b1_launches"]}
+        if ladder.breakers["sharded"].failures != 1 or history:
+            raise AssertionError(f"(c): sharded breaker {ladder.breakers['sharded'].failures} failures, {history}")
+
+        ladder, _, history = fresh("d")
+        faults.registry.arm("solve.nan", count=1)
+        same_as_clean("d", cycle("d", Scheduler(None, conf), "serial", "nonfinite: w_least", b1=0))
+        rec["d"] = {"history": history}
+
+        fresh("e")
+        sched = Scheduler(None, conf)
+        cluster = world()
+        phases = pg_phases(cluster)
+        faults.registry.arm("cycle.overrun", count=1)
+        got = cycle("e", sched, None, cluster=cluster)
+        if "dispatch barrier" not in (got["aborted"] or "") or got["binds"] or got["evicts"]:
+            raise AssertionError(f"(e): the overrun did not abort before any bind: {got['aborted']}, "
+                                 f"{len(got['binds'])} binds, {len(got['evicts'])} evicts")
+        if pg_phases(cluster) != phases:
+            raise AssertionError("(e): the aborted cycle changed PodGroup statuses")
+        same_as_clean("e", cycle("e", sched, "fused", b1=1, cluster=cluster))
+        rec["e"] = {"aborted": got["aborted"]}
+
+        ladder, _, history = fresh("f")
+        sched = Scheduler(None, mesh_conf, soft_deadline_s=1e-6)
+        for _ in range(3):
+            same_as_clean("f", cycle("f", sched, "sharded", b1=0, b2=None))
+        if ladder.state("sharded") != "open":
+            raise AssertionError(f"(f): three soft overruns left the sharded breaker {ladder.state('sharded')}")
+        same_as_clean("f", cycle("f", sched, "fused", b1=1))
+        rec["f"] = {"sharded_history": history}
+        ladder, _, history = fresh("f")
+        sched = Scheduler(None, conf, soft_deadline_s=1e-6)
+        soft = {"kind": "soft"}
+        overruns = metrics.cycle_overruns.value(soft)
+        for _ in range(3):
+            same_as_clean("f", cycle("f", sched, "fused", b1=1))
+        if on_card:
+            same_as_clean("f", cycle("f", sched, "fused", b1=1))
+            if ladder.state("fused") != "closed" or history:
+                raise AssertionError(f"(f): soft overruns on the card moved the fused breaker: {history}")
+        else:
+            if ladder.state("fused") != "open":
+                raise AssertionError(f"(f): three soft overruns left the fused breaker {ladder.state('fused')}")
+            same_as_clean("f", cycle("f", sched, "serial", "breaker_open", b1=0))
+        rec["f"]["fused_history"] = history
+        rec["f"]["fused_soft_overruns"] = metrics.cycle_overruns.value(soft) - overruns
+
+        faults.registry.reset()
+        faults.set_solver_ladder(process_ladder)
+        smoke = subprocess.run([sys.executable, "-m", "kube_batch_tpu_torch.faults.smoke", "--device", device],
+                               cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                               timeout=300)
+        rec["g"] = {"returncode": smoke.returncode,
+                    "lines": [line for line in smoke.stdout.splitlines() if line.startswith("chaos smoke")]}
+        if smoke.returncode != 0:
+            raise AssertionError(f"(g): the fault smoke exited {smoke.returncode}: {smoke.stdout[-2000:]} "
+                                 f"{smoke.stderr[-2000:]}")
+    finally:
+        faults.registry.reset()
+        faults.set_solver_ladder(process_ladder)
+    rec["cycles"] = cycles
+    rec["binds"], rec["evicts"] = len(clean["binds"]), len(clean["evicts"])
+    rec["b1_launches"], rec["b2_launches"] = launches
+    return rec, tuple(launches)
+
+
+def overrun_phase(clusters: dict, results: dict, device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+    """``overrun_50k_5k``: drill (e) at full width, the twin pipeline on
+    ``preempt_mix(50_000, 5_000)``: ``cycle.overrun`` aborts the first
+    cycle at the dispatch barrier, after B1 ran and the replay was done,
+    and leaves the cache unchanged (no bind, no evict, PodGroup phases as
+    before); the second cycle's binds equal ``allocate``'s. Two cycles."""
+    from kube_batch_tpu_torch import faults, models
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    on_card = device == "cuda"
+    pods, nodes = CYCLES_WORLD[0] // cut, CYCLES_WORLD[1] // cut
+    cluster = clusters.get("preempt_mix_50k_5k") if cut == 1 else None
+    cluster = cluster if cluster is not None else models.preempt_mix(pods, nodes)
+    sched = Scheduler(None, conf_file(base=PIPELINE_CONF, **({} if on_card else {"device": "cpu"})))
+    phases = pg_phases(cluster)
+    faults.registry.reset()
+    faults.registry.arm("cycle.overrun", count=1)
+    try:
+        first = drill_cycle(sched, cluster, device)
+    finally:
+        faults.registry.reset()
+    if "dispatch barrier" not in (first["aborted"] or "") or first["binds"] or first["evicts"]:
+        raise AssertionError(f"the overrun did not abort before any bind: {first['aborted']}")
+    if pg_phases(cluster) != phases:
+        raise AssertionError("the aborted cycle changed PodGroup statuses")
+    second = drill_cycle(sched, cluster, device)
+    if second["aborted"] or second["tier"] != "fused":
+        raise AssertionError(f"the second cycle: {second['aborted']}, on the {second['tier']!r} rung")
+    if cut == 1 and second["binds"] != results["preempt_mix_50k_5k"].binds:
+        raise AssertionError("the second cycle's binds differ from allocate()'s")
+    if on_card and (first["b1_launches"], second["b1_launches"]) != (1, 1):
+        raise AssertionError(f"{first['b1_launches']} and {second['b1_launches']} B1 launches; expected 1 and 1")
+    rec = {"phase": "overrun_50k_5k", "pods": pods, "nodes": nodes,
+           "aborted": first["aborted"], "aborted_run_once_s": first["run_once_s"],
+           "next_run_once_s": second["run_once_s"], "binds": len(second["binds"]),
+           "degradations": first["degradations"],
+           "b1_launches": first["b1_launches"] + second["b1_launches"],
+           "b2_launches": first["b2_launches"] + second["b2_launches"]}
+    if cut > 1:
+        rec["reduced"] = {"pods": [CYCLES_WORLD[0], pods], "nodes": [CYCLES_WORLD[1], nodes]}
+    else:
+        rec["equal_to_allocate"] = True
+    return rec, (rec["b1_launches"], rec["b2_launches"])
+
+
+def exposition_values(text: str) -> dict:
+    """The exposition's samples, ``name{labels}`` -> value."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+TRACED_SPANS = ("cycle", "snapshot", "encode", "solve", "gang.assign", "commit")
+SPAN_COST_SPANS = 10_000  # spans timed for the instrumentation's own cost
+WARM_ROUNDS = 4  # rounds of traced, untraced, untraced, traced warm cycles
+
+
+def traced_cycles_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+    """``traced_cycles_50k_5k``: warm_cycles_50k_5k's three cycles of the
+    twin pipeline (cold; nothing changed; 1% of nodes replaced and a new
+    gang) with ``trace: "on"`` in the conf, then the same three cycles over
+    a twin world with tracing off; binds, evicts and task states equal
+    cycle for cycle. Records ``check_tree`` (empty), each cycle's span tree
+    (one ``cycle`` root; snapshot, encode, solve, gang.assign and commit
+    under it), each span's duration beside its ``last_timings`` entry,
+    ``run_once`` traced and untraced, the Chrome trace (written under
+    chiprun_out/), and the exposition read after the traced cycles:
+    ``schedule_attempts`` up by 3, ``breaker_state{tier="fused"}`` 0, no
+    degraded cycle, five action latencies per cycle. Then the cost of
+    tracing on the warm cycle: one scheduler over the untraced arm's world,
+    nothing changed since its last cycle, runs WARM_ROUNDS rounds of
+    traced, untraced, untraced, traced cycles (``KBT_TRACE`` flipped
+    between them, the conf's ``trace:`` empty), after one warm-up cycle of
+    each, once with the cyclic collector on and once with it held off
+    during each cycle; the medians, spreads and each arm's median
+    ``last_timings``."""
+    import collections
+
+    import torch
+
+    import kube_batch_tpu_torch.scheduler as sched_mod
+    from kube_batch_tpu_torch import metrics, models, obs
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import encode_cache
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    on_card = device == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    extra = {} if on_card else {"device": "cpu"}
+    pods, nodes = CYCLES_WORLD[0] // cut, CYCLES_WORLD[1] // cut
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    arms = {}
+    launches = [0, 0]
+    before_text = metrics.render_prometheus_text()
+    after_text = ""
+    for arm, trace in (("traced", "on"), ("untraced", "off")):
+        conf = conf_file(base=PIPELINE_CONF, trace=trace, **extra)
+        cache = FakeCache(models.preempt_mix(pods, nodes))
+        sched = sched_mod.Scheduler(cache, conf)
+        encode_cache.get().invalidate_all("chip_smoke")
+        obs.recorder.clear()
+        close = sched_mod.close_session
+        out = []
+        for cycle in range(3):
+            if cycle == 2:
+                for node_name in sorted(cache.cluster.nodes)[: max(int(nodes * CHURN), 1)]:
+                    relabel(cache.cluster.nodes[node_name], "churn")
+                add_gang(cache.cluster, "traced-cycles-new-gang", 8)
+            cache.binder.binds.clear()
+            del cache.evictor.evicts[:]
+            states = {}
+
+            def close_reading_states(ssn, discard=False):
+                states.update({t.uid: (t.status.name, t.node_name) for j in ssn.jobs.values()
+                               for t in j.tasks.values()})
+                close(ssn, discard=discard)
+
+            sync()
+            sched_mod.close_session = close_reading_states
+            fs.fused_solve.launches = bs.block_step.launches = 0
+            try:
+                with GcClock() as gc_clock:
+                    t0 = time.perf_counter()
+                    sched.run_once()
+                    sync()
+                    wall_s = time.perf_counter() - t0
+            finally:
+                sched_mod.close_session = close
+            if "aborted" in sched.last_timings:
+                raise AssertionError(f"{arm} cycle {cycle + 1} aborted: {sched.last_timings['aborted']}")
+            alloc = next(a for a in sched.actions if a.name == "torch_allocate")
+            launches[0] += fs.fused_solve.launches
+            launches[1] += bs.block_step.launches
+            if on_card and (fs.fused_solve.launches, bs.block_step.launches) != (1, 0):
+                raise AssertionError(f"{arm} cycle {cycle + 1}: {fs.fused_solve.launches} B1 and "
+                                     f"{bs.block_step.launches} B2 launches; expected 1 and 0")
+            out.append({"run_once_s": wall_s, "gc_s": gc_clock.record()["gc_s"], "timings": dict(sched.last_timings),
+                        "torch_allocate": dict(alloc.last_timings), "tier": alloc.last_solver_tier,
+                        "binds": dict(cache.binder.binds), "evicts": list(cache.evictor.evicts),
+                        "states": states})
+        if arm == "traced":
+            after_text = metrics.render_prometheus_text()
+            spans = obs.recorder.spans()
+        arms[arm] = out
+    warm_sched = sched_mod.Scheduler(cache, conf_file(base=PIPELINE_CONF, trace="", **extra))
+    warm = {mode: warm_trace_cost(warm_sched, cache, sync, launches, on_card, collector=mode == "collector_on")
+            for mode in ("collector_on", "collector_off")}
+    # the instrumentation's own cost: one span opened and closed, with an
+    # attribute, into the flight recorder's ring
+    obs.configure("on")
+    obs.recorder.clear()
+    t0 = time.perf_counter()
+    for _ in range(SPAN_COST_SPANS):
+        with obs.span("commit", jobs=1):
+            pass
+    span_cost_s = (time.perf_counter() - t0) / SPAN_COST_SPANS
+    obs.configure()
+    obs.recorder.clear()
+    for cycle, (t, u) in enumerate(zip(arms["traced"], arms["untraced"])):
+        if (t["binds"], t["evicts"], t["states"]) != (u["binds"], u["evicts"], u["states"]):
+            raise AssertionError(f"cycle {cycle + 1}: binds, evicts or task states differ with tracing on and off")
+
+    violations = obs.check_tree(spans)
+    if violations:
+        raise AssertionError(f"the span tree is broken: {violations[:5]}")
+    by_trace = collections.defaultdict(list)
+    for s in spans:
+        by_trace[s["trace_id"]].append(s)
+    traces = sorted(by_trace.values(), key=lambda ss: min(s["start_us"] for s in ss))
+    if len(traces) != 3:
+        raise AssertionError(f"{len(traces)} traces for three cycles")
+    per_cycle = []
+    for cycle, (trace, t) in enumerate(zip(traces, arms["traced"])):
+        by_id = {s["span_id"]: s for s in trace}
+        pairs = collections.Counter((s["name"], by_id[s["parent_id"]]["name"] if s["parent_id"] else None)
+                                    for s in trace)
+        want = collections.Counter({("cycle", None): 1, **{(n, "cycle"): 1 for n in TRACED_SPANS[1:]}})
+        if pairs != want:
+            raise AssertionError(f"cycle {cycle + 1}: span tree {dict(pairs)}, expected {dict(want)}")
+        dur = {s["name"]: s["dur_us"] / 1e6 for s in trace}
+        attrs = {s["name"]: s["attrs"] for s in trace}
+        if attrs["solve"].get("tier") != "fused" or "warm_fraction" not in attrs["encode"]:
+            raise AssertionError(f"cycle {cycle + 1}: span attributes {attrs}")
+        a, c = t["torch_allocate"], t["timings"]
+        per_cycle.append({
+            "span_s": dur,
+            "last_timings_s": {"cycle": c["run_once_s"], "snapshot": c["snapshot_s"], "encode": a["encode_s"],
+                               "solve": a["solve_s"], "gang.assign": a["replay_s"],
+                               "commit": c["close_s"]},
+            "warm_fraction": attrs["encode"]["warm_fraction"], "tier": attrs["solve"]["tier"],
+        })
+    chrome = os.path.join(root, "chiprun_out", "traced_cycles_50k_5k.trace.json")
+    os.makedirs(os.path.dirname(chrome), exist_ok=True)
+    obs.export_chrome(spans, chrome)
+
+    before, after = exposition_values(before_text), exposition_values(after_text)
+
+    def grew(key):
+        return after.get(key, 0.0) - before.get(key, 0.0)
+
+    prefix = "kube_batch_tpu_"
+    actions = [a.name for a in sched.actions]
+    exposition = {
+        "schedule_attempts": grew(f"{prefix}schedule_attempts_total"),
+        "breaker_state_fused": after.get(f'{prefix}breaker_state{{tier="fused"}}'),
+        "degraded_cycles": sum(v for k, v in after.items() if k.startswith(f"{prefix}degraded_cycles_total"))
+        - sum(v for k, v in before.items() if k.startswith(f"{prefix}degraded_cycles_total")),
+        "action_latency_counts": {
+            name: grew(f'{prefix}action_scheduling_latency_count{{action="{name}"}}') for name in actions},
+        "series": len([line for line in after_text.splitlines() if line.startswith("# TYPE")]),
+    }
+    if (exposition["schedule_attempts"], exposition["breaker_state_fused"], exposition["degraded_cycles"]) != (
+            3.0, 0.0, 0.0) or len(actions) != 5 or set(exposition["action_latency_counts"].values()) != {3.0}:
+        raise AssertionError(f"the exposition after three traced cycles: {exposition}")
+    rec = {
+        "phase": "traced_cycles_50k_5k", "pods": pods, "nodes": nodes,
+        "run_once_s": {arm: [c["run_once_s"] for c in out] for arm, out in arms.items()},
+        "gc_s": {arm: [c["gc_s"] for c in out] for arm, out in arms.items()},
+        "traced_minus_untraced_s": [t["run_once_s"] - u["run_once_s"]
+                                    for t, u in zip(arms["traced"], arms["untraced"])],
+        # the same difference with each cycle's cyclic-collector time taken out
+        "traced_minus_untraced_net_of_gc_s": [(t["run_once_s"] - t["gc_s"]) - (u["run_once_s"] - u["gc_s"])
+                                              for t, u in zip(arms["traced"], arms["untraced"])],
+        "spans": len(spans), "span_cost_us": span_cost_s * 1e6,
+        "spans_cost_per_cycle_us": span_cost_s * 1e6 * len(spans) / 3,
+        "check_tree": violations, "cycles": per_cycle,
+        "chrome_trace": os.path.relpath(chrome, root), "exposition": exposition,
+        "equal_on_and_off": True, "b1_launches": launches[0], "b2_launches": launches[1],
+        "binds_by_cycle": [len(c["binds"]) for c in arms["traced"]],
+        "warm_alternating": warm,
+    }
+    if cut > 1:
+        rec["reduced"] = {"pods": [CYCLES_WORLD[0], pods], "nodes": [CYCLES_WORLD[1], nodes]}
+    return rec, tuple(launches)
+
+
+def warm_trace_cost(sched, cache, sync, launches: list, on_card: bool, collector: bool = True) -> dict:
+    """Warm cycles of ``sched`` with tracing on and off in the order of
+    traced_cycles_phase's docstring; binds, evicts and launches must not
+    change from run to run. With ``collector`` False, each cycle runs with
+    the cyclic collector off after a full collection outside the timed
+    cycle: a generation-2 collection (1-2.6 s at 50k x 5k) cannot land in
+    one arm's cycle. Returns each arm's run_once times (and net of the
+    collector), their medians and spreads, and each arm's median
+    ``last_timings`` entries."""
+    import gc
+
+    from kube_batch_tpu_torch import obs
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    order = ["traced", "untraced"] + ["traced", "untraced", "untraced", "traced"] * WARM_ROUNDS
+    runs = {"traced": [], "untraced": []}
+    saved = os.environ.get("KBT_TRACE")
+    first = None
+    try:
+        for i, arm in enumerate(order):
+            os.environ["KBT_TRACE"] = "1" if arm == "traced" else "0"
+            cache.binder.binds.clear()
+            del cache.evictor.evicts[:]
+            obs.recorder.clear()
+            if not collector:
+                gc.collect()
+                gc.disable()
+            sync()
+            fs.fused_solve.launches = bs.block_step.launches = 0
+            try:
+                with GcClock() as gc_clock:
+                    t0 = time.perf_counter()
+                    sched.run_once()
+                    sync()
+                    wall_s = time.perf_counter() - t0
+            finally:
+                gc.enable()
+            launches[0] += fs.fused_solve.launches
+            launches[1] += bs.block_step.launches
+            if "aborted" in sched.last_timings:
+                raise AssertionError(f"warm {arm} run {i}: aborted: {sched.last_timings['aborted']}")
+            if on_card and (fs.fused_solve.launches, bs.block_step.launches) != (1, 0):
+                raise AssertionError(f"warm {arm} run {i}: {fs.fused_solve.launches} B1 and "
+                                     f"{bs.block_step.launches} B2 launches; expected 1 and 0")
+            if bool(obs.recorder.spans()) != (arm == "traced"):
+                raise AssertionError(f"warm {arm} run {i}: {len(obs.recorder.spans())} spans recorded")
+            got = (dict(cache.binder.binds), list(cache.evictor.evicts))
+            first = first or got
+            if got != first:
+                raise AssertionError(f"warm {arm} run {i}: binds or evicts differ from the first warm run's")
+            alloc = next(a for a in sched.actions if a.name == "torch_allocate")
+            if i >= 2:  # after one warm-up cycle of each arm
+                runs[arm].append({"run_once_s": wall_s, "gc_s": gc_clock.record()["gc_s"],
+                                  "timings": {**sched.last_timings, **{f"torch_allocate.{k}": v for k, v in
+                                                                       alloc.last_timings.items()}}})
+    finally:
+        if saved is None:
+            os.environ.pop("KBT_TRACE", None)
+        else:
+            os.environ["KBT_TRACE"] = saved
+        obs.configure()
+        obs.recorder.clear()
+
+    def summary(values):
+        return {"median": statistics.median(values), "min": min(values), "max": max(values)}
+
+    out = {"order": order, "warm_up_runs": 2, "runs_per_arm": len(runs["traced"])}
+    for arm, rs in runs.items():
+        keys = [k for k, v in rs[0]["timings"].items() if isinstance(v, float)]
+        out[arm] = {
+            "run_once_s": [r["run_once_s"] for r in rs],
+            "gc_s": [r["gc_s"] for r in rs],
+            "run_once": summary([r["run_once_s"] for r in rs]),
+            "run_once_net_of_gc": summary([r["run_once_s"] - r["gc_s"] for r in rs]),
+            "median_timings_s": {k: statistics.median(r["timings"][k] for r in rs) for k in keys},
+        }
+    out["median_traced_minus_untraced_s"] = (out["traced"]["run_once"]["median"]
+                                             - out["untraced"]["run_once"]["median"])
+    out["median_traced_minus_untraced_net_of_gc_s"] = (out["traced"]["run_once_net_of_gc"]["median"]
+                                                       - out["untraced"]["run_once_net_of_gc"]["median"])
+    return out
+
+
+def ladder_trace_phases(clusters: dict, results: dict, device: str = "cuda", cut: int = 1) -> tuple[list[str], dict]:
+    """The solver ladder's and the trace's phases: ``ladder_drills``,
+    ``overrun_50k_5k`` (drills: they inject their faults) and
+    ``traced_cycles_50k_5k`` (undisturbed). Returns the failures and the
+    launches of each phase's main path."""
+    failures, launches = [], {}
+
+    def drills():
+        rec, launches["ladder_drills"] = ladder_drills(device)
+        emit(rec)
+
+    def overrun():
+        rec, launches["overrun_50k_5k"] = overrun_phase(clusters, results, device, cut)
+        emit(rec)
+
+    def traced():
+        rec, launches["traced_cycles_50k_5k"] = traced_cycles_phase(device, cut)
+        emit(rec)
+
+    run_phase(failures, "ladder_drills", drills, drill=True)
+    run_phase(failures, "overrun_50k_5k", overrun, drill=True)
+    run_phase(failures, "traced_cycles_50k_5k", traced)
+    return failures, launches
 
 
 def pipeline_uncut(card: str, kind: str) -> int:
@@ -1406,10 +2065,10 @@ def pipeline_uncut(card: str, kind: str) -> int:
 
 
 def rehearse(argv: list[str]) -> int:
-    """``--rehearse CUT``: the pipeline and fast-path phases on the CPU,
-    every world's pod and node counts divided by CUT, torch_allocate on
-    the kernels' plain versions. A prediction of the host actions' cost, not a measurement
-    of the card."""
+    """``--rehearse CUT``: the pipeline, fast-path, ladder and trace
+    phases on the CPU, every world's pod and node counts divided by CUT,
+    torch_allocate on the kernels' plain versions. A prediction of the
+    host actions' cost, not a measurement of the card."""
     try:
         cut = int(argv[1]) if len(argv) == 2 else 0
     except ValueError:
@@ -1422,9 +2081,40 @@ def rehearse(argv: list[str]) -> int:
     emit(native_build())
     failures, _ = pipeline_phases({}, {}, device="cpu", cut=cut)
     fast_failures, _ = fast_path_phases({}, {}, device="cpu", cut=cut)
-    failures += fast_failures + fast_path_faults()
+    failures += fast_failures + degradation_failures()
+    ladder_failures, _ = ladder_trace_phases({}, {}, device="cpu", cut=cut)
+    failures += ladder_failures
     emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
     return 1 if failures else 0
+
+
+AB_WARM_CODE = ("import json, sys; sys.path.insert(0, '.'); import chip_smoke as c; "
+                "rec, _ = c.warm_cycles_phase('cuda'); print('AB_WARM ' + json.dumps(rec))")
+
+
+def ab_warm(other: str) -> int:
+    """``--ab-warm DIR``: ``warm_cycles_50k_5k`` of the checkout at DIR (the
+    parent commit, unpacked with ``git archive``) against this checkout's,
+    in the order DIR, this, this, DIR, each in a process of its own on the
+    card, tracing off (the default). One record per run: each cycle's
+    ``run_once`` and collector time, fast paths on and off."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    failed = 0
+    for run, tree in enumerate((other, here, here, other)):
+        out = subprocess.run([sys.executable, "-c", AB_WARM_CODE], cwd=tree, capture_output=True, text=True,
+                             timeout=900)
+        line = next((x for x in out.stdout.splitlines() if x.startswith("AB_WARM ")), None)
+        if out.returncode != 0 or line is None:
+            failed += 1
+            print(f"chip_smoke: ab_warm run {run} in {tree} exited {out.returncode}: {out.stderr[-2000:]}",
+                  file=sys.stderr)
+            continue
+        rec = json.loads(line[len("AB_WARM "):])
+        emit({"phase": "ab_warm", "run": run, "tree": "this" if tree == here else "other",
+              **{arm: {"run_once_s": [c["run_once_s"] for c in rec[arm]], "gc_s": [c["gc_s"] for c in rec[arm]]}
+                 for arm in ("fast", "off")}, "b1_launches": rec["b1_launches"]})
+    return 1 if failed else 0
 
 
 def distinct_cards(card: str) -> int:
@@ -1489,15 +2179,17 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if argv in (["--cards"], ["--pipeline-uncut"]):
+    if argv in (["--cards"], ["--pipeline-uncut"]) or argv[:1] == ["--ab-warm"] and len(argv) == 2:
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
         if argv == ["--cards"]:
             return distinct_cards(card)
+        if argv[0] == "--ab-warm":
+            return ab_warm(argv[1])
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--rehearse CUT]", file=sys.stderr)
+              "--ab-warm DIR | --rehearse CUT]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.ops import block_step as bs
@@ -1679,12 +2371,16 @@ def main(argv: list[str]) -> int:
     failures += pipeline_failures
     # -- the host fast paths: encode cache, warm cycles, native parity ------
     fast_failures, fast_launches = fast_path_phases(clusters, results)
-    failures += fast_failures + fast_path_faults()
+    failures += fast_failures + degradation_failures()
+    # -- the solver ladder under faults, the cycle under trace --------------
+    ladder_failures, ladder_launches = ladder_trace_phases(clusters, results)
+    failures += ladder_failures
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
     cycle_launches.update(pipeline_launches)
     cycle_launches.update(fast_launches)
+    cycle_launches.update(ladder_launches)
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 

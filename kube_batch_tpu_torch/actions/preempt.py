@@ -7,8 +7,8 @@ parameterized over how Statements are built and how candidate nodes are
 scanned, so the serial action here and the vectorized torch_preempt
 action share one control flow instead of diverging copies.
 
-The JAX package's `run_preempt` also meters victims and attempts; the port has
-no metrics module yet.
+Each candidate node's victim count feeds ``total_preemption_victims`` and
+each eviction pass ``total_preemption_attempts``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import logging
 from typing import Callable, Optional
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.api.job_info import JobInfo, TaskInfo
 from kube_batch_tpu_torch.api.node_info import NodeInfo
 from kube_batch_tpu_torch.api.resource_info import Resource
@@ -74,6 +75,7 @@ def _preempt(
     for node in candidates_fn(ssn, preemptor):
         preemptees = [task.clone() for task in node.tasks.values() if filter_fn(task)]
         victims = ssn.preemptable(preemptor, preemptees)
+        metrics.update_preemption_victims_count(len(victims))
 
         resreq = preemptor.init_resreq.clone()
         if _validate_victims(victims, resreq) is not None:
@@ -95,6 +97,8 @@ def _preempt(
             preempted.add(preemptee.resreq)
             if resreq.less_equal(preempted):
                 break
+
+        metrics.register_preemption_attempts()
 
         if preemptor.init_resreq.less_equal(preempted):
             log.debug(

@@ -32,13 +32,38 @@ Action arguments (``actionArguments: {torch_allocate: {...}}``):
 - ``min_device_pairs``: the size floor (pending tasks x nodes) below
   which the cycle runs serially (256; a mesh request skips it).
 
-Routing to serial happens for exactly three reasons, each recorded as
-``last_solver_tier = "serial"`` with the reason in ``last_timings``: a conf
-outside the solve's envelope (actions/envelope.py), a snapshot below the
-size floor, and non-finite solver inputs. Nothing else reroutes a cycle:
-a rung that fails to build, pack, launch or solve, or a snapshot past
-kernel B1's shared-memory limit, raises ``DeviceSolveError`` out of
-``execute`` before any bind.
+Routing to serial, each recorded as ``last_solver_tier = "serial"`` with
+the reason in ``last_timings`` (``serial_reason``): a conf outside the
+solve's envelope (actions/envelope.py) and a snapshot below the size floor
+(``serial_routed_s``); and the degradations of the solver ladder
+(``serial_degraded_s``), each also counted as
+``degraded_cycles{tier="serial",reason=...}``:
+
+- ``breaker_open``: the fused rung's circuit breaker
+  (``faults.solver_ladder``) is open; the cycle runs serially before the
+  encode;
+- ``nonfinite: <inputs>``: non-finite solver inputs (the ``solve.nan``
+  fault point poisons ``w_least``);
+- ``solve_failed``: the fused rung failed a segment (the ``solve.fused``
+  fault point, or organically on ``device: cpu``) and fed its breaker; serial finishes the
+  cycle, and host-step segments already replayed stand.
+
+The ladder runs sharded -> fused -> serial (the JAX package's runs
+mesh_pallas -> pallas -> xla -> serial; the port has no XLA twin and no
+GSPMD rung on the card). A sharded failure (organic or ``solve.sharded``)
+feeds the ``sharded`` breaker and the fused rung resumes from the same
+``SolveState`` in the same cycle; with the ``sharded`` breaker open, a
+mesh conf solves on the fused rung. Some failures are not faults and
+raise out of ``execute``, since each would fail every cycle and a breaker
+would then route every cycle to the CPU for good: no visible card for
+``device: cuda`` (``RuntimeError``), a kernel that cannot be built or
+loaded (``KernelBuildError``), a snapshot the fused rung cannot take,
+past kernel B1's shared-memory limit or with a cluster the card cannot
+hold (``DeviceSolveError``, before any bind), and an organic failure of
+the fused rung on a card (``DeviceSolveError``). So on a card the cycle
+reaches the serial rung through ``solve.fused`` alone; an organic fused
+failure degrades only on ``device: cpu``. A deadline abort
+(``CycleDeadlineExceeded``) never feeds a breaker.
 
 Pod (anti-)affinity is pairwise-dynamic over resident pods
 (predicates.go:187-199) and volume claims need the volume binder: such a
@@ -53,10 +78,17 @@ ops/encode_cache.py), and the replay runs the native hot loops
 (native/_hotloops.cpp: ``bulk_res_axpy``, ``bulk_assign``,
 ``bulk_dispatch``, ``bulk_set_slot``, ``finish_columns``), each beside its
 Python twin, behind the fault points ``native.load``, ``native.prepass``
-and ``native.dispatch``. The JAX package's action also keeps a
-device-resident arena, a ladder of solver tiers with circuit breakers,
-node-class compression, pipelined dispatch and forensics; those belong to
-later slices of this port.
+and ``native.dispatch``.
+
+Under tracing (obs) the action opens the ``encode`` span (``tasks``,
+``nodes``, ``warm_fraction``), the ``solve`` span (``mesh``, ``tier``, a
+``host_step`` event per pause; ``torch.profiler.record_function("kbt.solve")``
+around it) and the ``gang.assign`` span (the replay and the dispatch,
+``assigned``), the JAX action's tree.
+
+The JAX package's action also keeps a device-resident arena, node-class
+compression, pipelined dispatch and forensics; those come with the
+port's later items (ROADMAP).
 """
 
 from __future__ import annotations
@@ -67,7 +99,7 @@ import time
 import numpy as np
 import torch
 
-from kube_batch_tpu_torch import faults, metrics, native
+from kube_batch_tpu_torch import faults, metrics, native, obs
 from kube_batch_tpu_torch import log as pkg_log
 from kube_batch_tpu_torch.actions.envelope import kernel_supported
 from kube_batch_tpu_torch.api.types import TaskStatus
@@ -78,6 +110,7 @@ from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
 from kube_batch_tpu_torch.ops.encode import compute_pod_sc, encode_session
 from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
 from kube_batch_tpu_torch.ops.kernels import KIND_ALLOCATED, KIND_PIPELINED, SolveState
+from kube_batch_tpu_torch.ops.nvcc import KernelBuildError
 from kube_batch_tpu_torch.parallel import ShardedBlockSolver, make_mesh
 from kube_batch_tpu_torch.plugins.nodeorder import (
     BALANCED_RESOURCE_WEIGHT,
@@ -102,8 +135,10 @@ _MESH_OFF = ("", "off", "none", "0", "1", "false", "no")
 
 
 class DeviceSolveError(RuntimeError):
-    """A device rung failed to build, pack, launch or solve the cycle's
-    snapshot. Raised out of ``execute``; the cycle is never rerouted."""
+    """The fused rung, the device floor, cannot take the cycle's snapshot
+    (its solver cannot be built: past kernel B1's shared-memory limit, or
+    a cluster the card cannot hold), or failed on a card. Raised out of
+    ``execute``; never fed to a breaker."""
 
 
 def _nonfinite_inputs(arrays: dict) -> list[str]:
@@ -141,9 +176,145 @@ def _i32(v: int) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.int32)
 
 
+class _FusedRungFailed(RuntimeError):
+    """The fused rung, the device floor, failed to solve a segment: the
+    cycle finishes on the serial allocate."""
+
+
+class _Rungs:
+    """The cycle's device rungs under the solver ladder: the sharded rung
+    (kernel B2) when a mesh is resolved and its breaker allows, else or
+    after its failure the fused rung (kernel B1). Both speak ``SolveState``,
+    so the fused rung resumes a failed sharded segment from the segment's
+    own input state.
+
+    - A sharded failure (organic or ``solve.sharded``) feeds the
+      ``sharded`` breaker and drops the rung for the rest of the cycle.
+      Both solver fault points fire after their rung ran the segment and
+      discard its result, as an asynchronous CUDA error surfaces at the
+      state fetch (the JAX action's fire before the call).
+    - A fused failure (``solve.fused``, or organic on a ``device: cpu``
+      rung) feeds the ``fused`` breaker and raises ``_FusedRungFailed``:
+      execute() degrades the cycle to serial.
+    - Not rung failures, and so never fed to a breaker, each of which would
+      fail every cycle and route every cycle to the CPU for good: a
+      kernel that cannot be built or loaded (``KernelBuildError``,
+      re-raised), a snapshot the fused rung cannot take (the
+      ``FusedSolver`` constructor: B1's shared-memory limit and the
+      card's room for its cluster, ``DeviceSolveError``), and an organic
+      failure of the fused rung on a card (``DeviceSolveError``): a
+      refused launch repeats with the snapshot's geometry, and an
+      asynchronous CUDA error leaves the card's context unusable, so
+      the serial rung below would take the card's work for good.
+    - The solver-entry budget gate runs outside the rungs' ``try``
+      blocks, so a deadline abort never feeds a breaker either.
+
+    The solver's own timings are summed over segments into ``split`` and,
+    on the sharded rung, its counts into the action's ``last_counts``."""
+
+    def __init__(self, action, arrays, enable_drf, enable_proportion, device, mesh, args) -> None:
+        self.action = action
+        self.a = arrays_from_numpy(arrays)  # CPU tensors sharing the arrays' memory
+        self.flags = (enable_drf, enable_proportion)
+        self.device = device
+        self.tier = "none"
+        self.split: dict[str, float] = {}
+        self.pack_s = 0.0  # the fused rung's pack when it is built after a sharded failure
+        self.sharded = None
+        self.fused = None
+        if mesh is not None:
+            spec = args.get("exchange_batch", "").strip() or "1"
+            try:
+                k = int(spec)
+            except ValueError:
+                raise ValueError(f"torch_allocate: exchange_batch={spec!r} is not an integer") from None
+        if mesh is not None and faults.solver_ladder.allow("sharded"):
+            try:
+                self.sharded = ShardedBlockSolver(self.a, mesh, *self.flags, exchange_batch=k)
+            except KernelBuildError:
+                raise
+            except Exception:
+                log.exception(
+                    "the sharded rung (kernel B2) cannot take this snapshot on %d shards; using the fused rung",
+                    len(mesh),
+                )
+                faults.solver_ladder.record_failure("sharded")
+        if self.sharded is None:
+            self._make_fused()
+
+    def _make_fused(self) -> None:
+        try:
+            self.fused = FusedSolver(self.a, *self.flags, device=self.device)
+        except KernelBuildError:
+            raise
+        except Exception as e:
+            raise DeviceSolveError(
+                f"torch_allocate: the fused rung (kernel B1) cannot take this snapshot on {self.device}: "
+                f"{type(e).__name__}: {e}"
+            ) from e
+
+    def _ran(self, solver, tier: str) -> None:
+        self.tier = tier
+        for key, v in solver.timings.items():
+            self.split[key] = self.split.get(key, 0.0) + v
+        counts = self.action.last_counts
+        for key, v in getattr(solver, "counts", {}).items():
+            counts[key] = counts.get(key, 0) + v
+
+    def solve(self, state, budget) -> SolveState:
+        """One solve segment behind the solver-entry budget gate."""
+        if budget is not None:
+            budget.check("solver entry")
+        ladder = faults.solver_ladder
+        if self.sharded is not None:
+            try:
+                before = self.sharded.batched_iters
+                out = self.sharded.solve(state)
+                if faults.should_fire("solve.sharded"):
+                    raise faults.FaultInjected("solve.sharded")
+            except KernelBuildError:
+                raise
+            except Exception:
+                log.exception("the sharded rung (kernel B2) failed; the fused rung resumes the segment")
+                ladder.record_failure("sharded")
+                self.sharded = None
+                t0 = time.perf_counter()
+                self._make_fused()
+                self.pack_s += time.perf_counter() - t0
+            else:
+                ladder.record_success("sharded")
+                gained = self.sharded.batched_iters - before
+                if gained:
+                    self.action.last_batched_iters += gained
+                    metrics.register_exchange_batched_iters(gained)
+                self._ran(self.sharded, "sharded")
+                return out
+        try:
+            # the state fetch, where an asynchronous CUDA error surfaces,
+            # is inside solve()
+            out = self.fused.solve(state)
+            if faults.should_fire("solve.fused"):
+                raise faults.FaultInjected("solve.fused")
+        except KernelBuildError:
+            raise
+        except Exception as e:
+            if self.device.type == "cuda" and not isinstance(e, faults.FaultInjected):
+                # below the fused rung is the CPU: a card's error is not
+                # degraded there (see the class docstring)
+                raise DeviceSolveError(
+                    f"torch_allocate: the fused rung (kernel B1) failed on {self.device}: {type(e).__name__}: {e}"
+                ) from e
+            log.exception("the fused rung (kernel B1) failed")
+            ladder.record_failure("fused")
+            raise _FusedRungFailed(f"{type(e).__name__}: {e}") from e
+        ladder.record_success("fused")
+        self._ran(self.fused, "fused")
+        return out
+
+
 class TorchAllocateAction(Action):
-    """The card's allocate. Routes to serial only out of envelope, below
-    the size floor, or on non-finite inputs."""
+    """The card's allocate. Routes to serial out of envelope or below the
+    size floor, and degrades to serial only through the solver ladder."""
 
     def __init__(self) -> None:
         # Wall-clock split of the last execute(): encode_s, warm_fraction
@@ -153,8 +324,10 @@ class TorchAllocateAction(Action):
         # cycle was routed to serial, serial_routed_s / serial_degraded_s
         # and serial_reason.
         self.last_timings: dict[str, float | int | str] = {}
-        # Shards of the mesh the last execute() resolved (1: fused rung).
+        # Shards of the mesh the last execute() resolved (1: fused rung),
+        # and the fused rung's device (None: the cycle did not resolve one).
         self.last_mesh_size = 1
+        self.last_device: torch.device | None = None
         # Which rung solved the last execute(): "fused", "sharded",
         # "serial", or "none" (nothing to solve).
         self.last_solver_tier = "none"
@@ -180,6 +353,7 @@ class TorchAllocateAction(Action):
         self.last_state = None
         self.last_encoded = None
         self.last_mesh_size = 1
+        self.last_device = None
         self.last_batched_iters = 0
         self.last_counts = {}
         if not kernel_supported(ssn):
@@ -189,6 +363,7 @@ class TorchAllocateAction(Action):
 
         args = ssn.action_arguments.get(self.name, {})
         device, mesh = self._resolve(args)
+        self.last_device = device
 
         # Size floor: a device solve costs a fixed round trip regardless of
         # payload, while the serial loop clears tiny snapshots in
@@ -207,31 +382,54 @@ class TorchAllocateAction(Action):
                 self._route_serial(ssn, "serial_routed_s", "size_floor")
                 return
 
+        # Degradation ladder (faults.solver_ladder): the fused rung is the
+        # device floor, the rung every other falls back onto, so with its
+        # breaker open the whole device path sits the cycle out and serial,
+        # the correctness oracle, runs. The breaker recovers through
+        # half-open probes.
+        ladder = faults.solver_ladder
+        if not ladder.allow("fused"):
+            log.warning("fused-rung breaker open; running serial allocate for this cycle")
+            metrics.register_degraded_cycle("serial", "breaker_open")
+            self._route_serial(ssn, "serial_degraded_s", "breaker_open")
+            return
+
         order = [o.name for t in ssn.tiers for o in t.plugins]
         enable_drf = "drf" in order
         enable_proportion = "proportion" in order
 
         t0 = time.perf_counter()
-        enc = encode_session(
-            ssn.jobs,
-            ssn.nodes,
-            ssn.queues,
-            drf=ssn.plugins.get("drf") if enable_drf else None,
-            proportion=ssn.plugins.get("proportion") if enable_proportion else None,
-            session=ssn,
-        )
+        # micro: the JAX action's streaming micro-cycle flag; the port runs
+        # full cycles only
+        with obs.span("encode", micro=False) as espan:
+            enc = encode_session(
+                ssn.jobs,
+                ssn.nodes,
+                ssn.queues,
+                drf=ssn.plugins.get("drf") if enable_drf else None,
+                proportion=ssn.plugins.get("proportion") if enable_proportion else None,
+                session=ssn,
+            )
+            espan.set_attr("tasks", len(enc.tasks))
+            espan.set_attr("nodes", len(ssn.nodes))
+            espan.set_attr("warm_fraction", enc.warm_fraction)
         t_encode = time.perf_counter() - t0
         if not enc.tasks:
             self.last_timings = {"encode_s": t_encode, "warm_fraction": enc.warm_fraction}
             return
 
         arrays = solver_inputs(enc, _nodeorder_weights(ssn))
+        # Fault point solve.nan: a poisoned score weight, the failure the
+        # finite guard below exists to catch.
+        if faults.should_fire("solve.nan"):
+            arrays["w_least"] = np.float32(np.nan)
         bad = _nonfinite_inputs(arrays)
         if bad:
             log.error(
                 "non-finite solver inputs (%s); running serial allocate for this cycle",
                 ", ".join(bad),
             )
+            metrics.register_degraded_cycle("serial", "nonfinite")
             self._route_serial(ssn, "serial_degraded_s", "nonfinite: " + ", ".join(bad))
             return
 
@@ -239,52 +437,67 @@ class TorchAllocateAction(Action):
         budget = ssn.cycle_budget
         timings: dict = {"encode_s": t_encode, "warm_fraction": enc.warm_fraction}
         t0 = time.perf_counter()
-        solver, tier = self._make_solver(arrays, enable_drf, enable_proportion, device, mesh, args)
+        rungs = _Rungs(self, arrays, enable_drf, enable_proportion, device, mesh, args)
         timings["pack_s"] = time.perf_counter() - t0
 
-        split: dict[str, float] = {}
         host_steps, t_host = 0, 0.0
         t0 = time.perf_counter()
-        state = self._solve(solver, tier, None, budget, split, self.last_counts)
-        while int(state.paused_at) >= 0:
-            if budget is not None:
-                budget.check("between solve segments")
-            th = time.perf_counter()
-            # Segmented hybrid: sync the session up to the pause point,
-            # step the host-only task serially, resume the solve.
-            s = SolveState(*(x.clone() for x in state))  # writable host copy
-            replay.apply_upto(s.assign_pos.numpy(), s.assigned_node.numpy(), s.assigned_kind.numpy(), int(s.step))
-            s = self._host_step(ssn, enc, arrays, replay, s)
-            host_steps += 1
-            if enc.interpod_active:
-                # the stepped pod carries pod-affinity terms; once resident
-                # it shifts every group's InterPodAffinity score. The
-                # solver re-folds its affinity static when the dict IT
-                # holds gets a new pod_sc object.
-                pod_sc = compute_pod_sc(
-                    enc.task_reps, ssn.nodes, enc.node_names, arrays["pod_sc"].shape[1], np.float32,
-                )
-                arrays["pod_sc"] = pod_sc
-                solver.a["pod_sc"] = torch.from_numpy(pod_sc)
-            t_host += time.perf_counter() - th
-            state = self._solve(solver, tier, s, budget, split, self.last_counts)
-        timings.update(solve_s=time.perf_counter() - t0, **split, host_step_s=t_host, host_steps=host_steps)
-        self.last_solver_tier = tier
+        try:
+            with obs.span("solve", mesh=self.last_mesh_size) as sspan, obs.annotate("kbt.solve"):
+                state = rungs.solve(None, budget)
+                while int(state.paused_at) >= 0:
+                    if budget is not None:
+                        budget.check("between solve segments")
+                    th = time.perf_counter()
+                    sspan.event("host_step", step=int(state.step))
+                    # Segmented hybrid: sync the session up to the pause
+                    # point, step the host-only task serially, resume.
+                    s = SolveState(*(x.clone() for x in state))  # writable host copy
+                    replay.apply_upto(
+                        s.assign_pos.numpy(), s.assigned_node.numpy(), s.assigned_kind.numpy(), int(s.step)
+                    )
+                    s = self._host_step(ssn, enc, arrays, replay, s)
+                    host_steps += 1
+                    if enc.interpod_active:
+                        # the stepped pod carries pod-affinity terms; once
+                        # resident it shifts every group's InterPodAffinity
+                        # score. The solvers re-fold their affinity static
+                        # when the dict they hold gets a new pod_sc object.
+                        pod_sc = compute_pod_sc(
+                            enc.task_reps, ssn.nodes, enc.node_names, arrays["pod_sc"].shape[1], np.float32,
+                        )
+                        arrays["pod_sc"] = pod_sc
+                        rungs.a["pod_sc"] = torch.from_numpy(pod_sc)
+                    t_host += time.perf_counter() - th
+                    state = rungs.solve(s, budget)
+                sspan.set_attr("tier", rungs.tier)
+        except _FusedRungFailed as e:
+            # Bottom of the device ladder: serial finishes the cycle. Host-
+            # step segments already replayed stand; serial allocate goes on
+            # over the remaining pending tasks.
+            log.error("device solve failed (%s); degrading to serial allocate", e)
+            metrics.register_degraded_cycle("serial", "solve_failed")
+            self._route_serial(ssn, "serial_degraded_s", "solve_failed")
+            return
+        timings["pack_s"] += rungs.pack_s
+        timings.update(solve_s=time.perf_counter() - t0, **rungs.split, host_step_s=t_host, host_steps=host_steps)
+        self.last_solver_tier = rungs.tier
         self.last_state = state
         self.last_encoded = enc
-        if isinstance(solver, ShardedBlockSolver):
-            self.last_batched_iters = solver.batched_iters
         self.last_timings = timings
 
         t0 = time.perf_counter()
-        replay.apply_upto(
-            state.assign_pos.numpy(), state.assigned_node.numpy(), state.assigned_kind.numpy(), int(state.step)
-        )
-        if budget is not None:
-            # The last pre-dispatch gate: past this point binds reach the
-            # cache and the cycle can no longer abort cleanly.
-            budget.check("dispatch barrier")
-        replay.finish(state.ready_cnt.numpy())
+        with obs.span("gang.assign", assigned=int(state.step)):
+            replay.apply_upto(
+                state.assign_pos.numpy(), state.assigned_node.numpy(), state.assigned_kind.numpy(), int(state.step)
+            )
+            if budget is not None:
+                # The last pre-dispatch gate: past this point binds reach
+                # the cache and the cycle can no longer abort cleanly. The
+                # cycle.overrun drill injects here (inject=True): the most
+                # discardable work, no cache mutation.
+                budget.check("dispatch barrier", inject=True)
+            replay.finish(state.ready_cnt.numpy())
         timings["replay_s"] = time.perf_counter() - t0
 
     # -- routing and resolution ---------------------------------------------
@@ -368,54 +581,6 @@ class TorchAllocateAction(Action):
             return device, None
         self.last_mesh_size = n
         return device, make_mesh(devices=[visible[k % len(visible)] for k in range(n)])
-
-    # -- the rungs -------------------------------------------------------------
-
-    def _make_solver(self, arrays, enable_drf, enable_proportion, device, mesh, args):
-        """Kernel B1's ``FusedSolver`` without a mesh, kernel B2's
-        ``ShardedBlockSolver`` with one. No ladder: a solver that cannot be
-        made raises."""
-        a = arrays_from_numpy(arrays)  # CPU tensors sharing the arrays' memory
-        if mesh is None:
-            try:
-                return FusedSolver(a, enable_drf, enable_proportion, device=device), "fused"
-            except Exception as e:
-                raise DeviceSolveError(
-                    f"torch_allocate: the fused rung (kernel B1) cannot take this snapshot on {device}: "
-                    f"{type(e).__name__}: {e}"
-                ) from e
-        spec = args.get("exchange_batch", "").strip() or "1"
-        try:
-            k = int(spec)
-        except ValueError:
-            raise ValueError(f"torch_allocate: exchange_batch={spec!r} is not an integer") from None
-        try:
-            return ShardedBlockSolver(a, mesh, enable_drf, enable_proportion, exchange_batch=k), "sharded"
-        except Exception as e:
-            raise DeviceSolveError(
-                f"torch_allocate: the sharded rung (kernel B2) cannot take this snapshot on "
-                f"{len(mesh)} shards of {sorted({str(d) for d in mesh})}: {type(e).__name__}: {e}"
-            ) from e
-
-    @staticmethod
-    def _solve(solver, tier: str, state, budget, split: dict, counts: dict) -> SolveState:
-        """One solve segment behind the solver-entry budget gate; the
-        solver's own timings are summed into ``split`` and, on the sharded
-        rung, its counts into ``counts``."""
-        if budget is not None:
-            budget.check("solver entry")
-        try:
-            out = solver.solve(state)
-        except Exception as e:
-            kernel = "kernel B1" if tier == "fused" else "kernel B2"
-            raise DeviceSolveError(
-                f"torch_allocate: the {tier} rung ({kernel}) failed: {type(e).__name__}: {e}"
-            ) from e
-        for key, v in solver.timings.items():
-            split[key] = split.get(key, 0.0) + v
-        for key, v in getattr(solver, "counts", {}).items():
-            counts[key] = counts.get(key, 0) + v
-        return out
 
     # -- host-side serial step for one host-only task -------------------------
 

@@ -104,8 +104,10 @@ class SchedulerConfiguration:
             mesh: cuda:4
 
     ``faults``, ``streaming``, ``trace``, ``explain`` and ``fleet`` are the
-    same optional keys the JAX package's schema reads; they are parsed to
-    the same values, and nothing in this package acts on them yet.
+    same optional keys the JAX package's schema reads, parsed to the same
+    values. The scheduler arms ``faults`` (the fault registry's grammar)
+    when the conf changes and passes ``trace`` to ``obs.configure`` every
+    cycle; ``streaming``, ``explain`` and ``fleet`` wait for their layers.
     """
 
     actions: str = ""

@@ -1,8 +1,32 @@
-"""Fault injection for the host fast paths: named injection points with
-probability / count / seed semantics, armed through the API (``arm`` or
-``configure`` on ``registry``) and checked where the encode cache and the
-native loops can fail. Each point's degraded path gives the same bytes as
-the fast path it replaces:
+"""Fault injection and the solver's degradation ladder.
+
+- a deterministic **fault registry** (``registry``): named injection
+  points with probability / count / seed semantics, armed through the
+  API (``arm`` or ``configure``), the ``KBT_FAULTS`` environment variable
+  (read once, at import; ``KBT_FAULTS_SEED`` seeds it) or the scheduler
+  conf's ``faults:`` key, and checked where failures happen;
+- a **degradation ladder** (``solver_ladder``, ``ladder.DegradationLadder``):
+  a circuit breaker per solver tier (sharded -> fused -> serial) with
+  exponential-backoff recovery probes, shared by every torch_allocate
+  execution so breaker state persists across cycles and conf reloads.
+  ``KBT_BREAKER_THRESHOLD`` (3) and ``KBT_BREAKER_RESET_S`` (30) size it.
+
+The solver and cycle points (actions/torch_allocate.py, recovery/budget.py):
+
+- ``solve.sharded``: the sharded rung's segment fails after it ran (its
+  result is discarded, as when an asynchronous CUDA error surfaces at the
+  state fetch); the failure feeds the ``sharded`` breaker and the fused
+  rung resumes from the same ``SolveState`` in the same cycle;
+- ``solve.fused``: the fused rung's segment fails the same way; the
+  failure feeds the ``fused`` breaker and the cycle finishes on the serial
+  allocate;
+- ``solve.nan``: a NaN poisons ``w_least``; the finite guard routes the
+  cycle to serial;
+- ``cycle.overrun``: the dispatch barrier's budget check reports a hard
+  overrun; the cycle aborts before any bind and its session is discarded.
+
+The host fast paths' points, each of whose degraded paths gives the same
+bytes as the fast path it replaces:
 
 - ``encode.cache``: the cache is dropped and the encode runs cold
   (ops/encode_cache.active);
@@ -16,13 +40,15 @@ the fast path it replaces:
 - ``native.class_dedup``: B1's class dedup takes ``np.unique``
   (ops/fused_solve._class_inverse).
 
-Every fire is metered (``metrics.fault_injections``, by point) and
-logged.
+Every fire is metered (``metrics.fault_injections``, by point), logged,
+and snapshots the flight recorder (obs.recorder, throttled), and every
+breaker transition writes ``breaker_transitions`` and ``breaker_state``.
 
-Spec grammar (``configure``)::
+Spec grammar (``configure``, ``KBT_FAULTS``, the conf's ``faults:``)::
 
     point[:probability[:count[:seed]]][,point2...]
 
+    "solve.fused:1:3"          # the first three fused solves fail
     "native.prepass:1:2"       # the first two bulk_assign calls fail
     "encode.cache:0.5"         # half of the encodes run cold
     "native.dispatch:1:3:42"   # three fires, RNG seed 42
@@ -36,6 +62,7 @@ identically given the same spec and call sequence.
 from __future__ import annotations
 
 import logging
+import os
 import random
 import threading
 import zlib
@@ -43,8 +70,19 @@ from dataclasses import dataclass
 from typing import Optional
 
 from kube_batch_tpu_torch import metrics
+from kube_batch_tpu_torch.faults.ladder import CircuitBreaker, DegradationLadder
 
-__all__ = ["POINTS", "FaultInjected", "FaultRegistry", "registry", "should_fire"]
+__all__ = [
+    "POINTS",
+    "FaultInjected",
+    "FaultRegistry",
+    "registry",
+    "should_fire",
+    "CircuitBreaker",
+    "DegradationLadder",
+    "solver_ladder",
+    "set_solver_ladder",
+]
 
 log = logging.getLogger(__name__)
 
@@ -57,6 +95,12 @@ class FaultInjected(RuntimeError):
 # The named injection points. arm()/configure() reject unknown names, so
 # a typo in a drill spec is loud instead of silently never firing.
 POINTS = (
+    # solver entry (actions/torch_allocate.py)
+    "solve.sharded",       # sharded rung (B2) segment fails -> fused rung resumes, same cycle
+    "solve.fused",         # fused rung (B1) segment fails -> serial for the cycle
+    "solve.nan",           # NaN poisons a score weight -> finite guard -> serial
+    # cycle budget (recovery/budget.py)
+    "cycle.overrun",       # injected wedged solve -> hard-deadline abort pre-dispatch
     # incremental encode cache (ops/encode_cache.py)
     "encode.cache",        # cache poisoned -> state dropped, encode runs cold
     # native extension boundary (ops/, the bulk replay)
@@ -79,10 +123,12 @@ class _Rule:
 class FaultRegistry:
     """Thread-safe registry of armed injection points."""
 
-    def __init__(self, spec: Optional[str] = None, seed: int = 0) -> None:
+    def __init__(self, spec: Optional[str] = None, seed: Optional[int] = None) -> None:
         self._lock = threading.Lock()
         self._rules: dict[str, _Rule] = {}
-        self._seed = seed
+        self._seed = seed if seed is not None else _env_int("KBT_FAULTS_SEED", 0)
+        if spec is None:
+            spec = os.environ.get("KBT_FAULTS", "")
         if spec:
             self.configure(spec)
 
@@ -173,7 +219,30 @@ class FaultRegistry:
             fired = rule.fired
         metrics.register_fault_injection(point)
         log.warning("fault injected: %s (fire #%d)", point, fired)
+        # Snapshot the flight recorder at the moment of injection: the spans
+        # leading up to the fault are what a drill reads afterwards.
+        # Throttled, so a point firing every cycle cannot flood the dump
+        # directory; a no-op while tracing is off (the ring is empty).
+        from kube_batch_tpu_torch import obs
+
+        obs.recorder.dump(reason=f"fault:{point}", min_interval_s=5.0)
         return True
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        log.error("%s=%r is not an integer; using %d", name, os.environ.get(name), default)
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        log.error("%s=%r is not a number; using %g", name, os.environ.get(name), default)
+        return default
 
 
 registry = FaultRegistry()
@@ -181,3 +250,27 @@ registry = FaultRegistry()
 
 def should_fire(point: str) -> bool:
     return registry.should_fire(point)
+
+
+# The process-wide solver ladder (sharded -> fused -> serial), shared by
+# every torch_allocate execution so breaker state persists across cycles
+# and conf reloads. sharded is the top rung when a mesh is resolved;
+# without one the ladder starts at fused. Tests and drills swap in a
+# short-timeout instance.
+solver_ladder = DegradationLadder(
+    ("sharded", "fused", "serial"),
+    failure_threshold=_env_int("KBT_BREAKER_THRESHOLD", 3),
+    reset_timeout=_env_float("KBT_BREAKER_RESET_S", 30.0),
+)
+
+
+def set_solver_ladder(ladder: DegradationLadder) -> DegradationLadder:
+    """Install ``ladder`` as the process ladder and return the previous
+    one (a drill swaps in a fresh, short-timeout ladder and restores the
+    process ladder after). The ``breaker_state`` gauge is per tier name,
+    so the installed ladder's states are published again."""
+    global solver_ladder
+    previous, solver_ladder = solver_ladder, ladder
+    for b in ladder.breakers.values():
+        b.publish()
+    return previous

@@ -22,10 +22,14 @@ dead code upstream. Here the gate runs after plugin registration, making
 gang's minMember validation actually reject invalid jobs at session open,
 which is the documented intent (SURVEY.md section 2.4).
 
-The JAX package's session also feeds metrics and trace spans and joins a
-deferred (pipelined) dispatch at close; this port leaves those to later
-slices. ``open_session`` records its phases' wall clock in
-``Session.open_timings`` instead.
+Telemetry, as in the JAX package: ``open_session`` takes the snapshot
+under a ``snapshot`` span and ``close_session`` writes PodGroup statuses
+back under a ``commit`` span (obs); every plugin's open and close hooks
+feed ``plugin_scheduling_latency``, and each serial dispatch feeds
+``task_scheduling_latency`` and the SLO accountant's ``queue_wait``.
+``open_session`` also records its phases' wall clock in
+``Session.open_timings``. The JAX package's session also joins a deferred
+(pipelined) dispatch at close; that waits for the port's pipeline fence.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ if TYPE_CHECKING:
     # imports this module's Session for ITS annotations (same cycle)
     from kube_batch_tpu_torch.framework.statement import Statement
 
+from kube_batch_tpu_torch import metrics, obs
 from kube_batch_tpu_torch.api.job_info import JobInfo, TaskInfo
 from kube_batch_tpu_torch.api.node_info import NodeInfo
 from kube_batch_tpu_torch.api.queue_info import QueueInfo
@@ -420,6 +425,9 @@ class Session:
         if job is None:
             raise KeyError(f"failed to find job {task.job}")
         job.update_task_status(task, TaskStatus.BINDING)
+        wait = max(0.0, time.time() - task.pod.metadata.creation_timestamp)
+        metrics.update_task_schedule_duration(wait)
+        obs.slo.observe("queue_wait", job.queue, wait)
 
     def evict(self, reclaimee: TaskInfo, reason: str) -> None:
         """session.go:325-362."""
@@ -504,10 +512,13 @@ def open_session(
 
     t0 = time.perf_counter()
     if world is None:
-        snapshot = cache.snapshot()
-        ssn.jobs = snapshot.jobs
-        ssn.nodes = snapshot.nodes
-        ssn.queues = snapshot.queues
+        with obs.span("snapshot") as sspan:
+            snapshot = cache.snapshot()
+            ssn.jobs = snapshot.jobs
+            ssn.nodes = snapshot.nodes
+            ssn.queues = snapshot.queues
+            sspan.set_attr("jobs", len(ssn.jobs))
+            sspan.set_attr("nodes", len(ssn.nodes))
     else:
         ssn.jobs, ssn.nodes, ssn.queues = world
     t1 = time.perf_counter()
@@ -521,7 +532,9 @@ def open_session(
             ssn.plugins[plugin.name] = plugin
 
     for plugin in ssn.plugins.values():
+        start = time.perf_counter()
         plugin.on_session_open(ssn)
+        metrics.update_plugin_duration(plugin.name, "OnSessionOpen", time.perf_counter() - start)
     t2 = time.perf_counter()
 
     # JobValid gate: reject invalid jobs (gang minMember) and mark them
@@ -568,15 +581,18 @@ def close_session(ssn: Session, discard: bool = False) -> None:
     — Statement.discard at cycle granularity — leaving the cache/store
     byte-identical to the cycle's start."""
     for plugin in ssn.plugins.values():
+        start = time.perf_counter()
         plugin.on_session_close(ssn)
+        metrics.update_plugin_duration(plugin.name, "OnSessionClose", time.perf_counter() - start)
 
     if not discard:
-        for job in ssn.jobs.values():
-            if job.pod_group is None:
-                ssn.cache.record_job_status_event(job)
-                continue
-            job.pod_group.status = _job_status(ssn, job)
-            ssn.cache.update_job_status(job)
+        with obs.span("commit", jobs=len(ssn.jobs)):
+            for job in ssn.jobs.values():
+                if job.pod_group is None:
+                    ssn.cache.record_job_status_event(job)
+                    continue
+                job.pod_group.status = _job_status(ssn, job)
+                ssn.cache.update_job_status(job)
 
     ssn.jobs = {}
     ssn.nodes = {}

@@ -479,6 +479,17 @@ _library = nvcc.Library("fused_solve", _bind)
 _fits_card: set[tuple[int, int, int]] = set()  # (device, k, shared bytes) checked
 
 
+def _launch_args(d: Dims) -> tuple[SolveGeometry, _Args]:
+    """The launch's geometry and its argument block, pointers unset."""
+    geo = solve_geometry(d)
+    args = _Args(
+        **{f: int(getattr(d, f)) for f in _DIM_FIELDS},
+        k=geo.shape.k, S=geo.shape.slice, smem_bytes=geo.smem_bytes,
+        rep_words=geo.rep_words, rep_in_smem=int(geo.rep_in_smem),
+    )
+    return geo, args
+
+
 def _check_occupancy(index: int, args: _Args) -> None:
     """Raise unless device ``index`` can hold the solve's cluster (asked
     once per device, cluster size and shared-memory size)."""
@@ -527,13 +538,7 @@ def fused_solve(packed: Packed, state: PackedState) -> PackedState:
     if kind != "cuda":
         raise ValueError(f"fused_solve runs on cuda or cpu, not {kind}")
     lib = _library.load()
-    d = packed.dims
-    geo = solve_geometry(d)
-    args = _Args(
-        **{f: int(getattr(d, f)) for f in _DIM_FIELDS},
-        k=geo.shape.k, S=geo.shape.slice, smem_bytes=geo.smem_bytes,
-        rep_words=geo.rep_words, rep_in_smem=int(geo.rep_in_smem),
-    )
+    geo, args = _launch_args(packed.dims)
     for name, view in {**packed.views(), **state.views()}.items():
         setattr(args, name, view.data_ptr())
     device = packed.istatic.device
@@ -578,7 +583,10 @@ class FusedSolver:
         self._pod_sc = a["pod_sc"]  # identity marker for refresh
         self.packed = pack(a, enable_drf, enable_proportion).to(self.device)
         if self.device.type == "cuda":
-            solve_geometry(self.packed.dims)  # the kernel's shared-memory limit
+            # the kernel's shared-memory limit and the card's room for its
+            # cluster: a snapshot outside them raises here, before any solve
+            index = torch.cuda.current_device() if self.device.index is None else self.device.index
+            _check_occupancy(index, _launch_args(self.packed.dims)[1])
         self.timings: dict[str, float] = {}  # seconds per phase of the last solve
 
     def solve(self, state: SolveState | None = None) -> SolveState:

@@ -5,7 +5,10 @@ PyTorch headers, so a build takes seconds).
 
 A library's file name carries a hash of its source and of the shared
 headers (csrc/*.cuh), so an edited source rebuilds. ``build`` compiles
-several sources at once, one nvcc process each.
+several sources at once, one nvcc process each. A source that does not
+compile, a missing nvcc, or a library that does not load raises
+``KernelBuildError``: the solver ladder re-raises it rather than feed a
+breaker, since it would fail every cycle.
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ from typing import Callable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel's library cannot be built from its source or loaded."""
 
 
 def _digest(name: str) -> str:
@@ -39,7 +46,8 @@ def build(names: list[str]) -> dict[str, str]:
     yet, all at once; returns name -> compiler output ("" when the library
     was already there). No FMA contraction (-fmad=false) and no fast math:
     the kernels' float32 results must equal their plain versions' bit for
-    bit. Raises RuntimeError naming the source when nvcc fails."""
+    bit. Raises KernelBuildError naming the source when nvcc fails or
+    cannot be started."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     logs: dict[str, str] = {}
@@ -55,9 +63,11 @@ def build(names: list[str]) -> dict[str, str]:
             "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
             "-I", CSRC_DIR, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu"),
         ]
-        procs[name] = (path, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            raise KernelBuildError(f"cannot start nvcc for {name}.cu: {e}") from e
+        procs[name] = (path, tmp, proc)
     failed = []
     for name, (path, tmp, proc) in procs.items():
         out, _ = proc.communicate()
@@ -67,7 +77,7 @@ def build(names: list[str]) -> dict[str, str]:
         else:
             os.replace(tmp, path)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelBuildError("\n".join(failed))
     return logs
 
 
@@ -84,7 +94,10 @@ class Library:
     def load(self) -> ctypes.CDLL:
         if self.lib is None:
             self.build_log = build([self.name])[self.name]
-            lib = ctypes.CDLL(library_path(self.name))
+            try:
+                lib = ctypes.CDLL(library_path(self.name))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load the {self.name} kernel's library: {e}") from e
             lib.kbt_error_string.argtypes = [ctypes.c_int]
             lib.kbt_error_string.restype = ctypes.c_char_p
             self._bind(lib)

@@ -1,15 +1,19 @@
 """gang plugin: minMember semantics end-to-end
 (reference pkg/scheduler/plugins/gang/gang.go:48-162).
 
-The JAX package's plugin also meters unschedulable jobs and, with its
-forensics on, takes a condition's reason and message from the allocate
-action's records; both belong to later slices of this port."""
+At session close each non-ready job gets an Unschedulable condition and
+is metered (``unschedule_task_count`` per job, ``job_retry_counts``, and
+the cycle's ``unschedule_job_count``), as in the JAX package. The JAX
+plugin also takes a condition's reason and message from the allocate
+action's forensics records when those are on; that comes with the
+port's explain layer."""
 
 from __future__ import annotations
 
 import time
 from typing import Optional
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.api.job_info import JobInfo, TaskInfo
 from kube_batch_tpu_torch.api.types import ValidateResult
 from kube_batch_tpu_torch.apis.types import (
@@ -85,8 +89,9 @@ class GangPlugin(Plugin):
         ssn.add_job_pipelined_fn(self.name, lambda job: job.pipelined())
 
     def on_session_close(self, ssn: Session) -> None:
-        """Emit Unschedulable conditions for non-ready jobs
+        """Emit Unschedulable conditions + metrics for non-ready jobs
         (gang.go:132-162)."""
+        unschedulable_jobs = 0
         for job in ssn.jobs.values():
             if not job.ready():
                 unready = job.min_available - job.ready_task_num()
@@ -94,6 +99,9 @@ class GangPlugin(Plugin):
                     f"{unready}/{len(job.tasks)} tasks in gang unschedulable: "
                     f"{job.fit_error()}"
                 )
+                unschedulable_jobs += 1
+                metrics.update_unschedule_task_count(job.name, unready)
+                metrics.register_job_retries(job.name)
                 if job.pod_group is not None:
                     ssn.update_job_condition(
                         job,
@@ -106,6 +114,7 @@ class GangPlugin(Plugin):
                             message=msg,
                         ),
                     )
+        metrics.update_unschedule_job_count(unschedulable_jobs)
 
 
 def new(arguments: Arguments) -> Plugin:

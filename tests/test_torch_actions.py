@@ -521,20 +521,46 @@ def test_a_nan_weight_routes_serial(monkeypatch):
     assert binds == jax_outcome("allocate", "multi_queue", "default")[1]
 
 
-# -- failures raise -------------------------------------------------------------
+# -- failures: the solver ladder, and what still raises ---------------------
+
+
+@pytest.fixture
+def fresh_ladder(monkeypatch):
+    """A fresh process ladder, so a failure fed to a breaker here cannot
+    route another test's cycles."""
+    from kube_batch_tpu_torch import faults
+
+    ladder = faults.DegradationLadder(("sharded", "fused", "serial"))
+    monkeypatch.setattr(faults, "solver_ladder", ladder)
+    return ladder
 
 
 @pytest.mark.parametrize("solver_name, args", [("FusedSolver", CPU), ("ShardedBlockSolver", MESH)])
-def test_a_failing_solve_raises_and_binds_nothing(monkeypatch, solver_name, args):
+def test_a_failing_solve_raises_and_binds_nothing(monkeypatch, fresh_ladder, solver_name, args):
+    """A rung whose solve raises no longer fails the cycle (the solver
+    ladder): a failing fused rung, the device floor, feeds its breaker and
+    the cycle finishes on the serial allocate with its binds; a failing
+    sharded rung feeds its breaker and the fused rung resumes the segment
+    with the same binds. Nothing raises out of the action."""
+    from kube_batch_tpu_torch import metrics
+
     def broken(self, state=None):
         raise RuntimeError("kernel launch failed: injected")
 
     monkeypatch.setattr(getattr(TA, solver_name), "solve", broken)
-    cache = torch_testing.FakeCache(make("gang_atomic", TORCH))
-    ssn = torch_open(cache, torch_parse(DEFAULT_TIERS_YAML).tiers, {"torch_allocate": args})
-    with pytest.raises(TA.DeviceSolveError, match="injected"):
-        TA.TorchAllocateAction().execute(ssn)
-    assert cache.binder.binds == {}
+    degraded = metrics.degraded_cycles.value({"tier": "serial", "reason": "solve_failed"})
+    state, binds, act, _ = torch_run("gang_atomic", "default", args)
+    assert (state, binds) == jax_outcome("allocate", "gang_atomic", "default") and len(binds) == 3
+    failed = "fused" if solver_name == "FusedSolver" else "sharded"
+    assert fresh_ladder.breakers[failed].failures == 1
+    assert metrics.degraded_cycles.value({"tier": "serial", "reason": "solve_failed"}) - degraded == (
+        1 if failed == "fused" else 0
+    )
+    if failed == "fused":
+        assert act.last_solver_tier == "serial" and act.last_state is None
+        assert act.last_timings["serial_reason"] == "solve_failed" and "serial_degraded_s" in act.last_timings
+    else:
+        assert act.last_solver_tier == "fused" and fresh_ladder.breakers["fused"].failures == 0
 
 
 def test_a_solver_that_cannot_be_made_raises(monkeypatch):
@@ -620,9 +646,9 @@ def test_budget_gates_in_order():
     seen = []
 
     class Recording(CycleBudget):
-        def check(self, where):
+        def check(self, where, inject=False):
             seen.append(where)
-            super().check(where)
+            super().check(where, inject=inject)
 
     _, binds, _, _ = torch_run("pod_affinity_one", "default", CPU, budget=Recording(hard_s=1e9))
     assert seen == ["solver entry", "between solve segments", "solver entry", "dispatch barrier"]

@@ -11,14 +11,17 @@ On the same world both devices must give the same binds, the same
 ``{task uid: (status, node)}``, the same host steps and the same final
 `SolveState`, field for field; the fused rung on the card must launch
 kernel B1 once per solve segment and the sharded rung kernel B2 once per
-shard per placing iteration.
+shard per placing iteration. The solver ladder's ``solve.fused`` and
+``solve.sharded`` drills on the card must give the CPU's binds and task
+states on the same degraded paths, and an error of the card itself (a
+cluster it cannot hold, a launch it refuses) must raise, not degrade.
 """
 
 import pytest
 import torch
 
 from kube_batch_tpu_torch import models
-from kube_batch_tpu_torch.actions.torch_allocate import TorchAllocateAction
+from kube_batch_tpu_torch.actions.torch_allocate import DeviceSolveError, TorchAllocateAction
 from kube_batch_tpu_torch.apis.types import Affinity, PodAffinityTerm, PodPhase
 from kube_batch_tpu_torch.conf import parse_scheduler_conf
 from kube_batch_tpu_torch.framework import close_session, open_session
@@ -112,3 +115,84 @@ def test_card_cycle_equals_cpu_cycle(world, mesh):
         placing = ga.last_counts["placing_iterations"]
         assert placing == ca.last_counts["placing_iterations"] > 0
         assert (fs.fused_solve.launches, bs.block_step.launches) == (0, 4 * placing) == (0, ga.last_counts["launches"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drill", ["solve.fused", "solve.sharded"])
+@pytest.mark.parametrize("world", ["preempt_mix_2000_40_seed1", "pod_affinity"])
+def test_card_drill_equals_cpu_drill(monkeypatch, world, drill):
+    """The solver ladder's drills on the card against the same drills on
+    the CPU, each under a fresh ladder: ``solve.fused`` fails the fused
+    rung's segment after B1 ran it and the cycle finishes serially;
+    ``solve.sharded`` fails the sharded rung's first segment after it ran
+    (B2 launched where the segment placed a task) and the fused rung
+    resumes it in the same cycle (B1 once per remaining segment). Binds and task states equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_batch_tpu_torch import faults
+
+    outs = []
+    try:
+        for device in ("cpu", "cuda"):
+            ladder = faults.DegradationLadder(("sharded", "fused", "serial"))
+            monkeypatch.setattr(faults, "solver_ladder", ladder)
+            faults.registry.reset()
+            faults.registry.arm(drill, count=1)
+            fs.fused_solve.launches = bs.block_step.launches = 0
+            mesh = f"{device}:4" if drill == "solve.sharded" else "off"
+            state, binds, act = run(world, {"device": device, "mesh": mesh})
+            if device == "cuda":
+                torch.cuda.synchronize()
+            outs.append((state, binds, act, (fs.fused_solve.launches, bs.block_step.launches), ladder))
+    finally:
+        faults.registry.reset()
+    (cs, cb, ca, _, cl), (gs, gb, ga, (b1, b2), gl) = outs
+    assert (gs, gb) == (cs, cb) and gb
+    if drill == "solve.fused":
+        assert ga.last_solver_tier == ca.last_solver_tier == "serial"
+        assert ga.last_timings["serial_reason"] == "solve_failed"
+        assert (b1, b2) == (1, 0) and gl.breakers["fused"].failures == cl.breakers["fused"].failures == 1
+    else:
+        assert ga.last_solver_tier == ca.last_solver_tier == "fused"
+        # pod_affinity's first segment pauses before its first placing
+        # iteration: the sharded rung failed it without a launch
+        assert (b2 > 0) == (world != "pod_affinity") and b1 == 1 + ga.last_timings["host_steps"]
+        assert gl.breakers["sharded"].failures == cl.breakers["sharded"].failures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refused", ["occupancy", "launch"])
+def test_a_card_error_of_the_fused_rung_raises(monkeypatch, refused):
+    """A cluster of 64 CTAs, past the largest a Hopper card holds (16): the
+    occupancy check refuses it when the solver is made, before any solve;
+    with the check skipped, the card refuses the launch inside the solve.
+    Either raises ``DeviceSolveError`` out of the action: it feeds no
+    breaker and counts no degraded cycle (the rung below is the CPU). The
+    card solves the next cycle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from kube_batch_tpu_torch import faults, metrics
+
+    ladder = faults.DegradationLadder(("sharded", "fused", "serial"))
+    monkeypatch.setattr(faults, "solver_ladder", ladder)
+    launch_args = fs._launch_args
+
+    def too_wide(dims):
+        geo, args = launch_args(dims)
+        args.k = 64
+        return geo, args
+
+    monkeypatch.setattr(fs, "_launch_args", too_wide)
+    if refused == "launch":
+        monkeypatch.setattr(fs, "_check_occupancy", lambda index, args: None)
+    degraded = sum(metrics.degraded_cycles.samples().values())
+    fs.fused_solve.launches = 0
+    want = "cannot take this snapshot" if refused == "occupancy" else "failed on cuda.*launch failed"
+    with pytest.raises(DeviceSolveError, match=want):
+        run("preempt_mix_2000_40_seed1", {"device": "cuda"})
+    assert fs.fused_solve.launches == 0
+    assert all(b.failures == 0 and b.state == "closed" for b in ladder.breakers.values())
+    assert sum(metrics.degraded_cycles.samples().values()) == degraded
+    monkeypatch.undo()
+    _, binds, act = run("preempt_mix_2000_40_seed1", {"device": "cuda"})
+    assert act.last_solver_tier == "fused" and binds

@@ -57,9 +57,12 @@ def test_no_jax_import_in_source(path):
 FAST_PATH_MODULES = [
     "native/__init__.py", "native/build.py", "ops/encode_cache.py", "faults/__init__.py", "metrics/__init__.py",
 ]
+# the solver ladder, its drills, the budget and tracing: copies of
+# jax-free JAX-package modules too
+LADDER_AND_TRACE_MODULES = ["faults/ladder.py", "faults/smoke.py", "obs/__init__.py", "recovery/budget.py"]
 
 
-@pytest.mark.parametrize("rel", FAST_PATH_MODULES)
+@pytest.mark.parametrize("rel", FAST_PATH_MODULES + LADDER_AND_TRACE_MODULES)
 def test_fast_path_modules_are_checked(rel):
     path = os.path.join(PORT, rel)
     assert path in list(_sources())
