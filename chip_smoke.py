@@ -149,7 +149,39 @@
      and held off during the cycle, their medians and spreads;
    every phase outside the drills fails on any degraded cycle, breaker
    transition, fired fault point or native fallback during it;
-11. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+11. drives the port as a process (the store, the cache and its write
+   side, the ``Scheduler.run`` loop on its ``kb-loop`` thread, the HTTP
+   surface; the twin pipeline conf), the main worlds freed first:
+   - ``server_50k_5k``: ``preempt_mix(50_000, 5_000)`` generated twice
+     from its seed, once as the FakeCache world of one twin-pipeline
+     cycle (``pipeline_cycle``), once into a ``ClusterStore`` through its
+     API (55,001 objects, PodGroups Pending: ``ingest_s``); then
+     ``SchedulerServer(store=..., schedule_period=1.0, device="cuda:0")``
+     (``cache_sync_s``: the store's replay into the cache, inside the
+     constructor) runs until the store shows every bind of the FakeCache
+     cycle (at most 180 s; ``write_back_s``: from the cycle's
+     ``bind_many`` to the last store bind event); no gang partly bound,
+     no node past its allocatable; a probe gang (8 pods of 1 cpu / 2Gi,
+     ``min_member`` 8) posted over HTTP binds in full (``probe_bind_s``
+     from its last POST); ``/healthz``, ``/version``, ``/metrics`` and
+     ``/apis/v1alpha1/podgroups`` answer 200; ``stop()`` joins every
+     thread it started. Each cycle's ``run_once_s``, split, pending tasks,
+     ``encode_s``, ``warm_fraction``, B1's time and launches,
+     ``replay_s``, ``gc_s`` and rung; a cycle that fails (the loop logs
+     it and goes on; the phase reads it), aborts, or has pending tasks
+     and solves below the fused rung fails the phase;
+   - ``server_drills`` (``preempt_mix(2000, 40, seed=1)`` in a store, the
+     twin conf with ``min_device_pairs: 0``, three cycles a run over a
+     fresh store, the cache's pools running): (a) ``bind.write`` once,
+     retried in place (``write_retries_total{op="bind"}`` +1); (b)
+     ``bind.write`` with ``KBT_WRITE_RETRIES=0``: the rejected pod binds
+     on a later cycle through the errTasks resync, and the run ends with
+     the same drill's binds on the CPU; (c) ``snapshot_age`` past
+     ``KBT_MAX_SNAPSHOT_AGE_S``: the first cycle is skipped
+     (``stale_cycles_skipped_total`` +1) and binds nothing; (d)
+     ``KBT_CACHE_MUTATION_DETECTOR=1``: no violation. (a), (c) and (d)
+     end with the undisturbed run's binds;
+12. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -183,9 +215,10 @@ this, this, DIR, each in a process of its own.
 
     python3 chip_smoke.py --rehearse CUT
 
-needs no card: the pipeline phases (step 8), the fast paths' (step 9)
-and the ladder's and the trace's (step 10) on the CPU, every world's pod
-and node counts divided by CUT (the drills' small world is not cut),
+needs no card: the pipeline phases (step 8), the fast paths' (step 9),
+the ladder's and the trace's (step 10) and the process's (step 11) on the
+CPU, every world's pod and node counts divided by CUT (the drills' small
+world is not cut),
 torch_allocate on the kernels' plain versions; the host actions' times
 predict the card run's.
 """
@@ -2043,6 +2076,441 @@ def ladder_trace_phases(clusters: dict, results: dict, device: str = "cuda", cut
     return failures, launches
 
 
+# -- the port as a process: store, cache, loop, HTTP --------------------------
+
+SERVER_WORLD = (50_000, 5_000)  # server_50k_5k: preempt_mix(50_000, 5_000), seed 0
+SERVER_WAIT_S = 180.0  # the limit on the store showing every bind of the cycle
+PROBE = {"min_member": 8, "cpu": 1, "memory": "2Gi"}  # the probe gang posted over HTTP
+DRILL_CYCLES = 3  # server_drills' cycles per run: the undisturbed run's fixed point
+
+
+class StoreBinds:
+    """Store-side bind events (a pod's ``node_name`` set where it was
+    empty), each stamped on the monotonic clock as the store delivers it:
+    ``key -> (node, time)``."""
+
+    def __init__(self, store) -> None:
+        from kube_batch_tpu_torch.cache.store import PODS, EventHandler
+
+        self.at: dict[str, tuple[str, float]] = {}
+        self._lock = threading.Lock()
+        store.add_event_handler(PODS, EventHandler(on_update=self._update))
+
+    def _update(self, old, new) -> None:
+        if new.node_name and not old.node_name:
+            with self._lock:
+                self.at[f"{new.namespace}/{new.name}"] = (new.node_name, time.perf_counter())
+
+    def binds(self) -> dict[str, str]:
+        with self._lock:
+            return {k: node for k, (node, _) in self.at.items()}
+
+    def last(self, keys=None) -> float:
+        with self._lock:
+            return max(t for k, (_, t) in self.at.items() if keys is None or k in keys)
+
+
+class CycleLog:
+    """Wraps a ``Scheduler``'s ``run_once`` on its loop thread: per cycle
+    its wall clock and split, the pending tasks of its snapshot,
+    torch_allocate's split and rung, the B1 and B2 launches and the
+    collector's time; and every exception the loop logs (the loop goes on
+    after a failed cycle, so the phase reads them here)."""
+
+    def __init__(self, sched, device: str) -> None:
+        import torch
+
+        self.cycles: list[dict] = []
+        self.errors: list[str] = []
+        self._sched = sched
+        self._inner = sched.run_once
+        self._sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        self._pending = 0
+        sched.run_once = self.run_once
+        snapshot = sched.cache.snapshot
+
+        def counting_snapshot():
+            from kube_batch_tpu_torch.api.types import TaskStatus
+
+            snap = snapshot()
+            self._pending = sum(len(j.task_status_index.get(TaskStatus.PENDING, ())) for j in snap.jobs.values())
+            return snap
+
+        sched.cache.snapshot = counting_snapshot
+
+    def run_once(self) -> None:
+        from kube_batch_tpu_torch.ops import block_step as bs
+        from kube_batch_tpu_torch.ops import fused_solve as fs
+
+        b1, b2 = fs.fused_solve.launches, bs.block_step.launches
+        self._pending = 0
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            try:
+                self._inner()
+                self._sync()
+            except Exception as e:
+                self.errors.append(f"{type(e).__name__}: {e}")
+                raise
+            finally:
+                wall_s = time.perf_counter() - t0
+        alloc = next(a for a in self._sched.actions if a.name == "torch_allocate")
+        self.cycles.append({
+            "run_once_s": wall_s, "cycle": dict(self._sched.last_timings), "pending": self._pending,
+            "torch_allocate": dict(alloc.last_timings), "last_solver_tier": alloc.last_solver_tier,
+            "b1_launches": fs.fused_solve.launches - b1, "b2_launches": bs.block_step.launches - b2,
+            **gc_clock.record(),
+        })
+
+    def check(self, phase: str) -> None:
+        """No cycle failed or aborted, and every cycle with pending tasks
+        solved on the fused rung (one with none solves nothing: rung
+        ``none``). ``skipped`` cycles are the staleness drill's to check."""
+        if self.errors:
+            raise AssertionError(f"{phase}: failed cycles: {self.errors}")
+        for i, c in enumerate(self.cycles):
+            if "aborted" in c["cycle"]:
+                raise AssertionError(f"{phase}: cycle {i} aborted: {c['cycle']['aborted']}")
+            want = "fused" if c["pending"] else "none"
+            if "skipped" not in c["cycle"] and c["last_solver_tier"] != want:
+                raise AssertionError(f"{phase}: cycle {i} with {c['pending']} pending tasks ran on the "
+                                     f"{c['last_solver_tier']!r} rung ({c['torch_allocate'].get('serial_reason')})")
+
+
+def store_checks(store) -> dict:
+    """Gang and capacity invariants over the store: no PodGroup with between
+    1 and min_member - 1 pods bound, and no node whose bound, non-terminal
+    pods request more than its allocatable."""
+    import collections
+
+    from kube_batch_tpu_torch.api.helpers import get_pod_resource_request
+    from kube_batch_tpu_torch.api.resource_info import Resource
+    from kube_batch_tpu_torch.apis.types import GROUP_NAME_ANNOTATION_KEY, PodPhase
+
+    bound = collections.Counter()
+    used: dict[str, Resource] = {}
+    for pod in store.list("pods"):
+        if not pod.node_name or pod.phase in (PodPhase.SUCCEEDED, PodPhase.FAILED):
+            continue
+        group = pod.metadata.annotations.get(GROUP_NAME_ANNOTATION_KEY)
+        if group:
+            bound[f"{pod.namespace}/{group}"] += 1
+        used.setdefault(pod.node_name, Resource.empty()).add(get_pod_resource_request(pod))
+    partial = [key for pg in store.list("podgroups")
+               if 0 < bound[(key := f"{pg.metadata.namespace}/{pg.name}")] < pg.spec.min_member]
+    over = [node.name for node in store.list("nodes")
+            if node.name in used and not used[node.name].less_equal(Resource.from_resource_list(node.allocatable))]
+    if partial or over:
+        raise AssertionError(f"{len(partial)} partly bound gangs ({partial[:3]}), "
+                             f"{len(over)} nodes over capacity ({over[:3]})")
+    return {"gangs_bound": sum(1 for v in bound.values() if v), "nodes_used": len(used),
+            "partial_gangs": 0, "nodes_over_capacity": 0}
+
+
+def http(base: str, method: str, path: str, body=None) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(base + path, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def server_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+    """``server_50k_5k``: the port as a process over ``preempt_mix(50_000,
+    5_000)`` (seed 0, config 4). The world is generated twice from the
+    seed: once into a ``ClusterStore`` through its API (PodGroups
+    Pending), once as the ``FakeCache`` world of the same conf's cycle,
+    whose binds the store must come to show. Then ``SchedulerServer(store=
+    ..., schedule_period=1.0)`` with the twin pipeline conf runs its loop
+    on ``cuda:0``; after every bind has landed, a probe gang (8 pods of 1
+    cpu / 2Gi, ``min_member`` 8) is posted over HTTP and must bind in
+    full; the HTTP reads and ``stop()`` (which must join the server's
+    threads) end it."""
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.cache import ClusterStore
+    from kube_batch_tpu_torch.server import SchedulerServer
+
+    on_card = device == "cuda"
+    pods, nodes = SERVER_WORLD[0] // cut, SERVER_WORLD[1] // cut
+    conf = conf_file(base=PIPELINE_CONF, **({} if on_card else {"device": "cpu"}))
+
+    # the FakeCache twin: the same world and conf, one cycle on the card
+    twin, twin_cache, _ = pipeline_cycle("server_twin", models.preempt_mix(pods, nodes), conf, device)
+    want = dict(twin_cache.binder.binds)
+    del twin_cache
+    t0 = time.perf_counter()
+    world = models.preempt_mix_objects(pods, nodes)
+    generate_s = time.perf_counter() - t0
+    store = ClusterStore()
+    t0 = time.perf_counter()
+    tt.seed_store(store, *world)
+    ingest_s = time.perf_counter() - t0
+    binds = StoreBinds(store)
+    t0 = time.perf_counter()
+    srv = SchedulerServer(listen_address="127.0.0.1:0", schedule_period=1.0, scheduler_conf=conf, store=store,
+                          device="cuda:0" if on_card else None)
+    cache_sync_s = time.perf_counter() - t0
+    log = CycleLog(srv.scheduler, device)
+    dispatched: list[float] = []
+    bind_many = srv.cache.bind_many
+
+    def timed_bind_many(pairs, keys=None):
+        dispatched.append(time.perf_counter())
+        return bind_many(pairs, keys=keys)
+
+    srv.cache.bind_many = timed_bind_many
+    threads_before = set(threading.enumerate())
+    t_start = time.perf_counter()
+    srv.start()
+    base = f"http://127.0.0.1:{srv.listen_port}"
+    try:
+        deadline = time.monotonic() + SERVER_WAIT_S
+        while time.monotonic() < deadline and len(binds.at) < len(want) and not log.errors:
+            time.sleep(0.05)
+        all_bound_s = time.perf_counter() - t_start
+        log.check("server_50k_5k")
+        got = binds.binds()
+        if got != want:
+            missing = len(set(want) - set(got))
+            moved = sum(1 for k in want if k in got and got[k] != want[k])
+            raise AssertionError(f"the store's binds differ from the FakeCache cycle's: {len(got)} against "
+                                 f"{len(want)}, {missing} missing, {moved} on another node")
+        write_back_s = binds.last(want) - dispatched[0]
+        checks = store_checks(store)
+
+        # the probe gang, over HTTP
+        probe_keys = [f"default/probe-{i}" for i in range(PROBE["min_member"])]
+        codes = [http(base, "POST", "/apis/v1alpha1/podgroups", {"name": "probe", "min_member": PROBE["min_member"]})[0]]
+        for key in probe_keys:
+            codes.append(http(base, "POST", "/apis/v1alpha1/pods", {
+                "name": key.split("/")[1], "group": "probe",
+                "requests": {"cpu": PROBE["cpu"], "memory": PROBE["memory"]}})[0])
+        posted = time.perf_counter()
+        if codes != [201] * len(codes):
+            raise AssertionError(f"the probe's POSTs answered {codes}")
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not all(k in binds.at for k in probe_keys) and not log.errors:
+            time.sleep(0.01)
+        log.check("server_50k_5k")
+        if not all(k in binds.at for k in probe_keys):
+            raise AssertionError("the probe gang did not bind in full")
+        probe_bind_s = binds.last(probe_keys) - posted
+        probe_nodes = sorted({binds.at[k][0] for k in probe_keys})
+        checks = store_checks(store)
+
+        reads = {}
+        for path in ("/healthz", "/version", "/metrics", "/apis/v1alpha1/podgroups"):
+            reads[path] = http(base, "GET", path)
+        status = {p: code for p, (code, _) in reads.items()}
+        if set(status.values()) != {200}:
+            raise AssertionError(f"HTTP reads answered {status}")
+        attempts = exposition_values(reads["/metrics"][1]).get("kube_batch_tpu_schedule_attempts_total")
+        podgroups = len(json.loads(reads["/apis/v1alpha1/podgroups"][1])["items"])
+    finally:
+        t0 = time.perf_counter()
+        srv.stop()
+        stop_s = time.perf_counter() - t0
+    alive = [t for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if alive:
+        t0 = time.perf_counter()
+        for t in alive:
+            t.join(timeout=120)
+        raise AssertionError(f"stop() left threads running after {stop_s:.3f} s: {[t.name for t in alive]}, "
+                             f"joined {time.perf_counter() - t0:.3f} s later; cycles: "
+                             f"{[(c['run_once_s'], c['last_solver_tier'], c['pending']) for c in log.cycles]}")
+    cycles = log.cycles
+    rec = {
+        "phase": "server_50k_5k", "pods": pods, "nodes": nodes, "generate_s": generate_s,
+        "ingest_s": ingest_s, "cache_sync_s": cache_sync_s, "store_objects": sum(len(w) for w in world),
+        "all_bound_s": all_bound_s, "write_back_s": write_back_s, "dispatches": len(dispatched),
+        "binds": len(want), "equal_to_fakecache_cycle": True, "twin_run_once_s": twin["run_once_s"],
+        "probe_bind_s": probe_bind_s, "probe_nodes": probe_nodes, "http_status": status,
+        "schedule_attempts": attempts, "podgroups_listed": podgroups, "stop_s": stop_s, **checks,
+        "cycles": [{
+            "run_once_s": c["run_once_s"], "snapshot_s": c["cycle"].get("snapshot_s"),
+            "actions_s": {k: v for k, v in c["cycle"].items() if k.endswith("_s") and k not in (
+                "conf_s", "snapshot_s", "plugins_s", "job_valid_s", "close_s", "run_once_s")},
+            "encode_s": c["torch_allocate"].get("encode_s"), "warm_fraction": c["torch_allocate"].get("warm_fraction"),
+            "b1_s": c["torch_allocate"].get("kernel_s", c["torch_allocate"].get("solve_s")),
+            "b1_launches": c["b1_launches"], "replay_s": c["torch_allocate"].get("replay_s"),
+            "gc_s": c["gc_s"], "last_solver_tier": c["last_solver_tier"],
+        } for c in cycles],
+        "b1_launches": sum(c["b1_launches"] for c in cycles), "b2_launches": sum(c["b2_launches"] for c in cycles),
+    }
+    if on_card and (rec["b1_launches"] < 2 or rec["b2_launches"]):
+        raise AssertionError(f"{rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches; expected at least two "
+                             "B1 launches (the world's cycle and the probe's) and no B2")
+    if cut > 1:
+        rec["reduced"] = {"pods": [SERVER_WORLD[0], pods], "nodes": [SERVER_WORLD[1], nodes]}
+    return rec, (rec["b1_launches"], rec["b2_launches"])
+
+
+def settle(cache, timeout: float = 60.0) -> None:
+    """Wait until the cache's write pool has landed every bind it was given
+    and the resync queue is empty: no task of the mirror is Binding."""
+    from kube_batch_tpu_torch.api.types import TaskStatus
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with cache._mutex:
+            binding = any(t.status == TaskStatus.BINDING for j in cache.jobs.values() for t in j.tasks.values())
+        if not binding and len(cache._err_tasks) == 0:
+            return
+        time.sleep(0.01)
+    raise AssertionError("the cache's writes did not settle")
+
+
+def server_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``server_drills``: the cache's write side and the loop's guards under
+    injected faults, each drill over a fresh store seeded with
+    ``preempt_mix(2000, 40, seed=1)`` and a fresh ``SchedulerCache`` (its
+    pools running), the twin conf with ``min_device_pairs: 0``, one
+    ``run_once`` per cycle, against an undisturbed run on the same world:
+    (a) ``bind.write`` fires once: the write is retried in place and
+    ``write_retries_total{op="bind"}`` counts 1; (b) ``bind.write`` with
+    ``KBT_WRITE_RETRIES=0``: the task goes through the errTasks resync
+    and binds on a later cycle; (c) a cache whose ``snapshot_age``
+    exceeds ``KBT_MAX_SNAPSHOT_AGE_S``: the cycle is skipped,
+    ``stale_cycles_skipped_total`` counts 1 and nothing binds; (d)
+    ``KBT_CACHE_MUTATION_DETECTOR=1`` over a full cycle: no violation.
+    Every drill ends with the undisturbed run's binds."""
+    from kube_batch_tpu_torch import faults, metrics, models
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.cache import ClusterStore, SchedulerCache
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    on_card = device == "cuda"
+    conf = conf_file(base=PIPELINE_CONF, min_device_pairs=0, **({} if on_card else {"device": "cpu"}))
+    cpu_conf = conf_file(base=PIPELINE_CONF, min_device_pairs=0, device="cpu")
+    env_keys = ("KBT_WRITE_RETRIES", "KBT_MAX_SNAPSHOT_AGE_S", "KBT_CACHE_MUTATION_DETECTOR")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    launches = [0, 0]
+
+    def run(cycles: int, env: dict, age: float = 0.0, arm=None, after_first=None, device: str = device) -> dict:
+        for k in env_keys:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        ages = [age]
+        store = ClusterStore()
+        tt.seed_store(store, *models.preempt_mix_objects(*DRILL_WORLD[:2], seed=DRILL_WORLD[2]))
+        binds = StoreBinds(store)
+        cache = SchedulerCache(store, staleness_fn=lambda: ages[0])
+        sched = Scheduler(cache, conf if device == "cuda" or not on_card else cpu_conf)
+        log = CycleLog(sched, device)
+        cache.run()
+        faults.registry.reset()
+        try:
+            per_cycle, first = [], {}
+            for i in range(cycles):
+                if i == 0 and arm is not None:
+                    faults.registry.arm(arm, count=1)
+                sched.run_once()
+                settle(cache)  # the pool's writes, where the fault point fires
+                faults.registry.reset()
+                per_cycle.append(len(binds.at))
+                if i == 0:
+                    first = binds.binds()
+                if i == 0 and after_first is not None:
+                    after_first(ages)
+                    settle(cache)
+        finally:
+            faults.registry.reset()
+            cache.stop()
+            for k, v in saved_env.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        log.check("server_drills")
+        store_checks(store)
+        if device == "cuda":
+            launches[0] += sum(c["b1_launches"] for c in log.cycles)
+            launches[1] += sum(c["b2_launches"] for c in log.cycles)
+        return {"binds": binds.binds(), "first": first, "per_cycle": per_cycle, "cycles": log.cycles}
+
+    def delta(metric, labels=None):
+        before = metric.value(labels)
+        return lambda: metric.value(labels) - before
+
+    t0 = time.perf_counter()
+    # the store's victims are deleted by the first cycle's evictions, and
+    # the second cycle binds into the capacity they free: the third finds
+    # the fixed point every drill must end at
+    base = run(DRILL_CYCLES, {})
+    want = base["binds"]
+    if not want or base["per_cycle"][-2] != len(want):
+        raise AssertionError(f"the undisturbed run bound {base['per_cycle']}: no fixed point")
+    out = {"phase": "server_drills", "world": "preempt_mix(%d, %d, seed=%d)" % DRILL_WORLD,
+           "undisturbed": {"binds": len(want), "run_once_s": [c["run_once_s"] for c in base["cycles"]]}}
+
+    retries = delta(metrics.write_retries, {"op": "bind"})
+    a = run(DRILL_CYCLES, {}, arm="bind.write")
+    if (retries(), a["binds"], a["per_cycle"]) != (1.0, want, base["per_cycle"]):
+        raise AssertionError(f"(a) bind.write once: {retries()} retries, binds equal: {a['binds'] == want}")
+    out["a_bind_write_retried"] = {"write_retries": retries(), "binds": len(a["binds"])}
+
+    retries = delta(metrics.write_retries, {"op": "bind"})
+    b = run(DRILL_CYCLES, {"KBT_WRITE_RETRIES": "0"}, arm="bind.write")
+    rejected = sorted(set(base["first"]) - set(b["first"]))
+    if retries() or b["per_cycle"][0] != base["per_cycle"][0] - 1 or not set(rejected) <= set(b["binds"]):
+        raise AssertionError(f"(b) bind.write with no retry: {retries()} retries, binds per cycle "
+                             f"{b['per_cycle']} against {base['per_cycle']}, {rejected} bound later: "
+                             f"{set(rejected) <= set(b['binds'])}")
+    # the rejected pod's capacity stays free in its cycle, so the later
+    # cycles place around it: the fixed point is the same drill's on the CPU
+    # (the kernel's plain version), not the undisturbed run's
+    b_cpu = b if not on_card else run(DRILL_CYCLES, {"KBT_WRITE_RETRIES": "0"}, arm="bind.write", device="cpu")
+    if b["binds"] != b_cpu["binds"]:
+        raise AssertionError("(b) the drill's binds on the card differ from the same drill's on the CPU")
+    out["b_bind_write_resynced"] = {"rejected": rejected, "binds_per_cycle": b["per_cycle"],
+                                    "binds_moved_from_undisturbed": sum(1 for k in want if b["binds"].get(k) != want[k]),
+                                    "equal_to_cpu_drill": True}
+
+    skipped = delta(metrics.stale_cycles_skipped)
+    c = run(DRILL_CYCLES + 1, {"KBT_MAX_SNAPSHOT_AGE_S": "5"}, age=60.0,
+            after_first=lambda ages: ages.__setitem__(0, 0.0))
+    if skipped() != 1.0 or c["per_cycle"][0] != 0 or c["binds"] != want:
+        raise AssertionError(f"(c) stale snapshot: {skipped()} skipped, binds per cycle {c['per_cycle']}")
+    if c["cycles"][0]["cycle"].get("skipped") != "stale_snapshot":
+        raise AssertionError(f"(c) the first cycle was not skipped: {c['cycles'][0]['cycle']}")
+    out["c_stale_snapshot_skipped"] = {"stale_cycles_skipped": skipped(), "binds_per_cycle": c["per_cycle"]}
+
+    violations = delta(metrics.cache_mutation_violations, {"kind": "pods"})
+    d = run(DRILL_CYCLES, {"KBT_CACHE_MUTATION_DETECTOR": "1"})
+    if violations() or d["binds"] != want:
+        raise AssertionError(f"(d) mutation detector: {violations()} violations, binds equal: {d['binds'] == want}")
+    out["d_mutation_detector_clean"] = {"violations": violations(), "run_once_s": d["cycles"][0]["run_once_s"],
+                                       "undisturbed_run_once_s": base["cycles"][0]["run_once_s"]}
+    if on_card and (launches[0] < 4 * DRILL_CYCLES or launches[1]):
+        raise AssertionError(f"{launches[0]} B1 and {launches[1]} B2 launches over the drills")
+    out.update(s=time.perf_counter() - t0, b1_launches=launches[0], b2_launches=launches[1])
+    return out, tuple(launches)
+
+
+def server_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict]:
+    """The process's phases: ``server_50k_5k`` (undisturbed) and
+    ``server_drills`` (they inject their faults). Returns the failures and
+    the launches of each phase's main path."""
+    failures, launches = [], {}
+
+    def server():
+        rec, launches["server_50k_5k"] = server_phase(device, cut)
+        emit(rec)
+
+    def drills():
+        rec, launches["server_drills"] = server_drills(device)
+        emit(rec)
+
+    run_phase(failures, "server_50k_5k", server)
+    run_phase(failures, "server_drills", drills, drill=True)
+    return failures, launches
+
+
 def pipeline_uncut(card: str, kind: str) -> int:
     """``--pipeline-uncut``: pipeline_reclaim on the card at 50,000 pods,
     the cost of the uncut reclaim pass and of the preempt walk after it
@@ -2065,7 +2533,7 @@ def pipeline_uncut(card: str, kind: str) -> int:
 
 
 def rehearse(argv: list[str]) -> int:
-    """``--rehearse CUT``: the pipeline, fast-path, ladder and trace
+    """``--rehearse CUT``: the pipeline, fast-path, ladder, trace and process
     phases on the CPU, every world's pod and node counts divided by CUT,
     torch_allocate on the kernels' plain versions. A prediction of the
     host actions' cost, not a measurement of the card."""
@@ -2084,6 +2552,8 @@ def rehearse(argv: list[str]) -> int:
     failures += fast_failures + degradation_failures()
     ladder_failures, _ = ladder_trace_phases({}, {}, device="cpu", cut=cut)
     failures += ladder_failures
+    server_failures, _ = server_phases(device="cpu", cut=cut)
+    failures += server_failures
     emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
     return 1 if failures else 0
 
@@ -2375,12 +2845,17 @@ def main(argv: list[str]) -> int:
     # -- the solver ladder under faults, the cycle under trace --------------
     ladder_failures, ladder_launches = ladder_trace_phases(clusters, results)
     failures += ladder_failures
+    # -- the port as a process: store, cache, loop and HTTP -----------------
+    clusters.clear()  # free the main worlds: the process phases generate their own
+    server_failures, server_launches = server_phases()
+    failures += server_failures
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
     cycle_launches.update(pipeline_launches)
     cycle_launches.update(fast_launches)
     cycle_launches.update(ladder_launches)
+    cycle_launches.update(server_launches)
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 

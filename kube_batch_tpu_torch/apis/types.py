@@ -2,7 +2,7 @@
 
 PodGroup/Queue mirror the reference CRDs
 (reference pkg/apis/scheduling/v1alpha1/types.go:93-209, labels.go:20);
-Pod/Node/PodDisruptionBudget are minimal stand-ins for the
+Pod/Node/PriorityClass/PodDisruptionBudget are minimal stand-ins for the
 core-v1 objects, carrying exactly the fields the scheduler reads
 (resources, selectors, taints/tolerations, host ports, affinity,
 priority, phase/conditions).
@@ -305,8 +305,19 @@ class Queue:
 
 
 # ---------------------------------------------------------------------------
-# PodDisruptionBudget (minimal)
+# PriorityClass / PodDisruptionBudget (minimal)
 # ---------------------------------------------------------------------------
+
+
+@dataclass
+class PriorityClass:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    value: int = 0
+    global_default: bool = False
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
 
 
 @dataclass
@@ -317,6 +328,100 @@ class PodDisruptionBudget:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     min_available: int = 0
     selector: dict[str, str] = field(default_factory=dict)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+# ---------------------------------------------------------------------------
+# Volumes (reference wires PV/PVC/StorageClass informers into the k8s
+# volumebinder at cache.go:268-297; interface contract interface.go:46-56).
+# Minimal models: what assume-at-allocate / bind-at-dispatch needs.
+# ---------------------------------------------------------------------------
+
+
+class VolumeBindingMode(str, Enum):
+    IMMEDIATE = "Immediate"
+    WAIT_FOR_FIRST_CONSUMER = "WaitForFirstConsumer"
+
+
+class VolumePhase(str, Enum):
+    """PV status.phase (subset) / PVC status.phase."""
+
+    PENDING = "Pending"
+    AVAILABLE = "Available"
+    BOUND = "Bound"
+    RELEASED = "Released"
+    LOST = "Lost"
+
+
+@dataclass
+class StorageClass:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)  # cluster-scoped
+    provisioner: str = ""
+    volume_binding_mode: VolumeBindingMode = VolumeBindingMode.IMMEDIATE
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class PersistentVolume:
+    """Cluster-scoped. `node_affinity` carries the volume's topology
+    (required node-selector terms, OR-of-terms like pod node affinity);
+    empty means accessible from every node."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    capacity_storage: float = 0.0  # bytes
+    storage_class_name: str = ""
+    node_affinity: list[NodeSelectorTerm] = field(default_factory=list)
+    claim_ref: str = ""  # "namespace/name" of the bound PVC
+    phase: VolumePhase = VolumePhase.AVAILABLE
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class PersistentVolumeClaim:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    storage_class_name: str = ""
+    request_storage: float = 0.0  # bytes (spec.resources.requests[storage])
+    volume_name: str = ""  # spec.volumeName, set when bound
+    phase: VolumePhase = VolumePhase.PENDING
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+# ---------------------------------------------------------------------------
+# Lease (coordination.k8s.io/v1 shape, minimal)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Lease:
+    """Leader-election lease — the role the reference fills with a
+    ConfigMap resource lock (cmd/kube-batch/app/server.go:115-139,
+    resourcelock.ConfigMapsResourceLock). Arbitration happens inside the
+    store that holds the lease (ClusterStore.try_acquire_lease), so all
+    timestamps are the arbiter's clock — candidates never compare their
+    own clocks."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    holder_identity: str = ""
+    lease_duration_seconds: float = 15.0
+    acquire_time: float = 0.0  # arbiter clock, time.time()
+    renew_time: float = 0.0  # arbiter clock, time.time()
+    lease_transitions: int = 0  # leadership changes, k8s leaseTransitions
 
     @property
     def name(self) -> str:

@@ -25,6 +25,19 @@ The solver and cycle points (actions/torch_allocate.py, recovery/budget.py):
 - ``cycle.overrun``: the dispatch barrier's budget check reports a hard
   overrun; the cycle aborts before any bind and its session is discarded.
 
+The process's points (cache/cache.py, cache/store.py, server.py):
+
+- ``bind.write`` / ``evict.write``: a store write of the cache's kb-write
+  pool is rejected; it is retried in place with jitter
+  (``KBT_WRITE_RETRIES``, default 2, each retry counted in
+  ``write_retries_total{op}``), then the task goes through the errTasks
+  resync and schedules again on a later cycle;
+- ``bind.slow``: each bind attempt stalls 50 ms;
+- ``watch.drop``: a long-poll watch returns 410 Gone, and the client
+  re-lists;
+- ``store.conflict``: a conditional (versioned) store transaction is
+  rejected with ``StaleWrite(reason="injected")``.
+
 The host fast paths' points, each of whose degraded paths gives the same
 bytes as the fast path it replaces:
 
@@ -99,8 +112,16 @@ POINTS = (
     "solve.sharded",       # sharded rung (B2) segment fails -> fused rung resumes, same cycle
     "solve.fused",         # fused rung (B1) segment fails -> serial for the cycle
     "solve.nan",           # NaN poisons a score weight -> finite guard -> serial
+    # cache write side (cache/cache.py)
+    "bind.write",          # binder write rejected -> retry w/ jitter -> errTasks
+    "bind.slow",           # slow binder (50ms stall per attempt)
+    "evict.write",         # evictor write rejected -> retry -> errTasks
+    # watch stream (server.py WatchHub)
+    "watch.drop",          # stream drop: poll returns 410-Gone, client re-lists
     # cycle budget (recovery/budget.py)
     "cycle.overrun",       # injected wedged solve -> hard-deadline abort pre-dispatch
+    # store conditional transactions (cache/store.py)
+    "store.conflict",      # conditional write rejected with StaleWrite
     # incremental encode cache (ops/encode_cache.py)
     "encode.cache",        # cache poisoned -> state dropped, encode runs cold
     # native extension boundary (ops/, the bulk replay)

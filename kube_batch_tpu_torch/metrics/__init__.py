@@ -16,7 +16,15 @@ label sets:
 - the ladder's: ``fault_injections_total{point}``,
   ``breaker_transitions_total{tier,from,to}``, ``breaker_state{tier}``,
   ``degraded_cycles_total{tier,reason}`` (faults/, actions/torch_allocate.py);
-- the cycle's: ``cycle_overruns_total{kind}`` (scheduler.py);
+- the cycle's: ``cycle_overruns_total{kind}`` and
+  ``stale_cycles_skipped_total`` (scheduler.py);
+- the cache's write side: ``write_retries_total{op}`` and
+  ``resync_dropped_total`` (cache/cache.py), and
+  ``cache_mutation_violations_total{kind}`` (faults/mutation_detector.py);
+- ``watch_longpoll_wakeups_total{cause}``: exposed under its JAX name,
+  written by the JAX package's combined long-poll of the store-backend
+  protocol, which comes with federation; the per-kind watch of server.py
+  does not write it, as in the JAX package;
 - ``exchange_batched_iters_total`` (the sharded rung's K-deep exchange);
 - ``encode_cache_hits_total``, ``encode_cache_invalidations_total{reason}``
   and ``encode_warm_fraction`` (ops/encode_cache.py);
@@ -25,10 +33,10 @@ label sets:
   ``obs.slo.publish()``.
 
 The JAX package's series of layers the port does not have yet (the
-store, watch, journal, federation, admission, shards, fleet, streaming,
-the tensor arena, the class-compressed solve and explain) come with those
-layers; so do exemplars, and ``stale_cycles_skipped_total`` with the real
-cache and its staleness guard.
+journal, federation and its conditional binds, the watch client,
+admission, shards, fleet, streaming, the tensor arena, the
+class-compressed solve and explain) come with those layers; so do
+exemplars.
 """
 
 from __future__ import annotations
@@ -233,10 +241,28 @@ degraded_cycles = Counter(
     "Scheduling cycles that ran below their preferred solver tier, by reason",
 )
 
-# -- the cycle's deadline budget (scheduler.py) -------------------------------
+# -- the cache's write side and the mutation detector (cache/, faults/) -------
+write_retries = Counter(
+    f"{_SUBSYSTEM}_write_retries_total",
+    "Write-side retries (with jitter) before the errTasks resync path, by op",
+)
+cache_mutation_violations = Counter(
+    f"{_SUBSYSTEM}_cache_mutation_violations_total",
+    "In-place mutations of shared cached cluster objects detected, by kind",
+)
+
+# -- the cycle's deadline budget and staleness guard (scheduler.py) -----------
 cycle_overruns = Counter(
     f"{_SUBSYSTEM}_cycle_overruns_total",
     "Scheduling cycles past their deadline budget, by kind (soft/hard)",
+)
+resync_dropped = Counter(
+    f"{_SUBSYSTEM}_resync_dropped_total",
+    "errTasks resync entries dropped terminally after exhausting their retry budget",
+)
+stale_cycles_skipped = Counter(
+    f"{_SUBSYSTEM}_stale_cycles_skipped_total",
+    "Scheduling cycles refused because the snapshot exceeded the staleness threshold",
 )
 
 # -- incremental encode cache (ops/encode_cache.py) --------------------------
@@ -259,6 +285,13 @@ exchange_batched_iters_total = Counter(
     f"{_SUBSYSTEM}_exchange_batched_iters_total",
     "Gang iterations committed straight from a K-deep batched mesh "
     "exchange instead of a per-iteration all-gather",
+)
+
+# -- the watch hub's long-poll (server.py) --------------------------------------
+watch_longpoll_wakeups = Counter(
+    f"{_SUBSYSTEM}_watch_longpoll_wakeups_total",
+    "Long-poll watch returns on the v2 combined endpoint, by cause "
+    "(events/timeout)",
 )
 
 # -- per-queue SLO windows (obs.SLOAccountant) ---------------------------------
@@ -337,6 +370,26 @@ def set_breaker_state(tier: str, value: float) -> None:
 
 def register_degraded_cycle(tier: str, reason: str) -> None:
     degraded_cycles.inc({"tier": tier, "reason": reason})
+
+
+def register_write_retry(op: str) -> None:
+    write_retries.inc({"op": op})
+
+
+def register_cache_mutation(kind: str) -> None:
+    cache_mutation_violations.inc({"kind": kind})
+
+
+def register_resync_drop() -> None:
+    resync_dropped.inc()
+
+
+def register_stale_cycle_skip() -> None:
+    stale_cycles_skipped.inc()
+
+
+def register_longpoll_wakeup(cause: str) -> None:
+    watch_longpoll_wakeups.inc({"cause": cause})
 
 
 def register_cycle_overrun(kind: str) -> None:
@@ -428,10 +481,15 @@ FAMILIES = (
     breaker_transitions,
     breaker_state,
     degraded_cycles,
+    write_retries,
+    cache_mutation_violations,
     cycle_overruns,
+    resync_dropped,
+    stale_cycles_skipped,
     encode_cache_hits,
     encode_cache_invalidations,
     encode_warm_fraction,
+    watch_longpoll_wakeups,
     exchange_batched_iters_total,
     slo_time_to_bind,
     slo_queue_wait,

@@ -121,6 +121,15 @@ def preempt_mix(
     """Config 4: the north-star scale — 50k pending across priority bands
     on 5k nodes partially occupied by running (and some terminating)
     victims."""
+    return build_cluster(*preempt_mix_objects(n_pods, n_nodes, tasks_per_job, seed))
+
+
+def preempt_mix_objects(
+    n_pods: int = 50_000, n_nodes: int = 5000, tasks_per_job: int = 25, seed: int = 0
+) -> tuple[list, list, list, list]:
+    """``preempt_mix``'s world as the objects a store takes: (pods, nodes,
+    PodGroups, queues), the PodGroups ``Pending`` as a client creates
+    them (``build_cluster`` flips them to Inqueue in place)."""
     rng = random.Random(seed)
     nodes = _uniform_nodes(n_nodes)
     pods, pgs = [], []
@@ -152,7 +161,7 @@ def preempt_mix(
                     priority=prio,
                 )
             )
-    return build_cluster(pods, nodes, pgs, [build_queue("default")])
+    return pods, nodes, pgs, [build_queue("default")]
 
 
 def multi_tenant_ml(

@@ -31,10 +31,12 @@ every entry point returns the shared no-op span singleton
 ``trace:`` key, which the scheduler re-reads every cycle.
 
 ``SPAN_NAMES`` declares every span name a call site opens; ``check_tree``
-flags an undeclared name or a dangling parent. The JAX package's spans of
-layers the port does not have yet (journal, dispatch, store binds,
-streaming, explain) and its cross-process trace headers come with those
-layers.
+flags an undeclared name or a dangling parent. The cache's ``dispatch``
+span (cache/cache.py ``bind_many``) parents the kb-write pool's half of
+the binds. The JAX package's spans of layers the port does not have yet
+(journal, store transactions, streaming, explain) and its cross-process
+trace headers come with those layers. ``install_signal_dump`` dumps the
+ring on SIGTERM (the server's ``run``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import json
 import logging
 import math
 import os
+import signal
 import tempfile
 import threading
 import time
@@ -75,6 +78,7 @@ __all__ = [
     "export_jsonl",
     "export_chrome",
     "check_tree",
+    "install_signal_dump",
 ]
 
 log = logging.getLogger(__name__)
@@ -92,6 +96,7 @@ SPAN_NAMES = (
     "encode",       # torch_allocate's SoA encode (warm_fraction as attr)
     "solve",        # solver entry to the last segment (tier, mesh size)
     "gang.assign",  # the replay of the solved assignments and the dispatch
+    "dispatch",     # cache.bind_many's host side: resolve under the mutex, submit
     "commit",       # PodGroup status write-back at session close
 )
 
@@ -316,6 +321,10 @@ class FlightRecorder:
     def spans(self) -> list[dict]:
         with self._lock:
             return [s for bucket in self._traces.values() for s in bucket]
+
+    def trace_count(self) -> int:
+        with self._lock:
+            return len(self._traces)
 
     def dump_dir(self) -> str | None:
         raw = os.environ.get(RECORDER_ENV, "")
@@ -650,6 +659,30 @@ def configure(spec=None) -> bool:
         log.info("tracing %s", "enabled" if on else "disabled")
     _enabled = on
     return on
+
+
+def install_signal_dump() -> bool:
+    """Chain a SIGTERM handler that dumps the flight recorder before
+    the previous disposition runs. Main-thread only (signal module
+    restriction); returns False where it cannot install."""
+    try:
+        prev = signal.getsignal(signal.SIGTERM)
+
+        def _dump_then_chain(signum, frame):
+            try:
+                recorder.dump(reason="sigterm")
+            except Exception:  # noqa: BLE001 - dying anyway; don't mask SIGTERM
+                pass
+            if callable(prev):
+                prev(signum, frame)
+            else:
+                signal.signal(signal.SIGTERM, signal.SIG_DFL)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        signal.signal(signal.SIGTERM, _dump_then_chain)
+        return True
+    except (ValueError, OSError, RuntimeError):
+        return False
 
 
 def check_tree(spans: list[dict]) -> list[str]:

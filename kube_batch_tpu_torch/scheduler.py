@@ -1,10 +1,14 @@
-"""The scheduling cycle (reference pkg/scheduler/scheduler.go:35-102).
+"""The scheduling loop (reference pkg/scheduler/scheduler.go:35-102).
 
-``Scheduler`` owns a cache and drives the session pipeline: each cycle
-(``run_once``) it (re-)loads the scheduler configuration, opens a session
-over a fresh ``cache.snapshot()``, runs the configured actions in order
-under the cycle's deadline budget, and closes the session — discarding
-its write-back when the hard budget aborted the cycle.
+``Scheduler`` owns a cache and drives the session pipeline: ``run(stop)``
+starts the cache and runs a cycle every ``schedule_period`` seconds until
+``stop`` is set; each cycle (``run_once``) (re-)loads the scheduler
+configuration, opens a session over a fresh ``cache.snapshot()``, runs
+the configured actions in order under the cycle's deadline budget, and
+closes the session — discarding its write-back when the hard budget
+aborted the cycle. The cache is a ``cache.SchedulerCache`` over a
+``cache.ClusterStore`` in a process (server.py), or ``testing.FakeCache``
+for a single cycle:
 
     from kube_batch_tpu_torch.models import preempt_mix
     from kube_batch_tpu_torch.scheduler import Scheduler
@@ -20,19 +24,27 @@ Divergences from the reference, by design (as in the JAX package):
   at startup, scheduler.go:63-85); a conf push takes effect on the next
   cycle without a restart, and a broken conf keeps the previous good one
   rather than killing the loop;
-- the default conf is ``examples/scheduler-conf-torch.yaml``'s:
-  ``torch_allocate, backfill`` over the reference's default tiers plus
-  conformance, so a cycle with no conf solves on the card (and raises
-  when no card is visible; ``device: cpu`` in a conf runs the kernels'
-  plain versions). The JAX package's default leads with ``enqueue``; the
-  port's builders give PodGroups the Inqueue phase the enqueue action
-  would, and examples/scheduler-conf-torch-pipeline.yaml runs the whole
-  pipeline (enqueue, reclaim, allocate, backfill, preempt).
+- the default conf is the JAX package's with the allocate loop solved on
+  the card: ``enqueue, torch_allocate, backfill`` over the reference's
+  default tiers plus conformance, so a cycle with no conf solves on the
+  card (and raises when no card is visible; ``device: cpu`` in a conf
+  runs the kernels' plain versions). It leads with ``enqueue``, as the
+  JAX package's does: a PodGroup reaches a store ``Pending``, and
+  allocate skips a ``Pending`` job, so only the enqueue action lets it
+  bind. examples/scheduler-conf-torch.yaml is the same pipeline without
+  the enqueue action (for worlds whose PodGroups are already Inqueue, as
+  the port's ``testing.build_cluster`` makes them), and
+  examples/scheduler-conf-torch-pipeline.yaml runs the whole pipeline
+  (enqueue, reclaim, allocate, backfill, preempt).
+- ``run`` logs a cycle that raises and goes on with the next, as the
+  JAX loop does. It never turns a failed cycle into a CPU cycle: the
+  conf's ``device`` decides, and a card-side failure fails the cycle.
 
 Faults, deadlines and telemetry, as in the JAX package:
 
-- each cycle opens a root ``cycle`` span (obs; the ``aborted``
-  attribute) and writes ``action_scheduling_latency`` per
+- each cycle opens a root ``cycle`` span (obs; the ``cycle``,
+  ``aborted`` and ``skipped`` attributes) and writes
+  ``action_scheduling_latency`` per
   action, ``e2e_scheduling_latency`` and ``schedule_attempts``;
 - the conf's ``trace:`` key goes to ``obs.configure`` every cycle (an
   empty key defers to ``KBT_TRACE``, so the environment still flips it);
@@ -46,18 +58,26 @@ Faults, deadlines and telemetry, as in the JAX package:
   soft overruns trip the breaker of the tier the cycle ran on
   (``_arm_tier_downgrade``) when the rung below it is on the same
   device: ``sharded`` always, ``fused`` only on ``device: cpu``. A slow
-  fused cycle on a card is counted and logged, and stays on the card.
+  fused cycle on a card is counted and logged, and stays on the card;
+- the bounded-staleness guard: with ``KBT_MAX_SNAPSHOT_AGE_S`` above 0, a
+  cycle whose cache reports a ``snapshot_age()`` past it is refused
+  before the session opens (``stale_cycles_skipped_total``, the cycle
+  span's ``skipped="stale_snapshot"``, ``last_timings["skipped"]``);
+- a cache with a ``cycle`` counter has it advanced every cycle that is
+  not refused;
+- with ``KBT_CACHE_MUTATION_DETECTOR`` on, a cache with a ``store`` has
+  the store's objects digested before the actions and verified after
+  (faults/mutation_detector.py): an in-place mutation of a stored object
+  raises ``CacheMutationError`` out of ``run_once``.
 
-The JAX package's scheduler also loops on a period, streams
-micro-cycles, fences pipelined dispatch, checks the cache for mutation
-and refuses a cycle over a stale snapshot (``KBT_MAX_SNAPSHOT_AGE_S``,
-read off a cache that reports its age); those come with the port's
-later items (ROADMAP A9-A10).
+The JAX package's scheduler also streams micro-cycles and fences
+pipelined dispatch; those come with the port's later items (ROADMAP A).
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from typing import Optional
 
@@ -65,7 +85,7 @@ import kube_batch_tpu_torch.actions  # noqa: F401  (registers the action pipelin
 import kube_batch_tpu_torch.plugins  # noqa: F401  (registers the plugin builders)
 from kube_batch_tpu_torch import faults, metrics, obs
 from kube_batch_tpu_torch.conf import load_scheduler_conf, parse_scheduler_conf, read_scheduler_conf
-from kube_batch_tpu_torch.faults import _env_float
+from kube_batch_tpu_torch.faults import _env_float, mutation_detector
 from kube_batch_tpu_torch.framework import close_session, open_session
 from kube_batch_tpu_torch.recovery.budget import CycleBudget, CycleDeadlineExceeded
 
@@ -73,7 +93,7 @@ log = logging.getLogger(__name__)
 
 
 DEFAULT_SCHEDULER_CONF = """
-actions: "torch_allocate, backfill"
+actions: "enqueue, torch_allocate, backfill"
 tiers:
 - plugins:
   - name: priority
@@ -92,7 +112,8 @@ class Scheduler:
     path (None: the default conf); ``hard_deadline_s`` and
     ``soft_deadline_s`` are the cycle's budget (recovery/budget.py; None:
     ``KBT_CYCLE_HARD_DEADLINE_S`` / ``KBT_CYCLE_SOFT_DEADLINE_S``, unset
-    or 0: no deadline)."""
+    or 0: no deadline); ``schedule_period`` is the seconds between the
+    starts of ``run``'s cycles."""
 
     def __init__(
         self,
@@ -100,9 +121,11 @@ class Scheduler:
         scheduler_conf: Optional[str] = None,
         hard_deadline_s: Optional[float] = None,
         soft_deadline_s: Optional[float] = None,
+        schedule_period: float = 1.0,
     ) -> None:
         self.cache = cache
         self.scheduler_conf = scheduler_conf
+        self.schedule_period = schedule_period
         self.actions = []
         self.plugins = []
         self.action_arguments: dict[str, dict[str, str]] = {}
@@ -114,6 +137,10 @@ class Scheduler:
             soft_deadline_s = _env_float("KBT_CYCLE_SOFT_DEADLINE_S", 0.0) or None
         self._hard_deadline = hard_deadline_s
         self._soft_deadline = soft_deadline_s
+        # Bounded-staleness guard: refuse to schedule over a snapshot
+        # older than this (a watch-fed cache reports its real age; the
+        # in-process store reports 0). 0 = guard off.
+        self._max_snapshot_age = _env_float("KBT_MAX_SNAPSHOT_AGE_S", 0.0)
         # Consecutive soft overruns, tracked here and not through breaker
         # failures: a slow but successful solve records a breaker success
         # every cycle, which would reset the failures and make the
@@ -121,7 +148,8 @@ class Scheduler:
         self._soft_overruns = 0
         # Wall clock of the last run_once: conf_s, snapshot_s, plugins_s,
         # job_valid_s, one "<action>_s" per action, close_s, run_once_s;
-        # and "aborted" (the reason) when the hard budget aborted it.
+        # "aborted" (the reason) when the hard budget aborted it, and
+        # "skipped" when the staleness guard refused it.
         self.last_timings: dict[str, float | str] = {}
         self._load_conf()
 
@@ -161,6 +189,29 @@ class Scheduler:
                 raise
             log.error("Failed to load scheduler configuration, keeping previous: %s", e)
 
+    def run(self, stop: threading.Event, device=None) -> None:
+        """Start the cache and loop run_once until ``stop`` is set
+        (reference scheduler.go:63-86). A cycle that raises is logged and
+        the loop goes on. ``device``: a CUDA device this thread makes
+        current before its first cycle, so a conf's bare ``device: cuda``
+        names it and not whichever device the thread would default to."""
+        if device is not None:
+            import torch
+
+            device = torch.device(device)
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+        self.cache.run()
+        self.cache.wait_for_cache_sync()
+        while not stop.is_set():
+            start = time.perf_counter()
+            try:
+                self.run_once()
+            except Exception as e:  # noqa: BLE001 - a bad cycle must not kill the loop
+                log.error("scheduling cycle failed: %s", e, exc_info=True)
+            elapsed = time.perf_counter() - start
+            stop.wait(max(0.0, self.schedule_period - elapsed))
+
     def run_once(self) -> None:
         """One scheduling cycle (reference scheduler.go:88-102)."""
         cycle_start = time.perf_counter()
@@ -169,6 +220,37 @@ class Scheduler:
         self.last_timings = timings
 
         with obs.span("cycle") as cspan:
+            # Bounded-staleness guard: scheduling over a stale mirror binds
+            # pods onto nodes that may no longer exist — refuse the cycle
+            # and let the mirror catch up (the k8s contract is the same: a
+            # scheduler partitioned from the apiserver stops).
+            if self._max_snapshot_age > 0:
+                age_fn = getattr(self.cache, "snapshot_age", None)
+                age = age_fn() if age_fn is not None else 0.0
+                if age > self._max_snapshot_age:
+                    metrics.register_stale_cycle_skip()
+                    cspan.set_attr("skipped", "stale_snapshot")
+                    timings["skipped"] = "stale_snapshot"
+                    log.error(
+                        "snapshot is %.1fs stale (threshold %.1fs); refusing to "
+                        "schedule this cycle", age, self._max_snapshot_age,
+                    )
+                    return
+
+            if hasattr(self.cache, "cycle"):
+                self.cache.cycle += 1
+                cspan.set_attr("cycle", self.cache.cycle)
+
+            # Cache-mutation detector: digest the store's objects before
+            # the plugins and actions run and verify after — any of them
+            # mutating shared cluster state in place fires.
+            detector = None
+            if mutation_detector.enabled():
+                store = getattr(self.cache, "store", None)
+                if store is not None:
+                    detector = mutation_detector.MutationDetector(store)
+                    detector.snapshot()
+
             budget = CycleBudget(self._soft_deadline, self._hard_deadline)
             ssn = open_session(self.cache, self.plugins, self.action_arguments)
             timings.update(ssn.open_timings)
@@ -216,6 +298,8 @@ class Scheduler:
                 self._arm_tier_downgrade(budget)
             else:
                 self._soft_overruns = 0  # a cycle within budget clears the streak
+            if detector is not None:
+                detector.verify()  # raises CacheMutationError on violation
 
     def _arm_tier_downgrade(self, budget: CycleBudget) -> None:
         """Soft overrun: consecutive slow cycles trip the breaker of the

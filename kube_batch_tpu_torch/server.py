@@ -1,0 +1,783 @@
+"""The scheduler as a process: flags, the HTTP surface, the loop
+(reference cmd/kube-batch/app/server.go:63-140 +
+cmd/kube-batch/app/options/options.go:33-90).
+
+``SchedulerServer`` assembles the full stack for one process: an
+in-process ``ClusterStore`` (cache/store.py, the API-server stand-in),
+the ``SchedulerCache`` its event handlers feed (cache/cache.py), the
+``Scheduler`` loop on its own thread (``kb-loop``), and a
+ThreadingHTTPServer (``kb-http``) that exposes:
+
+- ``GET /metrics``   — Prometheus text exposition
+  (``metrics.render_prometheus_text``);
+- ``GET /healthz``   — liveness;
+- ``GET /version``   — ``version.info()``;
+- ``GET /debug/trace`` — flight-recorder ring (recent cycle traces;
+  ``?dump=1`` also writes the JSONL + Chrome trace files);
+- ``GET /debug/slo`` — per-queue time-to-bind / queue-wait quantiles
+  (``obs.slo``);
+- ``GET|POST /apis/v1alpha1/queues`` and
+  ``DELETE /apis/v1alpha1/queues/<name>`` — the queue CRD surface the
+  CLI talks to (cli/queue.py);
+- ``GET|POST /apis/v1alpha1/pods`` / ``nodes`` / ``podgroups`` /
+  ``priorityclasses`` / ``poddisruptionbudgets`` / ``persistentvolumes`` /
+  ``persistentvolumeclaims`` / ``storageclasses`` and the matching
+  ``DELETE`` routes — the workload-ingestion surface; creations fan out
+  to the cache's event handlers through the store. Pod ingestion also
+  stands in for the k8s admission controller: a pod without an explicit
+  priority gets it resolved from its named PriorityClass or the global
+  default class;
+- ``GET /apis/v1alpha1/watch/<kind>?since=N&timeout=S`` — the long-poll
+  watch (``WatchHub``; 410 Gone when the client fell behind the ring or
+  the ``watch.drop`` fault point fired).
+
+Pod JSON: ``{"name", "namespace", "group", "requests": {"cpu": 1,
+"memory": "512Mi", ...scalars}, "priority", "priority_class_name",
+"labels", "node_selector", "node_name", "phase", "scheduler_name",
+"volumes"}``. Node JSON: ``{"name", "allocatable": {...}, "labels"}``.
+PodGroup JSON: ``{"name", "namespace", "queue", "min_member"}``.
+
+Run it with ``python -m kube_batch_tpu_torch.server --scheduler-conf
+examples/scheduler-conf-torch-pipeline.yaml``: the conf's
+``torch_allocate`` solves on the card unless it says ``device: cpu``.
+Importing this module, ``--help`` and ``--version`` touch no card.
+
+The JAX package's server also serves the store-backend protocol
+(``/backend/v1/``, federation), leader election (``--leader-elect``,
+``--lock-file``, ``--lease-url`` and the lease routes), the write-intent
+journal (``--journal``) and its takeover reconciliation, admission
+(``/debug/admission``), the fleet rollup (``--fleet``, ``/debug/fleet``)
+and ``/debug/explain``; those come with the port's later items (ROADMAP
+A), and this server does not offer them until then.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import math
+import threading
+import time
+import urllib.parse
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from kube_batch_tpu_torch import faults, log as pkg_log, metrics, obs, version
+from kube_batch_tpu_torch.apis.types import (
+    NodeSelectorTerm,
+    ObjectMeta,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    PodDisruptionBudget,
+    PodPhase,
+    PriorityClass,
+    Queue,
+    QueueSpec,
+    StorageClass,
+    VolumeBindingMode,
+    VolumePhase,
+)
+from kube_batch_tpu_torch.cache import ClusterStore, SchedulerCache
+from kube_batch_tpu_torch.cache.store import KINDS, AlreadyExists, EventHandler
+from kube_batch_tpu_torch.scheduler import Scheduler
+from kube_batch_tpu_torch.testing import (
+    build_node,
+    build_pod,
+    build_pod_group,
+    build_resource_list,
+    parse_quantity,
+)
+
+log = logging.getLogger(__name__)
+
+DEFAULT_SCHEDULER_NAME = "kube-batch-tpu"
+DEFAULT_SCHEDULE_PERIOD = 1.0
+DEFAULT_QUEUE = "default"
+DEFAULT_LISTEN_ADDRESS = ":8080"
+
+
+# -- wire serialization (shared by the list and watch endpoints) ------------
+
+SERIALIZERS = {
+    "queues": lambda q: {"name": q.name, "weight": q.spec.weight},
+    "pods": lambda p: {
+        "namespace": p.namespace,
+        "name": p.name,
+        "phase": p.phase.value,
+        "node": p.node_name,
+    },
+    "nodes": lambda n: {"name": n.name, "allocatable": dict(n.allocatable)},
+    "podgroups": lambda g: {
+        "namespace": g.metadata.namespace,
+        "name": g.name,
+        "queue": g.spec.queue,
+        "min_member": g.spec.min_member,
+        "phase": g.status.phase.value,
+    },
+    "priorityclasses": lambda pc: {
+        "name": pc.name,
+        "value": pc.value,
+        "global_default": pc.global_default,
+    },
+    "poddisruptionbudgets": lambda b: {
+        "namespace": b.metadata.namespace,
+        "name": b.name,
+        "min_available": b.min_available,
+        "selector": b.selector,
+    },
+    "persistentvolumes": lambda v: {
+        "name": v.name,
+        "capacity": v.capacity_storage,
+        "storage_class": v.storage_class_name,
+        "phase": v.phase.value,
+        "claim_ref": v.claim_ref,
+    },
+    "persistentvolumeclaims": lambda c: {
+        "namespace": c.namespace,
+        "name": c.name,
+        "storage_class": c.storage_class_name,
+        "request": c.request_storage,
+        "phase": c.phase.value,
+        "volume_name": c.volume_name,
+    },
+    "storageclasses": lambda s: {
+        "name": s.name,
+        "provisioner": s.provisioner,
+        "volume_binding_mode": s.volume_binding_mode.value,
+    },
+    "leases": lambda l: {
+        "name": l.name,
+        "holder": l.holder_identity,
+        "lease_duration": l.lease_duration_seconds,
+        "acquire_time": l.acquire_time,
+        "renew_time": l.renew_time,
+        "transitions": l.lease_transitions,
+    },
+}
+
+
+class WatchHub:
+    """List+watch for external consumers: the store's
+    event fan-out journaled with monotonic sequence numbers and exposed
+    over HTTP long-poll (`GET /apis/v1alpha1/watch/<kind>?since=N`).
+
+    The reference's clients get this from the generated
+    SharedInformerFactory against the API server
+    (pkg/client/informers/externalversions/factory.go); in-process, the
+    hub subscribes one handler per kind and keeps a bounded ring of
+    events **per kind**: one slow watcher of a churning kind can only
+    ever hold MAX_EVENTS of that kind's events — it cannot grow the
+    buffer without limit, and it cannot evict a quiet kind's events.
+    `since` is the resourceVersion returned by list/watch replies; a
+    client that falls behind its kind's ring gets `gone` and must
+    re-list, exactly the k8s 410-Gone contract."""
+
+    MAX_EVENTS = 8192  # ring capacity PER KIND
+
+    def __init__(self, store: ClusterStore, max_events: Optional[int] = None) -> None:
+        self._cond = threading.Condition()
+        self.max_events = max_events or self.MAX_EVENTS
+        # kind -> ring of (seq, verb, body), seq-ascending
+        self._events: dict[str, deque] = {k: deque() for k in KINDS}
+        self._seq = 0
+        # Newest dropped seq per kind: Gone fires only when events of the
+        # *requested* kind actually fell out of its ring, so a watcher of
+        # a quiet kind is not forced to re-list because pods churned.
+        self._dropped: dict[str, int] = {}
+        self._closed = False
+        # The journal is lazy: until the first list/watch consumer reads
+        # a resourceVersion, events only bump the counter — no body
+        # serialization, ring append, or notify on the store's hot
+        # mutation path. `_journal_start` is the seq at activation;
+        # a `since` before it is Gone (nothing earlier was journaled,
+        # and no client can legitimately hold such an rv).
+        self._active = False
+        self._journal_start = 0
+        for kind in KINDS:
+            store.add_event_handler(
+                kind,
+                EventHandler(
+                    on_add=lambda obj, k=kind: self._emit(k, "ADDED", obj),
+                    on_update=lambda old, new, k=kind: self._emit(
+                        k, "MODIFIED", new, old
+                    ),
+                    on_delete=lambda obj, k=kind: self._emit(k, "DELETED", obj),
+                ),
+            )
+
+    def _emit(self, kind: str, verb: str, obj, old=None) -> None:
+        if not self._active:
+            # Double-checked under the lock; pre-activation events only
+            # bump the counter (nobody is owed them).
+            with self._cond:
+                if not self._active:
+                    self._seq += 1
+                    return
+        # The ring holds the object itself; serialization happens at poll
+        # time. Store objects are replaced, not mutated (the mutation
+        # detector enforces it), so a late poll serializes exactly the
+        # state the event captured.
+        with self._cond:
+            self._seq += 1
+            ring = self._events[kind]
+            if len(ring) >= self.max_events:
+                # true 410 on overflow: the dropped seq fences every
+                # watcher holding an rv at or before it into a re-list
+                self._dropped[kind] = ring.popleft()[0]
+            ring.append((self._seq, verb, obj))
+            self._cond.notify_all()
+
+    def close(self) -> None:
+        """Wake every blocked poll (server shutdown)."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def _activate_locked(self) -> None:
+        if not self._active:
+            self._active = True
+            self._journal_start = self._seq
+
+    @property
+    def resource_version(self) -> int:
+        with self._cond:
+            self._activate_locked()
+            return self._seq
+
+    def _collect_locked(self, kind: str, since: int) -> list[dict]:
+        """Events past ``since`` for one kind. Ring entries are
+        seq-ascending: walk from the right only as far as `since` —
+        O(new events), not O(ring). Caller holds ``_cond``."""
+        ser = SERIALIZERS[kind]
+        batch: list[dict] = []
+        for seq, verb, obj in reversed(self._events[kind]):
+            if seq <= since:
+                break
+            batch.append({"seq": seq, "type": verb, "object": ser(obj)})
+        batch.reverse()
+        return batch
+
+    def poll(
+        self,
+        kind: str,
+        since: int,
+        timeout: float,
+        stop: threading.Event,
+    ) -> tuple[str, list[dict], int]:
+        """("ok" | "gone", events, resourceVersion). Blocks up to
+        `timeout` seconds for the first event past `since`. The
+        ``watch.drop`` fault point answers "gone" at once."""
+        if faults.should_fire("watch.drop"):
+            # Injected stream drop: the 410-Gone contract — the client
+            # must re-list and resume from the returned resourceVersion.
+            with self._cond:
+                return "gone", [], self._seq
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._cond:
+                self._activate_locked()
+                if since < max(self._dropped.get(kind, 0), self._journal_start):
+                    return "gone", [], self._seq
+                batch = self._collect_locked(kind, since)
+                if batch:
+                    return "ok", batch, self._seq
+                remaining = deadline - time.monotonic()
+                if remaining <= 0 or stop.is_set() or self._closed:
+                    return "ok", [], self._seq
+                self._cond.wait(min(remaining, 1.0))
+
+
+def _make_handler(server: "SchedulerServer"):
+    class Handler(BaseHTTPRequestHandler):
+        # HTTP/1.1 keep-alive (every reply sends Content-Length, which
+        # persistence requires), with TCP_NODELAY: without it every
+        # reused-connection round trip sits out the Nagle vs delayed-ACK
+        # interaction (~40ms).
+        protocol_version = "HTTP/1.1"
+        disable_nagle_algorithm = True
+
+        def log_message(self, fmt, *args):  # route http.server chatter to debug
+            log.debug("http: " + fmt, *args)
+
+        def _reply(self, code: int, body: str, ctype: str = "application/json") -> None:
+            data = body.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):  # noqa: N802 (http.server API)
+            parsed = urllib.parse.urlsplit(self.path)
+            path = parsed.path
+            if path == "/metrics":
+                # Refresh the SLO quantile gauges from the sliding windows
+                # right before exposition: scrape-time freshness without a
+                # publisher thread.
+                obs.slo.publish()
+                self._reply(
+                    200, metrics.render_prometheus_text(), "text/plain; version=0.0.4"
+                )
+            elif path == "/healthz":
+                self._reply(200, "ok", "text/plain")
+            elif path == "/version":
+                self._reply(200, "\n".join(version.info()) + "\n", "text/plain")
+            elif path == "/debug/trace":
+                # Flight-recorder peek: the bounded ring of recent cycle
+                # traces. ``?dump=1`` additionally writes the jsonl +
+                # Chrome trace files and returns their paths.
+                query = urllib.parse.parse_qs(parsed.query)
+                payload = {
+                    "enabled": obs.enabled(),
+                    "traces": obs.recorder.trace_count(),
+                    "spans": obs.recorder.spans(),
+                }
+                if query.get("dump", ["0"])[0] not in ("", "0", "false"):
+                    payload["dump"] = obs.recorder.dump(reason="debug_endpoint")
+                self._reply(200, json.dumps(payload))
+            elif path == "/debug/slo":
+                self._reply(200, json.dumps(obs.slo.snapshot()))
+            elif path.startswith("/apis/v1alpha1/watch/"):
+                kind = path[len("/apis/v1alpha1/watch/"):]
+                if kind not in SERIALIZERS:
+                    self._reply(404, json.dumps({"error": f"unknown kind {kind!r}"}))
+                    return
+                query = urllib.parse.parse_qs(parsed.query)
+                try:
+                    since = int(query.get("since", ["0"])[0])
+                    timeout = float(query.get("timeout", ["30"])[0])
+                except ValueError:
+                    self._reply(400, json.dumps({"error": "bad since/timeout"}))
+                    return
+                if not math.isfinite(timeout):  # nan/inf would spin forever
+                    self._reply(400, json.dumps({"error": "bad since/timeout"}))
+                    return
+                timeout = min(max(timeout, 0.0), 300.0)
+                status, events, rv = server.watch_hub.poll(
+                    kind, since, timeout, server._stop
+                )
+                if status == "gone":
+                    # k8s 410 Gone: the client's resourceVersion fell out
+                    # of the ring; it must re-list and resume from there.
+                    self._reply(
+                        410, json.dumps({"error": "too old", "resourceVersion": rv})
+                    )
+                    return
+                self._reply(
+                    200, json.dumps({"events": events, "resourceVersion": rv})
+                )
+            elif path.startswith("/apis/v1alpha1/"):
+                kind = path[len("/apis/v1alpha1/"):]
+                ser = SERIALIZERS.get(kind)
+                if ser is None:
+                    self._reply(404, json.dumps({"error": "not found"}))
+                    return
+                # rv read BEFORE the list: a watch from this rv re-delivers
+                # anything that lands between the two reads (at-least-once)
+                # rather than silently skipping it.
+                rv = server.watch_hub.resource_version
+                items = [ser(obj) for obj in server.store.list(kind)]
+                self._reply(
+                    200, json.dumps({"items": items, "resourceVersion": rv})
+                )
+            else:
+                self._reply(404, json.dumps({"error": "not found"}))
+
+
+        def _read_body(self) -> dict:
+            length = int(self.headers.get("Content-Length", "0"))
+            raw = self.rfile.read(length) or b"{}"
+            return json.loads(raw)
+
+        def do_POST(self):  # noqa: N802
+            # Validation before anything reaches the store: a type-poisoned
+            # object (str priority, str labels) would not fail here — it
+            # would fail inside every subsequent scheduling cycle.
+            def field(body, key, typ, default, required: bool = False):
+                if key not in body:
+                    if required:
+                        raise ValueError(f"missing required field {key!r}")
+                    return default
+                val = body[key]
+                if isinstance(val, bool) and typ is not bool:
+                    raise ValueError(f"field {key!r} must be {typ.__name__}, got bool")
+                if typ is int and isinstance(val, (int, str)):
+                    return int(val)
+                if not isinstance(val, typ):
+                    raise ValueError(
+                        f"field {key!r} must be {typ.__name__}, got {type(val).__name__}"
+                    )
+                return val
+
+            def resource_list(d) -> dict:
+                if not isinstance(d, dict):
+                    raise ValueError("resource list must be an object")
+                for k, v in d.items():
+                    if isinstance(v, bool) or not isinstance(v, (int, float, str)):
+                        raise ValueError(
+                            f"resource {k!r} must be a number or quantity string"
+                        )
+                # k8s-style quantity strings ("8Gi", "500m") -> floats
+                return build_resource_list(
+                    cpu=d.get("cpu", 0),
+                    memory=d.get("memory", 0),
+                    pods=int(d.get("pods", 0)),
+                    **{k: v for k, v in d.items() if k not in ("cpu", "memory", "pods")},
+                )
+
+
+            try:
+                body = self._read_body()
+                if not isinstance(body, dict):
+                    raise ValueError("request body must be a JSON object")
+                if self.path == "/apis/v1alpha1/queues":
+                    name = field(body, "name", str, None, required=True)
+                    weight = field(body, "weight", int, 1)
+                    if weight < 1:
+                        raise ValueError("weight must be >= 1")
+                    server.store.create_queue(
+                        Queue(metadata=ObjectMeta(name=name), spec=QueueSpec(weight=weight))
+                    )
+                    self._reply(201, json.dumps({"name": name, "weight": weight}))
+                elif self.path == "/apis/v1alpha1/pods":
+                    name = field(body, "name", str, None, required=True)
+                    namespace = field(body, "namespace", str, "default")
+                    pod = build_pod(
+                        namespace=namespace,
+                        name=name,
+                        node_name=field(body, "node_name", str, ""),
+                        phase=PodPhase(field(body, "phase", str, "Pending")),
+                        req=resource_list(body.get("requests", {})),
+                        group_name=field(body, "group", str, ""),
+                        labels=field(body, "labels", dict, None),
+                        priority=field(body, "priority", int, None),
+                        node_selector=field(body, "node_selector", dict, None),
+                        scheduler_name=field(
+                            body, "scheduler_name", str, server.cache.scheduler_name
+                        ),
+                        volumes=[
+                            str(v) for v in field(body, "volumes", list, []) or []
+                        ],
+                    )
+                    pod.priority_class_name = field(body, "priority_class_name", str, "")
+                    # Admission-controller stand-in: kube-batch reads
+                    # pod.Spec.Priority already resolved by k8s admission
+                    # from the PriorityClass; with no admission layer here,
+                    # ingestion resolves it (named class, else the global
+                    # default class).
+                    if pod.priority is None:
+                        pc = None
+                        if pod.priority_class_name:
+                            pc = server.store.get(
+                                "priorityclasses", pod.priority_class_name
+                            )
+                            if pc is None:
+                                raise ValueError(
+                                    f"unknown priority class {pod.priority_class_name!r}"
+                                )
+                        else:
+                            pc = next(
+                                (
+                                    c
+                                    for c in server.store.list("priorityclasses")
+                                    if c.global_default
+                                ),
+                                None,
+                            )
+                        if pc is not None:
+                            pod.priority = pc.value
+                    server.store.create_pod(pod)
+                    self._reply(
+                        201, json.dumps({"namespace": pod.namespace, "name": pod.name})
+                    )
+                elif self.path == "/apis/v1alpha1/nodes":
+                    name = field(body, "name", str, None, required=True)
+                    node = build_node(
+                        name,
+                        resource_list(body.get("allocatable", {})),
+                        labels=field(body, "labels", dict, None),
+                    )
+                    server.store.create_node(node)
+                    self._reply(201, json.dumps({"name": node.name}))
+                elif self.path == "/apis/v1alpha1/podgroups":
+                    name = field(body, "name", str, None, required=True)
+                    namespace = field(body, "namespace", str, "default")
+                    pg = build_pod_group(
+                        name,
+                        namespace=namespace,
+                        queue=field(body, "queue", str, server.cache.default_queue),
+                        min_member=field(body, "min_member", int, 1),
+                    )
+                    server.store.create_pod_group(pg)
+                    self._reply(
+                        201,
+                        json.dumps({"namespace": pg.metadata.namespace, "name": pg.name}),
+                    )
+                elif self.path == "/apis/v1alpha1/priorityclasses":
+                    name = field(body, "name", str, None, required=True)
+                    pc = PriorityClass(
+                        metadata=ObjectMeta(name=name, uid=f"pc-{name}"),
+                        value=field(body, "value", int, 0),
+                        global_default=field(body, "global_default", bool, False),
+                    )
+                    server.store.create_priority_class(pc)
+                    self._reply(201, json.dumps({"name": name, "value": pc.value}))
+                elif self.path == "/apis/v1alpha1/poddisruptionbudgets":
+                    name = field(body, "name", str, None, required=True)
+                    namespace = field(body, "namespace", str, "default")
+                    pdb = PodDisruptionBudget(
+                        metadata=ObjectMeta(
+                            name=name, namespace=namespace, uid=f"pdb-{namespace}-{name}"
+                        ),
+                        min_available=field(body, "min_available", int, 0),
+                        selector=field(body, "selector", dict, None) or {},
+                    )
+                    server.store.create_pdb(pdb)
+                    self._reply(201, json.dumps({"namespace": namespace, "name": name}))
+                elif self.path == "/apis/v1alpha1/persistentvolumes":
+                    name = field(body, "name", str, None, required=True)
+                    terms = []
+                    for t in field(body, "node_affinity", list, []) or []:
+                        if not isinstance(t, dict):
+                            raise ValueError("node_affinity entries must be objects")
+                        terms.append(
+                            NodeSelectorTerm(
+                                key=str(t.get("key", "")),
+                                operator=str(t.get("operator", "In")),
+                                values=[str(v) for v in t.get("values", [])],
+                            )
+                        )
+                    pv = PersistentVolume(
+                        metadata=ObjectMeta(name=name, uid=f"pv-{name}"),
+                        capacity_storage=parse_quantity(body.get("capacity", 0)),
+                        storage_class_name=field(body, "storage_class", str, ""),
+                        node_affinity=terms,
+                        # Mirroring an existing cluster needs bound state
+                        # expressible at ingestion time.
+                        claim_ref=field(body, "claim_ref", str, ""),
+                        phase=VolumePhase(field(body, "phase", str, "Available")),
+                    )
+                    server.store.create_persistent_volume(pv)
+                    self._reply(201, json.dumps({"name": name}))
+                elif self.path == "/apis/v1alpha1/persistentvolumeclaims":
+                    name = field(body, "name", str, None, required=True)
+                    namespace = field(body, "namespace", str, "default")
+                    volume_name = field(body, "volume_name", str, "")
+                    pvc = PersistentVolumeClaim(
+                        metadata=ObjectMeta(
+                            name=name, namespace=namespace, uid=f"pvc-{namespace}-{name}"
+                        ),
+                        storage_class_name=field(body, "storage_class", str, ""),
+                        request_storage=parse_quantity(body.get("request", 0)),
+                        volume_name=volume_name,
+                        phase=VolumePhase(
+                            field(body, "phase", str, "Bound" if volume_name else "Pending")
+                        ),
+                    )
+                    server.store.create_persistent_volume_claim(pvc)
+                    self._reply(201, json.dumps({"namespace": namespace, "name": name}))
+                elif self.path == "/apis/v1alpha1/storageclasses":
+                    name = field(body, "name", str, None, required=True)
+                    sc = StorageClass(
+                        metadata=ObjectMeta(name=name, uid=f"sc-{name}"),
+                        provisioner=field(body, "provisioner", str, ""),
+                        volume_binding_mode=VolumeBindingMode(
+                            field(body, "volume_binding_mode", str, "Immediate")
+                        ),
+                    )
+                    server.store.create_storage_class(sc)
+                    self._reply(201, json.dumps({"name": name}))
+                else:
+                    self._reply(404, json.dumps({"error": "not found"}))
+            except AlreadyExists as e:
+                self._reply(409, json.dumps({"error": str(e.args[0])}))
+            except (ValueError, TypeError, KeyError, json.JSONDecodeError) as e:
+                self._reply(400, json.dumps({"error": str(e)}))
+
+        def do_DELETE(self):  # noqa: N802
+            parts = self.path.strip("/").split("/")
+            try:
+                if parts[:2] != ["apis", "v1alpha1"] or len(parts) < 4:
+                    self._reply(404, json.dumps({"error": "not found"}))
+                    return
+                kind, rest = parts[2], parts[3:]
+                if kind == "queues" and len(rest) == 1:
+                    server.store.delete_queue(rest[0])
+                elif kind == "nodes" and len(rest) == 1:
+                    server.store.delete_node(rest[0])
+                elif kind == "pods" and len(rest) == 2:
+                    server.store.delete_pod(rest[0], rest[1])
+                elif kind == "podgroups" and len(rest) == 2:
+                    server.store.delete_pod_group(rest[0], rest[1])
+                elif kind == "priorityclasses" and len(rest) == 1:
+                    server.store.delete_priority_class(rest[0])
+                elif kind == "poddisruptionbudgets" and len(rest) == 2:
+                    server.store.delete("poddisruptionbudgets", f"{rest[0]}/{rest[1]}")
+                elif kind == "persistentvolumes" and len(rest) == 1:
+                    server.store.delete_persistent_volume(rest[0])
+                elif kind == "persistentvolumeclaims" and len(rest) == 2:
+                    server.store.delete_persistent_volume_claim(rest[0], rest[1])
+                elif kind == "storageclasses" and len(rest) == 1:
+                    server.store.delete("storageclasses", rest[0])
+                else:
+                    self._reply(404, json.dumps({"error": "not found"}))
+                    return
+            except KeyError as e:
+                self._reply(404, json.dumps({"error": str(e)}))
+                return
+            self._reply(200, json.dumps({"deleted": "/".join(parts[3:])}))
+
+    return Handler
+
+
+class SchedulerServer:
+    """One process worth of scheduler: store + cache + loop + HTTP.
+    ``store``: an existing ``ClusterStore`` to schedule over (None: a new
+    one); ``device``: the CUDA device the loop thread makes current
+    (``Scheduler.run``; None: the thread's default, ``cuda:0``)."""
+
+    def __init__(
+        self,
+        scheduler_name: str = DEFAULT_SCHEDULER_NAME,
+        scheduler_conf: Optional[str] = None,
+        schedule_period: float = DEFAULT_SCHEDULE_PERIOD,
+        default_queue: str = DEFAULT_QUEUE,
+        listen_address: str = DEFAULT_LISTEN_ADDRESS,
+        store: Optional[ClusterStore] = None,
+        device=None,
+    ) -> None:
+        self.store = store or ClusterStore()
+        self.watch_hub = WatchHub(self.store)
+        self.cache = SchedulerCache(
+            self.store, scheduler_name=scheduler_name, default_queue=default_queue
+        )
+        self.scheduler = Scheduler(
+            self.cache, scheduler_conf=scheduler_conf, schedule_period=schedule_period
+        )
+        self.device = device
+        host, _, port = listen_address.rpartition(":")
+        # Unlike the reference's ListenAddress (app/options/options.go),
+        # which only serves metrics/healthz, this port also carries the
+        # unauthenticated mutating workload API — so a bare ":8080"
+        # defaults to loopback; binding other interfaces requires naming
+        # them explicitly (e.g. "0.0.0.0:8080").
+        self.httpd = ThreadingHTTPServer((host or "127.0.0.1", int(port)), _make_handler(self))
+        self.httpd.daemon_threads = True
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+
+    @property
+    def listen_port(self) -> int:
+        return self.httpd.server_address[1]
+
+    def start(self) -> None:
+        # Ensure the default queue exists (the reference expects an admin
+        # to create it; the in-process store bootstraps it).
+        if self.store.get("queues", self.cache.default_queue) is None:
+            self.store.create_queue(
+                Queue(metadata=ObjectMeta(name=self.cache.default_queue))
+            )
+        self._stop.clear()
+        t_http = threading.Thread(
+            target=self.httpd.serve_forever, name="kb-http", daemon=True
+        )
+        t_sched = threading.Thread(
+            target=self.scheduler.run,
+            args=(self._stop,),
+            kwargs={"device": self.device},
+            name="kb-loop",
+            daemon=True,
+        )
+        t_http.start()
+        t_sched.start()
+        self._threads = [t_http, t_sched]
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.watch_hub.close()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.cache.stop()
+        for t in self._threads:
+            # the loop finishes the cycle in flight before it sees the stop
+            t.join(timeout=10)
+            while t.is_alive():
+                log.warning("stop: waiting for %s to finish its cycle", t.name)
+                t.join(timeout=10)
+        self._threads.clear()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """Flags at parity with options.go:57-78."""
+    p = argparse.ArgumentParser(
+        prog="kube-batch-tpu-torch",
+        description="batch scheduler with the allocate solve on a CUDA card "
+        "(kube-batch capability parity)",
+    )
+    p.add_argument(
+        "--scheduler-name",
+        default=DEFAULT_SCHEDULER_NAME,
+        help="handle pods whose scheduler_name matches this",
+    )
+    p.add_argument(
+        "--scheduler-conf", default="", help="absolute path of the scheduler conf file"
+    )
+    p.add_argument(
+        "--schedule-period",
+        type=float,
+        default=DEFAULT_SCHEDULE_PERIOD,
+        help="seconds between scheduling cycles",
+    )
+    p.add_argument(
+        "--default-queue", default=DEFAULT_QUEUE, help="default queue for jobs"
+    )
+    p.add_argument(
+        "--listen-address",
+        default=DEFAULT_LISTEN_ADDRESS,
+        help="HTTP listen address for /metrics and the workload/queue API; "
+        "a bare ':PORT' binds loopback only — this port carries an "
+        "unauthenticated mutating API, so name an interface (e.g. "
+        "'0.0.0.0:8080') to expose it",
+    )
+    p.add_argument("--version", action="store_true", help="show version and quit")
+    p.add_argument("-v", type=int, default=0, help="log verbosity (glog -v)")
+    return p
+
+
+def run(argv: Optional[list[str]] = None) -> None:
+    """reference app.Run (server.go:63-140)."""
+    opt = build_parser().parse_args(argv)
+    if opt.version:
+        version.print_version_and_exit()
+    pkg_log.set_verbosity(opt.v)
+    logging.basicConfig(
+        level=logging.DEBUG if opt.v >= 4 else logging.INFO,
+        format="%(levelname).1s%(asctime)s %(name)s] %(message)s",
+    )
+    # Last-gasp observability: dump the flight-recorder ring on SIGTERM
+    # (chains any previously-installed handler).
+    obs.install_signal_dump()
+    server = SchedulerServer(
+        scheduler_name=opt.scheduler_name,
+        scheduler_conf=opt.scheduler_conf or None,
+        schedule_period=opt.schedule_period,
+        default_queue=opt.default_queue,
+        listen_address=opt.listen_address,
+    )
+    server.start()
+    log.info(
+        "kube-batch-tpu-torch %s serving on :%d, scheduling every %.2fs",
+        version.VERSION, server.listen_port, opt.schedule_period,
+    )
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+
+
+if __name__ == "__main__":
+    run()

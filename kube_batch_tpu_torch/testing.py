@@ -169,6 +169,46 @@ def build_queue(name: str, weight: int = 1) -> Queue:
     return Queue(metadata=ObjectMeta(name=name, uid=f"q-{name}"), spec=QueueSpec(weight=weight))
 
 
+def build_pv(
+    name: str,
+    capacity: Union[str, int, float] = "10Gi",
+    storage_class: str = "",
+    node_affinity: Optional[list] = None,
+):
+    from kube_batch_tpu_torch.apis.types import PersistentVolume
+
+    return PersistentVolume(
+        metadata=ObjectMeta(name=name, uid=f"pv-{name}"),
+        capacity_storage=parse_quantity(capacity),
+        storage_class_name=storage_class,
+        node_affinity=list(node_affinity or []),
+    )
+
+
+def build_pvc(
+    name: str,
+    namespace: str = "default",
+    storage_class: str = "",
+    request: Union[str, int, float] = "1Gi",
+):
+    from kube_batch_tpu_torch.apis.types import PersistentVolumeClaim
+
+    return PersistentVolumeClaim(
+        metadata=ObjectMeta(name=name, namespace=namespace, uid=f"pvc-{namespace}-{name}"),
+        storage_class_name=storage_class,
+        request_storage=parse_quantity(request),
+    )
+
+
+def build_storage_class(name: str, mode: str = "Immediate"):
+    from kube_batch_tpu_torch.apis.types import StorageClass, VolumeBindingMode
+
+    return StorageClass(
+        metadata=ObjectMeta(name=name, uid=f"sc-{name}"),
+        volume_binding_mode=VolumeBindingMode(mode),
+    )
+
+
 def build_cluster(
     pods: list[Pod],
     nodes: list[Node],
@@ -218,6 +258,19 @@ def build_cluster(
         if task.node_name and task.node_name in cluster.nodes:
             cluster.nodes[task.node_name].add_task(task)
     return cluster
+
+
+def seed_store(store, pods, nodes, pod_groups=(), queues=()) -> None:
+    """Create a world's objects in a ``cache.ClusterStore`` through its
+    API, as a client would: queues, nodes, PodGroups, then pods."""
+    for q in queues:
+        store.create_queue(q)
+    for node in nodes:
+        store.create_node(node)
+    for pg in pod_groups:
+        store.create_pod_group(pg)
+    for pod in pods:
+        store.create_pod(pod)
 
 
 class _Channel:

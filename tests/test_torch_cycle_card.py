@@ -196,3 +196,44 @@ def test_a_card_error_of_the_fused_rung_raises(monkeypatch, refused):
     monkeypatch.undo()
     _, binds, act = run("preempt_mix_2000_40_seed1", {"device": "cuda"})
     assert act.last_solver_tier == "fused" and binds
+
+
+@pytest.mark.cuda
+def test_a_server_cycle_on_the_card_equals_the_cpu_cycle(tmp_path):
+    """One cycle of the port as a process on the card against the same
+    cycle on the CPU: ``preempt_mix(2000, 40, seed=1)`` seeded into a
+    store (PodGroups Pending), a ``SchedulerCache`` over it and the twin
+    pipeline conf through ``Scheduler.run_once``; the store shows the same
+    binds and the same evictions, and the card's cycle launched B1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import os
+
+    from kube_batch_tpu_torch.cache import ClusterStore, SchedulerCache
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.testing import seed_store
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "examples", "scheduler-conf-torch-pipeline.yaml")) as f:
+        twin = f.read()
+    out = {}
+    for device in ("cpu", "cuda"):
+        path = tmp_path / f"{device}.yaml"
+        path.write_text(twin + f"actionArguments:\n  torch_allocate:\n    device: {device}\n    min_device_pairs: 0\n")
+        store = ClusterStore()
+        seed_store(store, *models.preempt_mix_objects(2000, 40, seed=1))
+        cache = SchedulerCache(store)  # no write pool: the writes land inline
+        sched = Scheduler(cache, str(path))
+        fs.fused_solve.launches = bs.block_step.launches = 0
+        sched.run_once()
+        torch.cuda.synchronize()
+        out[device] = (
+            sorted((p.metadata.name, p.node_name) for p in store.list("pods")),
+            sched.actions[2].last_solver_tier,
+            (fs.fused_solve.launches, bs.block_step.launches),
+        )
+        cache.stop()
+    (cpu_pods, cpu_tier, _), (card_pods, card_tier, card_launches) = out["cpu"], out["cuda"]
+    assert card_pods == cpu_pods and card_tier == cpu_tier == "fused"
+    assert sum(1 for _, node in card_pods if node) > 1000 and len(card_pods) < 2020  # binds and evictions
+    assert card_launches == (1, 0)

@@ -60,9 +60,16 @@ FAST_PATH_MODULES = [
 # the solver ladder, its drills, the budget and tracing: copies of
 # jax-free JAX-package modules too
 LADDER_AND_TRACE_MODULES = ["faults/ladder.py", "faults/smoke.py", "obs/__init__.py", "recovery/budget.py"]
+# the process: store, cache, loop, server, CLI and their utilities, each a
+# copy of a jax-free JAX-package module
+PROCESS_MODULES = [
+    "cache/__init__.py", "cache/store.py", "cache/cache.py", "server.py", "cli/__init__.py",
+    "cli/__main__.py", "cli/queue.py", "utils/locking.py", "utils/workqueue.py", "version.py",
+    "faults/mutation_detector.py",
+]
 
 
-@pytest.mark.parametrize("rel", FAST_PATH_MODULES + LADDER_AND_TRACE_MODULES)
+@pytest.mark.parametrize("rel", FAST_PATH_MODULES + LADDER_AND_TRACE_MODULES + PROCESS_MODULES)
 def test_fast_path_modules_are_checked(rel):
     path = os.path.join(PORT, rel)
     assert path in list(_sources())
@@ -130,6 +137,56 @@ def test_running_the_port_loads_no_jax():
         "assert native.get() is not None and native.calls['bulk_assign'] and not native.fallbacks\n"
         "assert acts[-1].last_timings['warm_fraction'] > 0 and metrics.encode_cache_hits.value() > 0\n"
         "assert not faults.registry.active() and encode_cache.enabled()\n"
+        "bad = [m for m in sys.modules if forbidden(m)]\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_running_the_process_loads_no_jax():
+    """The server over a store, one cycle through the loop on the CPU,
+    the CLI against it: nothing of jax or the JAX package is loaded."""
+    code = (
+        "import sys, io, json, os, tempfile, time, urllib.request\n"
+        "def forbidden(m):\n"
+        "    return m in ('jax', 'jaxlib', 'kube_batch_tpu', 'yaml') or m.startswith(('jax.', 'jaxlib.', 'kube_batch_tpu.', 'yaml.'))\n"
+        "for m in [m for m in sys.modules if forbidden(m)]:\n"
+        "    del sys.modules[m]\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if forbidden(name):\n"
+        "            raise ImportError(f'the port imported {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from kube_batch_tpu_torch import cli\n"
+        "from kube_batch_tpu_torch.server import SchedulerServer\n"
+        "conf = os.path.join(tempfile.mkdtemp(), 'conf.yaml')\n"
+        "open(conf, 'w').write(open('examples/scheduler-conf-torch-pipeline.yaml').read()\n"
+        "    + 'actionArguments:\\n  torch_allocate:\\n    device: cpu\\n    min_device_pairs: 0\\n')\n"
+        "srv = SchedulerServer(listen_address='127.0.0.1:0', schedule_period=0.05, scheduler_conf=conf)\n"
+        "srv.start()\n"
+        "base = f'http://127.0.0.1:{srv.listen_port}'\n"
+        "def post(path, body):\n"
+        "    req = urllib.request.Request(base + path, data=json.dumps(body).encode(), method='POST')\n"
+        "    return urllib.request.urlopen(req).read()\n"
+        "post('/apis/v1alpha1/nodes', {'name': 'n1', 'allocatable': {'cpu': 4, 'memory': '8Gi', 'pods': 10}})\n"
+        "post('/apis/v1alpha1/podgroups', {'name': 'g', 'min_member': 2})\n"
+        "for i in range(2):\n"
+        "    post('/apis/v1alpha1/pods', {'name': f'p{i}', 'group': 'g', 'requests': {'cpu': 1}})\n"
+        "deadline = time.monotonic() + 60\n"
+        "while time.monotonic() < deadline and not all(p.node_name for p in srv.store.list('pods')):\n"
+        "    time.sleep(0.02)\n"
+        "assert all(p.node_name for p in srv.store.list('pods'))\n"
+        "out = io.StringIO()\n"
+        "assert cli.main(['--server', base, 'queue', 'create', '--name', 'q1'], out=out) == 0\n"
+        "assert cli.main(['--server', base, 'queue', 'list'], out=out) == 0 and 'q1' in out.getvalue()\n"
+        "srv.stop()\n"
         "bad = [m for m in sys.modules if forbidden(m)]\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -137,8 +137,11 @@ def test_the_exposition_holds_every_series_under_the_jax_name(tmp_path):
         m.register_encode_cache_invalidation("exposition-parity")
         m.set_slo_quantile("queue_wait", "default", "p50", 0.25)
         m.set_slo_quantile("time_to_bind", "default", "p50", 0.25)
+        m.register_write_retry("bind")
+        m.register_cache_mutation("pods")
+        m.register_longpoll_wakeup("timeout")
     port, jax = _families(torch_metrics.render_prometheus_text()), _families(jax_metrics.render_prometheus_text())
-    assert len(port) == len(torch_metrics.FAMILIES) == 22
+    assert len(port) == len(torch_metrics.FAMILIES) == 27
     for name, (help_text, kind, label_sets) in port.items():
         assert name in jax, name
         assert (help_text, kind) == tuple(jax[name][:2]), name

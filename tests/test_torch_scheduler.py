@@ -113,12 +113,13 @@ def test_a_broken_first_conf_raises(tmp_path):
 
 
 def test_no_conf_is_the_default_conf(tmp_path):
-    """With no conf the cycle runs the example conf's pipeline: the solve
-    on the card. A ``device: cpu`` copy of it runs the kernels' plain
-    versions."""
-    assert parse_scheduler_conf(DEFAULT_SCHEDULER_CONF) == parse_scheduler_conf(TORCH_CONF)
+    """With no conf the cycle runs the example conf's pipeline led by the
+    enqueue action, as the JAX package's default is: the solve on the
+    card. A ``device: cpu`` copy of it runs the kernels' plain versions."""
+    assert parse_scheduler_conf(DEFAULT_SCHEDULER_CONF) == parse_scheduler_conf(
+        TORCH_CONF.replace('"torch_allocate, backfill"', '"enqueue, torch_allocate, backfill"'))
     sched = Scheduler(torch_testing.FakeCache(build("gang_atomic", TORCH)))
-    assert [a.name for a in sched.actions] == ["torch_allocate", "backfill"]
+    assert [a.name for a in sched.actions] == ["enqueue", "torch_allocate", "backfill"]
     assert sched.action_arguments == {}
     path = tmp_path / "conf.yaml"
     path.write_text(DEFAULT_SCHEDULER_CONF + "actionArguments:\n  torch_allocate:\n    device: cpu\n"
@@ -126,7 +127,7 @@ def test_no_conf_is_the_default_conf(tmp_path):
     cache = torch_testing.FakeCache(build("gang_atomic", TORCH))
     sched = Scheduler(cache, str(path))
     sched.run_once()
-    assert sched.actions[0].last_solver_tier == "fused"
+    assert sched.actions[1].last_solver_tier == "fused"
     assert len(cache.binder.binds) == 3
 
 
