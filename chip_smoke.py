@@ -181,6 +181,34 @@
      (``stale_cycles_skipped_total`` +1) and binds nothing; (d)
      ``KBT_CACHE_MUTATION_DETECTOR=1``: no violation. (a), (c) and (d)
      end with the undisturbed run's binds;
+   - ``ha_failover_50k_5k``: the port as an HA pair over a store seeded
+     with ``preempt_mix(50_000, 5_000)``, an arbiter server holding the
+     lease (``HA_LEASE``: 6.0 / 4.2 / 0.6 s). Leader A (``SchedulerServer``
+     with a journal, period 1 s, on ``cuda:0``) solves the world and dies
+     in its write-back after 20,000 store binds (``DyingBinder``: a
+     ``BaseException`` in the kb-write pool); its renewals stop with no
+     release and its server stops. Standby B, blocked in ``acquire``,
+     takes the lease once it runs out, reconciles the journal in
+     ``start()`` under the mutation detector and runs its loop. The store
+     must end at ``server_50k_5k``'s FakeCache binds, each pod bound once,
+     no gang partly bound, no node past its allocatable, the
+     ``ReconcileReport`` re-dispatching the other 30,000 with nothing
+     rolled back, no intent outstanding and ``fsck --strict`` clean.
+     Records ``journal_append_s``, the leader's ms per bind, its confirms'
+     and compactions' time, ``takeover_s``, ``reconcile_s``,
+     ``all_bound_s`` and each cycle's ``gc_s``;
+   - ``ha_drills`` (``preempt_mix(2000, 40, seed=1)`` in a store, lease 2.0
+     / 1.4 / 0.2 s, each drill on the card and again on the CPU, ending
+     equal): (a) two ``LeaderElector``s on one lock file; (b)
+     ``lease.renew``: on_lost after the renew deadline with the lease
+     already released, the standby in at once; (c) ``journal.append``:
+     the bulk statement unjournaled, its binds landed and counted as
+     ``append_failed``; (d) ``journal.replay`` and (e) ``reconcile.scan``
+     at takeover after the leader died mid-``bind_many``: reconciliation
+     aborts, the standby's loop heals; (f) the leader dies mid-
+     ``bind_many``, a node an orphaned gang targets is deleted, the gang
+     rolls back and the standby binds it elsewhere. Every drill ends with
+     every gang bound whole or not at all;
 12. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -218,7 +246,8 @@ this, this, DIR, each in a process of its own.
 needs no card: the pipeline phases (step 8), the fast paths' (step 9),
 the ladder's and the trace's (step 10) and the process's (step 11) on the
 CPU, every world's pod and node counts divided by CUT (the drills' small
-world is not cut),
+world is not cut, and ``ha_failover_50k_5k`` kills its leader after a
+tenth as many binds),
 torch_allocate on the kernels' plain versions; the host actions' times
 predict the card run's.
 """
@@ -2087,19 +2116,25 @@ DRILL_CYCLES = 3  # server_drills' cycles per run: the undisturbed run's fixed p
 class StoreBinds:
     """Store-side bind events (a pod's ``node_name`` set where it was
     empty), each stamped on the monotonic clock as the store delivers it:
-    ``key -> (node, time)``."""
+    ``key -> (node, time)`` of the latest, and ``counts``, each pod's
+    number of such events (a pod bound twice counts 2)."""
 
     def __init__(self, store) -> None:
+        import collections
+
         from kube_batch_tpu_torch.cache.store import PODS, EventHandler
 
         self.at: dict[str, tuple[str, float]] = {}
+        self.counts: collections.Counter = collections.Counter()
         self._lock = threading.Lock()
         store.add_event_handler(PODS, EventHandler(on_update=self._update))
 
     def _update(self, old, new) -> None:
         if new.node_name and not old.node_name:
+            key = f"{new.namespace}/{new.name}"
             with self._lock:
-                self.at[f"{new.namespace}/{new.name}"] = (new.node_name, time.perf_counter())
+                self.at[key] = (new.node_name, time.perf_counter())
+                self.counts[key] += 1
 
     def binds(self) -> dict[str, str]:
         with self._lock:
@@ -2220,7 +2255,7 @@ def http(base: str, method: str, path: str, body=None) -> tuple[int, str]:
         return e.code, e.read().decode()
 
 
-def server_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+def server_phase(device: str = "cuda", cut: int = 1, shared: dict | None = None) -> tuple[dict, tuple[int, int]]:
     """``server_50k_5k``: the port as a process over ``preempt_mix(50_000,
     5_000)`` (seed 0, config 4). The world is generated twice from the
     seed: once into a ``ClusterStore`` through its API (PodGroups
@@ -2244,6 +2279,8 @@ def server_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, i
     twin, twin_cache, _ = pipeline_cycle("server_twin", models.preempt_mix(pods, nodes), conf, device)
     want = dict(twin_cache.binder.binds)
     del twin_cache
+    if shared is not None:
+        shared["want"] = want  # ha_failover_50k_5k's reference too
     t0 = time.perf_counter()
     world = models.preempt_mix_objects(pods, nodes)
     generate_s = time.perf_counter() - t0
@@ -2492,22 +2529,660 @@ def server_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
     return out, tuple(launches)
 
 
+# -- the port as an HA pair: leader election, the journal, takeover ----------
+
+# ha_failover_50k_5k's lease: the example's ratios (duration, 0.7 of it to
+# renew, 0.1 of it between tries), long enough that a generation-2
+# collection of up to 2.7 s (PERF.md) cannot stall a renewal past its
+# deadline; the reference's defaults are 15 s / 10 s / 5 s
+HA_LEASE = {"lease_duration": 6.0, "renew_deadline": 4.2, "retry_period": 0.6}
+HA_DRILL_LEASE = {"lease_duration": 2.0, "renew_deadline": 1.4, "retry_period": 0.2}  # ha_drills' lease
+HA_KILL_AFTER = 20_000  # store binds the leader's write pool lands before it dies (of 50,000)
+# the leader's first binds land beside its loop's idle cycles (period 1 s),
+# the rest with the loop waiting: each confirm's flushed write releases the
+# interpreter lock, and a thread busy in Python holds it up to the switch
+# interval (5 ms) before the write pool's thread gets it back
+HA_BESIDE_BINDS = 1_000
+# the same in ha_drills' leader (of its first cycle's 1,502), for (d) and (e);
+# (f) dies after 100, while some node a straddling gang's orphans target
+# holds no pod yet (see delete_a_target_node)
+HA_DRILL_KILL_AFTER = {"d_journal_replay": 700, "e_reconcile_scan": 700, "f_half_bound_gang_rollback": 100}
+HA_DRILL_B_PERIOD = 0.3  # the standby's loop period in ha_drills
+
+
+class LeaderKilled(BaseException):
+    """SIGKILL in the leader's kb-write pool: a ``BaseException``, so
+    neither the write retry nor the resync routing (both catch
+    ``Exception``) survives it, and the rest of the pool's batch never runs
+    (``concurrent.futures`` keeps it on the batch's future)."""
+
+
+class DyingBinder:
+    """The leader's binder: the store binder until ``left`` binds have
+    landed, then ``LeaderKilled`` on every call (``killed_at`` stamps the
+    first)."""
+
+    def __init__(self, store, left: int) -> None:
+        from kube_batch_tpu_torch.cache.cache import StoreBinder
+
+        self._inner = StoreBinder(store)
+        self.left = left
+        self.killed = threading.Event()
+        self.killed_at = 0.0
+
+    def bind(self, pod, hostname: str) -> None:
+        if self.left <= 0:
+            if not self.killed.is_set():
+                self.killed_at = time.perf_counter()
+                self.killed.set()
+            raise LeaderKilled()
+        self.left -= 1
+        self._inner.bind(pod, hostname)
+
+
+class JournalClock:
+    """Wall time of one journal's appends, confirms and compactions (its
+    instance methods wrapped; a confirm's time includes any compaction it
+    runs)."""
+
+    def __init__(self, journal) -> None:
+        self.append_s: list[float] = []
+        self.confirm_s = 0.0
+        self.confirms = 0
+        self.compact_s: list[float] = []
+        for name in ("append_intents", "confirm", "compact"):
+            inner = getattr(journal, name)
+            setattr(journal, name, self._timed(name, inner))
+
+    def _timed(self, name: str, inner):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                if name == "append_intents":
+                    self.append_s.append(dt)
+                elif name == "confirm":
+                    self.confirm_s += dt
+                    self.confirms += 1
+                else:
+                    self.compact_s.append(dt)
+
+        return timed
+
+    def record(self) -> dict:
+        return {"append_s": self.append_s, "confirms": self.confirms, "confirm_s": self.confirm_s,
+                "compactions": len(self.compact_s), "compact_s": self.compact_s}
+
+
+def placements(store) -> dict[str, str]:
+    return {f"{p.namespace}/{p.name}": p.node_name for p in store.list("pods")}
+
+
+def join_new_threads(before: set, what: str, timeout: float = 30.0) -> None:
+    """Every thread started since ``before`` has ended (the servers' and the
+    electors' threads, the standby's acquire)."""
+    deadline = time.monotonic() + timeout
+    for t in set(threading.enumerate()) - before:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    alive = [t.name for t in set(threading.enumerate()) - before if t.is_alive()]
+    if alive:
+        raise AssertionError(f"{what}: threads still running: {alive}")
+
+
+class HaPair:
+    """Leader A and standby B over one store and one journal file, each a
+    ``SchedulerServer`` under an elector: a ``StoreLeaseElector`` over the
+    arbiter's URL, or a ``LeaderElector`` over a lock file. B's elector
+    blocks in ``acquire(blocking=True)`` on a thread of its own from the
+    start; B's server is made, reconciles and starts its loop once it
+    holds the lease, as ``run()`` does."""
+
+    def __init__(self, store, conf: str, device: str, wal: str, arbiter: str | None, lease_name: str,
+                 lease: dict, lock_file: str | None = None) -> None:
+        self.store, self.conf, self.device, self.wal = store, conf, device, wal
+        self.arbiter, self.lease_name, self.lease, self.lock_file = arbiter, lease_name, lease, lock_file
+        self.srv_a = self.srv_b = self.log_a = self.log_b = None
+        self.lost_at = 0.0
+        self.holder_at_lost = None
+        self.lost = threading.Event()
+        self.acquired_b = threading.Event()
+        self.acquired_b_at = 0.0
+        self.reports: list = []
+        self._standby_thread = None
+        self.reconcile_s = 0.0
+        self.violations: list = []
+        self.el_a = self._elector("ha-a")
+        self.el_b = self._elector("ha-b")
+
+    def _elector(self, identity: str):
+        from kube_batch_tpu_torch.server import LeaderElector, StoreLeaseElector
+
+        if self.lock_file is not None:
+            return LeaderElector(self.lock_file, identity)
+        return StoreLeaseElector(self.arbiter, self.lease_name, identity, **self.lease)
+
+    def server(self, period: float):
+        from kube_batch_tpu_torch.server import SchedulerServer
+
+        return SchedulerServer(listen_address="127.0.0.1:0", schedule_period=period, scheduler_conf=self.conf,
+                               store=self.store, journal_path=self.wal,
+                               device="cuda:0" if self.device == "cuda" else None)
+
+    def start_leader(self, period: float, binder=None, before_start=None) -> None:
+        if not self.el_a.acquire(blocking=False):
+            raise AssertionError("the leader could not take a free lease")
+        self.srv_a = self.server(period)
+        if binder is not None:
+            self.srv_a.cache.binder = binder
+        self.log_a = CycleLog(self.srv_a.scheduler, self.device)
+        if before_start is not None:
+            before_start(self.srv_a)
+        self.srv_a.start()
+        if self.lock_file is None:
+            self.el_a.start_renewing(self._on_lost)
+        self._standby_thread = threading.Thread(target=self._standby, name="ha-standby", daemon=True)
+        self._standby_thread.start()
+
+    def _on_lost(self) -> None:
+        # what run()'s os._exit(1) would stop: the caller stops A's server
+        self.lost_at = time.perf_counter()
+        self.holder_at_lost = self.store_lease_holder()
+        self.lost.set()
+
+    def store_lease_holder(self):
+        import urllib.request
+
+        with urllib.request.urlopen(f"{self.arbiter}/apis/v1alpha1/leases", timeout=10) as r:
+            items = json.loads(r.read())["items"]
+        return next((i["holder"] for i in items if i["name"] == self.lease_name), None)
+
+    def _standby(self) -> None:
+        if self.el_b.acquire(blocking=True):
+            self.acquired_b_at = time.perf_counter()
+            self.acquired_b.set()
+
+    def kill_leader(self) -> None:
+        """A dies: its renewals stop with no release (or, on a lock file,
+        the kernel drops the dead process's lock), and its server stops."""
+        if self.lock_file is None:
+            self.el_a._stop.set()
+        else:
+            self.el_a.release()
+        self.srv_a.stop()
+
+    def start_standby(self, period: float, timeout: float, arm=None) -> None:
+        from kube_batch_tpu_torch import faults
+        from kube_batch_tpu_torch.faults.mutation_detector import MutationDetector
+
+        if not self.acquired_b.wait(timeout):
+            raise AssertionError(f"the standby did not take over within {timeout} s")
+        t0 = time.perf_counter()
+        self.srv_b = self.server(period)
+        self.cache_sync_b_s = time.perf_counter() - t0
+        self.log_b = CycleLog(self.srv_b.scheduler, self.device)
+        self.journal_b = JournalClock(self.srv_b.journal)
+        inner = self.srv_b.reconcile
+
+        def reconcile():  # start() calls it before the loop thread starts
+            detector = MutationDetector(self.store)
+            detector.snapshot()
+            t0 = time.perf_counter()
+            report = inner()
+            self.reconcile_s = time.perf_counter() - t0
+            self.violations = detector.violations()
+            self.reports.append(report)
+            return report
+
+        self.srv_b.reconcile = reconcile
+        if arm is not None:
+            faults.registry.arm(arm[0], **arm[1])
+        self.srv_b.start()
+        if arm is not None:
+            faults.registry.reset()
+
+    def wait_b_cycles(self, n: int, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        while len(self.log_b.cycles) < n and not self.log_b.errors and time.monotonic() < deadline:
+            time.sleep(0.02)
+        if len(self.log_b.cycles) < n:
+            raise AssertionError(f"the standby ran {len(self.log_b.cycles)} cycles of {n} in {timeout} s "
+                                 f"({self.log_b.errors})")
+
+    def stop(self) -> None:
+        for srv in (self.srv_a, self.srv_b):
+            if srv is not None and srv._threads:
+                srv.stop()
+        self.el_a.release()  # on a lock file, lets a standby still blocked through
+        if self.lock_file is None:
+            self.el_b._stop.set()  # ends a standby still contending
+        if self._standby_thread is not None:
+            self._standby_thread.join(timeout=10)
+        self.el_b.release()
+
+    def launches(self) -> tuple[int, int]:
+        logs = [log for log in (self.log_a, self.log_b) if log is not None]
+        return (sum(c["b1_launches"] for log in logs for c in log.cycles),
+                sum(c["b2_launches"] for log in logs for c in log.cycles))
+
+
+def arbiter_server():
+    """The compose file's ``store`` service: a scheduler with no workload
+    and an hour's period (on the CPU: it solves nothing), whose HTTP API
+    arbitrates the lease."""
+    from kube_batch_tpu_torch.server import SchedulerServer
+
+    srv = SchedulerServer(listen_address="127.0.0.1:0", schedule_period=3600.0,
+                          scheduler_conf=conf_file(base=PIPELINE_CONF, device="cpu"))
+    srv.start()
+    return srv, f"http://127.0.0.1:{srv.listen_port}"
+
+
+def fsck_strict(path: str) -> tuple[int, str]:
+    """``python -m kube_batch_tpu_torch.recovery.fsck --strict PATH``, in
+    this process: its exit code and output."""
+    import contextlib
+    import io
+
+    from kube_batch_tpu_torch.recovery import fsck
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fsck.main(["--strict", path])
+    return rc, out.getvalue().strip()
+
+
+def ha_failover_phase(device: str = "cuda", cut: int = 1, want: dict | None = None) -> tuple[dict, tuple[int, int]]:
+    """``ha_failover_50k_5k``: leader A (``SchedulerServer`` over a store
+    seeded with ``preempt_mix(50_000, 5_000)``, a journal, the twin
+    pipeline on ``cuda:0``, period 1 s, holding the lease of an arbiter
+    server) solves the world and dies in its write-back after
+    ``HA_KILL_AFTER`` store binds; its renewals stop with no release and
+    its server stops. Standby B, blocked on the lease, takes over once it
+    expires, reconciles the journal against the store in ``start()`` and
+    runs its loop. The store must end at ``want`` (the FakeCache twin's
+    binds, from ``server_50k_5k``), each pod bound once, no gang partly
+    bound, no node past its allocatable, the journal empty of outstanding
+    intents and ``fsck --strict`` clean."""
+    import gc
+    import tempfile
+
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.cache import ClusterStore
+
+    on_card = device == "cuda"
+    pods, nodes = SERVER_WORLD[0] // cut, SERVER_WORLD[1] // cut
+    kill_after, beside_binds = HA_KILL_AFTER // cut, HA_BESIDE_BINDS // cut
+    conf = conf_file(base=PIPELINE_CONF, **({} if on_card else {"device": "cpu"}))
+    if want is None:  # server_50k_5k did not run: solve the twin here
+        _, twin_cache, _ = pipeline_cycle("ha_twin", models.preempt_mix(pods, nodes), conf, device)
+        want = dict(twin_cache.binder.binds)
+        del twin_cache
+    threads_before = set(threading.enumerate())
+    arbiter, url = arbiter_server()
+    tmp = tempfile.mkdtemp(prefix="kbt-ha-")
+    wal = os.path.join(tmp, "leader.wal")
+    store = ClusterStore()
+    t0 = time.perf_counter()
+    tt.seed_store(store, *models.preempt_mix_objects(pods, nodes))
+    ingest_s = time.perf_counter() - t0
+    binds = StoreBinds(store)
+    pair = HaPair(store, conf, device, wal, url, "kb-ha", HA_LEASE)
+    binder = DyingBinder(store, kill_after)
+    dispatched: list[float] = []
+    clocks = {}
+
+    def instrument(srv) -> None:
+        clocks["a"] = JournalClock(srv.journal)
+        bind_many = srv.cache.bind_many
+
+        def timed_bind_many(pairs, keys=None):
+            dispatched.append(time.perf_counter())
+            return bind_many(pairs, keys=keys)
+
+        srv.cache.bind_many = timed_bind_many
+
+    try:
+        pair.start_leader(1.0, binder=binder, before_start=instrument)
+        # the write-back beside the loop's idle cycles for the first
+        # binds, then alone: the loop ends after its cycle in flight while
+        # the cache's pools go on
+        deadline = time.monotonic() + SERVER_WAIT_S
+        while len(binds.at) < beside_binds and time.monotonic() < deadline and not binder.killed.is_set():
+            time.sleep(0.01)
+        t_switch = time.perf_counter()
+        beside = len(binds.at)
+        pair.srv_a._stop.set()
+        next(t for t in pair.srv_a._threads if t.name == "kb-loop").join(timeout=60)
+        t_alone = time.perf_counter()
+        if not binder.killed.wait(SERVER_WAIT_S):
+            raise AssertionError(f"the leader did not reach its kill: {len(binds.at)} binds, {pair.log_a.errors}")
+        killed_at = binder.killed_at
+        landed = dict(binds.binds())
+        pair.kill_leader()
+        a_stopped_s = time.perf_counter() - killed_at
+        pair.log_a.check("ha_failover_50k_5k (leader)")
+        if pair.lost.is_set():
+            raise AssertionError(f"the leader lost its lease before its kill: holder {pair.holder_at_lost}")
+        a_cycles, a_journal = pair.log_a.cycles, clocks["a"].record()
+        pair.srv_a = None  # only the store's handlers keep A's cache now
+        t0 = time.perf_counter()
+        gc.collect()
+        gc_before_b_s = time.perf_counter() - t0
+        pair.start_standby(1.0, timeout=HA_LEASE["lease_duration"] + 30)
+        takeover_s = pair.acquired_b_at - killed_at
+        deadline = time.monotonic() + SERVER_WAIT_S
+        while time.monotonic() < deadline and len(binds.at) < len(want) and not pair.log_b.errors:
+            time.sleep(0.05)
+        all_bound_s = time.perf_counter() - pair.acquired_b_at
+        pair.wait_b_cycles(1, 120)
+        pair.log_b.check("ha_failover_50k_5k (standby)")
+        got = placements(store)
+        moved = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+        if moved:
+            raise AssertionError(f"{len(moved)} of {len(want)} pods not where the FakeCache cycle binds them: "
+                                 f"{list(moved.items())[:3]}")
+        twice = {k: n for k, n in binds.counts.items() if n != 1}
+        if twice or set(binds.counts) != set(want):
+            raise AssertionError(f"bound more than once: {list(twice.items())[:3]}; "
+                                 f"{len(set(want) - set(binds.counts))} never bound")
+        checks = store_checks(store)
+        (report,) = pair.reports
+        rep = report.as_dict()
+        if rep["aborted"] or rep["rolled_back"] or rep["redispatched"] + len(landed) != len(want):
+            raise AssertionError(f"reconciliation {rep} after {len(landed)} landed binds, of {len(want)}")
+        if pair.violations:
+            raise AssertionError(f"the mutation detector around reconciliation: {pair.violations[:3]}")
+        outstanding = len(pair.srv_b.journal.outstanding())
+        b_cycles, b_journal = pair.log_b.cycles, pair.journal_b.record()
+    finally:
+        pair.stop()
+        arbiter.stop()
+    rc, fsck_out = fsck_strict(wal)
+    if outstanding or rc != 0:
+        raise AssertionError(f"{outstanding} intents outstanding after the standby's write-back; fsck --strict "
+                             f"exited {rc}: {fsck_out}")
+    join_new_threads(threads_before, "ha_failover_50k_5k")
+    alone = sum(1 for k, (_, t) in binds.at.items() if k in landed and t >= t_alone)
+    if not beside or not alone:
+        raise AssertionError(f"the leader landed {beside} binds beside its loop and {alone} alone")
+    rec = {
+        "phase": "ha_failover_50k_5k", "pods": pods, "nodes": nodes, "ingest_s": ingest_s,
+        "lease": HA_LEASE, "kill_after_binds": kill_after,
+        "journal_append_s": a_journal["append_s"][0] if a_journal["append_s"] else None,
+        "journal_appends": len(a_journal["append_s"]),
+        "leader_binds_landed": len(landed),
+        "leader_binds_beside_loop": beside,
+        "leader_ms_per_bind_beside_loop": 1e3 * (t_switch - dispatched[0]) / beside,
+        "leader_binds_alone": alone, "leader_ms_per_bind_alone": 1e3 * (killed_at - t_alone) / alone,
+        "leader_confirm_s": a_journal["confirm_s"], "leader_confirms": a_journal["confirms"],
+        "leader_compactions": a_journal["compactions"], "leader_compact_s": a_journal["compact_s"],
+        "leader_stop_s": a_stopped_s, "gc_before_standby_s": gc_before_b_s,
+        "takeover_s": takeover_s, "standby_cache_sync_s": pair.cache_sync_b_s,
+        "reconcile_s": pair.reconcile_s, "reconcile_report": rep,
+        "standby_confirms": b_journal["confirms"], "standby_compactions": b_journal["compactions"],
+        "standby_compact_s": b_journal["compact_s"], "all_bound_s": all_bound_s, "binds": len(want),
+        "equal_to_fakecache_cycle": True, "each_pod_bound_once": True, "mutation_violations": 0,
+        "outstanding_after": outstanding, "fsck_strict_rc": rc, "fsck": fsck_out, **checks,
+        "cycles": [{"server": who, "run_once_s": c["run_once_s"], "pending": c["pending"],
+                    "b1_launches": c["b1_launches"], "gc_s": c["gc_s"], "last_solver_tier": c["last_solver_tier"]}
+                   for who, cycles in (("leader", a_cycles), ("standby", b_cycles)) for c in cycles],
+        "b1_launches": sum(c["b1_launches"] for c in a_cycles + b_cycles),
+        "b2_launches": sum(c["b2_launches"] for c in a_cycles + b_cycles),
+    }
+    if on_card and (rec["b1_launches"] < 1 or rec["b2_launches"]):
+        raise AssertionError(f"{rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches; expected the "
+                             "leader's cycle to launch B1 and nothing to launch B2")
+    if cut > 1:
+        rec["reduced"] = {"pods": [SERVER_WORLD[0], pods], "nodes": [SERVER_WORLD[1], nodes],
+                          "kill_after_binds": [HA_KILL_AFTER, kill_after]}
+    return rec, (rec["b1_launches"], rec["b2_launches"])
+
+
+def ha_drill(kind: str, device: str, url: str, conf: str, tmp: str) -> dict:
+    """One HA drill (``ha_drills``) over a fresh store seeded with
+    ``preempt_mix(2000, 40, seed=1)``: leader A runs one cycle (period one
+    hour) under the drill's fault, then dies or loses its lease; standby B
+    takes over, reconciles the journal in ``start()`` and runs its loop
+    (period ``HA_DRILL_B_PERIOD``) for ``DRILL_CYCLES`` cycles. Returns the
+    drill's record with the store's final placements under ``final``."""
+    from kube_batch_tpu_torch import faults, metrics, models
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.cache import ClusterStore
+
+    store = ClusterStore()
+    tt.seed_store(store, *models.preempt_mix_objects(*DRILL_WORLD[:2], seed=DRILL_WORLD[2]))
+    binds = StoreBinds(store)
+    wal = os.path.join(tmp, f"{kind}-{device}.wal")
+    lock = os.path.join(tmp, f"{kind}-{device}.lock") if kind == "a_flock_pair" else None
+    pair = HaPair(store, conf, device, wal, url, f"kb-{kind}-{device}", HA_DRILL_LEASE, lock_file=lock)
+    kill = kind in HA_DRILL_KILL_AFTER
+    binder = DyingBinder(store, HA_DRILL_KILL_AFTER[kind]) if kill else None
+    append_failed = metrics.journal_records.value({"state": "append_failed"})
+    rec: dict = {"drill": kind}
+    try:
+        if kind == "c_journal_append":
+            faults.registry.arm("journal.append", count=1)
+        pair.start_leader(3600.0, binder=binder)
+        deadline = time.monotonic() + 120
+        while not pair.log_a.cycles and not pair.log_a.errors and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if kill:
+            if not binder.killed.wait(60):
+                raise AssertionError(f"{kind}: the leader did not reach its kill")
+        else:
+            settle(pair.srv_a.cache)
+        faults.registry.reset()
+        pair.log_a.check(f"ha_drills {kind} (leader)")
+        rec["leader_binds"] = len(binds.at)
+        if kind == "c_journal_append":
+            rec["append_failed"] = metrics.journal_records.value({"state": "append_failed"}) - append_failed
+            rec["leader_outstanding"] = len(pair.srv_a.journal.outstanding())
+            if rec["append_failed"] != rec["leader_binds"] or rec["leader_outstanding"]:
+                raise AssertionError(f"{kind}: {rec}")
+        if kind == "a_flock_pair":
+            time.sleep(0.3)
+            if pair.acquired_b.is_set():
+                raise AssertionError(f"{kind}: the standby took a held lock")
+        if kind == "b_lease_renew":
+            faults.registry.arm("lease.renew")
+            armed_at = time.perf_counter()
+            if not pair.lost.wait(HA_DRILL_LEASE["renew_deadline"] * 4):
+                raise AssertionError(f"{kind}: on_lost did not fire")
+            faults.registry.reset()  # run() would have exited; the standby's tries succeed again
+            rec["lost_after_s"] = pair.lost_at - armed_at
+            rec["holder_at_on_lost"] = pair.holder_at_lost
+            if pair.holder_at_lost != "":
+                raise AssertionError(f"{kind}: the lease was held by {pair.holder_at_lost!r} when on_lost ran")
+            t_gone = pair.lost_at
+            pair.srv_a.stop()
+        elif kind == "c_journal_append":
+            t_gone = time.perf_counter()
+            pair.srv_a.stop()
+            pair.el_a.release()  # a graceful hand-off
+        else:
+            t_gone = time.perf_counter()
+            pair.kill_leader()
+        if kind == "f_half_bound_gang_rollback":
+            rec["deleted_node"] = delete_a_target_node(store, wal)
+        arm = {"d_journal_replay": ("journal.replay", {"count": 1}),
+               "e_reconcile_scan": ("reconcile.scan", {"probability": 0.002, "count": 1, "seed": 7})}.get(kind)
+        pair.start_standby(HA_DRILL_B_PERIOD, timeout=HA_DRILL_LEASE["lease_duration"] + 10, arm=arm)
+        rec["takeover_s"] = pair.acquired_b_at - t_gone
+        if kind == "b_lease_renew" and rec["takeover_s"] >= HA_DRILL_LEASE["lease_duration"]:
+            raise AssertionError(f"{kind}: the standby waited out the lease ({rec['takeover_s']} s)")
+        pair.wait_b_cycles(DRILL_CYCLES, 120)
+        settle(pair.srv_b.cache)
+        pair.log_b.check(f"ha_drills {kind} (standby)")
+        (report,) = pair.reports
+        rec["reconcile_report"] = report.as_dict()
+        rec["reconcile_s"] = pair.reconcile_s
+        if pair.violations:
+            raise AssertionError(f"{kind}: mutation detector around reconciliation: {pair.violations[:3]}")
+        rec["outstanding_after"] = len(pair.srv_b.journal.outstanding())
+        rec["standby_cycles"] = [{"run_once_s": c["run_once_s"], "pending": c["pending"], "b1_launches": c["b1_launches"]}
+                                 for c in pair.log_b.cycles]
+        rec["final"] = placements(store)
+        rec.update(store_checks(store))
+        rec["bound_twice"] = sorted(k for k, n in binds.counts.items() if n > 1)
+        min_member = {pg.name: pg.spec.min_member for pg in store.list("podgroups")}
+        rec["launches"] = pair.launches()
+    finally:
+        faults.registry.reset()
+        pair.stop()
+    rep = rec["reconcile_report"]
+    expect = {
+        "d_journal_replay": rep["aborted"] and not rep["scanned"],
+        "e_reconcile_scan": rep["aborted"] and 0 < rep["scanned"],
+        "f_half_bound_gang_rollback": not rep["aborted"] and rep["gangs_rolled_back"] and rep["rolled_back"] > 0,
+    }.get(kind, not rep["aborted"] and not rep["rolled_back"] and not rep["conflicts"])
+    if not expect:
+        raise AssertionError(f"{kind}: reconciliation {rep}")
+    if kind == "f_half_bound_gang_rollback":
+        # the pods bound twice are the rolled-back gangs' alone (bound by
+        # reconciliation, unbound by the rollback, bound again by the
+        # standby's loop), and one such gang ends whole again
+        gangs = {g.split("/")[1] for g in rep["gangs_rolled_back"]}
+
+        def gang(key: str) -> str:  # "default/job-00005-t17" -> "job-00005"
+            return key.split("/")[1].rsplit("-t", 1)[0]
+
+        strays = [k for k in rec["bound_twice"] if gang(k) not in gangs]
+        bound = {g: sum(1 for k, n in rec["final"].items() if n and gang(k) == g) for g in gangs}
+        again = {gang(k) for k in rec["bound_twice"]}
+        rec["rolled_back_gangs_bound_again"] = sorted(g for g in gangs if bound[g] >= min_member[g] and g in again)
+        if strays or not rec["rolled_back_gangs_bound_again"]:
+            raise AssertionError(f"{kind}: bound twice outside the rolled-back gangs: {strays[:3]}; the "
+                                 f"rolled-back gangs' bound members {bound}, whole at "
+                                 f"{ {g: min_member[g] for g in gangs} }; reconciliation {rep}")
+    elif rec["bound_twice"]:
+        raise AssertionError(f"{kind}: pods bound twice: {rec['bound_twice'][:3]}")
+    rec["bound_twice"] = len(rec["bound_twice"])
+    return rec
+
+
+def delete_a_target_node(store, wal: str) -> str:
+    """Drill (f): while the leader is down, delete the target node of an
+    orphaned member of the first gang (in seq order) that has a member
+    bound in the store and an earlier orphan on another node, so that the
+    gang cannot complete and reconciliation undoes that earlier orphan's
+    re-dispatch. The node must hold no pod: a pod bound to a node that no
+    longer exists makes every later cycle raise ``KeyError: ''`` in the
+    scan actions, in the JAX package as in the port (ROADMAP C)."""
+    from kube_batch_tpu_torch.apis.types import GROUP_NAME_ANNOTATION_KEY
+    from kube_batch_tpu_torch.recovery import WriteIntentJournal
+
+    pods = store.list("pods")
+    occupied = {p.node_name for p in pods if p.node_name}
+    bound = {f"{p.namespace}/{p.metadata.annotations.get(GROUP_NAME_ANNOTATION_KEY)}" for p in pods if p.node_name}
+    by_gang: dict[str, list] = {}
+    for intent in WriteIntentJournal.replay(wal).orphans:
+        by_gang.setdefault(intent.gang, []).append(intent)
+    for gang, members in by_gang.items():
+        if gang not in bound:
+            continue
+        for intent in members[1:]:
+            if intent.node not in occupied and intent.node != members[0].node:
+                store.delete_node(intent.node)
+                return intent.node
+    raise AssertionError("no half-bound gang has an orphan aimed at an empty node")
+
+
+HA_DRILLS = ("a_flock_pair", "b_lease_renew", "c_journal_append", "d_journal_replay", "e_reconcile_scan",
+             "f_half_bound_gang_rollback")
+
+
+def ha_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``ha_drills``: each drill of ``HA_DRILLS`` (see ``ha_drill``) on the
+    card and again on the CPU (the kernel's plain version), each run on a
+    fresh store; the card's run must end equal to the CPU's, every gang
+    bound whole or not at all, no node past its allocatable. (a) flock
+    pair; (b) ``lease.renew``: renewals fail, the lease is released before
+    ``on_lost`` and the standby takes over at once; (c) ``journal.append``:
+    the leader's bulk statement goes out unjournaled and lands; (d)
+    ``journal.replay`` at takeover and (e) ``reconcile.scan`` part-way:
+    reconciliation aborts after the leader died mid-``bind_many``, and the
+    standby's loop heals; (f) the leader dies mid-``bind_many`` and a target
+    node of an orphaned gang is deleted: the gang rolls back and the
+    standby's loop binds it elsewhere."""
+    import tempfile
+
+    from kube_batch_tpu_torch import metrics, native
+
+    on_card = device == "cuda"
+    conf = conf_file(base=PIPELINE_CONF, min_device_pairs=0, **({} if on_card else {"device": "cpu"}))
+    cpu_conf = conf_file(base=PIPELINE_CONF, min_device_pairs=0, device="cpu")
+    threads_before = set(threading.enumerate())
+    arbiter, url = arbiter_server()
+    tmp = tempfile.mkdtemp(prefix="kbt-ha-drills-")
+    t0 = time.perf_counter()
+    out = {"phase": "ha_drills", "world": "preempt_mix(%d, %d, seed=%d)" % DRILL_WORLD, "lease": HA_DRILL_LEASE,
+           "kill_after_binds": HA_DRILL_KILL_AFTER}
+    launches = [0, 0]
+    try:
+        for kind in HA_DRILLS:
+            before = {"degraded": sum(metrics.degraded_cycles.samples().values()),
+                      "breakers": sum(metrics.breaker_transitions.samples().values()),
+                      "native": sum(native.fallbacks.values())}
+            rec = ha_drill(kind, device, url, conf, tmp)
+            after = {"degraded": sum(metrics.degraded_cycles.samples().values()),
+                     "breakers": sum(metrics.breaker_transitions.samples().values()),
+                     "native": sum(native.fallbacks.values())}
+            if after != before:
+                raise AssertionError(f"{kind}: degraded outside the drill's intent: {before} -> {after}")
+            if on_card:
+                cpu = ha_drill(kind, "cpu", url, cpu_conf, tmp)
+                if cpu["final"] != rec["final"]:
+                    moved = sum(1 for k in rec["final"] if cpu["final"].get(k) != rec["final"][k])
+                    raise AssertionError(f"{kind}: {moved} pods end elsewhere than the same drill on the CPU")
+                launches[0] += rec["launches"][0]
+                launches[1] += rec["launches"][1]
+            final = rec.pop("final")
+            rec["pods_bound"] = sum(1 for v in final.values() if v)
+            rec["equal_to_cpu_drill"] = True
+            out[kind] = rec
+    finally:
+        arbiter.stop()
+    join_new_threads(threads_before, "ha_drills")
+    bound = {out[k]["pods_bound"] for k in ("a_flock_pair", "b_lease_renew", "c_journal_append")}
+    if len(bound) != 1:
+        raise AssertionError(f"the undisturbed-path drills end with different bind counts: {bound}")
+    if on_card and (launches[0] < 2 * len(HA_DRILLS) or launches[1]):
+        raise AssertionError(f"{launches[0]} B1 and {launches[1]} B2 launches over the drills")
+    out.update(s=time.perf_counter() - t0, b1_launches=launches[0], b2_launches=launches[1])
+    return out, tuple(launches)
+
+
 def server_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict]:
-    """The process's phases: ``server_50k_5k`` (undisturbed) and
-    ``server_drills`` (they inject their faults). Returns the failures and
-    the launches of each phase's main path."""
-    failures, launches = [], {}
+    """The process's phases: ``server_50k_5k`` (undisturbed),
+    ``server_drills`` (they inject their faults), ``ha_failover_50k_5k``
+    (the leader's death is no fault point: any degradation fails it) and
+    ``ha_drills``. Returns the failures and the launches of each phase's
+    main path."""
+    failures, launches, shared = [], {}, {}
 
     def server():
-        rec, launches["server_50k_5k"] = server_phase(device, cut)
+        rec, launches["server_50k_5k"] = server_phase(device, cut, shared)
         emit(rec)
 
     def drills():
         rec, launches["server_drills"] = server_drills(device)
         emit(rec)
 
+    def failover():
+        rec, launches["ha_failover_50k_5k"] = ha_failover_phase(device, cut, shared.pop("want", None))
+        emit(rec)
+
+    def ha():
+        rec, launches["ha_drills"] = ha_drills(device)
+        emit(rec)
+
     run_phase(failures, "server_50k_5k", server)
     run_phase(failures, "server_drills", drills, drill=True)
+    run_phase(failures, "ha_failover_50k_5k", failover)
+    run_phase(failures, "ha_drills", ha, drill=True)
     return failures, launches
 
 

@@ -37,11 +37,22 @@ Every informer event feeds the encode cache's dirty feed
 (``ops/encode_cache.note_store_event``) after the mirror mutex is
 released, so a warm encode never reuses a churned object's rows.
 
-The JAX package's cache also journals write intents, dispatches binds
-and evicts as conditional (versioned) store transactions per gang for
-federation, and clones jobs for streaming micro-cycles; those come with
-the port's later items (ROADMAP A), and this constructor does not accept
-them until then.
+Crash consistency (recovery/): with a ``WriteIntentJournal`` attached
+(``journal=``), every bind and evict appends an intent record before its
+store write is submitted to the kb-write pool (``bind_many``: one append
+for the whole bulk statement, under the ``journal.append`` span of the
+``dispatch`` span, each record carrying the cycle id and the cycle's
+trace id) and confirms it after the write acks. An intent whose write
+falls to the errTasks resync stays unconfirmed, for the next takeover's
+reconciliation. An append failure (I/O, the ``journal.append`` point)
+dispatches the batch unjournaled, counted in
+``journal_records_total{state="append_failed"}`` and logged.
+
+The JAX package's cache also dispatches binds and evicts as conditional
+(versioned) store transactions per gang, coalesced into txn batches, for
+federation, attaches an explain payload to each intent, and clones jobs
+for streaming micro-cycles; those come with the port's later items
+(ROADMAP A), and this constructor does not accept them until then.
 """
 
 from __future__ import annotations
@@ -455,14 +466,21 @@ class SchedulerCache:
         evictor=None,
         status_updater=None,
         volume_binder=None,
+        journal=None,
         staleness_fn=None,
     ) -> None:
         self._mutex = threading.RLock()
         self.store = store
         self.scheduler_name = scheduler_name
         self.default_queue = default_queue
-        # Scheduling cycle id; the scheduler loop advances it each
-        # run_once (the cycle span's ``cycle`` attribute).
+        # Crash consistency (recovery/): when a WriteIntentJournal is
+        # attached, every bind/evict appends an intent BEFORE its store
+        # write dispatches and confirms AFTER the write acks, so a
+        # takeover can reconcile the in-flight set instead of guessing.
+        self.journal = journal
+        # Scheduling cycle id, stamped into journal records; the
+        # scheduler loop advances it each run_once (the cycle span's
+        # ``cycle`` attribute).
         self.cycle = 0
         # Bounded-staleness hook: a watch-fed deployment wires the
         # watcher's snapshot_age here; the in-process store is
@@ -938,6 +956,45 @@ class SchedulerCache:
             raise KeyError(f"failed to find task {ti.uid} in status {ti.status}")
         return job, task
 
+    # -- write-intent journal hooks (recovery/journal.py) ------------------
+
+    def _journal_intents(self, op: str, entries: list) -> list:
+        """Append-before-dispatch; a journal failure degrades to an
+        unjournaled dispatch, loudly — availability over protection."""
+        if self.journal is None or not entries:
+            return [None] * len(entries)
+        try:
+            # span link both ways: the append is a child span of the
+            # dispatching cycle, and the journal records carry the trace
+            # id so a takeover's reconciliation can name the trace that
+            # wrote each intent it re-litigates
+            cur = obs.current()
+            with obs.span("journal.append", op=op, n=len(entries)) as jspan:
+                seqs = self.journal.append_intents(
+                    op, entries, cycle=self.cycle,
+                    trace=cur.trace_id if cur is not None else "",
+                    explain=None,
+                )
+                jspan.set_attr("first_seq", seqs[0] if seqs else None)
+                return seqs
+        except Exception as e:  # noqa: BLE001 - disk full / injected fault
+            metrics.register_journal_records("append_failed", len(entries))
+            log.error(
+                "journal append failed (%s); dispatching %d %s write(s) "
+                "unjournaled", e, len(entries), op,
+            )
+            return [None] * len(entries)
+
+    def _journal_confirm(self, seq) -> None:
+        """Confirm-after-ack (no-op for unjournaled writes)."""
+        if seq is None or self.journal is None:
+            return
+        try:
+            self.journal.confirm(seq)
+            obs.event("journal.confirm", seq=seq)
+        except Exception as e:  # noqa: BLE001
+            log.error("journal confirm of seq %s failed: %s", seq, e)
+
     def bind(self, ti: TaskInfo, hostname: str) -> None:
         """Mirror update now, API write async; failure resyncs
         (reference cache.go:404-448)."""
@@ -953,7 +1010,10 @@ class SchedulerCache:
             # the task in Binding with no write submitted and no resync.
             node.add_task(task, overcommit=True)
             pod = task.pod
-        self._submit_write(self._do_bind, pod, hostname, task)
+        seqs = self._journal_intents(
+            "bind", [(task.job, f"{pod.namespace}/{pod.name}", hostname)]
+        )
+        self._submit_write(self._do_bind, pod, hostname, task, seqs[0])
 
     def bind_many(self, pairs: list, keys=None) -> None:
         """Bulk bind for the replay path: the per-bind net effect of
@@ -968,7 +1028,8 @@ class SchedulerCache:
         the replay's precomputed key hint — this binder resolves
         jobs/tasks itself, so it is accepted for protocol compatibility
         and unused. The ``dispatch`` span covers the host side: the
-        resolve under the mutex and the submission to the pool."""
+        resolve under the mutex, the journal append and the submission
+        to the pool."""
         del keys
         with obs.span("dispatch", binds=len(pairs)):
             resolved = []
@@ -992,11 +1053,25 @@ class SchedulerCache:
                     resolved.append((task.pod, hostname, task))
             for ti in failed:
                 self.resync_task(ti)
-            self._submit_write(self._do_bind_many, resolved)
+            # One journal append covers the whole bulk statement (the gang
+            # ids ride per entry), flushed before the batch dispatches — a
+            # leader killed mid-batch leaves exactly the unconfirmed suffix
+            # for the standby's reconciliation.
+            seqs = self._journal_intents(
+                "bind",
+                [
+                    (task.job, f"{pod.namespace}/{pod.name}", hostname)
+                    for pod, hostname, task in resolved
+                ],
+            )
+            self._submit_write(
+                self._do_bind_many,
+                [(p, h, t, s) for (p, h, t), s in zip(resolved, seqs)],
+            )
 
     def _do_bind_many(self, resolved: list) -> None:
-        for pod, hostname, task in resolved:
-            self._do_bind(pod, hostname, task)
+        for pod, hostname, task, seq in resolved:
+            self._do_bind(pod, hostname, task, seq)
 
     def _write_with_retry(self, op: str, what: str, fn) -> None:
         """Bounded in-place retry with exponential backoff + jitter for
@@ -1030,14 +1105,18 @@ class SchedulerCache:
                 time.sleep(delay * (0.5 + random.random()))
                 delay = min(delay * 2.0, 0.5)
 
-    def _do_bind(self, pod: Pod, hostname: str, task: TaskInfo) -> None:
+    def _do_bind(self, pod: Pod, hostname: str, task: TaskInfo, seq=None) -> None:
         try:
             self._write_with_retry(
                 "bind",
                 f"<{pod.namespace}/{pod.name}>",
                 lambda: self.binder.bind(pod, hostname),
             )
+            self._journal_confirm(seq)
         except Exception as e:  # noqa: BLE001 - any write failure resyncs
+            # the journal intent stays unconfirmed: either the resync
+            # path lands the write later or the next takeover's
+            # reconciliation re-drives it (both idempotent)
             log.error("Failed to bind pod <%s/%s>: %s", pod.namespace, pod.name, e)
             self.resync_task(task)
 
@@ -1051,15 +1130,19 @@ class SchedulerCache:
             job.update_task_status(task, TaskStatus.RELEASING)
             node.update_task(task)
             pod = task.pod
-        self._submit_write(self._do_evict, pod, task)
+        seqs = self._journal_intents(
+            "evict", [(task.job, f"{pod.namespace}/{pod.name}", "")]
+        )
+        self._submit_write(self._do_evict, pod, task, seqs[0])
 
-    def _do_evict(self, pod: Pod, task: TaskInfo) -> None:
+    def _do_evict(self, pod: Pod, task: TaskInfo, seq=None) -> None:
         try:
             self._write_with_retry(
                 "evict",
                 f"<{pod.namespace}/{pod.name}>",
                 lambda: self.evictor.evict(pod),
             )
+            self._journal_confirm(seq)
         except Exception as e:  # noqa: BLE001
             log.error("Failed to evict pod <%s/%s>: %s", pod.namespace, pod.name, e)
             self.resync_task(task)

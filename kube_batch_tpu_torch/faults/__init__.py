@@ -38,6 +38,18 @@ The process's points (cache/cache.py, cache/store.py, server.py):
 - ``store.conflict``: a conditional (versioned) store transaction is
   rejected with ``StaleWrite(reason="injected")``.
 
+The HA pair's points (server.py, recovery/):
+
+- ``lease.renew``: a lease round-trip to the arbiter fails; past the
+  renew deadline the leader releases the lease and fires ``on_lost``;
+- ``journal.append``: the write-intent journal's append fails, and the
+  batch is dispatched unjournaled (``journal_records_total{state=
+  "append_failed"}``);
+- ``journal.replay``: the journal is unreadable at takeover;
+  reconciliation reports ``aborted`` and the standby's loop heals;
+- ``reconcile.scan``: the takeover scan dies part-way; reconciliation
+  reports ``aborted`` and the loop heals.
+
 The host fast paths' points, each of whose degraded paths gives the same
 bytes as the fast path it replaces:
 
@@ -118,6 +130,12 @@ POINTS = (
     "evict.write",         # evictor write rejected -> retry -> errTasks
     # watch stream (server.py WatchHub)
     "watch.drop",          # stream drop: poll returns 410-Gone, client re-lists
+    # lease elector (server.py)
+    "lease.renew",         # renewal round-trip fails (arbiter partition/timeout)
+    # crash-consistent failover (recovery/)
+    "journal.append",      # WAL append fails -> write dispatches unjournaled, loudly
+    "journal.replay",      # journal unreadable at takeover -> resync self-heal
+    "reconcile.scan",      # takeover scan dies mid-way -> partial, rescheduling heals
     # cycle budget (recovery/budget.py)
     "cycle.overrun",       # injected wedged solve -> hard-deadline abort pre-dispatch
     # store conditional transactions (cache/store.py)

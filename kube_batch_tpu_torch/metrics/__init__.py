@@ -21,6 +21,11 @@ label sets:
 - the cache's write side: ``write_retries_total{op}`` and
   ``resync_dropped_total`` (cache/cache.py), and
   ``cache_mutation_violations_total{kind}`` (faults/mutation_detector.py);
+- crash-consistent failover: ``journal_records_total{state}``
+  (recovery/journal.py and the cache's journal hooks),
+  ``reconcile_ops_total{op}`` (recovery/reconcile.py), and the watch
+  client's ``watch_snapshot_age_seconds`` and ``watch_relists_total{kind}``
+  (recovery/watch_client.py);
 - ``watch_longpoll_wakeups_total{cause}``: exposed under its JAX name,
   written by the JAX package's combined long-poll of the store-backend
   protocol, which comes with federation; the per-kind watch of server.py
@@ -32,11 +37,10 @@ label sets:
   ``{queue,quantile}`` and ``slo_evicted_queues_total``, set by
   ``obs.slo.publish()``.
 
-The JAX package's series of layers the port does not have yet (the
-journal, federation and its conditional binds, the watch client,
-admission, shards, fleet, streaming, the tensor arena, the
-class-compressed solve and explain) come with those layers; so do
-exemplars.
+The JAX package's series of layers the port does not have yet
+(federation and its conditional binds, admission, shards, fleet,
+streaming, the tensor arena, the class-compressed solve and explain)
+come with those layers; so do exemplars.
 """
 
 from __future__ import annotations
@@ -251,6 +255,17 @@ cache_mutation_violations = Counter(
     "In-place mutations of shared cached cluster objects detected, by kind",
 )
 
+# -- crash-consistent failover (recovery/) -------------------------------------
+journal_records = Counter(
+    f"{_SUBSYSTEM}_journal_records_total",
+    "Write-intent journal records appended, by state (intent/confirm/append_failed)",
+)
+reconcile_ops = Counter(
+    f"{_SUBSYSTEM}_reconcile_ops_total",
+    "Takeover reconciliation outcomes, by op "
+    "(confirmed/redispatched/conflict/rolled_back/aborted)",
+)
+
 # -- the cycle's deadline budget and staleness guard (scheduler.py) -----------
 cycle_overruns = Counter(
     f"{_SUBSYSTEM}_cycle_overruns_total",
@@ -263,6 +278,16 @@ resync_dropped = Counter(
 stale_cycles_skipped = Counter(
     f"{_SUBSYSTEM}_stale_cycles_skipped_total",
     "Scheduling cycles refused because the snapshot exceeded the staleness threshold",
+)
+
+# -- the watch client (recovery/watch_client.py) ------------------------------
+watch_snapshot_age = Gauge(
+    f"{_SUBSYSTEM}_watch_snapshot_age_seconds",
+    "Seconds since the watch-fed mirror was last known current (oldest kind)",
+)
+watch_relists = Counter(
+    f"{_SUBSYSTEM}_watch_relists_total",
+    "Full re-lists performed by watch clients after 410-Gone, by kind",
 )
 
 # -- incremental encode cache (ops/encode_cache.py) --------------------------
@@ -380,6 +405,24 @@ def register_cache_mutation(kind: str) -> None:
     cache_mutation_violations.inc({"kind": kind})
 
 
+def register_journal_records(state: str, n: int = 1) -> None:
+    journal_records.inc({"state": state}, by=n)
+
+
+def register_reconcile_op(op: str, n: int = 1) -> None:
+    reconcile_ops.inc({"op": op}, by=n)
+
+
+def set_watch_snapshot_age(age: float) -> None:
+    # +inf (never synced) renders as 'inf' in exposition, which
+    # Prometheus accepts; clamp anyway to keep dashboards sane
+    watch_snapshot_age.set(min(age, 1e9))
+
+
+def register_watch_relist(kind: str) -> None:
+    watch_relists.inc({"kind": kind})
+
+
 def register_resync_drop() -> None:
     resync_dropped.inc()
 
@@ -483,9 +526,13 @@ FAMILIES = (
     degraded_cycles,
     write_retries,
     cache_mutation_violations,
+    journal_records,
+    reconcile_ops,
     cycle_overruns,
     resync_dropped,
     stale_cycles_skipped,
+    watch_snapshot_age,
+    watch_relists,
     encode_cache_hits,
     encode_cache_invalidations,
     encode_warm_fraction,

@@ -29,7 +29,10 @@ ThreadingHTTPServer (``kb-http``) that exposes:
   default class;
 - ``GET /apis/v1alpha1/watch/<kind>?since=N&timeout=S`` — the long-poll
   watch (``WatchHub``; 410 Gone when the client fell behind the ring or
-  the ``watch.drop`` fault point fired).
+  the ``watch.drop`` fault point fired);
+- ``POST /apis/v1alpha1/leases/<name>/acquire`` and ``.../release`` —
+  leader-election arbitration over the store's lease verbs (the name
+  percent-encoded); ``GET /apis/v1alpha1/leases`` lists them.
 
 Pod JSON: ``{"name", "namespace", "group", "requests": {"cpu": 1,
 "memory": "512Mi", ...scalars}, "priority", "priority_class_name",
@@ -37,29 +40,55 @@ Pod JSON: ``{"name", "namespace", "group", "requests": {"cpu": 1,
 "volumes"}``. Node JSON: ``{"name", "allocatable": {...}, "labels"}``.
 PodGroup JSON: ``{"name", "namespace", "queue", "min_member"}``.
 
+HA: the reference elects a leader through a ConfigMap resource lock
+(server.go:96-137). Two tiers here, as in the JAX package:
+
+- single host (``--lock-file``): an OS file lock (``flock``,
+  ``LeaderElector``) — exactly one scheduler process per lock file runs
+  the loop; the kernel releases the lock if the holder dies and a
+  blocked standby takes over;
+- cluster-wide (``--lease-url``): a Lease object in a shared
+  ClusterStore, renewed over the HTTP API with the reference's
+  15 s lease / 10 s renew-deadline / 5 s retry semantics
+  (``StoreLeaseElector``); any scheduler-API endpoint can arbitrate,
+  arbitration runs atomically under the arbiter's clock, and a leader
+  that cannot renew within the deadline exits fatally
+  (OnStoppedLeading glog.Fatalf parity, server.go:133-135).
+
+Crash consistency: ``--journal`` (or ``KBT_JOURNAL``) attaches a
+write-intent journal to the cache (recovery/journal.py), and ``start()``
+reconciles it against the store (recovery/reconcile.py) before the loop
+thread starts — on a restart and on a takeover alike, since a leader
+only starts after acquiring.
+
 Run it with ``python -m kube_batch_tpu_torch.server --scheduler-conf
 examples/scheduler-conf-torch-pipeline.yaml``: the conf's
 ``torch_allocate`` solves on the card unless it says ``device: cpu``.
-Importing this module, ``--help`` and ``--version`` touch no card.
+An HA pair adds ``--leader-elect --lease-url http://ARBITER:PORT
+--journal PATH`` to each replica. Importing this module, ``--help`` and
+``--version`` touch no card.
 
 The JAX package's server also serves the store-backend protocol
-(``/backend/v1/``, federation), leader election (``--leader-elect``,
-``--lock-file``, ``--lease-url`` and the lease routes), the write-intent
-journal (``--journal``) and its takeover reconciliation, admission
-(``/debug/admission``), the fleet rollup (``--fleet``, ``/debug/fleet``)
-and ``/debug/explain``; those come with the port's later items (ROADMAP
-A), and this server does not offer them until then.
+(``/backend/v1/``, federation), admission (``/debug/admission``), the
+fleet rollup (``--fleet``, ``/debug/fleet``) and ``/debug/explain``;
+those come with the port's later items (ROADMAP A), and this server does
+not offer them until then.
 """
 
 from __future__ import annotations
 
 import argparse
+import fcntl
 import json
 import logging
 import math
+import os
+import socket
 import threading
 import time
 import urllib.parse
+import urllib.request
+import uuid
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -81,6 +110,8 @@ from kube_batch_tpu_torch.apis.types import (
 )
 from kube_batch_tpu_torch.cache import ClusterStore, SchedulerCache
 from kube_batch_tpu_torch.cache.store import KINDS, AlreadyExists, EventHandler
+from kube_batch_tpu_torch.recovery import WriteIntentJournal, reconcile_journal
+from kube_batch_tpu_torch.recovery.reconcile import ReconcileReport
 from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing import (
     build_node,
@@ -287,6 +318,262 @@ class WatchHub:
                 if remaining <= 0 or stop.is_set() or self._closed:
                     return "ok", [], self._seq
                 self._cond.wait(min(remaining, 1.0))
+
+
+class LeaderElector:
+    """flock-based leader election (see module docstring)."""
+
+    def __init__(self, lock_file: str, identity: str) -> None:
+        self.lock_file = lock_file
+        self.identity = identity
+        self._fh = None
+
+    def acquire(self, blocking: bool = True) -> bool:
+        self._fh = open(self.lock_file, "a+")  # noqa: SIM115 - held for process life
+        flags = fcntl.LOCK_EX | (0 if blocking else fcntl.LOCK_NB)
+        try:
+            fcntl.flock(self._fh, flags)
+        except BlockingIOError:
+            self._fh.close()
+            self._fh = None
+            return False
+        self._fh.seek(0)
+        self._fh.truncate()
+        self._fh.write(self.identity)
+        self._fh.flush()
+        log.info("became leader: %s", self.identity)
+        return True
+
+    def release(self) -> None:
+        if self._fh is not None:
+            fcntl.flock(self._fh, fcntl.LOCK_UN)
+            self._fh.close()
+            self._fh = None
+
+
+class StoreLeaseElector:
+    """Cluster-wide leader election through a lease in a ClusterStore —
+    the distributed half of HA (the flock LeaderElector stays the
+    single-host fast path). Mirrors the reference's
+    leaderelection.RunOrDie over a ConfigMap resource lock
+    (cmd/kube-batch/app/server.go:115-139): lease_duration 15 s,
+    renew_deadline 10 s, retry_period 5 s, identity
+    ``hostname_pid_uuid``.
+
+    The arbiter is either an in-process ``ClusterStore`` or the HTTP
+    base URL of any scheduler-API server (``http://host:port``) — two
+    machines point at the same URL and exactly one leads. The entire
+    acquire-or-renew ladder executes atomically inside the arbiter under
+    the ARBITER's clock, so candidate clock skew cannot split the lease.
+
+    Renewal failures (network, arbiter down) are tolerated until
+    ``renew_deadline`` has passed since the last successful renewal;
+    then ``on_lost`` fires — process-level callers treat that as fatal,
+    exactly like the reference's OnStoppedLeading glog.Fatalf
+    (server.go:133-135)."""
+
+    def __init__(
+        self,
+        arbiter,
+        lease_name: str,
+        identity: str,
+        lease_duration: float = 15.0,
+        renew_deadline: float = 10.0,
+        retry_period: float = 5.0,
+    ) -> None:
+        self.arbiter = arbiter
+        self.lease_name = lease_name
+        self.identity = identity
+        self.lease_duration = lease_duration
+        self.renew_deadline = renew_deadline
+        self.retry_period = retry_period
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._watchdog: Optional[threading.Thread] = None
+        self.is_leader = False
+
+    # -- one arbitration round-trip ----------------------------------------
+
+    def _post(self, verb: str, payload: dict, timeout: float) -> dict:
+        """One lease POST to the remote arbiter (shared by acquire and
+        release so the path/encoding scheme cannot drift apart)."""
+        req = urllib.request.Request(
+            f"{self.arbiter.rstrip('/')}/apis/v1alpha1/leases/"
+            f"{urllib.parse.quote(self.lease_name, safe='')}/{verb}",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"},
+            method="POST",
+        )
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.loads(resp.read())
+
+    def _try_acquire(self, timeout: float = 5.0) -> bool:
+        """One acquire-or-renew attempt; True iff we hold the lease.
+        ``timeout`` bounds the HTTP round-trip — the renewal loop shrinks
+        it to its remaining deadline budget so a hanging arbiter cannot
+        push loss-detection past the lease expiry."""
+        if faults.should_fire("lease.renew"):
+            raise faults.FaultInjected("lease.renew: injected arbiter partition")
+        if isinstance(self.arbiter, str):
+            return bool(
+                self._post(
+                    "acquire",
+                    {
+                        "identity": self.identity,
+                        "lease_duration": self.lease_duration,
+                    },
+                    timeout,
+                ).get("acquired")
+            )
+        lease = self.arbiter.try_acquire_lease(
+            self.lease_name, self.identity, self.lease_duration
+        )
+        return lease.holder_identity == self.identity
+
+    def _release(self, timeout: float = 5.0) -> None:
+        try:
+            if isinstance(self.arbiter, str):
+                self._post("release", {"identity": self.identity}, timeout)
+            else:
+                self.arbiter.release_lease(self.lease_name, self.identity)
+        except Exception as e:  # best-effort: expiry will hand over anyway
+            log.error("lease release failed (standby waits out the lease): %s", e)
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def acquire(self, blocking: bool = True) -> bool:
+        """Contend until the lease is ours (retry_period cadence, like
+        client-go's acquire loop). Non-blocking: one attempt."""
+        while not self._stop.is_set():
+            try:
+                if self._try_acquire():
+                    self.is_leader = True
+                    log.info(
+                        "became leader: %s (lease %s)", self.identity, self.lease_name
+                    )
+                    return True
+            except Exception as e:
+                log.error("lease acquire attempt failed: %s", e)
+            if not blocking:
+                return False
+            self._stop.wait(self.retry_period)
+        return False
+
+    def start_renewing(self, on_lost) -> None:
+        """Background renewal at retry_period cadence; fires ``on_lost``
+        (once) if renew_deadline passes without a successful renewal or
+        the arbiter reports another holder. A separate watchdog enforces
+        the deadline on WALL time, independent of the renewal thread —
+        urllib's timeout is per-socket-operation, so an arbiter dripping
+        bytes could otherwise pin a renewal attempt (and loss detection)
+        past the lease expiry."""
+        lost_once = threading.Event()
+        lost_lock = threading.Lock()  # watchdog + renewal race on the set
+
+        def fire_lost(why: str) -> None:
+            with lost_lock:
+                if lost_once.is_set():
+                    return
+                lost_once.set()
+            self._lose(why, on_lost)
+
+        state = {"last_ok": time.monotonic()}
+
+        def watchdog() -> None:
+            while not self._stop.wait(
+                min(0.5, max(0.05, self.renew_deadline / 10))
+            ):
+                if time.monotonic() - state["last_ok"] >= self.renew_deadline:
+                    fire_lost("renew deadline exceeded (watchdog)")
+                    return
+
+        def loop() -> None:
+            last_ok = state["last_ok"]
+            wait = self.retry_period
+            while not self._stop.wait(wait):
+                # Deadline budget bounds each attempt (client-go bounds
+                # renewals with a renewDeadline-scoped context for the
+                # same reason): a hanging arbiter must not delay loss-
+                # detection past the point where the lease can expire
+                # under a standby.
+                remaining = self.renew_deadline - (time.monotonic() - last_ok)
+                if remaining <= 0:
+                    fire_lost("renew deadline exceeded before attempt")
+                    return
+                try:
+                    if self._try_acquire(timeout=max(0.5, min(5.0, remaining))):
+                        if lost_once.is_set():
+                            return  # watchdog already declared the loss
+                        last_ok = time.monotonic()
+                        state["last_ok"] = last_ok
+                        wait = self.retry_period
+                        continue
+                    # someone else holds it — we were fenced out
+                    fire_lost("lost to another holder")
+                    return
+                except Exception as e:
+                    log.error("lease renewal attempt failed: %s", e)
+                elapsed = time.monotonic() - last_ok
+                if elapsed >= self.renew_deadline:
+                    fire_lost("renew deadline exceeded")
+                    return
+                # After a failure, retry fast enough that several attempts
+                # fit inside the remaining budget — a single transient
+                # arbiter blip must not consume the whole deadline.
+                wait = max(
+                    0.05, min(self.retry_period, (self.renew_deadline - elapsed) / 3)
+                )
+
+        self._thread = threading.Thread(target=loop, name="kb-lease", daemon=True)
+        self._thread.start()
+        self._watchdog = threading.Thread(
+            target=watchdog, name="kb-lease-watchdog", daemon=True
+        )
+        self._watchdog.start()
+
+    def _lose(self, why: str, on_lost) -> None:
+        log.error("lease %s: %s", self.lease_name, why)
+        was_leader = self.is_leader
+        self.is_leader = False
+        if was_leader:
+            # Best-effort release BEFORE on_lost: a renewal
+            # already in flight when the watchdog fired can still land at
+            # the arbiter (urllib's timeout is per-socket-op), silently
+            # re-extending a dead leader's lease by a full window while
+            # the standby waits it out. Clearing the holder bounds that
+            # window to the in-flight attempt. Short timeout: on_lost is
+            # typically a fatal exit, and renew_deadline + this bound must
+            # stay under lease_duration (15/10/5 reference ratios hold).
+            self._release(timeout=min(2.0, self.retry_period))
+        on_lost()
+
+    def release(self) -> None:
+        """Stop renewing and hand the lease off gracefully. The release
+        POST is sent only once the renewal thread has provably finished —
+        an in-flight renewal landing after the release would silently
+        re-take the lease for a dying process; if the thread cannot be
+        joined in time we skip the hand-off and let the standby wait out
+        the lease (the crash path, safe)."""
+        self._stop.set()
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=2)
+            self._watchdog = None
+        joined = True
+        if self._thread is not None:
+            self._thread.join(timeout=7)  # > max attempt timeout + retry
+            joined = not self._thread.is_alive()
+            if joined:
+                self._thread = None
+        if self.is_leader:
+            self.is_leader = False
+            if joined:
+                self._release()
+            else:
+                log.error(
+                    "lease %s: renewal still in flight at shutdown; skipping "
+                    "graceful release (standby waits out the lease)",
+                    self.lease_name,
+                )
 
 
 def _make_handler(server: "SchedulerServer"):
@@ -578,6 +865,59 @@ def _make_handler(server: "SchedulerServer"):
                     )
                     server.store.create_persistent_volume_claim(pvc)
                     self._reply(201, json.dumps({"namespace": namespace, "name": name}))
+                elif (
+                    self.path.startswith("/apis/v1alpha1/leases/")
+                    and self.path.endswith(("/acquire", "/release"))
+                ):
+                    # Leader-election arbitration endpoint: the whole
+                    # acquire-or-renew ladder runs atomically inside the
+                    # store under the ARBITER's clock (store.py
+                    # try_acquire_lease) — the role the reference's API
+                    # server plays for its ConfigMap resource lock
+                    # (cmd/kube-batch/app/server.go:115-139).
+                    parts = self.path.strip("/").split("/")
+                    if len(parts) != 5:
+                        # a raw '/' in the name would smear across path
+                        # segments and arbitrate the wrong scope —
+                        # electors quote(name, safe="") to prevent this
+                        raise ValueError(
+                            "lease path must be /apis/v1alpha1/leases/<name>/<verb> "
+                            "(percent-encode the name)"
+                        )
+                    # unquote restores the exact scope so HTTP and
+                    # in-process candidates on the same name contend on
+                    # the same lease
+                    lease_name, verb = urllib.parse.unquote(parts[3]), parts[4]
+                    if not lease_name:
+                        raise ValueError("lease name must be non-empty")
+                    identity = field(body, "identity", str, None, required=True)
+                    if verb == "acquire":
+                        duration = body.get("lease_duration", 15.0)
+                        if isinstance(duration, bool) or not isinstance(
+                            duration, (int, float)
+                        ):
+                            raise ValueError("lease_duration must be a number")
+                        lease = server.store.try_acquire_lease(
+                            lease_name, identity, float(duration)
+                        )
+                    else:
+                        lease = server.store.release_lease(lease_name, identity)
+                    if lease is None:
+                        self._reply(404, json.dumps({"error": "lease not found"}))
+                        return
+                    self._reply(
+                        200,
+                        json.dumps(
+                            {
+                                "name": lease_name,
+                                "holder": lease.holder_identity,
+                                "acquired": lease.holder_identity == identity,
+                                "lease_duration": lease.lease_duration_seconds,
+                                "renew_time": lease.renew_time,
+                                "transitions": lease.lease_transitions,
+                            }
+                        ),
+                    )
                 elif self.path == "/apis/v1alpha1/storageclasses":
                     name = field(body, "name", str, None, required=True)
                     sc = StorageClass(
@@ -635,8 +975,10 @@ def _make_handler(server: "SchedulerServer"):
 class SchedulerServer:
     """One process worth of scheduler: store + cache + loop + HTTP.
     ``store``: an existing ``ClusterStore`` to schedule over (None: a new
-    one); ``device``: the CUDA device the loop thread makes current
-    (``Scheduler.run``; None: the thread's default, ``cuda:0``)."""
+    one); ``journal_path``: the write-intent journal's file (None: the
+    ``KBT_JOURNAL`` path, and with neither no journal); ``device``: the
+    CUDA device the loop thread makes current (``Scheduler.run``; None:
+    the thread's default, ``cuda:0``)."""
 
     def __init__(
         self,
@@ -646,12 +988,21 @@ class SchedulerServer:
         default_queue: str = DEFAULT_QUEUE,
         listen_address: str = DEFAULT_LISTEN_ADDRESS,
         store: Optional[ClusterStore] = None,
+        journal_path: Optional[str] = None,
         device=None,
     ) -> None:
         self.store = store or ClusterStore()
         self.watch_hub = WatchHub(self.store)
+        # Crash-consistent write side (recovery/): --journal / KBT_JOURNAL
+        # attaches a bind-intent WAL to the cache; start() reconciles it
+        # against store truth before the loop runs.
+        self.journal = None
+        journal_path = journal_path or os.environ.get("KBT_JOURNAL", "").strip()
+        if journal_path:
+            self.journal = WriteIntentJournal(journal_path)
         self.cache = SchedulerCache(
-            self.store, scheduler_name=scheduler_name, default_queue=default_queue
+            self.store, scheduler_name=scheduler_name,
+            default_queue=default_queue, journal=self.journal,
         )
         self.scheduler = Scheduler(
             self.cache, scheduler_conf=scheduler_conf, schedule_period=schedule_period
@@ -672,6 +1023,16 @@ class SchedulerServer:
     def listen_port(self) -> int:
         return self.httpd.server_address[1]
 
+    def reconcile(self) -> Optional[ReconcileReport]:
+        """Takeover reconciliation (recovery/reconcile.py): scan the
+        bind-intent journal against store truth — confirm landed writes,
+        re-dispatch orphans, roll back half-bound gangs. Runs before the
+        loop on every start (process restart AND lease takeover both
+        pass through here: a leader only start()s after acquiring)."""
+        if self.journal is None:
+            return None
+        return reconcile_journal(self.journal, self.store)
+
     def start(self) -> None:
         # Ensure the default queue exists (the reference expects an admin
         # to create it; the in-process store bootstraps it).
@@ -679,6 +1040,7 @@ class SchedulerServer:
             self.store.create_queue(
                 Queue(metadata=ObjectMeta(name=self.cache.default_queue))
             )
+        self.reconcile()
         self._stop.clear()
         t_http = threading.Thread(
             target=self.httpd.serve_forever, name="kb-http", daemon=True
@@ -707,6 +1069,8 @@ class SchedulerServer:
                 log.warning("stop: waiting for %s to finish its cycle", t.name)
                 t.join(timeout=10)
         self._threads.clear()
+        if self.journal is not None:
+            self.journal.close()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -741,6 +1105,37 @@ def build_parser() -> argparse.ArgumentParser:
         "unauthenticated mutating API, so name an interface (e.g. "
         "'0.0.0.0:8080') to expose it",
     )
+    p.add_argument(
+        "--leader-elect",
+        action="store_true",
+        help="acquire the lock file before running the loop (HA standby)",
+    )
+    p.add_argument(
+        "--lock-file",
+        default="",
+        help="leader-election lock file (single-host HA; required with "
+        "--leader-elect unless --lease-url is set)",
+    )
+    p.add_argument(
+        "--lease-url",
+        default="",
+        help="base URL of the lease arbiter (any scheduler-API endpoint, "
+        "e.g. http://store-host:8080) for cluster-wide leader election; "
+        "replaces --lock-file when set",
+    )
+    p.add_argument(
+        "--lease-name",
+        default="kube-batch",
+        help="lease object name under the arbiter (reference lock object "
+        "name, server.go:117)",
+    )
+    p.add_argument(
+        "--journal",
+        default="",
+        help="bind-intent journal (WAL) path for crash-consistent "
+        "failover; reconciled against store truth on startup/takeover "
+        "(env KBT_JOURNAL; empty = journaling off)",
+    )
     p.add_argument("--version", action="store_true", help="show version and quit")
     p.add_argument("-v", type=int, default=0, help="log verbosity (glog -v)")
     return p
@@ -751,6 +1146,10 @@ def run(argv: Optional[list[str]] = None) -> None:
     opt = build_parser().parse_args(argv)
     if opt.version:
         version.print_version_and_exit()
+    if opt.leader_elect and not (opt.lock_file or opt.lease_url):
+        raise SystemExit(
+            "--lock-file or --lease-url must be set when --leader-elect is enabled"
+        )
     pkg_log.set_verbosity(opt.v)
     logging.basicConfig(
         level=logging.DEBUG if opt.v >= 4 else logging.INFO,
@@ -759,13 +1158,42 @@ def run(argv: Optional[list[str]] = None) -> None:
     # Last-gasp observability: dump the flight-recorder ring on SIGTERM
     # (chains any previously-installed handler).
     obs.install_signal_dump()
+
+    elector = None
+    if opt.leader_elect:
+        identity = f"{socket.gethostname()}_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+        if opt.lease_url:
+            elector = StoreLeaseElector(opt.lease_url, opt.lease_name, identity)
+            log.info(
+                "waiting for leadership on lease %s at %s ...",
+                opt.lease_name, opt.lease_url,
+            )
+            elector.acquire(blocking=True)
+
+            def _lost() -> None:
+                # the reference's OnStoppedLeading is glog.Fatalf
+                # (server.go:133-135): a fenced-out leader must not keep
+                # mutating cluster state.
+                log.error("leaderelection lost")
+                os._exit(1)
+
+            elector.start_renewing(_lost)
+        else:
+            elector = LeaderElector(opt.lock_file, identity)
+            log.info("waiting for leadership on %s ...", opt.lock_file)
+            elector.acquire(blocking=True)
+
     server = SchedulerServer(
         scheduler_name=opt.scheduler_name,
         scheduler_conf=opt.scheduler_conf or None,
         schedule_period=opt.schedule_period,
         default_queue=opt.default_queue,
         listen_address=opt.listen_address,
+        journal_path=opt.journal or None,
     )
+    # start() reconciles the journal before the loop: both the restart
+    # and the lease-takeover path land here only once leadership (if
+    # any) is held, so reconciliation always runs under the lease.
     server.start()
     log.info(
         "kube-batch-tpu-torch %s serving on :%d, scheduling every %.2fs",
@@ -777,6 +1205,8 @@ def run(argv: Optional[list[str]] = None) -> None:
         pass
     finally:
         server.stop()
+        if elector is not None:
+            elector.release()
 
 
 if __name__ == "__main__":

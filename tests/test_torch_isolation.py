@@ -67,9 +67,15 @@ PROCESS_MODULES = [
     "cli/__main__.py", "cli/queue.py", "utils/locking.py", "utils/workqueue.py", "version.py",
     "faults/mutation_detector.py",
 ]
+# the HA pair: the write-intent journal, its checker, takeover
+# reconciliation and the watch client, copies of jax-free modules too
+RECOVERY_MODULES = [
+    "recovery/__init__.py", "recovery/journal.py", "recovery/reconcile.py", "recovery/fsck.py",
+    "recovery/watch_client.py",
+]
 
 
-@pytest.mark.parametrize("rel", FAST_PATH_MODULES + LADDER_AND_TRACE_MODULES + PROCESS_MODULES)
+@pytest.mark.parametrize("rel", FAST_PATH_MODULES + LADDER_AND_TRACE_MODULES + PROCESS_MODULES + RECOVERY_MODULES)
 def test_fast_path_modules_are_checked(rel):
     path = os.path.join(PORT, rel)
     assert path in list(_sources())

@@ -140,8 +140,14 @@ def test_the_exposition_holds_every_series_under_the_jax_name(tmp_path):
         m.register_write_retry("bind")
         m.register_cache_mutation("pods")
         m.register_longpoll_wakeup("timeout")
+        m.register_journal_records("intent", 2)
+        m.register_reconcile_op("redispatched")
+        m.set_watch_snapshot_age(0.5)
+        m.register_watch_relist("queues")
     port, jax = _families(torch_metrics.render_prometheus_text()), _families(jax_metrics.render_prometheus_text())
-    assert len(port) == len(torch_metrics.FAMILIES) == 27
+    assert len(port) == len(torch_metrics.FAMILIES) == 31
+    for name in ("journal_records_total", "reconcile_ops_total", "watch_snapshot_age_seconds", "watch_relists_total"):
+        assert f"kube_batch_tpu_{name}" in port, name
     for name, (help_text, kind, label_sets) in port.items():
         assert name in jax, name
         assert (help_text, kind) == tuple(jax[name][:2]), name
