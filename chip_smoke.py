@@ -209,7 +209,40 @@
      ``bind_many``, a node an orphaned gang targets is deleted, the gang
      rolls back and the standby binds it elsewhere. Every drill ends with
      every gang bound whole or not at all;
-12. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+12. drives the port as a federation (``federation.py``, ``cache/backend.py``,
+   ``/backend/v1/``):
+   - ``federation_50k_5k``: the compose file's ``federation`` profile at
+     full width. The store is a ``SchedulerServer`` in this process
+     (scheduler name ``store-arbiter``, so its loop solves nothing) over a
+     ``ClusterStore`` seeded with ``preempt_mix_objects(50_000, 5_000)``;
+     two shard processes, ``python -m kube_batch_tpu_torch.server
+     --store-backend URL --scheduler-conf <the twin conf on cuda>`` with
+     ``KBT_FEDERATION=0/2`` and ``1/2``, ``KBT_SHARD_KEY=gang`` and
+     ``KBT_TRACE=1``, both on ``cuda:0``. Gates: every pending pod bound
+     exactly once (a store handler counts ``""`` -> node), ``fsck``
+     clean, the bound set ``server_50k_5k``'s FakeCache cycle's, no shard
+     cycle below the fused rung and no degradation in either shard's
+     exposition or native fallback in its log, the binary codec (wire v2)
+     on each shard's bytes and coalesced batches at the store, both
+     processes ended by SIGINT with code 0 (their logs' tails printed
+     otherwise; the logs under ``chiprun_out/``). Records each shard's
+     start, its list round trips, its first working cycle's span split
+     (the ``solve`` span holds B1), its coalesced batches, its conflict
+     series and retries from ``/metrics``, the wire bytes per bind and
+     ``all_bound_s``;
+   - ``federation_scaleout_50k_5k``: bench.py's ``federation_scaleout_row``
+     at N = 4: 5,000 gangs x 10 pods on 5,000 nodes, four
+     ``FederatedCache`` + ``Scheduler`` threads over one ``ClusterStore``
+     (``enqueue, torch_allocate``, the size floor off) on ``cuda:0``:
+     ``drain_s`` within 300 s, binds/s, the conflict deltas, B1 launches
+     and encode ``warm_fraction`` per shard, exactly once, ``fsck`` clean;
+   - ``federation_drills`` (``federation.smoke``'s world, each drill on the
+     card and again on the CPU, ending equal): (a) the kill drill, the
+     owner dying mid-``bind_many``; (b) ``federation.stale_assign``; (c)
+     ``store.txn_batch``; (d) ``federation.partition``; (e) ``shard.adopt``
+     failing once; (f) a graceful handoff and ``shard.handoff`` failing;
+     (g) ``shard.lease_flap``; (h) a v2 client against a v1-pinned server;
+13. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -235,6 +268,10 @@ on the last card against it too.
 runs only ``pipeline_reclaim`` on the card at 50,000 pods: the uncut
 reclaim pass and the preempt walk after it, minutes of host work.
 
+    python3 chip_smoke.py --federation
+
+runs only the kernels' build and the federation's three phases (step 12).
+
     python3 chip_smoke.py --ab-warm DIR
 
 runs instead ``warm_cycles_50k_5k`` of the checkout at DIR (the parent
@@ -244,8 +281,8 @@ this, this, DIR, each in a process of its own.
     python3 chip_smoke.py --rehearse CUT
 
 needs no card: the pipeline phases (step 8), the fast paths' (step 9),
-the ladder's and the trace's (step 10) and the process's (step 11) on the
-CPU, every world's pod and node counts divided by CUT (the drills' small
+the ladder's and the trace's (step 10), the process's (step 11) and the
+federation's (step 12) on the CPU, every world's pod and node counts divided by CUT (the drills' small
 world is not cut, and ``ha_failover_50k_5k`` kills its leader after a
 tenth as many binds),
 torch_allocate on the kernels' plain versions; the host actions' times
@@ -3155,13 +3192,706 @@ def ha_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
     return out, tuple(launches)
 
 
-def server_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict]:
+# -- the port as a federation -------------------------------------------------
+
+FED_SHARDS = 2  # the compose file's federation profile: KBT_FEDERATION=0/2 and 1/2, KBT_SHARD_KEY=gang
+FED_WAIT_S = 300.0  # the limit on the store showing every pending pod of the world bound once
+FED_START_S = 120.0  # the limit on a shard process answering /healthz
+SCALEOUT_WORLD = (5_000, 10, 5_000)  # bench.py federation_scaleout_row: gangs x members on nodes
+SCALEOUT_SHARDS = 4
+SCALEOUT_WAIT_S = 300.0
+FED_DRILL_WORLD = (6, 3, 8)  # federation.smoke's world: gangs x members on nodes of 8 cpu
+FED_DRILLS = ("a_kill_one", "b_stale_assign", "c_txn_batch", "d_partition", "e_adopt_fails_once",
+              "f_handoff", "g_lease_flap", "h_v1_server")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tail(path: str, n: int = 4000) -> str:
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - n))
+            return f.read().decode(errors="replace")
+    except OSError as e:
+        return f"<no log: {e}>"
+
+
+def labelled(values: dict, name: str) -> dict:
+    """``name{labels}`` samples of an exposition, by their label string."""
+    prefix = f"kube_batch_tpu_{name}"
+    return {k[len(prefix):]: v for k, v in values.items() if k == prefix or k.startswith(prefix + "{")}
+
+
+def shard_trace(spans: list[dict]) -> dict:
+    """A shard process's cycles, read from its flight recorder
+    (``/debug/trace``): each cycle's span durations, the first cycle with
+    pending tasks in full, the solve rungs, and the coalesced batches."""
+    by_trace: dict[str, list] = {}
+    for s in spans:
+        by_trace.setdefault(s["trace_id"], []).append(s)
+    cycles = []
+    for group in by_trace.values():
+        root = next((s for s in group if s["name"] == "cycle"), None)
+        if root is None:
+            continue
+        dur = {}
+        for s in group:
+            dur.setdefault(s["name"], []).append(s["dur_us"] / 1e6)
+        solve = [s for s in group if s["name"] == "solve"]
+        enc = [s for s in group if s["name"] == "encode"]
+        batches = [s for s in group if s["name"] == "txn.batch"]
+        cycles.append({
+            "start_us": root["start_us"], "run_once_s": root["dur_us"] / 1e6,
+            "tasks": enc[0]["attrs"].get("tasks") if enc else 0,
+            "warm_fraction": enc[0]["attrs"].get("warm_fraction") if enc else None,
+            "tiers": [s["attrs"].get("tier") for s in solve],
+            "split_s": {k: sum(v) for k, v in dur.items() if k != "cycle"},
+            "txn_batches": [{k: b["attrs"].get(k) for k in ("gangs", "pods", "outcome", "conflicts")}
+                            for b in batches],
+            "gang_binds": len(dur.get("gang.bind", [])),
+        })
+    cycles.sort(key=lambda c: c["start_us"])
+    return {"cycles": cycles}
+
+
+class ShardProcess:
+    """One ``python -m kube_batch_tpu_torch.server --store-backend URL``
+    process: shard ``i`` of ``n`` (``KBT_FEDERATION``), keyed by gang, on
+    the card unless ``conf`` says ``device: cpu``, traced (``KBT_TRACE=1``,
+    the flight recorder read over ``/debug/trace``, no dumps), its log in a
+    file."""
+
+    def __init__(self, i: int, n: int, url: str, conf: str, logdir: str) -> None:
+        self.i = i
+        self.port = free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.log_path = os.path.join(logdir, f"federation-shard-{i}.log")
+        env = dict(os.environ, KBT_FEDERATION=f"{i}/{n}", KBT_SHARD_KEY="gang", KBT_TRACE="1",
+                   KBT_FLIGHT_RECORDER="0", PYTHONUNBUFFERED="1")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        self._log = open(self.log_path, "w")
+        self.t_start = time.perf_counter()
+        self.t_wall = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kube_batch_tpu_torch.server", "--store-backend", url, "--scheduler-conf", conf,
+             "--listen-address", f"127.0.0.1:{self.port}"],
+            cwd=root, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+        self.exit_code = None
+
+    def wait_up(self, deadline: float) -> float:
+        """Seconds from the start to the first 200 on ``/healthz``."""
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"shard {self.i} exited {self.proc.returncode} at start:\n{tail(self.log_path)}")
+            try:
+                if http(self.base, "GET", "/healthz")[0] == 200:
+                    return time.perf_counter() - self.t_start
+            except OSError:
+                pass
+            time.sleep(0.1)
+        raise AssertionError(f"shard {self.i} did not answer /healthz within {FED_START_S} s:\n{tail(self.log_path)}")
+
+    def scrape(self) -> dict:
+        code, text = http(self.base, "GET", "/metrics")
+        if code != 200:
+            raise AssertionError(f"shard {self.i} /metrics answered {code}")
+        return exposition_values(text)
+
+    def spans(self) -> list[dict]:
+        code, text = http(self.base, "GET", "/debug/trace")
+        if code != 200:
+            raise AssertionError(f"shard {self.i} /debug/trace answered {code}")
+        return json.loads(text)["spans"]
+
+    def stop(self, timeout: float = 60.0) -> int:
+        """SIGINT (the server's own shutdown: the loop, the slot lease
+        released, the backend's pump), then wait; a process that does not
+        end is killed and fails the phase."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+                self._log.close()
+                raise AssertionError(f"shard {self.i} did not end on SIGINT:\n{tail(self.log_path)}") from None
+        self._log.close()
+        self.exit_code = self.proc.returncode
+        return self.exit_code
+
+
+def federation_phase(device: str = "cuda", cut: int = 1, want: dict | None = None) -> tuple[dict, tuple[int, int]]:
+    """``federation_50k_5k``: the shipped compose topology's ``federation``
+    profile. The store is a ``SchedulerServer`` in this process (an
+    unmatched scheduler name: its loop solves nothing) over a
+    ``ClusterStore`` seeded with ``preempt_mix(50_000, 5_000)`` (59,501
+    objects, 2,000 Pending gangs); two shard processes, ``python -m
+    kube_batch_tpu_torch.server --store-backend URL`` with
+    ``KBT_FEDERATION=0/2`` and ``1/2`` and ``KBT_SHARD_KEY=gang``, each on
+    ``cuda:0`` with the twin pipeline conf, mirror it over wire v2 and
+    schedule their halves. Every pending pod must bind exactly once (a
+    store handler counts ``""`` -> node transitions), ``federation.fsck``
+    must be clean, the bound set must be the FakeCache cycle's, no shard
+    cycle may degrade (its solve spans' rung, its exposition's degraded
+    cycles, breaker transitions and fault injections, its log's native
+    fallbacks), and both processes must end on SIGINT with code 0."""
+    from kube_batch_tpu_torch import federation, metrics, models
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.cache import ClusterStore
+    from kube_batch_tpu_torch.server import SchedulerServer
+
+    on_card = device == "cuda"
+    pods, nodes = SERVER_WORLD[0] // cut, SERVER_WORLD[1] // cut
+    conf = conf_file(base=PIPELINE_CONF, device="cuda" if on_card else "cpu")
+    if want is None:
+        twin, twin_cache, _ = pipeline_cycle("federation_twin", models.preempt_mix(pods, nodes), conf, device)
+        want = dict(twin_cache.binder.binds)
+        del twin_cache
+    world = models.preempt_mix_objects(pods, nodes)
+    store = ClusterStore()
+    t0 = time.perf_counter()
+    tt.seed_store(store, *world)
+    ingest_s = time.perf_counter() - t0
+    pending = {f"{p.namespace}/{p.name}" for p in world[0] if not p.node_name}
+    gangs = len(world[2])
+    binds = StoreBinds(store)
+    threads_before = set(threading.enumerate())
+    arbiter = SchedulerServer(scheduler_name="store-arbiter", listen_address="127.0.0.1:0", schedule_period=3600.0,
+                              scheduler_conf=conf_file(base=PIPELINE_CONF, device="cpu"), store=store)
+    arbiter.start()
+    url = f"http://127.0.0.1:{arbiter.listen_port}"
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(logdir, exist_ok=True)
+    txn0 = metrics.store_backend_txn_batch.snapshot()
+    wake0 = dict(metrics.watch_longpoll_wakeups.samples())
+    shards: list[ShardProcess] = []
+    rec = {"phase": "federation_50k_5k", "pods": pods, "nodes": nodes, "gangs": gangs, "shards": FED_SHARDS,
+           "store_objects": sum(len(w) for w in world), "ingest_s": ingest_s, "shard_key": "gang"}
+    failed = None
+    try:
+        t_start = time.perf_counter()
+        shards = [ShardProcess(i, FED_SHARDS, url, conf, logdir) for i in range(FED_SHARDS)]
+        deadline = time.monotonic() + FED_START_S
+        up_s = [s.wait_up(deadline) for s in shards]
+        deadline = time.monotonic() + FED_WAIT_S
+        while time.monotonic() < deadline and len(binds.at) < len(pending):
+            if any(s.proc.poll() is not None for s in shards):
+                break
+            time.sleep(0.05)
+        all_bound_s = time.perf_counter() - t_start
+        dead = [(s.i, s.proc.returncode) for s in shards if s.proc.poll() is not None]
+        if dead:
+            raise AssertionError(f"shard processes ended early: {dead}")
+        if len(binds.at) < len(pending):
+            raise AssertionError(f"{len(binds.at)} of {len(pending)} pending pods bound within {FED_WAIT_S} s")
+        twice = {k: v for k, v in binds.counts.items() if v > 1}
+        if twice:
+            raise AssertionError(f"{len(twice)} pods bound more than once: {list(twice.items())[:3]}")
+        if set(binds.at) != pending:
+            raise AssertionError(f"bound {len(set(binds.at) - pending)} pods that were not pending")
+        if set(binds.at) != set(want):
+            raise AssertionError(f"the bound set differs from the FakeCache cycle's: {len(binds.at)} against "
+                                 f"{len(want)}, {len(set(want) - set(binds.at))} missing")
+        time.sleep(1.5)  # one more period: the shards' last dispatches settle and their idle cycles run
+        violations = federation.fsck(store, shard_key="gang")
+        if violations:
+            raise AssertionError(f"fsck: {violations[:5]}")
+        checks = store_checks(store)
+        per_shard = []
+        for s in shards:
+            values, trace = s.scrape(), shard_trace(s.spans())
+            conflicts = labelled(values, "federation_conflicts_total")
+            wire_bytes = labelled(values, "store_backend_bytes_total")
+            rtt = labelled(values, "store_backend_rtt_seconds_sum")
+            rtt_n = labelled(values, "store_backend_rtt_seconds_count")
+            bad = {name: labelled(values, name) for name in (
+                "degraded_cycles_total", "breaker_transitions_total", "fault_injections_total")}
+            bad = {k: {lk: v for lk, v in d.items() if v} for k, d in bad.items()}
+            if any(bad.values()):
+                raise AssertionError(f"shard {s.i} degraded: {bad}")
+            with open(s.log_path) as f:
+                native_fallbacks = sum(1 for line in f if "using the Python twin" in line)
+            if native_fallbacks:
+                raise AssertionError(f"shard {s.i} fell back from the native loops:\n{tail(s.log_path)}")
+            cycles = trace["cycles"]
+            working = [c for c in cycles if c["tasks"]]
+            if not working:
+                raise AssertionError(f"shard {s.i} ran no cycle with pending tasks")
+            wrong = [c["tiers"] for c in working if c["tiers"] != ["fused"]]
+            if on_card and wrong:
+                raise AssertionError(f"shard {s.i} solved below the fused rung: {wrong}")
+            by_codec: dict[str, float] = {}
+            for k, v in wire_bytes.items():
+                codec = k.split('codec="')[1].split('"')[0]
+                by_codec[codec] = by_codec.get(codec, 0.0) + v
+            # the negotiation read and the lease verbs are JSON by design;
+            # the list, the watch and the binds ride the binary codec
+            if by_codec.get("binary", 0.0) <= by_codec.get("json", 0.0):
+                raise AssertionError(f"shard {s.i} moved {by_codec} bytes: wire v2's binary codec not negotiated")
+            first = working[0]
+            per_shard.append({
+                "shard": f"{s.i}/{FED_SHARDS}", "up_s": up_s[s.i],
+                "first_cycle_after_s": first["start_us"] / 1e6 - s.t_wall,
+                "list_rtt_s": {k: v for k, v in rtt.items() if "list" in k},
+                "rtt_s": sum(rtt.values()), "requests": sum(rtt_n.values()),
+                "cycle_1": first, "cycles": len(cycles), "working_cycles": len(working),
+                "b1_launches": sum(c["tiers"].count("fused") for c in cycles) if on_card else 0,
+                "conflicts": conflicts, "bind_retries": labelled(values, "bind_retries_total").get("", 0.0),
+                "wire_bytes": wire_bytes, "bytes_by_codec": by_codec,
+                "warm_fractions": [c["warm_fraction"] for c in working],
+            })
+        txn1 = metrics.store_backend_txn_batch.snapshot()
+        wake1 = dict(metrics.watch_longpoll_wakeups.samples())
+        batches = txn1["count"] - txn0["count"]
+        if batches < FED_SHARDS:
+            raise AssertionError(f"the store saw {batches} coalesced txn batches: wire v2 was not negotiated")
+        total_bytes = sum(sum(p["wire_bytes"].values()) for p in per_shard)
+        rec.update(
+            all_bound_s=all_bound_s, binds=len(binds.at), exactly_once=True, fsck_violations=[],
+            equal_to_fakecache_bound_set=True, protocol=2, **checks,
+            txn_batches=batches, txn_batch_mean=(txn1["sum"] - txn0["sum"]) / batches,
+            longpoll_wakeups={str(dict(k)): v - wake0.get(k, 0) for k, v in wake1.items()},
+            wire_bytes_per_bind=total_bytes / len(binds.at), shard=per_shard,
+            b1_launches=sum(p["b1_launches"] for p in per_shard),
+        )
+    except Exception as e:  # noqa: BLE001 - raised below, after every process is stopped
+        failed = e
+    finally:
+        codes = []
+        for s in shards:
+            try:
+                codes.append(s.stop())
+            except AssertionError as e:
+                failed = failed or e
+                codes.append(None)
+        arbiter.stop()
+    if failed is None and codes != [0] * len(shards):
+        failed = AssertionError(f"shard processes exited {codes}")
+    if failed is not None:
+        logs = "\n".join(f"--- shard {s.i} (exit {s.exit_code}) ---\n{tail(s.log_path)}" for s in shards)
+        raise AssertionError(f"{failed}\n{logs}") from failed
+    join_new_threads(threads_before, "federation_50k_5k")
+    rec["exit_codes"] = codes
+    if on_card and rec["b1_launches"] < FED_SHARDS:
+        raise AssertionError(f"{rec['b1_launches']} B1 launches over {FED_SHARDS} shards")
+    if cut > 1:
+        rec["reduced"] = {"pods": [SERVER_WORLD[0], pods], "nodes": [SERVER_WORLD[1], nodes]}
+    # the shards are processes of their own: their launches are read from
+    # their solve spans, not from this process's counters
+    return rec, (rec["b1_launches"], 0)
+
+
+def scaleout_conf(device: str) -> str:
+    """bench.py federation_scaleout_row's conf: ``enqueue, torch_allocate``
+    with priority, gang, conformance, predicates and nodeorder, the size
+    floor off."""
+    from kube_batch_tpu_torch import federation
+    from kube_batch_tpu_torch.ops import nvcc
+
+    os.makedirs(nvcc.BUILD_DIR, exist_ok=True)
+    return federation.write_conf(device, bulk=True, directory=nvcc.BUILD_DIR)
+
+
+def seed_scaleout(store, gangs: int, members: int, nodes: int) -> None:
+    from kube_batch_tpu_torch import testing as tt
+
+    store.create_queue(tt.build_queue("default"))
+    for i in range(nodes):
+        store.create_node(tt.build_node(f"n{i}", tt.build_resource_list(cpu=16, memory="32Gi", pods=32)))
+    for g in range(gangs):
+        store.create_pod_group(tt.build_pod_group(f"f{g}", min_member=members))
+        for m in range(members):
+            store.create_pod(tt.build_pod(name=f"f{g}-p{m}", group_name=f"f{g}",
+                                          req=tt.build_resource_list(cpu=1, memory="1Gi")))
+
+
+def scaleout_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+    """``federation_scaleout_50k_5k``: bench.py's ``federation_scaleout_row``
+    world (5,000 gangs x 10 pods of 1 cpu / 1Gi on 5,000 nodes of 16 cpu /
+    32Gi / 32 pods) and conf at N = 4: four ``FederatedCache`` +
+    ``Scheduler`` threads over one ``ClusterStore`` (``shard_key="gang"``,
+    period 0.02 s, inline writes), each solving on ``cuda:0``. Every pod
+    must bind exactly once within 300 s and ``fsck`` must be clean; each
+    shard's cycles solve on the fused rung."""
+    from kube_batch_tpu_torch import federation, metrics
+    from kube_batch_tpu_torch.cache import ClusterStore
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    gangs, members, nodes = SCALEOUT_WORLD[0] // cut, SCALEOUT_WORLD[1], SCALEOUT_WORLD[2] // cut
+    total = gangs * members
+    conf = scaleout_conf(device)
+    store = ClusterStore()
+    t0 = time.perf_counter()
+    seed_scaleout(store, gangs, members, nodes)
+    ingest_s = time.perf_counter() - t0
+    binds = StoreBinds(store)
+
+    def conflicts() -> dict:
+        return {o: metrics.federation_conflicts.value({"outcome": o}) for o in ("clean", "won", "retried", "lost")} | {
+            "bind_retries": metrics.bind_retries.value()}
+
+    before = conflicts()
+    t0 = time.perf_counter()
+    caches = [federation.FederatedCache(store, shard=i, shards=SCALEOUT_SHARDS, shard_key="gang")
+              for i in range(SCALEOUT_SHARDS)]
+    cache_sync_s = time.perf_counter() - t0
+    logs, threads = [], []
+    stop = threading.Event()
+    threads_before = set(threading.enumerate())
+    b1_0, b2_0 = fs.fused_solve.launches, bs.block_step.launches
+    t_start = time.perf_counter()
+    for i, cache in enumerate(caches):
+        sched = Scheduler(cache, scheduler_conf=conf, schedule_period=0.02)
+        # the conf's action objects are the process's (as in the JAX
+        # package), so their last_* records would be whichever shard ran
+        # last: each shard gets its own, and its record is its own
+        sched.actions = [type(a)() for a in sched.actions]
+        logs.append(CycleLog(sched, device))
+        t = threading.Thread(target=sched.run, args=(stop,), kwargs={"device": "cuda:0" if device == "cuda" else None},
+                             name=f"kb-fed-{i}", daemon=True)
+        t.start()
+        threads.append(t)
+    try:
+        deadline = time.monotonic() + SCALEOUT_WAIT_S
+        while time.monotonic() < deadline and len(binds.at) < total and not any(lg.errors for lg in logs):
+            time.sleep(0.01)
+        drain_s = time.perf_counter() - t_start
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        for c in caches:
+            c.stop()  # the loop started each cache's write and resync pools
+    join_new_threads(threads_before, "federation_scaleout_50k_5k")
+    for i, lg in enumerate(logs):
+        lg.check(f"federation_scaleout_50k_5k shard {i}")
+    if len(binds.at) < total:
+        raise AssertionError(f"{len(binds.at)} of {total} pods bound within {SCALEOUT_WAIT_S} s")
+    twice = {k: v for k, v in binds.counts.items() if v > 1}
+    if twice:
+        raise AssertionError(f"{len(twice)} pods bound more than once")
+    violations = federation.fsck(store, shard_key="gang")
+    if violations:
+        raise AssertionError(f"fsck: {violations[:5]}")
+    after = conflicts()
+    b1, b2 = fs.fused_solve.launches - b1_0, bs.block_step.launches - b2_0
+    per_shard = []
+    for i, lg in enumerate(logs):
+        working = [c for c in lg.cycles if c["pending"]]
+        per_shard.append({
+            "shard": f"{i}/{SCALEOUT_SHARDS}", "cycles": len(lg.cycles), "working_cycles": len(working),
+            # one fused solve, one launch: this world pauses for no host step
+            "b1_launches": sum(1 for c in working if c["last_solver_tier"] == "fused"),
+            "warm_fraction": [c["torch_allocate"].get("warm_fraction") for c in working],
+            "run_once_s": [c["run_once_s"] for c in working],
+            "pending": [c["pending"] for c in working],
+            "encode_s": [c["torch_allocate"].get("encode_s") for c in working],
+            "split_s": [{k: v for k, v in c["cycle"].items() if k.endswith("_s")} for c in working],
+            "torch_allocate_s": [{k: v for k, v in c["torch_allocate"].items() if k.endswith("_s")}
+                                 for c in working],
+        })
+    if device == "cuda" and (sum(p["b1_launches"] for p in per_shard) != b1 or b2 or b1 < SCALEOUT_SHARDS):
+        raise AssertionError(f"{b1} B1 launches (shards: {[p['b1_launches'] for p in per_shard]}), {b2} B2")
+    rec = {
+        "phase": "federation_scaleout_50k_5k", "gangs": gangs, "members": members, "nodes": nodes, "pods": total,
+        "shards": SCALEOUT_SHARDS, "ingest_s": ingest_s, "cache_sync_s": cache_sync_s, "drain_s": drain_s,
+        "binds_per_s": total / drain_s, "conflicts": {k: after[k] - before[k] for k in after},
+        "exactly_once": True, "fsck_violations": [], "shard": per_shard, "b1_launches": b1, "b2_launches": b2,
+        **store_checks(store),
+    }
+    if cut > 1:
+        rec["reduced"] = {"gangs": [SCALEOUT_WORLD[0], gangs], "nodes": [SCALEOUT_WORLD[2], nodes]}
+    return rec, (b1, b2)
+
+
+def fed_drill(kind: str, device: str, tmp: str) -> dict:
+    """One federation drill over ``federation.smoke``'s world (6 gangs x 3
+    pods of 1 cpu on 8 nodes), the bulk conf on ``device``; the schedulers'
+    cycles run one after another (``run_once``), so the end is the same on
+    the card and the CPU. Returns the drill's outcome (its ``final``
+    placements included) and the B1 launches of its cycles."""
+    from kube_batch_tpu_torch import faults, federation, metrics
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.cache import ClusterStore, LoopbackBackend
+    from kube_batch_tpu_torch.cache.store import LEASES
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.server import SchedulerServer
+
+    gangs, members, n_nodes = FED_DRILL_WORLD
+    total = gangs * members
+    conf = federation.write_conf(device, bulk=True, directory=tmp)
+    b1_0 = fs.fused_solve.launches
+    fired0 = dict(metrics.fault_injections.samples())
+    out: dict = {}
+    servers: list = []
+
+    def counters() -> dict:
+        return {**{o: metrics.federation_conflicts.value({"outcome": o}) for o in ("clean", "won", "retried", "lost")},
+                "bind_retries": metrics.bind_retries.value(),
+                **{f"adopt_{k[0][1]}": v for k, v in metrics.shard_adoptions.samples().items()},
+                **{f"handoff_{k[0][1]}": v for k, v in metrics.shard_handoffs.samples().items()},
+                "txn_batches": metrics.store_backend_txn_batch.snapshot()["count"]}
+
+    def store_server(wire_protocol: int = 2):
+        store = ClusterStore()
+        federation._seed_world(store, gangs, members, n_nodes)
+        srv = SchedulerServer(scheduler_name="store-arbiter", listen_address="127.0.0.1:0", schedule_period=3600.0,
+                              scheduler_conf=conf_file(base=PIPELINE_CONF, device="cpu"), store=store,
+                              wire_protocol=wire_protocol)
+        srv.start()
+        servers.append(srv)
+        return store, f"http://127.0.0.1:{srv.listen_port}"
+
+    def slot_pair(store):
+        caches, mgrs, scheds = [], [], []
+        for i in range(2):
+            cache = federation.FederatedCache(store, shard=i, shards=2, shard_key="gang")
+            mgr = federation.ShardSlotManager(store, cache, identity=f"mgr-{i}", lease_s=60.0, renew_s=1.0,
+                                              adopt=True, journal_dir=tmp, grace_s=0.0, rebalance=0)
+            store.try_acquire_lease(federation.slot_lease_name(i), mgr.identity, mgr.lease_s)
+            mgr._set_owned({i})
+            caches.append(cache)
+            mgrs.append(mgr)
+            scheds.append(Scheduler(cache, scheduler_conf=conf))
+        return caches, mgrs, scheds
+
+    def drive(scheds, store, backends=(), rounds: int = 6) -> None:
+        for _ in range(rounds):
+            for b in backends:
+                b.pump()
+            for s in scheds:
+                s.run_once()
+            for b in backends:
+                b.pump()
+            if sum(1 for p in store.list("pods") if p.node_name) >= total:
+                return
+
+    c0 = counters()
+    try:
+        if kind == "a_kill_one":
+            r = federation.smoke_kill_one(device=device, bulk=True)
+            out = {k: r[k] for k in ("ok", "pods", "bound", "victim_slot", "victim_gangs", "double_owned",
+                                     "exactly_once", "double_binds", "fsck_violations", "union_parity")}
+            out["timing"] = {k: r[k] for k in ("takeover_s", "mttr_s", "takeover_window_s",
+                                               "unowned_window_observed")}
+            if not r["ok"]:
+                raise AssertionError(f"a_kill_one: {r}")
+            out["final"] = {}
+            out["pods_bound"] = r["bound"]
+        else:
+            armed = None
+            if kind == "b_stale_assign":
+                store = ClusterStore()
+                federation._seed_world(store, gangs, members, n_nodes)
+                # a placement on every node: a stale version conflicts wherever a gang lands
+                for i in range(n_nodes):
+                    store.create_pod(tt.build_pod(name=f"warm-{i}", req=tt.build_resource_list(cpu=1),
+                                                  scheduler_name="elsewhere"))
+                    store.conditional_bind_many([("default", f"warm-{i}", f"n{i}")], store.version)
+                binds = StoreBinds(store)
+                cache = federation.FederatedCache(store, shard=0, shards=1, shard_key="gang")
+                armed = "federation.stale_assign"
+                faults.registry.arm(armed, count=1)
+                drive([Scheduler(cache, scheduler_conf=conf)], store)
+            elif kind in ("c_txn_batch", "d_partition", "h_v1_server"):
+                store, url = store_server(1 if kind == "h_v1_server" else 2)
+                binds = StoreBinds(store)
+                n = 2 if kind == "h_v1_server" else 1
+                backends = [LoopbackBackend(url) for _ in range(n)]
+                caches = [federation.FederatedCache(b, shard=i, shards=n, shard_key="gang",
+                                                    staleness_fn=b.snapshot_age) for i, b in enumerate(backends)]
+                scheds = [Scheduler(c, scheduler_conf=conf) for c in caches]
+                out["negotiated"] = [[b._protocol, b._codec, b.supports_txn()] for b in backends]
+                if kind == "c_txn_batch":
+                    armed = "store.txn_batch"
+                    faults.registry.arm(armed, count=1)
+                elif kind == "d_partition":
+                    armed = "federation.partition"
+                    faults.registry.arm(armed, count=1)
+                    store.create_pod_group(tt.build_pod_group("late", min_member=1))
+                    store.create_pod(tt.build_pod(name="late-p0", group_name="late",
+                                                  req=tt.build_resource_list(cpu=1, memory="512Mi")))
+                    total += 1
+                    out["partitioned_pump"] = backends[0].pump()
+                    out["renegotiate"] = backends[0]._needs_negotiation
+                    out["late_seen_before_heal"] = backends[0].get_pod("default", "late-p0") is not None
+                    out["healed_pump_events"] = backends[0].pump() >= 1
+                    out["late_seen_after_heal"] = backends[0].get_pod("default", "late-p0") is not None
+                    out["negotiated_after_heal"] = [backends[0]._protocol, backends[0]._codec]
+                drive(scheds, store, backends)
+                for b in backends:
+                    b.stop()
+            else:
+                store = ClusterStore()
+                federation._seed_world(store, gangs, members, n_nodes)
+                binds = StoreBinds(store)
+                caches, mgrs, scheds = slot_pair(store)
+                if kind == "e_adopt_fails_once":
+                    store.release_lease(federation.slot_lease_name(0), "mgr-0")
+                    mgrs[0]._set_owned(set())
+                    scheds = scheds[1:]
+                    armed = "shard.adopt"
+                    faults.registry.arm(armed, count=1)
+                    mgrs[1].step()
+                    out["owned_after_failure"] = sorted(mgrs[1].owned_slots())
+                    out["lease_after_failure"] = store.get(LEASES, federation.slot_lease_name(0)).holder_identity
+                    mgrs[1].step()
+                elif kind == "f_handoff":
+                    store.release_lease(federation.slot_lease_name(1), "mgr-1")
+                    mgrs[1]._set_owned(set())
+                    mgrs[0].step()
+                    out["adopted"] = sorted(mgrs[0].owned_slots())
+                    out["handed_off"] = mgrs[0].handoff(1)
+                    mgrs[1].step()
+                    armed = "shard.handoff"
+                    faults.registry.arm(armed, count=1)
+                    out["failed_handoff_kept"] = not mgrs[1].handoff(1)
+                elif kind == "g_lease_flap":
+                    lease0 = store.get(LEASES, federation.slot_lease_name(0))
+                    armed = "shard.lease_flap"
+                    faults.registry.arm(armed, count=1)
+                    mgrs[0].step()
+                    mgrs[1].step()
+                    mgrs[0].step()
+                    lease1 = store.get(LEASES, federation.slot_lease_name(0))
+                    out["holder"] = lease1.holder_identity
+                    out["transitions"] = lease1.lease_transitions - lease0.lease_transitions
+                out["owned"] = [sorted(m.owned_slots()) for m in mgrs]
+                out["holders"] = [store.get(LEASES, federation.slot_lease_name(i)).holder_identity for i in range(2)]
+                drive(scheds, store)
+            fired = {str(dict(k)): v - fired0.get(k, 0) for k, v in metrics.fault_injections.samples().items()
+                     if v != fired0.get(k, 0)}
+            want_fired = {str({"point": armed}): 1.0} if armed else {}
+            if fired != want_fired:
+                raise AssertionError(f"{kind}: fault points fired {fired}, armed {want_fired}")
+            final = placements(store)
+            bound = {k for k, v in final.items() if v and not k.startswith("default/warm-")}
+            if len(bound) != total:
+                raise AssertionError(f"{kind}: {len(bound)} of {total} pods bound")
+            twice = {k: v for k, v in binds.counts.items() if v > 1}
+            if twice:
+                raise AssertionError(f"{kind}: pods bound twice: {twice}")
+            violations = federation.fsck(store, shard_key="gang")
+            if violations:
+                raise AssertionError(f"{kind}: fsck: {violations}")
+            out.update(final=final, pods_bound=len(bound), exactly_once=True, fsck_violations=[], fired=fired,
+                       **store_checks(store))
+    finally:
+        faults.registry.reset()
+        for srv in servers:
+            srv.stop()
+    c1 = counters()
+    out["counters"] = {k: v - c0.get(k, 0) for k, v in c1.items() if v != c0.get(k, 0)}
+    out["b1_launches"] = fs.fused_solve.launches - b1_0
+    return out
+
+
+def federation_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``federation_drills``: each drill of ``FED_DRILLS`` on the card and
+    again on the CPU, ending equal (placements, exactly-once, ``fsck``, the
+    adoption, handoff and conflict outcomes): (a) the kill drill, the owner
+    dying mid-``bind_many`` (``smoke_kill_one``, 4 shards, 16 gangs x 2 on
+    12 nodes, leases 1.0 / 0.25 s; which survivor adopts, and when, is a
+    race, so its bound count and outcome are compared); (b)
+    ``federation.stale_assign``: a conflict, a retry with a fresh version
+    and a win; (c) ``store.txn_batch``: the coalesced batch degrades to
+    per-gang writes; (d) ``federation.partition``: a pump round dropped,
+    the next one renegotiates and delivers what the store made meanwhile;
+    (e) ``shard.adopt`` fails once and the retry adopts; (f) a graceful
+    handoff, then ``shard.handoff`` failing keeps the slot; (g)
+    ``shard.lease_flap``: one renewal round dropped, no new holder; (h) a
+    v2 client against a server pinned to v1. Only the armed point may
+    fire."""
+    import tempfile
+
+    from kube_batch_tpu_torch import metrics, native
+
+    on_card = device == "cuda"
+    threads_before = set(threading.enumerate())
+    t0 = time.perf_counter()
+    out = {"phase": "federation_drills", "world": "gangs x members on nodes = %d x %d on %d" % FED_DRILL_WORLD}
+    launches = 0
+    for kind in FED_DRILLS:
+        before = {"degraded": sum(metrics.degraded_cycles.samples().values()),
+                  "breakers": sum(metrics.breaker_transitions.samples().values()),
+                  "native": sum(native.fallbacks.values())}
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="kbt-fed-drill-") as tmp:
+            rec = fed_drill(kind, device, tmp)
+        rec["s"] = time.perf_counter() - t1
+        after = {"degraded": sum(metrics.degraded_cycles.samples().values()),
+                 "breakers": sum(metrics.breaker_transitions.samples().values()),
+                 "native": sum(native.fallbacks.values())}
+        if after != before:
+            raise AssertionError(f"{kind}: degraded outside the drill's intent: {before} -> {after}")
+        if on_card:
+            with tempfile.TemporaryDirectory(prefix="kbt-fed-drill-") as tmp:
+                cpu = fed_drill(kind, "cpu", tmp)
+            # the kill drill's threads race: its conflict counts are timing, not outcome
+            racy = ("s", "timing", "b1_launches") + (("counters",) if kind == "a_kill_one" else ())
+            mine = {k: v for k, v in rec.items() if k not in racy}
+            theirs = {k: v for k, v in cpu.items() if k not in racy}
+            if mine != theirs:
+                diff = sorted(k for k in set(mine) | set(theirs) if mine.get(k) != theirs.get(k))
+                raise AssertionError(f"{kind}: the card's run ends unlike the CPU's in {diff}")
+            if rec["b1_launches"] < 1:
+                raise AssertionError(f"{kind}: no B1 launch on the card")
+            launches += rec["b1_launches"]
+        del rec["final"]
+        rec["equal_to_cpu_drill"] = on_card
+        out[kind] = rec
+    join_new_threads(threads_before, "federation_drills")
+    out.update(s=time.perf_counter() - t0, b1_launches=launches)
+    return out, (launches, 0)
+
+
+def federation_phases(device: str = "cuda", cut: int = 1, shared: dict | None = None) -> tuple[list[str], dict]:
+    """The federation's phases: ``federation_50k_5k`` (two shard processes
+    over a store of this process), ``federation_scaleout_50k_5k`` (four
+    shard threads) and ``federation_drills``. Returns the failures and the
+    launches of each phase's main path."""
+    failures, launches = [], {}
+
+    def processes():
+        rec, launches["federation_50k_5k"] = federation_phase(device, cut, (shared or {}).get("want"))
+        emit(rec)
+
+    def scaleout():
+        rec, launches["federation_scaleout_50k_5k"] = scaleout_phase(device, cut)
+        emit(rec)
+
+    def drills():
+        rec, launches["federation_drills"] = federation_drills(device)
+        emit(rec)
+
+    run_phase(failures, "federation_50k_5k", processes)
+    run_phase(failures, "federation_scaleout_50k_5k", scaleout)
+    run_phase(failures, "federation_drills", drills, drill=True)
+    return failures, launches
+
+
+def server_phases(device: str = "cuda", cut: int = 1, shared: dict | None = None) -> tuple[list[str], dict]:
     """The process's phases: ``server_50k_5k`` (undisturbed),
     ``server_drills`` (they inject their faults), ``ha_failover_50k_5k``
     (the leader's death is no fault point: any degradation fails it) and
     ``ha_drills``. Returns the failures and the launches of each phase's
     main path."""
-    failures, launches, shared = [], {}, {}
+    failures, launches = [], {}
+    shared = {} if shared is None else shared
 
     def server():
         rec, launches["server_50k_5k"] = server_phase(device, cut, shared)
@@ -3172,7 +3902,7 @@ def server_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict]:
         emit(rec)
 
     def failover():
-        rec, launches["ha_failover_50k_5k"] = ha_failover_phase(device, cut, shared.pop("want", None))
+        rec, launches["ha_failover_50k_5k"] = ha_failover_phase(device, cut, shared.get("want"))
         emit(rec)
 
     def ha():
@@ -3207,6 +3937,28 @@ def pipeline_uncut(card: str, kind: str) -> int:
     return 0
 
 
+def federation_only(card: str, kind: str) -> int:
+    """``--federation``: the kernels' build and the federation's three
+    phases alone (``federation_50k_5k`` computes its own FakeCache
+    reference cycle)."""
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+
+    t_start = time.perf_counter()
+    nvcc.build(["fused_solve", "block_step"])
+    fs._library.load()
+    bs._library.load()
+    emit(native_build())
+    failures, launches = federation_phases()
+    emit({"phase": "total", "s": time.perf_counter() - t_start, "launches": {k: list(v) for k, v in launches.items()}})
+    if failures:
+        return 1
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})
+    return 0
+
+
 def rehearse(argv: list[str]) -> int:
     """``--rehearse CUT``: the pipeline, fast-path, ladder, trace and process
     phases on the CPU, every world's pod and node counts divided by CUT,
@@ -3227,8 +3979,11 @@ def rehearse(argv: list[str]) -> int:
     failures += fast_failures + degradation_failures()
     ladder_failures, _ = ladder_trace_phases({}, {}, device="cpu", cut=cut)
     failures += ladder_failures
-    server_failures, _ = server_phases(device="cpu", cut=cut)
+    shared: dict = {}
+    server_failures, _ = server_phases(device="cpu", cut=cut, shared=shared)
     failures += server_failures
+    fed_failures, _ = federation_phases(device="cpu", cut=cut, shared=shared)
+    failures += fed_failures
     emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
     return 1 if failures else 0
 
@@ -3324,17 +4079,19 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if argv in (["--cards"], ["--pipeline-uncut"]) or argv[:1] == ["--ab-warm"] and len(argv) == 2:
+    if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"]) or argv[:1] == ["--ab-warm"] and len(argv) == 2:
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
         if argv == ["--cards"]:
             return distinct_cards(card)
         if argv[0] == "--ab-warm":
             return ab_warm(argv[1])
+        if argv == ["--federation"]:
+            return federation_only(card, torch.cuda.get_device_name(0))
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--ab-warm DIR | --rehearse CUT]", file=sys.stderr)
+              "--federation | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.ops import block_step as bs
@@ -3522,8 +4279,13 @@ def main(argv: list[str]) -> int:
     failures += ladder_failures
     # -- the port as a process: store, cache, loop and HTTP -----------------
     clusters.clear()  # free the main worlds: the process phases generate their own
-    server_failures, server_launches = server_phases()
+    shared: dict = {}
+    server_failures, server_launches = server_phases(shared=shared)
     failures += server_failures
+    # -- the port as a federation: shard processes and threads over one store
+    fed_failures, fed_launches = federation_phases(shared=shared)
+    failures += fed_failures
+    shared.clear()
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
@@ -3531,6 +4293,7 @@ def main(argv: list[str]) -> int:
     cycle_launches.update(fast_launches)
     cycle_launches.update(ladder_launches)
     cycle_launches.update(server_launches)
+    cycle_launches.update(fed_launches)
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 

@@ -1,7 +1,14 @@
 """The event-driven cluster cache (reference pkg/scheduler/cache): the
 in-process ``ClusterStore`` (store.py) and the ``SchedulerCache`` its
-event handlers feed, with the store-backed write side (cache.py)."""
+event handlers feed, with the store-backed write side (cache.py), and the
+store-backend surface with its HTTP client (backend.py)."""
 
+from kube_batch_tpu_torch.cache.backend import (
+    BackendPartitioned,
+    InProcessBackend,
+    LoopbackBackend,
+    StoreBackend,
+)
 from kube_batch_tpu_torch.cache.cache import (
     NoopVolumeBinder,
     SchedulerCache,
@@ -30,8 +37,11 @@ from kube_batch_tpu_torch.cache.store import (
 
 __all__ = [
     "AlreadyExists",
+    "BackendPartitioned",
     "ClusterStore",
     "EventHandler",
+    "InProcessBackend",
+    "LoopbackBackend",
     "StaleWrite",
     "KINDS",
     "NODES",
@@ -42,6 +52,7 @@ __all__ = [
     "PRIORITY_CLASSES",
     "QUEUES",
     "SchedulerCache",
+    "StoreBackend",
     "StoreBinder",
     "StoreEvictor",
     "StoreStatusUpdater",

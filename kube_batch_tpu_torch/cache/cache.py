@@ -48,11 +48,21 @@ reconciliation. An append failure (I/O, the ``journal.append`` point)
 dispatches the batch unjournaled, counted in
 ``journal_records_total{state="append_failed"}`` and logged.
 
-The JAX package's cache also dispatches binds and evicts as conditional
-(versioned) store transactions per gang, coalesced into txn batches, for
-federation, attaches an explain payload to each intent, and clones jobs
-for streaming micro-cycles; those come with the port's later items
-(ROADMAP A), and this constructor does not accept them until then.
+Federation (``conditional_binds=``, on by default when ``KBT_FEDERATION``
+is set): bulk binds and evicts go out as conditional (versioned) store
+transactions, one per gang, each carrying the store version the last
+``snapshot()`` solved over. With ``KBT_TXN_COALESCE`` on (the default) and
+a store that offers ``submit_txn`` (``cache/backend.py`` over wire v2),
+every gang of one dispatch rides one round trip. A loser retries with a
+fresh version up to ``KBT_CONFLICT_MAX_RETRIES`` (default 3) times, then
+accepts store truth: its intents are confirmed and its tasks resync.
+``_pod_filter`` is the hook ``federation.FederatedCache`` overrides to keep
+one shard's pending pods (with its own ``_has_task`` dedupe guard).
+
+The JAX package's cache also attaches an explain payload to each intent
+and clones jobs for streaming micro-cycles; those come with the port's
+later items (ROADMAP A), and this constructor does not accept them until
+then.
 """
 
 from __future__ import annotations
@@ -97,6 +107,7 @@ from kube_batch_tpu_torch.cache.store import (
     STORAGE_CLASSES,
     ClusterStore,
     EventHandler,
+    StaleWrite,
     obj_key,
 )
 from kube_batch_tpu_torch.ops import encode_cache as _encode_cache
@@ -172,6 +183,13 @@ class StoreBinder:
         bound = dataclasses.replace(pod, node_name=hostname)
         self._store.update_pod(bound)
 
+    def bind_many_versioned(
+        self, bindings: list[tuple[str, str, str]], snapshot_version: int
+    ) -> None:
+        """Optimistic gang transaction: all entries commit or the store
+        raises StaleWrite (federation dispatch path, one gang per call)."""
+        self._store.conditional_bind_many(bindings, snapshot_version)
+
 
 class StoreEvictor:
     """Default Evictor: deletes the pod from the store (the reference's
@@ -183,6 +201,15 @@ class StoreEvictor:
     def evict(self, pod: Pod) -> None:
         log.debug("Evicting pod %s/%s", pod.namespace, pod.name)
         self._store.delete_pod(pod.namespace, pod.name)
+
+    def evict_versioned(self, pod: Pod, snapshot_version: int) -> None:
+        """Optimistic evict: rejected with StaleWrite when the pod's node
+        took a placement write the snapshot never saw."""
+        log.debug(
+            "Evicting pod %s/%s (snapshot v%d)",
+            pod.namespace, pod.name, snapshot_version,
+        )
+        self._store.conditional_evict(pod.namespace, pod.name, snapshot_version)
 
 
 class StoreStatusUpdater:
@@ -468,6 +495,7 @@ class SchedulerCache:
         volume_binder=None,
         journal=None,
         staleness_fn=None,
+        conditional_binds: Optional[bool] = None,
     ) -> None:
         self._mutex = threading.RLock()
         self.store = store
@@ -523,6 +551,38 @@ class SchedulerCache:
                 os.environ.get("KBT_RESYNC_MAX_RETRIES"),
             )
             self._resync_max_retries = 15
+        # Omega-style optimistic dispatch (federation): bulk binds and
+        # evicts go through the store's conditional transactions, one
+        # gang per transaction, carrying the snapshot's store version.
+        # A StaleWrite loser refreshes its version and retries up to
+        # KBT_CONFLICT_MAX_RETRIES times with jittered backoff; a
+        # terminal loser accepts store truth (confirm the intent, resync
+        # the gang's tasks). On by default when KBT_FEDERATION is set;
+        # federation.py passes conditional_binds=True explicitly.
+        if conditional_binds is None:
+            conditional_binds = bool(os.environ.get("KBT_FEDERATION", ""))
+        self._conditional_binds = conditional_binds
+        try:
+            self._conflict_max_retries = max(
+                0, int(os.environ.get("KBT_CONFLICT_MAX_RETRIES", "3"))
+            )
+        except ValueError:
+            log.error(
+                "KBT_CONFLICT_MAX_RETRIES=%r is not an integer; using 3",
+                os.environ.get("KBT_CONFLICT_MAX_RETRIES"),
+            )
+            self._conflict_max_retries = 3
+        # Coalesced conditional writes (wire protocol v2): every gang
+        # dispatched by one cycle rides ONE /backend/v1/txn round trip
+        # (all-or-nothing per gang, per-txn conflict results) when the
+        # negotiated backend supports it. Off -> per-gang round trips.
+        self._txn_coalesce = os.environ.get(
+            "KBT_TXN_COALESCE", "1"
+        ).lower() not in ("", "0", "false")
+        # Store version this cache's latest snapshot solved over — the
+        # version every conditional dispatch carries (#: guarded_by _mutex
+        # for writes; dispatch reads the int atomically).
+        self._snapshot_version = 0
         self._writer: Optional[ThreadPoolExecutor] = None
         self._workers: list[threading.Thread] = []
         self._stop = threading.Event()
@@ -1064,14 +1124,203 @@ class SchedulerCache:
                     for pod, hostname, task in resolved
                 ],
             )
+            # the kb-write pool thread has no ambient contextvar context:
+            # capture the current span HERE and pass it through, or the
+            # async half of the bind would start a disconnected trace
             self._submit_write(
                 self._do_bind_many,
                 [(p, h, t, s) for (p, h, t), s in zip(resolved, seqs)],
+                obs.current(),
             )
 
-    def _do_bind_many(self, resolved: list) -> None:
+    def _do_bind_many(self, resolved: list, ctx=None) -> None:
+        if self._conditional_binds and hasattr(self.binder, "bind_many_versioned"):
+            # one optimistic transaction per gang: a gang commits whole
+            # or loses whole, so the conflict loser re-solves a complete
+            # gang instead of reconciling a half-bound one
+            gangs: dict[str, list] = {}
+            for entry in resolved:
+                gangs.setdefault(entry[2].job, []).append(entry)
+            # Coalescing (wire protocol v2): every gang this cycle
+            # dispatched rides one /backend/v1/txn round trip instead of
+            # one RTT per gang. Gangs stay all-or-nothing — the batch is
+            # transport-level only; a conflicted gang falls back to the
+            # per-gang retry ladder with a fresh version.
+            supports = getattr(self.store, "supports_txn", None)
+            if (
+                self._txn_coalesce
+                and len(gangs) > 1
+                and callable(supports)
+                and supports()
+            ):
+                self._do_bind_txn(gangs, ctx)
+                return
+            for gang in gangs.values():
+                self._do_bind_gang(gang, ctx)
+            return
         for pod, hostname, task, seq in resolved:
             self._do_bind(pod, hostname, task, seq)
+
+    def _do_bind_txn(self, gangs: dict, ctx=None) -> None:
+        """Dispatch every gang of this cycle in ONE coalesced store txn.
+        Exactly-once is per gang, exactly as in the per-gang path: each
+        txn carries its own snapshot version, an applied gang confirms
+        its own journal seqs, a conflicted gang re-enters
+        ``_do_bind_gang``'s retry ladder (which refreshes the version),
+        and a transport failure mid-batch degrades LOUDLY to per-gang v1
+        writes — whose conditional versions make any server-side partial
+        application resolve to store truth, never a double bind."""
+        order = list(gangs.values())
+        txns = []
+        for entries in order:
+            version = self._snapshot_version
+            if faults.should_fire("federation.stale_assign"):
+                version = 0  # deliberately ancient: forces the conflict path
+            txns.append(
+                {
+                    "op": "bind",
+                    "bindings": [
+                        [pod.namespace, pod.name, hostname]
+                        for pod, hostname, _task, _seq in entries
+                    ],
+                    "snapshotVersion": version,
+                }
+            )
+        pods = sum(len(e) for e in order)
+        with obs.span(
+            "txn.batch", parent=ctx, gangs=len(order), pods=pods
+        ) as tspan:
+            if faults.should_fire("store.txn_batch"):
+                results = None
+            else:
+                try:
+                    results = self.store.submit_txn(txns)
+                except Exception as e:  # noqa: BLE001 - any batch failure degrades
+                    log.error("coalesced txn batch failed (%s)", e)
+                    results = None
+            if results is None:
+                tspan.set_attr("outcome", "degraded")
+                log.error(
+                    "degrading %d gang(s) to per-gang conditional writes",
+                    len(order),
+                )
+                for entries in order:
+                    self._do_bind_gang(entries, ctx)
+                return
+            conflicts = 0
+            for entries, result in zip(order, results):
+                if "conflict" not in result:
+                    metrics.register_federation_conflict(
+                        "clean", exemplar=tspan.trace_id
+                    )
+                    for _pod, _hostname, _task, seq in entries:
+                        self._journal_confirm(seq)
+                    continue
+                conflicts += 1
+                c = result["conflict"]
+                what = f"gang <{entries[0][2].job}> ({len(entries)} pod(s))"
+                for node in sorted(
+                    {h for _p, h, _t, _s in entries}
+                ):
+                    metrics.register_federation_node_conflict(node)
+                metrics.register_federation_conflict(
+                    "retried", exemplar=tspan.trace_id
+                )
+                metrics.register_bind_retry()
+                log.warning(
+                    "bind of %s conflicted in coalesced txn (%s %s: %s), "
+                    "re-dispatching per-gang",
+                    what, c.get("kind", ""), c.get("key", ""),
+                    c.get("reason", "conflict"),
+                )
+                self._do_bind_gang(entries, ctx)
+            tspan.set_attr("outcome", "ok")
+            tspan.set_attr("conflicts", conflicts)
+
+    def _do_bind_gang(self, entries: list, ctx=None) -> None:
+        """Dispatch one gang as a conditional store transaction carrying
+        the snapshot version (Omega optimistic concurrency). On
+        StaleWrite the loser refreshes its version and retries with
+        jittered backoff; past KBT_CONFLICT_MAX_RETRIES it accepts store
+        truth — the journal intents are confirmed (the conflict resolved
+        them: the winning placement stands) and the gang's tasks resync
+        from the store, re-solving next cycle. This is reconcile_journal's
+        takeover-time "store truth wins" rule applied per cycle.
+
+        ``ctx`` is the dispatching cycle's span, captured before the
+        kb-write pool hop (bind_many) — the gang.bind span parents to it
+        so a conflict's whole retry story stays on one trace."""
+        bindings = [
+            (pod.namespace, pod.name, hostname)
+            for pod, hostname, _task, _seq in entries
+        ]
+        version = self._snapshot_version
+        if faults.should_fire("federation.stale_assign"):
+            version = 0  # deliberately ancient: forces the conflict path
+        what = f"gang <{entries[0][2].job}> ({len(entries)} pod(s))"
+        delay = 0.02
+        conflicts = 0
+        with obs.span(
+            "gang.bind", parent=ctx, gang=str(entries[0][2].job), pods=len(entries),
+        ) as gspan:
+            while True:
+                try:
+                    self._write_with_retry(
+                        "bind",
+                        what,
+                        lambda v=version: self.binder.bind_many_versioned(bindings, v),
+                    )
+                    gspan.set_attr("outcome", "won" if conflicts else "clean")
+                    gspan.set_attr("conflicts", conflicts)
+                    metrics.register_federation_conflict(
+                        "won" if conflicts else "clean",
+                        exemplar=gspan.trace_id,
+                    )
+                    for _pod, _hostname, _task, seq in entries:
+                        self._journal_confirm(seq)
+                    return
+                except StaleWrite as e:
+                    conflicts += 1
+                    # per-node conflict accounting: the fleet heatmap
+                    # ranks contended nodes from deltas of this counter
+                    for node in sorted({h for _ns, _n, h in bindings}):
+                        metrics.register_federation_node_conflict(node)
+                    if conflicts > self._conflict_max_retries:
+                        gspan.set_attr("outcome", "lost")
+                        gspan.set_attr("conflicts", conflicts)
+                        metrics.register_federation_conflict(
+                            "lost", exemplar=gspan.trace_id
+                        )
+                        log.error(
+                            "bind of %s lost the conflict after %d retr%s (%s); "
+                            "accepting store truth and resyncing the gang",
+                            what, conflicts - 1, "y" if conflicts == 2 else "ies", e,
+                        )
+                        for _pod, _hostname, task, seq in entries:
+                            self._journal_confirm(seq)
+                            self.resync_task(task)
+                        return
+                    gspan.event("conflict", retry=conflicts, error=str(e))
+                    metrics.register_federation_conflict(
+                        "retried", exemplar=gspan.trace_id
+                    )
+                    metrics.register_bind_retry()
+                    log.warning(
+                        "bind of %s conflicted (%s), retry %d/%d with fresh version",
+                        what, e, conflicts, self._conflict_max_retries,
+                    )
+                    time.sleep(delay * (0.5 + random.random()))
+                    delay = min(delay * 2.0, 0.5)
+                    version = getattr(self.store, "version", version)
+                except Exception as e:  # noqa: BLE001 - infrastructure failure
+                    # unchanged rung 2: the intents stay unconfirmed, the
+                    # resync path (or a takeover reconciliation) re-drives
+                    gspan.set_attr("outcome", "error")
+                    log.error("Failed to bind %s: %s", what, e)
+                    for _pod, _hostname, task, _seq in entries:
+                        self.resync_task(task)
+                    return
+
 
     def _write_with_retry(self, op: str, what: str, fn) -> None:
         """Bounded in-place retry with exponential backoff + jitter for
@@ -1093,6 +1342,11 @@ class SchedulerCache:
                     raise faults.FaultInjected(f"{op}.write")
                 fn()
                 return
+            except StaleWrite:
+                # optimistic conflict, not a transient infrastructure
+                # failure: re-sending the same snapshot version would
+                # lose again — the caller refreshes the version first
+                raise
             except Exception as e:
                 attempt += 1
                 if attempt > self._write_retries:
@@ -1136,13 +1390,37 @@ class SchedulerCache:
         self._submit_write(self._do_evict, pod, task, seqs[0])
 
     def _do_evict(self, pod: Pod, task: TaskInfo, seq=None) -> None:
+        conditional = self._conditional_binds and hasattr(
+            self.evictor, "evict_versioned"
+        )
+        version = self._snapshot_version
+        if conditional and faults.should_fire("federation.stale_assign"):
+            version = 0
         try:
-            self._write_with_retry(
-                "evict",
-                f"<{pod.namespace}/{pod.name}>",
-                lambda: self.evictor.evict(pod),
+            if conditional:
+                self._write_with_retry(
+                    "evict",
+                    f"<{pod.namespace}/{pod.name}>",
+                    lambda: self.evictor.evict_versioned(pod, version),
+                )
+            else:
+                self._write_with_retry(
+                    "evict",
+                    f"<{pod.namespace}/{pod.name}>",
+                    lambda: self.evictor.evict(pod),
+                )
+            self._journal_confirm(seq)
+        except StaleWrite as e:
+            # an evict that lost the race is moot: whatever placement won
+            # invalidated the preemption plan — accept store truth now
+            # (no blind retry loop; the next cycle re-solves)
+            metrics.register_federation_conflict("lost")
+            log.error(
+                "Evict of <%s/%s> lost the conflict (%s); accepting store truth",
+                pod.namespace, pod.name, e,
             )
             self._journal_confirm(seq)
+            self.resync_task(task)
         except Exception as e:  # noqa: BLE001
             log.error("Failed to evict pod <%s/%s>: %s", pod.namespace, pod.name, e)
             self.resync_task(task)
@@ -1216,6 +1494,9 @@ class SchedulerCache:
             reset()  # assumptions never outlive a session (see reset())
         with self._mutex:
             snapshot = ClusterInfo()
+            # Stamp the store version this snapshot solves over — every
+            # conditional dispatch until the next snapshot carries it.
+            self._snapshot_version = getattr(self.store, "version", 0)
             for name, node in self.nodes.items():
                 snapshot.nodes[name] = node.clone()
             for name, q in self.queues.items():

@@ -38,6 +38,24 @@ The process's points (cache/cache.py, cache/store.py, server.py):
 - ``store.conflict``: a conditional (versioned) store transaction is
   rejected with ``StaleWrite(reason="injected")``.
 
+Federation's points (cache/cache.py, cache/backend.py, federation.py):
+
+- ``store.txn_batch``: a coalesced ``/backend/v1/txn`` round trip fails,
+  and every gang of the batch falls back, loudly, to its own conditional
+  write;
+- ``federation.partition``: the loopback backend's transport drops a
+  request; the client backs off and the watch heals by relisting;
+- ``federation.stale_assign``: a dispatch carries store version 0 on
+  purpose, so the conflict path (retry with a fresh version) runs;
+- ``stream.pump``: one round of the backend's watch pump is dropped, and
+  the mirror catches up on the next round;
+- ``shard.adopt``: an adoption of an orphaned shard slot fails after the
+  lease was taken; the slot is released and retried on a later probe;
+- ``shard.handoff``: a graceful handoff aborts mid-drain and the slot is
+  kept, loudly;
+- ``shard.lease_flap``: one renewal round of the owned slots is dropped;
+  the owner reacquires without a double adoption.
+
 The HA pair's points (server.py, recovery/):
 
 - ``lease.renew``: a lease round-trip to the arbiter fails; past the
@@ -140,6 +158,15 @@ POINTS = (
     "cycle.overrun",       # injected wedged solve -> hard-deadline abort pre-dispatch
     # store conditional transactions (cache/store.py)
     "store.conflict",      # conditional write rejected with StaleWrite
+    # sharded federation (cache/cache.py, cache/backend.py, federation.py)
+    "store.txn_batch",     # coalesced txn round trip fails -> per-gang v1 writes, loudly
+    "federation.partition",  # loopback backend transport drops -> backoff + relist heal
+    "federation.stale_assign",  # dispatch carries a stale snapshot version on purpose
+    "stream.pump",         # backend watch-pump round dropped -> next round catches up
+    # leased shard slots (federation.py ShardSlotManager)
+    "shard.adopt",         # adoption takeover fails -> retry on a later probe
+    "shard.handoff",       # graceful handoff aborts mid-drain -> slot kept, loudly
+    "shard.lease_flap",    # own slot renewal dropped once -> reacquire, no double-adopt
     # incremental encode cache (ops/encode_cache.py)
     "encode.cache",        # cache poisoned -> state dropped, encode runs cold
     # native extension boundary (ops/, the bulk replay)

@@ -26,10 +26,17 @@ label sets:
   ``reconcile_ops_total{op}`` (recovery/reconcile.py), and the watch
   client's ``watch_snapshot_age_seconds`` and ``watch_relists_total{kind}``
   (recovery/watch_client.py);
-- ``watch_longpoll_wakeups_total{cause}``: exposed under its JAX name,
-  written by the JAX package's combined long-poll of the store-backend
-  protocol, which comes with federation; the per-kind watch of server.py
-  does not write it, as in the JAX package;
+- federation (federation.py and the cache's conditional binds):
+  ``federation_conflicts_total{outcome}``,
+  ``federation_node_conflicts_total{node}`` and ``bind_retries_total``;
+  the store-backend wire (cache/backend.py): ``store_backend_rtt_seconds{op}``,
+  ``store_backend_bytes_total{dir,codec}``, ``store_backend_txn_batch_size``
+  and ``backend_pool_in_use``, and ``watch_longpoll_wakeups_total{cause}``
+  (server.py's combined ``/backend/v1/watchall`` long-poll; the per-kind
+  watch does not write it, as in the JAX package); the leased shard slots
+  (``federation.ShardSlotManager``): ``shard_slots_owned``,
+  ``shard_slot_owned{slot}``, ``shard_adoptions_total{outcome}``,
+  ``shard_handoffs_total{outcome}`` and ``shard_takeover_seconds``;
 - ``exchange_batched_iters_total`` (the sharded rung's K-deep exchange);
 - ``encode_cache_hits_total``, ``encode_cache_invalidations_total{reason}``
   and ``encode_warm_fraction`` (ops/encode_cache.py);
@@ -38,9 +45,9 @@ label sets:
   ``obs.slo.publish()``.
 
 The JAX package's series of layers the port does not have yet
-(federation and its conditional binds, admission, shards, fleet,
-streaming, the tensor arena, the class-compressed solve and explain)
-come with those layers; so do exemplars.
+(admission, fleet, streaming, the tensor arena, the class-compressed solve and explain)
+come with those layers; so do exemplars (the ``exemplar=`` argument of
+``register_federation_conflict`` is accepted and not stored).
 """
 
 from __future__ import annotations
@@ -305,6 +312,86 @@ encode_warm_fraction = Gauge(
     "(0 = fully cold)",
 )
 
+# -- sharded federation (federation.py, the cache's conditional writes) --------
+federation_conflicts = Counter(
+    f"{_SUBSYSTEM}_federation_conflicts_total",
+    "Optimistic-concurrency dispatch outcomes, by outcome "
+    "(clean/won/retried/lost)",
+)
+federation_node_conflicts = Counter(
+    f"{_SUBSYSTEM}_federation_node_conflicts_total",
+    "Optimistic-concurrency bind conflicts attributed to the contended "
+    "node, by node (the fleet heatmap's delta source)",
+)
+bind_retries = Counter(
+    f"{_SUBSYSTEM}_bind_retries_total",
+    "Gang bind transactions re-sent with a refreshed snapshot version "
+    "after a store conflict",
+)
+store_backend_rtt = Histogram(
+    f"{_SUBSYSTEM}_store_backend_rtt_seconds",
+    "Store-backend round-trip latency per request in seconds, by op",
+    FINE_BUCKETS,
+)
+
+# -- wire protocol v2 (cache/backend.py pooled transport) -----------------------
+# Power-of-two batch-size buckets: txn batches are small integers, not
+# latencies, so the 5us-anchored FINE_BUCKETS would collapse them all
+# into +Inf.
+BATCH_BUCKETS = tuple(2.0**k for k in range(12))
+store_backend_bytes = Counter(
+    f"{_SUBSYSTEM}_store_backend_bytes_total",
+    "Store-backend protocol bytes moved, by direction (tx/rx) and "
+    "negotiated codec (json/binary)",
+)
+store_backend_txn_batch = Histogram(
+    f"{_SUBSYSTEM}_store_backend_txn_batch_size",
+    "Conditional-write transactions coalesced per /backend/v1/txn "
+    "round trip",
+    BATCH_BUCKETS,
+)
+backend_pool_in_use = Gauge(
+    f"{_SUBSYSTEM}_backend_pool_in_use",
+    "Persistent store-backend connections currently checked out of the "
+    "keep-alive pool (KBT_BACKEND_POOL bounds the pool)",
+)
+watch_longpoll_wakeups = Counter(
+    f"{_SUBSYSTEM}_watch_longpoll_wakeups_total",
+    "Long-poll watch returns on the v2 combined endpoint, by cause "
+    "(events/timeout)",
+)
+
+# -- leased shard slots (federation.ShardSlotManager) ---------------------------
+# Dynamic shard ownership: each of the N shard slots is a store lease;
+# a scheduler holds its primary slot, adopts orphaned ones, and hands
+# slots off for planned moves/rebalancing.
+shard_slots_owned = Gauge(
+    f"{_SUBSYSTEM}_shard_slots_owned",
+    "Shard slots this scheduler currently holds the lease for "
+    "(1 = just the primary; more = adopted orphans)",
+)
+shard_slot_owned = Gauge(
+    f"{_SUBSYSTEM}_shard_slot_owned",
+    "Per-slot ownership flag for this scheduler (labels: slot; 1 = this "
+    "process holds the slot's lease, 0 = it does not)",
+)
+shard_adoptions = Counter(
+    f"{_SUBSYSTEM}_shard_adoptions_total",
+    "Orphaned shard-slot adoption attempts, by outcome "
+    "(adopted/failed/lost_race/flap_suppressed)",
+)
+shard_handoffs = Counter(
+    f"{_SUBSYSTEM}_shard_handoffs_total",
+    "Graceful shard-slot handoffs (planned moves / conflict rebalance), "
+    "by outcome (completed/aborted)",
+)
+shard_takeover_seconds = Histogram(
+    f"{_SUBSYSTEM}_shard_takeover_seconds",
+    "Measured takeover time per adopted slot: lease acquire through "
+    "journal reconciliation and backlog re-ingest, in seconds",
+    E2E_BUCKETS,
+)
+
 # -- the sharded rung's K-deep batched exchange (parallel/sharded_block.py) ---
 exchange_batched_iters_total = Counter(
     f"{_SUBSYSTEM}_exchange_batched_iters_total",
@@ -312,12 +399,6 @@ exchange_batched_iters_total = Counter(
     "exchange instead of a per-iteration all-gather",
 )
 
-# -- the watch hub's long-poll (server.py) --------------------------------------
-watch_longpoll_wakeups = Counter(
-    f"{_SUBSYSTEM}_watch_longpoll_wakeups_total",
-    "Long-poll watch returns on the v2 combined endpoint, by cause "
-    "(events/timeout)",
-)
 
 # -- per-queue SLO windows (obs.SLOAccountant) ---------------------------------
 # Sliding-window quantiles, refreshed by obs.slo.publish(): unlike the
@@ -472,6 +553,54 @@ def set_encode_warm_fraction(fraction: float) -> None:
     encode_warm_fraction.set(fraction)
 
 
+def register_federation_conflict(outcome: str, exemplar: str | None = None) -> None:
+    federation_conflicts.inc({"outcome": outcome})
+
+
+def register_federation_node_conflict(node: str, n: int = 1) -> None:
+    federation_node_conflicts.inc({"node": node}, by=n)
+
+
+def register_bind_retry() -> None:
+    bind_retries.inc()
+
+
+def observe_store_backend_rtt(op: str, seconds: float) -> None:
+    store_backend_rtt.observe(seconds, {"op": op})
+
+
+def register_store_backend_bytes(direction: str, codec: str, n: int) -> None:
+    store_backend_bytes.inc({"dir": direction, "codec": codec}, by=n)
+
+
+def observe_txn_batch_size(n: int) -> None:
+    store_backend_txn_batch.observe(float(n))
+
+
+def set_backend_pool_in_use(n: int) -> None:
+    backend_pool_in_use.set(n)
+
+
+def set_shard_slots_owned(n: int) -> None:
+    shard_slots_owned.set(n)
+
+
+def set_shard_slot_owned(slot: int, owned: bool) -> None:
+    shard_slot_owned.set(1 if owned else 0, {"slot": str(slot)})
+
+
+def register_shard_adoption(outcome: str) -> None:
+    shard_adoptions.inc({"outcome": outcome})
+
+
+def register_shard_handoff(outcome: str) -> None:
+    shard_handoffs.inc({"outcome": outcome})
+
+
+def observe_shard_takeover(seconds: float) -> None:
+    shard_takeover_seconds.observe(seconds)
+
+
 def _escape_label_value(value) -> str:
     """Prometheus text-format label escaping: backslash, double quote and
     newline are escaped inside the quoted value, so a queue named ``a"b``
@@ -536,7 +665,19 @@ FAMILIES = (
     encode_cache_hits,
     encode_cache_invalidations,
     encode_warm_fraction,
+    federation_conflicts,
+    federation_node_conflicts,
+    bind_retries,
+    store_backend_rtt,
+    store_backend_bytes,
+    store_backend_txn_batch,
+    backend_pool_in_use,
     watch_longpoll_wakeups,
+    shard_slots_owned,
+    shard_slot_owned,
+    shard_adoptions,
+    shard_handoffs,
+    shard_takeover_seconds,
     exchange_batched_iters_total,
     slo_time_to_bind,
     slo_queue_wait,

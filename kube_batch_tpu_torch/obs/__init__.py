@@ -33,9 +33,12 @@ every entry point returns the shared no-op span singleton
 ``SPAN_NAMES`` declares every span name a call site opens; ``check_tree``
 flags an undeclared name or a dangling parent. The cache's ``dispatch``
 span (cache/cache.py ``bind_many``) parents the kb-write pool's half of
-the binds. The JAX package's spans of layers the port does not have yet
-(journal, store transactions, streaming, explain) and its cross-process
-trace headers come with those layers. ``install_signal_dump`` dumps the
+the binds; ``gang.bind`` and ``txn.batch`` cover a federated shard's
+conditional writes, and the store side of such a write (``store.bind``,
+``store.txn``, server.py) joins the shard's trace through the
+``X-KBT-Trace-Id``/``X-KBT-Span-Id`` headers (``current_headers`` on the
+client, ``from_headers`` on the server). The JAX package's spans of layers
+the port does not have yet (streaming, explain) come with those layers. ``install_signal_dump`` dumps the
 ring on SIGTERM (the server's ``run``).
 """
 
@@ -60,6 +63,8 @@ __all__ = [
     "RECORDER_CYCLES_ENV",
     "SLO_WINDOW_ENV",
     "SPAN_NAMES",
+    "HDR_TRACE",
+    "HDR_SPAN",
     "Span",
     "NOOP_SPAN",
     "enabled",
@@ -68,6 +73,8 @@ __all__ = [
     "emit",
     "event",
     "current",
+    "current_headers",
+    "from_headers",
     "annotate",
     "FlightRecorder",
     "recorder",
@@ -88,6 +95,9 @@ RECORDER_ENV = "KBT_FLIGHT_RECORDER"  # dump dir; "0" disables dumping
 RECORDER_CYCLES_ENV = "KBT_FLIGHT_RECORDER_CYCLES"  # ring size in traces
 SLO_WINDOW_ENV = "KBT_SLO_WINDOW_S"  # SLO sliding window, seconds
 
+HDR_TRACE = "X-KBT-Trace-Id"
+HDR_SPAN = "X-KBT-Span-Id"
+
 # Every span name a call site may open; check_tree flags any other, so a
 # typo'd name cannot silently fork the trace tree.
 SPAN_NAMES = (
@@ -98,6 +108,11 @@ SPAN_NAMES = (
     "gang.assign",  # the replay of the solved assignments and the dispatch
     "dispatch",     # cache.bind_many's host side: resolve under the mutex, submit
     "commit",       # PodGroup status write-back at session close
+    "journal.append",  # write-intent journal append (seqs as attr)
+    "gang.bind",    # one gang's conditional store write, conflict retries as events
+    "txn.batch",    # coalesced multi-gang conditional-write round trip
+    "store.bind",   # store side of a conditional bind (remote parent)
+    "store.txn",    # store side of a coalesced txn batch (remote parent)
 )
 
 # Wall/perf anchor pair: spans are stamped with the monotonic clock (so
@@ -266,6 +281,30 @@ def current():
         return None
     return _current.get()
 
+
+def current_headers() -> dict:
+    """Wire headers propagating the current trace context, or {}."""
+    if not _enabled:
+        return {}
+    cur = _current.get()
+    if cur is None:
+        return {}
+    return {HDR_TRACE: cur.trace_id, HDR_SPAN: cur.span_id}
+
+
+def from_headers(headers) -> tuple[str, str] | None:
+    """Parse the propagation headers of an incoming request into a
+    ``parent=`` value for :func:`span`, or None when absent/off."""
+    if not _enabled:
+        return None
+    try:
+        tid = headers.get(HDR_TRACE)
+        sid = headers.get(HDR_SPAN)
+    except AttributeError:
+        return None
+    if not tid:
+        return None
+    return (str(tid), str(sid or ""))
 
 
 def annotate(label: str):

@@ -104,9 +104,13 @@ class EncodeCache:
     """Process-wide incremental encode state (see module docstring).
 
     Thread-safe for the dirty feed (informer handlers run in store
-    writer threads); the encode-side memo methods are called from the
-    single scheduling thread, matching the session's own threading
-    model.
+    writer threads) and for several scheduling threads encoding at once
+    (in-process federation runs one per shard, each over its own pending
+    set): every memo entry is published whole and never mutated after,
+    so a thread reads either a complete entry or none (a per-node slot is
+    replaced, not updated, when its label keys or Node object change),
+    and the per-encode hit/miss counts are per thread, so each encode's
+    ``warm_fraction`` is its own.
     """
 
     def __init__(self) -> None:
@@ -117,9 +121,24 @@ class EncodeCache:
         self._node_static: dict[str, _NodeStatic] = {}
         self._pairs: dict[tuple, tuple] = {}  # (tsig, nsig) -> (compat, aff)
         self._task_block: Optional[_TaskBlock] = None
-        # per-encode stats (reset by begin_encode)
-        self._hits = 0
-        self._misses = 0
+        # per-encode stats of the calling thread (reset by begin_encode)
+        self._stats = threading.local()
+
+    @property
+    def _hits(self) -> int:
+        return getattr(self._stats, "hits", 0)
+
+    @_hits.setter
+    def _hits(self, n: int) -> None:
+        self._stats.hits = n
+
+    @property
+    def _misses(self) -> int:
+        return getattr(self._stats, "misses", 0)
+
+    @_misses.setter
+    def _misses(self, n: int) -> None:
+        self._stats.misses = n
 
     # -- dirty feed (cache/watch events) ------------------------------------
 
@@ -207,28 +226,31 @@ class EncodeCache:
         self._misses += 1
         return sig
 
-    def node_entry(self, node_info) -> _NodeStatic:
-        """The per-node static slot (sig + condition/pressure verdict +
-        max_task_num), re-keyed whenever the Node object was replaced."""
-        entry = self._node_static.get(node_info.name)
-        if entry is None or entry.node is not node_info.node:
-            entry = _NodeStatic(node_info.node)
-            self._node_static[node_info.name] = entry
-        return entry
-
     def node_row(self, node_info, label_keys, sig_fn, statics_fn) -> _NodeStatic:
         """One cache touch per node per encode: the filled static slot
-        (sig + verdicts), counted as one warm unit when fully reused."""
-        entry = self.node_entry(node_info)
-        if entry.ok is None:
-            entry.ok, entry.max_tasks = statics_fn(node_info)
-        if entry.sig is None or entry.sig_label_keys != label_keys:
-            entry.sig = sig_fn(node_info, label_keys)
-            entry.sig_label_keys = label_keys
-            self._misses += 1
-        else:
+        (sig + condition/pressure verdict + max_task_num), counted as one
+        warm unit when fully reused. A slot whose Node object or label
+        keys differ is replaced by a new one (its verdicts carried over
+        while the Node object is the same), so the slot a caller holds
+        never changes under it."""
+        entry = self._node_static.get(node_info.name)
+        if (
+            entry is not None
+            and entry.node is node_info.node
+            and entry.sig_label_keys == label_keys
+        ):
             self._hits += 1
-        return entry
+            return entry
+        fresh = _NodeStatic(node_info.node)
+        if entry is not None and entry.node is node_info.node:
+            fresh.ok, fresh.max_tasks = entry.ok, entry.max_tasks
+        else:
+            fresh.ok, fresh.max_tasks = statics_fn(node_info)
+        fresh.sig = sig_fn(node_info, label_keys)
+        fresh.sig_label_keys = label_keys
+        self._node_static[node_info.name] = fresh
+        self._misses += 1
+        return fresh
 
     def pair(self, tsig, nsig, compute) -> tuple:
         """(static compat verdict, preferred-affinity score) for one

@@ -9,6 +9,12 @@ several sources at once, one nvcc process each. A source that does not
 compile, a missing nvcc, or a library that does not load raises
 ``KernelBuildError``: the solver ladder re-raises it rather than feed a
 breaker, since it would fail every cycle.
+
+Builds and loads are thread-safe: in-process federation runs several
+scheduling threads whose first solves may reach ``Library.load`` at once,
+so one module lock covers the check, the build and the bind, and each
+compiler writes a temporary named for its process and its thread before
+the atomic rename.
 """
 
 from __future__ import annotations
@@ -18,11 +24,15 @@ import glob
 import hashlib
 import os
 import subprocess
+import threading
 from typing import Callable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+
+# Serializes build() and Library.load() across the process's threads.
+_LOCK = threading.RLock()
 
 
 class KernelBuildError(RuntimeError):
@@ -48,6 +58,11 @@ def build(names: list[str]) -> dict[str, str]:
     the kernels' float32 results must equal their plain versions' bit for
     bit. Raises KernelBuildError naming the source when nvcc fails or
     cannot be started."""
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names: list[str]) -> dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     logs: dict[str, str] = {}
@@ -57,7 +72,7 @@ def build(names: list[str]) -> dict[str, str]:
         if os.path.exists(path):
             logs[name] = ""
             continue
-        tmp = f"{path}.{os.getpid()}.tmp"
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [
             nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
             "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
@@ -92,16 +107,19 @@ class Library:
         self.build_log = ""
 
     def load(self) -> ctypes.CDLL:
-        if self.lib is None:
-            self.build_log = build([self.name])[self.name]
-            try:
-                lib = ctypes.CDLL(library_path(self.name))
-            except OSError as e:
-                raise KernelBuildError(f"cannot load the {self.name} kernel's library: {e}") from e
-            lib.kbt_error_string.argtypes = [ctypes.c_int]
-            lib.kbt_error_string.restype = ctypes.c_char_p
-            self._bind(lib)
-            self.lib = lib
+        if self.lib is not None:
+            return self.lib
+        with _LOCK:
+            if self.lib is None:
+                self.build_log = build([self.name])[self.name]
+                try:
+                    lib = ctypes.CDLL(library_path(self.name))
+                except OSError as e:
+                    raise KernelBuildError(f"cannot load the {self.name} kernel's library: {e}") from e
+                lib.kbt_error_string.argtypes = [ctypes.c_int]
+                lib.kbt_error_string.restype = ctypes.c_char_p
+                self._bind(lib)
+                self.lib = lib
         return self.lib
 
     def error(self, err: int) -> str:

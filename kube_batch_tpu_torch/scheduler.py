@@ -212,6 +212,15 @@ class Scheduler:
             elapsed = time.perf_counter() - start
             stop.wait(max(0.0, self.schedule_period - elapsed))
 
+    def on_owned_slots_changed(self, adopted_keys, removed_keys=()) -> None:
+        """Shard-slot ownership changed mid-run (federation.py
+        ShardSlotManager adoption/handoff). In periodic mode the next
+        full cycle re-snapshots the widened mirror, so there is nothing
+        to do. The JAX package's streaming mode seeds the adopted gang
+        keys into its trigger here; that branch comes with the port's
+        streaming layer."""
+        del adopted_keys, removed_keys
+
     def run_once(self) -> None:
         """One scheduling cycle (reference scheduler.go:88-102)."""
         cycle_start = time.perf_counter()

@@ -68,9 +68,23 @@ An HA pair adds ``--leader-elect --lease-url http://ARBITER:PORT
 --journal PATH`` to each replica. Importing this module, ``--help`` and
 ``--version`` touch no card.
 
-The JAX package's server also serves the store-backend protocol
-(``/backend/v1/``, federation), admission (``/debug/admission``), the
-fleet rollup (``--fleet``, ``/debug/fleet``) and ``/debug/explain``;
+The store-backend protocol (``/backend/v1/``, cache/backend.py's client):
+``GET /backend/v1/version`` (the store version and, on a v2 server, the
+protocol level, codecs and features: the client's one negotiation read),
+``GET /backend/v1/watchall?cursors=kind:N,...`` (v2's combined long-poll),
+``GET /backend/v1/watch/<kind>`` and ``GET /backend/v1/<kind>``
+(full-fidelity objects, apis/wire.py), and ``POST /backend/v1/bind``,
+``/txn`` (v2), ``/evict`` and ``/<kind>`` (create/update/delete), where a
+lost conditional write is a typed 409. A v2 server keeps connections
+alive and answers in the binary codec when the client's ``Accept`` asks
+for it; ``wire_protocol=1`` pins the v1 surface. ``--store-backend URL``
+(federation) schedules over such a store process instead of an
+in-process store, as shard ``KBT_FEDERATION=i/N`` of N, keyed by
+``KBT_SHARD_KEY``, with its slot leased through the store
+(federation.py).
+
+The JAX package's server also serves admission (``/debug/admission``),
+the fleet rollup (``--fleet``, ``/debug/fleet``) and ``/debug/explain``;
 those come with the port's later items (ROADMAP A), and this server does
 not offer them until then.
 """
@@ -108,8 +122,24 @@ from kube_batch_tpu_torch.apis.types import (
     VolumeBindingMode,
     VolumePhase,
 )
-from kube_batch_tpu_torch.cache import ClusterStore, SchedulerCache
-from kube_batch_tpu_torch.cache.store import KINDS, AlreadyExists, EventHandler
+from kube_batch_tpu_torch.apis import wire
+from kube_batch_tpu_torch.cache import ClusterStore, LoopbackBackend, SchedulerCache
+from kube_batch_tpu_torch.cache.store import (
+    KINDS,
+    AlreadyExists,
+    EventHandler,
+    StaleWrite,
+    obj_key,
+)
+from kube_batch_tpu_torch.federation import (
+    ENV as FED_ENV,
+    FederatedCache,
+    ShardSlotManager,
+    parse_shard_spec,
+    shard_journal_dir,
+    shard_journal_path,
+    shard_key_mode,
+)
 from kube_batch_tpu_torch.recovery import WriteIntentJournal, reconcile_journal
 from kube_batch_tpu_torch.recovery.reconcile import ReconcileReport
 from kube_batch_tpu_torch.scheduler import Scheduler
@@ -247,9 +277,15 @@ class WatchHub:
                     self._seq += 1
                     return
         # The ring holds the object itself; serialization happens at poll
-        # time. Store objects are replaced, not mutated (the mutation
-        # detector enforces it), so a late poll serializes exactly the
-        # state the event captured.
+        # time per consumer (observability summary vs the full-fidelity
+        # wire codec for store backends). Store objects are replaced, not
+        # mutated (the mutation detector enforces it), so a late poll
+        # serializes exactly the state the event captured. MODIFIED
+        # entries also carry the replaced object so a v2 delta consumer
+        # can be served the field-level patch; the patch itself is
+        # computed lazily at first delta poll and cached in the entry
+        # (slot 4) — computed once per event, not per consumer, and
+        # never on the mutation hot path.
         with self._cond:
             self._seq += 1
             ring = self._events[kind]
@@ -257,7 +293,7 @@ class WatchHub:
                 # true 410 on overflow: the dropped seq fences every
                 # watcher holding an rv at or before it into a re-list
                 self._dropped[kind] = ring.popleft()[0]
-            ring.append((self._seq, verb, obj))
+            ring.append([self._seq, verb, obj, old, None])
             self._cond.notify_all()
 
     def close(self) -> None:
@@ -277,16 +313,35 @@ class WatchHub:
             self._activate_locked()
             return self._seq
 
-    def _collect_locked(self, kind: str, since: int) -> list[dict]:
+    def _event_payload(self, kind: str, entry: list, ser, delta: bool) -> dict:
+        """Serialize one ring entry for a consumer. ``delta`` (v2 wire
+        consumers only) turns MODIFIED into a field-level patch and
+        DELETED into a bare key tombstone; ADDED always carries the
+        full object (the client has nothing to patch)."""
+        seq, verb, obj, old, cached = entry
+        if delta and verb == "MODIFIED" and old is not None:
+            patch = cached
+            if patch is None:
+                patch = {"key": obj_key(kind, obj)}
+                patch.update(wire.delta_of(kind, old, obj))
+                entry[4] = patch  # computed once per event, cached
+            return {"seq": seq, "type": verb, "delta": patch}
+        if delta and verb == "DELETED":
+            return {"seq": seq, "type": verb, "key": obj_key(kind, obj)}
+        return {"seq": seq, "type": verb, "object": ser(obj)}
+
+    def _collect_locked(
+        self, kind: str, since: int, full: bool, delta: bool
+    ) -> list[dict]:
         """Events past ``since`` for one kind. Ring entries are
         seq-ascending: walk from the right only as far as `since` —
         O(new events), not O(ring). Caller holds ``_cond``."""
-        ser = SERIALIZERS[kind]
+        ser = wire.to_wire if full else SERIALIZERS[kind]
         batch: list[dict] = []
-        for seq, verb, obj in reversed(self._events[kind]):
-            if seq <= since:
+        for entry in reversed(self._events[kind]):
+            if entry[0] <= since:
                 break
-            batch.append({"seq": seq, "type": verb, "object": ser(obj)})
+            batch.append(self._event_payload(kind, entry, ser, delta))
         batch.reverse()
         return batch
 
@@ -296,10 +351,14 @@ class WatchHub:
         since: int,
         timeout: float,
         stop: threading.Event,
+        wire: bool = False,
+        delta: bool = False,
     ) -> tuple[str, list[dict], int]:
         """("ok" | "gone", events, resourceVersion). Blocks up to
-        `timeout` seconds for the first event past `since`. The
-        ``watch.drop`` fault point answers "gone" at once."""
+        `timeout` seconds for the first event past `since`. ``wire``
+        selects the full-fidelity codec (apis/wire.py, store backends)
+        over the observability summary serializer; ``delta`` (v2)
+        additionally compresses MODIFIED events into field patches."""
         if faults.should_fire("watch.drop"):
             # Injected stream drop: the 410-Gone contract — the client
             # must re-list and resume from the returned resourceVersion.
@@ -311,12 +370,52 @@ class WatchHub:
                 self._activate_locked()
                 if since < max(self._dropped.get(kind, 0), self._journal_start):
                     return "gone", [], self._seq
-                batch = self._collect_locked(kind, since)
+                batch = self._collect_locked(kind, since, wire, delta)
                 if batch:
                     return "ok", batch, self._seq
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 or stop.is_set() or self._closed:
                     return "ok", [], self._seq
+                self._cond.wait(min(remaining, 1.0))
+
+    def poll_multi(
+        self,
+        cursors: dict[str, int],
+        timeout: float,
+        stop: threading.Event,
+        delta: bool = False,
+    ) -> tuple[dict[str, dict], int]:
+        """The v2 combined long-poll: one blocking call over EVERY
+        subscribed kind's cursor, returning the moment ANY kind has an
+        event past its cursor — the client's pump thread blocks here on
+        the server instead of walking kinds with per-kind timeouts.
+        Returns ``({kind: {"status": "ok"|"gone", "events": [...]}},
+        resourceVersion)``; per-kind gone (ring overflow) rides inline
+        so one fallen-behind kind re-lists without aborting the rest.
+        Always the full-fidelity wire codec (backend consumers only)."""
+        if faults.should_fire("watch.drop"):
+            with self._cond:
+                return (
+                    {k: {"status": "gone", "events": []} for k in cursors},
+                    self._seq,
+                )
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._cond:
+                self._activate_locked()
+                out: dict[str, dict] = {}
+                ready = False
+                for kind, since in cursors.items():
+                    if since < max(self._dropped.get(kind, 0), self._journal_start):
+                        out[kind] = {"status": "gone", "events": []}
+                        ready = True
+                        continue
+                    batch = self._collect_locked(kind, since, True, delta)
+                    out[kind] = {"status": "ok", "events": batch}
+                    ready = ready or bool(batch)
+                remaining = deadline - time.monotonic()
+                if ready or remaining <= 0 or stop.is_set() or self._closed:
+                    return out, self._seq
                 self._cond.wait(min(remaining, 1.0))
 
 
@@ -578,23 +677,59 @@ class StoreLeaseElector:
 
 def _make_handler(server: "SchedulerServer"):
     class Handler(BaseHTTPRequestHandler):
-        # HTTP/1.1 keep-alive (every reply sends Content-Length, which
-        # persistence requires), with TCP_NODELAY: without it every
-        # reused-connection round trip sits out the Nagle vs delayed-ACK
-        # interaction (~40ms).
-        protocol_version = "HTTP/1.1"
-        disable_nagle_algorithm = True
+        # Wire protocol v2: HTTP/1.1 keep-alive so the backend client's
+        # connection pool reuses sockets across requests (_reply always
+        # sends Content-Length, which 1.1 persistence requires). A
+        # v1-pinned server keeps http.server's 1.0 default — one
+        # connection per op, exactly the pre-v2 wire behavior.
+        if getattr(server, "wire_protocol", 2) >= 2:
+            protocol_version = "HTTP/1.1"
+            # TCP_NODELAY (socketserver applies this per connection in
+            # StreamRequestHandler.setup): without it every
+            # reused-connection round trip sits out the Nagle vs
+            # delayed-ACK interaction (~40ms) — more latency than the
+            # whole RTT the keep-alive transport exists to amortize.
+            disable_nagle_algorithm = True
 
-        def log_message(self, fmt, *args):  # route http.server chatter to debug
+        def log_message(self, fmt, *args):  # route http.server chatter to V(4)
             log.debug("http: " + fmt, *args)
 
-        def _reply(self, code: int, body: str, ctype: str = "application/json") -> None:
-            data = body.encode()
+        def _reply(self, code: int, body: str, ctype: str = "application/json",
+                   headers: Optional[dict] = None) -> None:
+            self._reply_bytes(code, body.encode(), ctype, headers)
+
+        def _reply_bytes(self, code: int, data: bytes, ctype: str,
+                         headers: Optional[dict] = None) -> None:
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
+            for key, value in (headers or {}).items():
+                self.send_header(key, value)
             self.end_headers()
             self.wfile.write(data)
+
+        def _wants_binary(self) -> bool:
+            """Content negotiation for /backend/v1/ replies: the client
+            advertises the binary codec in Accept; a v1-pinned server
+            never honors it (the client then sees JSON come back and
+            keeps speaking JSON — negotiation by response)."""
+            return server.wire_protocol >= 2 and wire.BINARY_CONTENT_TYPE in (
+                self.headers.get("Accept") or ""
+            )
+
+        def _backend_reply(self, code: int, payload: dict) -> None:
+            """Serialize a /backend/v1/ reply in the negotiated codec.
+            Error replies stay JSON on purpose: a mixed-version client
+            must be able to read a 404/409/410 before (or without)
+            codec agreement."""
+            if code == 200 and self._wants_binary():
+                self._reply_bytes(
+                    code,
+                    wire.dumps_binary(payload),
+                    wire.BINARY_CONTENT_TYPE,
+                )
+            else:
+                self._reply(code, json.dumps(payload))
 
         def do_GET(self):  # noqa: N802 (http.server API)
             parsed = urllib.parse.urlsplit(self.path)
@@ -626,6 +761,111 @@ def _make_handler(server: "SchedulerServer"):
                 self._reply(200, json.dumps(payload))
             elif path == "/debug/slo":
                 self._reply(200, json.dumps(obs.slo.snapshot()))
+            elif path == "/backend/v1/version":
+                # Store-backend protocol (cache/backend.py): the store
+                # version optimistic writes are checked against. A v2
+                # server additionally advertises its protocol level and
+                # capabilities here — the client's one negotiation read;
+                # a v1 server's bare reply IS the downgrade signal.
+                payload = {"storeVersion": server.store.version}
+                if server.wire_protocol >= 2:
+                    payload.update(
+                        {
+                            "protocol": 2,
+                            "codecs": ["json", "binary"],
+                            "features": ["delta", "txn", "longpoll"],
+                        }
+                    )
+                self._backend_reply(200, payload)
+            elif path == "/backend/v1/watchall":
+                # v2 combined long-poll (absent under a v1 pin: the 404
+                # sends a v2 client back to per-kind polling).
+                if server.wire_protocol < 2:
+                    self._reply(404, json.dumps({"error": "not found"}))
+                    return
+                query = urllib.parse.parse_qs(parsed.query)
+                try:
+                    timeout = float(query.get("timeout", ["30"])[0])
+                    cursors = {}
+                    for part in query.get("cursors", [""])[0].split(","):
+                        if not part:
+                            continue
+                        kind, _, since = part.partition(":")
+                        if kind not in SERIALIZERS:
+                            raise ValueError(kind)
+                        cursors[kind] = int(since or "0")
+                except ValueError:
+                    self._reply(400, json.dumps({"error": "bad cursors/timeout"}))
+                    return
+                if not math.isfinite(timeout):
+                    self._reply(400, json.dumps({"error": "bad cursors/timeout"}))
+                    return
+                timeout = min(max(timeout, 0.0), 300.0)
+                delta = query.get("delta", ["0"])[0] not in ("", "0", "false")
+                kinds, rv = server.watch_hub.poll_multi(
+                    cursors, timeout, server._stop, delta=delta
+                )
+                metrics.register_longpoll_wakeup(
+                    "events"
+                    if any(k["events"] or k["status"] == "gone" for k in kinds.values())
+                    else "timeout"
+                )
+                self._backend_reply(
+                    200,
+                    {
+                        "kinds": kinds,
+                        "resourceVersion": rv,
+                        "storeVersion": server.store.version,
+                    },
+                )
+            elif path.startswith("/backend/v1/watch/"):
+                kind = path[len("/backend/v1/watch/"):]
+                if kind not in SERIALIZERS:
+                    self._reply(404, json.dumps({"error": f"unknown kind {kind!r}"}))
+                    return
+                query = urllib.parse.parse_qs(parsed.query)
+                try:
+                    since = int(query.get("since", ["0"])[0])
+                    timeout = float(query.get("timeout", ["30"])[0])
+                except ValueError:
+                    self._reply(400, json.dumps({"error": "bad since/timeout"}))
+                    return
+                if not math.isfinite(timeout):
+                    self._reply(400, json.dumps({"error": "bad since/timeout"}))
+                    return
+                timeout = min(max(timeout, 0.0), 300.0)
+                delta = server.wire_protocol >= 2 and query.get("delta", ["0"])[
+                    0
+                ] not in ("", "0", "false")
+                status, events, rv = server.watch_hub.poll(
+                    kind, since, timeout, server._stop, wire=True, delta=delta
+                )
+                if status == "gone":
+                    self._reply(
+                        410, json.dumps({"error": "too old", "resourceVersion": rv})
+                    )
+                    return
+                self._backend_reply(
+                    200, {"events": events, "resourceVersion": rv}
+                )
+            elif path.startswith("/backend/v1/"):
+                kind = path[len("/backend/v1/"):]
+                if kind not in SERIALIZERS:
+                    self._reply(404, json.dumps({"error": "not found"}))
+                    return
+                # rv BEFORE the list, same at-least-once rule as the
+                # observability list endpoint below.
+                rv = server.watch_hub.resource_version
+                store_v = server.store.version
+                items = [wire.to_wire(obj) for obj in server.store.list(kind)]
+                self._backend_reply(
+                    200,
+                    {
+                        "items": items,
+                        "resourceVersion": rv,
+                        "storeVersion": store_v,
+                    },
+                )
             elif path.startswith("/apis/v1alpha1/watch/"):
                 kind = path[len("/apis/v1alpha1/watch/"):]
                 if kind not in SERIALIZERS:
@@ -676,7 +916,176 @@ def _make_handler(server: "SchedulerServer"):
         def _read_body(self) -> dict:
             length = int(self.headers.get("Content-Length", "0"))
             raw = self.rfile.read(length) or b"{}"
+            ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+            if ctype == wire.BINARY_CONTENT_TYPE:
+                if server.wire_protocol < 2:
+                    raise ValueError(
+                        "binary request body on a v1 server (re-negotiate: "
+                        "GET /backend/v1/version)"
+                    )
+                return wire.loads_binary(raw)
             return json.loads(raw)
+
+        def _backend_post(self, tail: str, body: dict) -> None:
+            """Store-backend mutation surface (cache/backend.py client).
+
+            Conditional writes carry the caller's snapshot version and a
+            stale one is a 409 with the full StaleWrite payload — the
+            client re-raises it so the dispatch path is backend-agnostic.
+            The generic CRUD route takes full-fidelity wire objects
+            (apis/wire.py), unlike the lossy ingestion routes below.
+            """
+            def parse_bindings(raw) -> list:
+                if not isinstance(raw, list):
+                    raise ValueError("bindings must be a list")
+                bindings = []
+                for entry in raw:
+                    if not (isinstance(entry, (list, tuple)) and len(entry) == 3):
+                        raise ValueError(
+                            "each binding must be [namespace, name, hostname]"
+                        )
+                    bindings.append(tuple(str(x) for x in entry))
+                return bindings
+
+            try:
+                if tail == "bind":
+                    bindings = parse_bindings(body.get("bindings"))
+                    version = int(body.get("snapshotVersion", 0))
+                    # Store-side half of the distributed bind trace: the
+                    # client (cache/backend.py) sends its gang.bind span
+                    # context in X-KBT-* headers; parenting on it makes a
+                    # federated conflict retry one connected trace across
+                    # scheduler and arbiter processes.
+                    with obs.span(
+                        "store.bind",
+                        parent=obs.from_headers(self.headers),
+                        binds=len(bindings),
+                        version=version,
+                    ) as bspan:
+                        applied = server.store.conditional_bind_many(
+                            bindings, version
+                        )
+                        bspan.set_attr("applied", len(applied))
+                    self._backend_reply(
+                        200,
+                        {
+                            "applied": len(applied),
+                            "storeVersion": server.store.version,
+                        },
+                    )
+                elif tail == "txn":
+                    # v2 coalesced conditional writes: one round trip, a
+                    # batch of per-gang transactions, per-transaction 409
+                    # results inline (the HTTP status stays 200 — one
+                    # conflicted gang must not fail its batchmates).
+                    if server.wire_protocol < 2:
+                        self._reply(404, json.dumps({"error": "not found"}))
+                        return
+                    txns = body.get("txns")
+                    if not isinstance(txns, list):
+                        raise ValueError("txns must be a list")
+                    results = []
+                    with obs.span(
+                        "store.txn",
+                        parent=obs.from_headers(self.headers),
+                        txns=len(txns),
+                    ) as tspan:
+                        for txn in txns:
+                            if not isinstance(txn, dict):
+                                raise ValueError("each txn must be an object")
+                            op = txn.get("op")
+                            version = int(txn.get("snapshotVersion", 0))
+                            try:
+                                if op == "bind":
+                                    applied = server.store.conditional_bind_many(
+                                        parse_bindings(txn.get("bindings")), version
+                                    )
+                                    results.append({"applied": len(applied)})
+                                elif op in ("evict", "unbind"):
+                                    old = server.store.conditional_evict(
+                                        str(txn.get("namespace", "")),
+                                        str(txn.get("name", "")),
+                                        version,
+                                    )
+                                    results.append({"evicted": old is not None})
+                                else:
+                                    raise ValueError(f"unknown txn op {op!r}")
+                            except StaleWrite as e:
+                                results.append(
+                                    {
+                                        "conflict": {
+                                            "kind": e.kind,
+                                            "key": e.key,
+                                            "reason": e.reason,
+                                            "expected": e.expected,
+                                            "actual": e.actual,
+                                        }
+                                    }
+                                )
+                        tspan.set_attr(
+                            "conflicts",
+                            sum(1 for r in results if "conflict" in r),
+                        )
+                    metrics.observe_txn_batch_size(len(txns))
+                    self._backend_reply(
+                        200,
+                        {
+                            "results": results,
+                            "storeVersion": server.store.version,
+                        },
+                    )
+                elif tail == "evict":
+                    namespace = str(body.get("namespace", ""))
+                    name = str(body.get("name", ""))
+                    if not name:
+                        raise ValueError("name must be non-empty")
+                    version = int(body.get("snapshotVersion", 0))
+                    old = server.store.conditional_evict(namespace, name, version)
+                    self._backend_reply(
+                        200,
+                        {
+                            "evicted": old is not None,
+                            "storeVersion": server.store.version,
+                        },
+                    )
+                elif tail in SERIALIZERS:
+                    verb = body.get("verb")
+                    if verb == "create":
+                        obj = wire.decode_kind(tail, body.get("object") or {})
+                        server.store.create(tail, obj)
+                    elif verb == "update":
+                        obj = wire.decode_kind(tail, body.get("object") or {})
+                        server.store.update(tail, obj)
+                    elif verb == "delete":
+                        key = body.get("key")
+                        if not isinstance(key, str) or not key:
+                            raise ValueError("delete needs a non-empty string key")
+                        server.store.delete(tail, key)
+                    else:
+                        raise ValueError(f"unknown verb {verb!r}")
+                    self._backend_reply(
+                        200, {"storeVersion": server.store.version}
+                    )
+                else:
+                    self._reply(404, json.dumps({"error": "not found"}))
+            except StaleWrite as e:
+                # Optimistic-concurrency loss: typed 409 so the backend
+                # client can reconstruct the exact conflict and the loser
+                # resyncs only the conflicted gang.
+                self._reply(
+                    409,
+                    json.dumps(
+                        {
+                            "conflict": {
+                                "kind": e.kind,
+                                "key": e.key,
+                                "reason": e.reason,
+                                "expected": e.expected,
+                                "actual": e.actual,
+                            }
+                        }
+                    ),
+                )
 
         def do_POST(self):  # noqa: N802
             # Validation before anything reaches the store: a type-poisoned
@@ -719,7 +1128,9 @@ def _make_handler(server: "SchedulerServer"):
                 body = self._read_body()
                 if not isinstance(body, dict):
                     raise ValueError("request body must be a JSON object")
-                if self.path == "/apis/v1alpha1/queues":
+                if self.path.startswith("/backend/v1/"):
+                    self._backend_post(self.path[len("/backend/v1/"):], body)
+                elif self.path == "/apis/v1alpha1/queues":
                     name = field(body, "name", str, None, required=True)
                     weight = field(body, "weight", int, 1)
                     if weight < 1:
@@ -978,7 +1389,10 @@ class SchedulerServer:
     one); ``journal_path``: the write-intent journal's file (None: the
     ``KBT_JOURNAL`` path, and with neither no journal); ``device``: the
     CUDA device the loop thread makes current (``Scheduler.run``; None:
-    the thread's default, ``cuda:0``)."""
+    the thread's default, ``cuda:0``); ``store_backend_url``: schedule over
+    that store process's ``/backend/v1/`` protocol as a federation shard
+    (``KBT_FEDERATION``) instead of over ``store``; ``wire_protocol``: the
+    store-backend protocol this server speaks (2, or 1 to pin v1)."""
 
     def __init__(
         self,
@@ -990,8 +1404,27 @@ class SchedulerServer:
         store: Optional[ClusterStore] = None,
         journal_path: Optional[str] = None,
         device=None,
+        store_backend_url: Optional[str] = None,
+        wire_protocol: int = 2,
     ) -> None:
-        self.store = store or ClusterStore()
+        # Store-backend wire protocol this server SPEAKS (not what any
+        # client negotiated): 2 advertises delta watch / txn batches /
+        # the binary codec on /backend/v1/version and serves HTTP/1.1
+        # keep-alive; 1 pins the pre-v2 surface byte-for-byte (mixed-
+        # version drills pass 1 here).
+        self.wire_protocol = int(wire_protocol)
+
+        # Federation mode (--store-backend): this process schedules over
+        # a remote store's /backend/v1/ protocol instead of owning an
+        # in-process store. The LoopbackBackend mirror duck-types the
+        # store surface, so the watch hub, the observability reads and
+        # the workload API below all serve (and proxy) from it.
+        self.backend = None
+        if store_backend_url:
+            self.backend = LoopbackBackend(store_backend_url)
+            self.store = self.backend
+        else:
+            self.store = store or ClusterStore()
         self.watch_hub = WatchHub(self.store)
         # Crash-consistent write side (recovery/): --journal / KBT_JOURNAL
         # attaches a bind-intent WAL to the cache; start() reconciles it
@@ -1000,10 +1433,44 @@ class SchedulerServer:
         journal_path = journal_path or os.environ.get("KBT_JOURNAL", "").strip()
         if journal_path:
             self.journal = WriteIntentJournal(journal_path)
-        self.cache = SchedulerCache(
-            self.store, scheduler_name=scheduler_name,
-            default_queue=default_queue, journal=self.journal,
-        )
+        self.slot_manager = None
+        if self.backend is not None:
+            shard, shards = parse_shard_spec(
+                os.environ.get(FED_ENV, "").strip() or "1"
+            )
+            # Dynamic resharding: KBT_SHARD_JOURNAL_DIR gives every shard
+            # a well-known per-slot journal (shard-{i}.wal) that a
+            # survivor reconciles on adoption; an explicit --journal /
+            # KBT_JOURNAL path wins.
+            if self.journal is None and shards > 1 and shard_journal_dir():
+                self.journal = WriteIntentJournal(
+                    shard_journal_path(shard_journal_dir(), shard)
+                )
+            self.cache = FederatedCache(
+                self.backend, shard=shard, shards=shards,
+                shard_key=shard_key_mode(), scheduler_name=scheduler_name,
+                default_queue=default_queue, journal=self.journal,
+                staleness_fn=self.backend.snapshot_age,
+            )
+            if shards > 1:
+                # Leased shard slots: this process holds (and renews) the
+                # lease for its primary slot and adopts orphaned peers'
+                # slots; the LoopbackBackend is the lease arbiter (its
+                # lease verbs POST the store process's
+                # /apis/v1alpha1/leases/ endpoint, its LEASES mirror is
+                # the slot-watch).
+                self.slot_manager = ShardSlotManager(
+                    self.backend, self.cache,
+                    identity=f"{scheduler_name}-{shard}@{os.getpid()}",
+                    on_owned_change=lambda adopted, removed: (
+                        self.scheduler.on_owned_slots_changed(adopted, removed)
+                    ),
+                )
+        else:
+            self.cache = SchedulerCache(
+                self.store, scheduler_name=scheduler_name,
+                default_queue=default_queue, journal=self.journal,
+            )
         self.scheduler = Scheduler(
             self.cache, scheduler_conf=scheduler_conf, schedule_period=schedule_period
         )
@@ -1035,12 +1502,30 @@ class SchedulerServer:
 
     def start(self) -> None:
         # Ensure the default queue exists (the reference expects an admin
-        # to create it; the in-process store bootstraps it).
-        if self.store.get("queues", self.cache.default_queue) is None:
+        # to create it; the in-process store bootstraps it — in
+        # federation mode the store process owns that bootstrap).
+        if (
+            self.backend is None
+            and self.store.get("queues", self.cache.default_queue) is None
+        ):
             self.store.create_queue(
                 Queue(metadata=ObjectMeta(name=self.cache.default_queue))
             )
         self.reconcile()
+        if self.backend is not None:
+            self.backend.start()
+        if self.slot_manager is not None:
+            # Acquire in the background: the cache already owns its
+            # primary slot's filter, and optimistic binds keep a brief
+            # double-ownership overlap correct — so scheduling need not
+            # wait out a reclaim handshake with a survivor that adopted
+            # our slot while we were down.
+            threading.Thread(
+                target=self.slot_manager.start,
+                kwargs={"deadline_s": 3600.0},
+                name="kb-slot-acquire",
+                daemon=True,
+            ).start()
         self._stop.clear()
         t_http = threading.Thread(
             target=self.httpd.serve_forever, name="kb-http", daemon=True
@@ -1058,9 +1543,15 @@ class SchedulerServer:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.slot_manager is not None:
+            # release owned slots so survivors adopt immediately instead
+            # of waiting out the lease (the graceful half of failover)
+            self.slot_manager.stop(release=True)
         self.watch_hub.close()
         self.httpd.shutdown()
         self.httpd.server_close()
+        if self.backend is not None:
+            self.backend.stop()
         self.cache.stop()
         for t in self._threads:
             # the loop finishes the cycle in flight before it sees the stop
@@ -1130,6 +1621,16 @@ def build_parser() -> argparse.ArgumentParser:
         "name, server.go:117)",
     )
     p.add_argument(
+        "--store-backend",
+        default="",
+        help="base URL of a store process (e.g. http://store:8080): run "
+        "this scheduler over its /backend/v1/ protocol instead of an "
+        "in-process store — federation mode. The shard is "
+        "KBT_FEDERATION='i/N', the partition key KBT_SHARD_KEY "
+        "(queue|namespace|gang); conflicting placements resolve by "
+        "optimistic concurrency (losers retry with a fresh snapshot)",
+    )
+    p.add_argument(
         "--journal",
         default="",
         help="bind-intent journal (WAL) path for crash-consistent "
@@ -1190,6 +1691,7 @@ def run(argv: Optional[list[str]] = None) -> None:
         default_queue=opt.default_queue,
         listen_address=opt.listen_address,
         journal_path=opt.journal or None,
+        store_backend_url=opt.store_backend or None,
     )
     # start() reconciles the journal before the loop: both the restart
     # and the lease-takeover path land here only once leadership (if

@@ -144,8 +144,15 @@ def test_the_exposition_holds_every_series_under_the_jax_name(tmp_path):
         m.register_reconcile_op("redispatched")
         m.set_watch_snapshot_age(0.5)
         m.register_watch_relist("queues")
+        m.register_federation_conflict("clean")
+        m.register_federation_node_conflict("n0")
+        m.observe_store_backend_rtt("list", 0.001)
+        m.register_store_backend_bytes("tx", "binary", 10)
+        m.set_shard_slot_owned(0, True)
+        m.register_shard_adoption("adopted")
+        m.register_shard_handoff("completed")
     port, jax = _families(torch_metrics.render_prometheus_text()), _families(jax_metrics.render_prometheus_text())
-    assert len(port) == len(torch_metrics.FAMILIES) == 31
+    assert len(port) == len(torch_metrics.FAMILIES) == 43
     for name in ("journal_records_total", "reconcile_ops_total", "watch_snapshot_age_seconds", "watch_relists_total"):
         assert f"kube_batch_tpu_{name}" in port, name
     for name, (help_text, kind, label_sets) in port.items():
