@@ -242,7 +242,54 @@
      ``store.txn_batch``; (d) ``federation.partition``; (e) ``shard.adopt``
      failing once; (f) a graceful handoff and ``shard.handoff`` failing;
      (g) ``shard.lease_flap``; (h) a v2 client against a v1-pinned server;
-13. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+13. drives the port as a streaming scheduler (``streaming.py``,
+   ``pipeline.py``, ``Scheduler.run_micro``, torch_allocate's micro path
+   and deferred dispatch), the counters zeroed just before each phase's
+   main path and read just after:
+   - ``streaming_100k``: bench.py's ``sustained_arrival_row`` at its
+     defaults. A ``ClusterStore`` of 1,000 nodes (128 cpu / 256Gi / 110
+     pods) holding 1,000 resident gangs x 100 Running pods of 1 cpu / 2Gi;
+     ``Scheduler.run`` on ``cuda:0`` with ``enqueue, torch_allocate``
+     (priority, gang, conformance, predicates, nodeorder),
+     ``streaming: true`` and a 60 s backstop period; 2 warm-up gangs, 6
+     probe gangs one at a time, then 40 gangs of 8 pods as Poisson
+     arrivals at 400 pods/s with a node label flip every 10th. Records
+     the probes' time to bind and its p50, sustained pods/s and the
+     arrivals' p50/p90/p99 time to bind (arrival to the store's bind
+     event), micro-cycles by outcome, B1 launches, each probe's
+     micro-cycle split (the action's encode, pack, state upload, B1,
+     fetch and replay, the scheduler's open and close, and the gang's last
+     store bind after the action returned) and kernel builds after the
+     warm-up (``ops.nvcc.builds``). Fails unless every arrival binds as
+     ONE full cycle of a twin store (the same world, arrivals and churn)
+     places it, no micro-cycle ends otherwise than ``ok`` or ``empty``,
+     every micro-cycle that solved did so on the fused rung, no kernel was
+     built after the warm-up and the ``fused`` breaker stays closed;
+   - ``pipelined_50k_5k``: bench.py's ``preempt_50k_5k_pipelined``:
+     ``preempt_mix(50_000, 5_000)`` through ``Scheduler.run_once`` with
+     examples/scheduler-conf-torch.yaml's tiers and ``torch_allocate``
+     alone (a later action joins the deferred dispatch before it runs),
+     on the fused rung, one warm and 5 measured sessions back to back
+     (each a fresh FakeCache over the same world, all built and the
+     garbage collected before the column) without ``KBT_PIPELINE``, then
+     as many with ``KBT_PIPELINE=1`` (the post-solve replay and dispatch
+     deferred onto the pipeline's thread, joined by the next session's
+     fence). Records each column's ``run_once`` times and wall clock, the
+     deferred dispatch seconds, the measured ``pipeline_overlap_fraction``
+     and the fence waits. Fails unless every
+     session's binds equal the synchronous column's, a dispatch was
+     deferred, the pipeline never degraded, and ``cycle.overrun`` under
+     the pipeline aborts a session with no bind and nothing deferred, the
+     next one binding as the synchronous column;
+   - ``streaming_drills``, each on the card and again on the CPU, ending
+     equal: (a) ``streaming.smoke``; (b) ``federation.smoke_streaming``
+     (2 absorb-mode shards); (c) ``stream.micro_cycle`` once, degrading
+     to a full cycle with no pod dropped; (d) ``pipeline.fence`` once,
+     the pipeline degrading stickily while the synchronous cycles bind
+     every gang once; (e) a leader killed after 4 binds of its deferred
+     dispatch, whose journal a standby reconciles before one full cycle
+     ends at the uninterrupted twin's placements;
+14. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -272,6 +319,11 @@ reclaim pass and the preempt walk after it, minutes of host work.
 
 runs only the kernels' build and the federation's three phases (step 12).
 
+    python3 chip_smoke.py --streaming
+
+runs only the kernels' build and the streaming scheduler's three phases
+(step 13).
+
     python3 chip_smoke.py --ab-warm DIR
 
 runs instead ``warm_cycles_50k_5k`` of the checkout at DIR (the parent
@@ -281,8 +333,9 @@ this, this, DIR, each in a process of its own.
     python3 chip_smoke.py --rehearse CUT
 
 needs no card: the pipeline phases (step 8), the fast paths' (step 9),
-the ladder's and the trace's (step 10), the process's (step 11) and the
-federation's (step 12) on the CPU, every world's pod and node counts divided by CUT (the drills' small
+the ladder's and the trace's (step 10), the process's (step 11), the
+federation's (step 12) and the streaming scheduler's (step 13) on the CPU,
+every world's pod and node counts divided by CUT (the drills' small
 world is not cut, and ``ha_failover_50k_5k`` kills its leader after a
 tenth as many binds),
 torch_allocate on the kernels' plain versions; the host actions' times
@@ -1850,7 +1903,7 @@ def exposition_values(text: str) -> dict:
 
 TRACED_SPANS = ("cycle", "snapshot", "encode", "solve", "gang.assign", "commit")
 SPAN_COST_SPANS = 10_000  # spans timed for the instrumentation's own cost
-WARM_ROUNDS = 4  # rounds of traced, untraced, untraced, traced warm cycles
+WARM_ROUNDS = 2  # rounds of traced, untraced, untraced, traced warm cycles
 
 
 def traced_cycles_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
@@ -3916,6 +3969,718 @@ def server_phases(device: str = "cuda", cut: int = 1, shared: dict | None = None
     return failures, launches
 
 
+# -- streaming and pipelined cycles ---------------------------------------------
+
+# bench.py sustained_arrival_row at its defaults: resident gangs x members on
+# nodes, then warm-up, probe and sustained gangs of ARRIVAL_MEMBERS pods
+# arriving at STREAM_RATE pods/s, a node label flip every 10th sustained gang
+STREAM_WORLD = (1_000, 100, 1_000)
+STREAM_ARRIVALS = (2, 6, 40)  # warm-up, probe and sustained gangs
+ARRIVAL_MEMBERS = 8
+STREAM_RATE = 400.0  # offered pods/s of the sustained arrivals
+STREAM_PERIOD_S = 60.0  # the backstop full cycle's period
+STREAM_CONF = """
+actions: "enqueue, torch_allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: predicates
+  - name: nodeorder
+actionArguments:
+  torch_allocate:
+    device: {device}
+streaming: {streaming}
+"""
+PIPE_SESSIONS = 5  # measured sessions a column of pipelined_50k_5k, after one warm session each
+STREAM_DRILL_NODES = 6  # the drills' store: nodes of 16 cpu, gangs of 1-cpu pods
+
+
+def nearest_rank(values: list, p: float):
+    """bench.py's percentile: nearest rank on the sorted sample."""
+    import math
+
+    vals = sorted(values)
+    if not vals:
+        return None
+    return vals[max(0, min(len(vals) - 1, math.ceil(p / 100 * len(vals)) - 1))]
+
+
+def write_text(text: str, name: str) -> str:
+    """``text`` in a conf file beside the kernels' build (inside the checkout)."""
+    import zlib
+
+    from kube_batch_tpu_torch.ops import nvcc
+
+    os.makedirs(nvcc.BUILD_DIR, exist_ok=True)
+    path = os.path.join(nvcc.BUILD_DIR, f"{name}-{zlib.crc32(text.encode()):08x}.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+class MicroLog:
+    """Every ``torch_allocate`` execute of a scheduler (the action object
+    replaced by its own instance, so no other scheduler's cycle lands
+    here): whether it was a micro-cycle, its rung, its split and the clock
+    when it returned."""
+
+    def __init__(self, sched) -> None:
+        self.records: list[dict] = []
+        sched.actions = [type(a)() for a in sched.actions]
+        self.action = next(a for a in sched.actions if a.name == "torch_allocate")
+        inner = self.action.execute
+
+        def execute(ssn):
+            inner(ssn)
+            self.records.append({"micro": bool(ssn.micro_cycle), "tier": self.action.last_solver_tier,
+                                 "end": time.perf_counter(), "timings": dict(self.action.last_timings),
+                                 "jobs": set(ssn.jobs)})
+
+        self.action.execute = execute
+        inner_micro = sched.run_micro
+
+        def run_micro(work):
+            n = len(self.records)
+            try:
+                return inner_micro(work)
+            finally:
+                if len(self.records) > n:  # the scheduler's own split of the micro-cycle
+                    self.records[-1]["micro_timings"] = dict(sched.last_micro_timings)
+
+        sched.run_micro = run_micro
+
+    def micro(self) -> list[dict]:
+        return [r for r in self.records if r["micro"]]
+
+
+def stream_seed(store, cut: int, churned: int = 0) -> None:
+    """The resident world of ``streaming_100k``: nodes of 128 cpu / 256Gi /
+    110 pods, resident gangs of Running 1 cpu / 2Gi pods spread round-robin."""
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.apis.types import PodPhase
+
+    gangs, members, n_nodes = STREAM_WORLD[0] // cut, STREAM_WORLD[1], STREAM_WORLD[2] // cut
+    store.create_queue(tt.build_queue("default"))
+    for i in range(n_nodes):
+        store.create_node(tt.build_node(f"n{i}", tt.build_resource_list(cpu=128, memory="256Gi", pods=110)))
+    for g in range(gangs):
+        store.create_pod_group(tt.build_pod_group(f"r{g}", min_member=members))
+        for m in range(members):
+            store.create_pod(tt.build_pod(
+                name=f"r{g}-p{m}", group_name=f"r{g}", node_name=f"n{(g * members + m) % n_nodes}",
+                phase=PodPhase.RUNNING, req=tt.build_resource_list(cpu=1, memory="2Gi")))
+
+
+def stream_arrive(store, name: str, stamps: dict | None = None) -> None:
+    from kube_batch_tpu_torch import testing as tt
+
+    store.create_pod_group(tt.build_pod_group(name, min_member=ARRIVAL_MEMBERS))
+    for m in range(ARRIVAL_MEMBERS):
+        if stamps is not None:
+            stamps[f"default/{name}-p{m}"] = time.perf_counter()
+        store.create_pod(tt.build_pod(name=f"{name}-p{m}", group_name=name,
+                                      req=tt.build_resource_list(cpu=1, memory="2Gi")))
+
+
+def stream_churn(store, i: int) -> None:
+    from kube_batch_tpu_torch import testing as tt
+
+    store.update_node(tt.build_node(f"n{i}", tt.build_resource_list(cpu=128, memory="256Gi", pods=110),
+                                    labels={"bench/churned": "1"}))
+
+
+def micro_outcomes() -> dict:
+    from kube_batch_tpu_torch import metrics
+
+    return {dict(k)["outcome"]: v for k, v in metrics.micro_cycles.samples().items()}
+
+
+def streaming_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+    """``streaming_100k``: bench.py's ``sustained_arrival_row`` at its
+    defaults through the port's streaming loop (module docstring, step 13).
+    Returns the record and the main path's (B1, B2) launches."""
+    import random
+
+    import torch
+
+    from kube_batch_tpu_torch import faults, metrics
+    from kube_batch_tpu_torch.cache import ClusterStore, SchedulerCache
+    from kube_batch_tpu_torch.cache.store import PODS, EventHandler
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    on_card = device != "cpu"
+    loop_device = "cuda:0" if on_card else None
+    warm_n, probe_n, sustained_n = STREAM_ARRIVALS
+    script = ([f"w{i}" for i in range(warm_n)] + [f"s{i}" for i in range(probe_n)]
+              + [f"a{i}" for i in range(sustained_n)])
+    rec: dict = {"phase": "streaming_100k", "device": device, "cut": cut,
+                 "resident_pods": STREAM_WORLD[0] // cut * STREAM_WORLD[1], "nodes": STREAM_WORLD[2] // cut,
+                 "arrival_pods": len(script) * ARRIVAL_MEMBERS, "offered_pods_per_s": STREAM_RATE}
+    t0 = time.perf_counter()
+    store = ClusterStore()
+    stream_seed(store, cut)
+    rec["ingest_s"] = time.perf_counter() - t0
+    binds: dict[str, tuple[float, str]] = {}
+
+    def on_update(old, new):
+        if not old.node_name and new.node_name:
+            binds[f"{new.namespace}/{new.name}"] = (time.perf_counter(), new.node_name)
+
+    store.add_event_handler(PODS, EventHandler(on_update=on_update))
+    t0 = time.perf_counter()
+    cache = SchedulerCache(store)
+    rec["cache_sync_s"] = time.perf_counter() - t0
+    sched = Scheduler(cache, write_text(STREAM_CONF.format(device=device, streaming="true"), "stream"),
+                      schedule_period=STREAM_PERIOD_S)
+    log = MicroLog(sched)
+    arrivals: dict[str, float] = {}
+
+    def bound(name: str) -> bool:
+        return all(f"default/{name}-p{m}" in binds for m in range(ARRIVAL_MEMBERS))
+
+    def wait_gang(name: str, timeout: float = 60.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not bound(name):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"gang {name} not bound within {timeout}s")
+            time.sleep(0.0002)
+
+    outcomes0 = micro_outcomes()
+    ttb0 = metrics.time_to_bind.snapshot()["count"]
+    breaker = faults.solver_ladder.breakers["fused"]
+    if on_card:
+        torch.cuda.synchronize()
+    fs.fused_solve.launches = bs.block_step.launches = 0
+    stop = threading.Event()
+    thread = threading.Thread(target=sched.run, args=(stop, loop_device), name="kb-stream", daemon=True)
+    t_start = time.perf_counter()
+    thread.start()
+    probe_lat: list[float] = []
+    probe_split: list[dict] = []
+    try:
+        deadline = time.monotonic() + 300.0
+        while sched._stream_state is None or not sched._stream_state.valid:  # the first full cycle
+            if time.monotonic() > deadline or not thread.is_alive():
+                raise AssertionError("the resident table was never adopted")
+            time.sleep(0.01)
+        rec["first_full_cycle"] = {"adopted_s": time.perf_counter() - t_start, **sched.last_timings}
+        it = iter(script)
+        for _ in range(warm_n):
+            name = next(it)
+            stream_arrive(store, name, arrivals)
+            wait_gang(name)
+        builds0 = nvcc.builds
+        for _ in range(probe_n):
+            name = next(it)
+            n0 = len(log.records)
+            t0 = time.perf_counter()
+            stream_arrive(store, name, arrivals)
+            wait_gang(name)
+            probe_lat.append(time.perf_counter() - t0)
+            # the micro-cycle that solved this gang (its record lands when
+            # its execute returns, which may be after the binds)
+            gang = f"default/{name}"
+            wait_for(lambda: any(gang in r["jobs"] and "micro_timings" in r for r in log.records[n0:]),
+                     f"the micro-cycle of {name}")
+            mine = [r for r in log.records[n0:] if gang in r["jobs"] and r["timings"].get("encode_s") is not None]
+            if mine:
+                last_bind = max(binds[f"default/{name}-p{m}"][0] for m in range(ARRIVAL_MEMBERS))
+                probe_split.append({**mine[-1]["timings"], **{f"sched_{k}": v for k, v in
+                                                              mine[-1]["micro_timings"].items()},
+                                    "write_back_s": last_bind - mine[-1]["end"], "bind_s": probe_lat[-1]})
+        rng = random.Random(7)
+        sustained_start = time.perf_counter()
+        for g in range(sustained_n):
+            stream_arrive(store, next(it), arrivals)
+            if g % 10 == 9:
+                stream_churn(store, g)  # the resident node-patch path
+            time.sleep(rng.expovariate(STREAM_RATE / ARRIVAL_MEMBERS))
+        for g in range(sustained_n):
+            wait_gang(f"a{g}")
+        rec["builds_after_warm_up"] = nvcc.builds - builds0
+    finally:
+        stop.set()
+        thread.join(timeout=60.0)
+        cache.stop()
+    micro_cycles = sched.micro_cycles_run
+    if on_card:
+        torch.cuda.synchronize()
+    launches = (fs.fused_solve.launches, bs.block_step.launches)
+    if thread.is_alive():
+        raise AssertionError("the streaming loop did not stop")
+    keys = [f"default/a{g}-p{m}" for g in range(sustained_n) for m in range(ARRIVAL_MEMBERS)]
+    lat = sorted(binds[k][0] - arrivals[k] for k in keys)
+    span = max(binds[k][0] for k in keys) - sustained_start
+    outcomes = {k: v - outcomes0.get(k, 0.0) for k, v in micro_outcomes().items() if v - outcomes0.get(k, 0.0)}
+    micro = log.micro()
+    solved = [r for r in micro if r["tier"] != "none"]
+    rec.update({
+        "micro_cycles": micro_cycles, "micro_cycles_by_outcome": outcomes,
+        "micro_solves": len(solved), "micro_tiers": sorted({r["tier"] for r in micro}),
+        "full_cycles": sum(1 for r in log.records if not r["micro"]),
+        "probe_bind_s": probe_lat, "probe_p50_bind_ms": nearest_rank(probe_lat, 50) * 1e3,
+        "sustained_pods_per_s": len(keys) / span,
+        "time_to_bind_p50_ms": nearest_rank(lat, 50) * 1e3, "time_to_bind_p90_ms": nearest_rank(lat, 90) * 1e3,
+        "time_to_bind_p99_ms": nearest_rank(lat, 99) * 1e3,
+        "time_to_bind_observed": metrics.time_to_bind.snapshot()["count"] - ttb0,
+        "b1_launches": launches[0], "b2_launches": launches[1],
+        "micro_split_median_s": {k: statistics.median(p[k] for p in probe_split)
+                                 for k in probe_split[0] if isinstance(probe_split[0][k], float)
+                                 and all(k in p for p in probe_split)} if probe_split else {},
+        "micro_split_probes": probe_split,
+        "breaker_fused": breaker.state,
+    })
+    stream_placed = {k: v[1] for k, v in binds.items()}
+
+    # the full-cycle twin: the same resident world, every arrival and churn,
+    # placed by ONE full cycle
+    twin = ClusterStore()
+    stream_seed(twin, cut)
+    for name in script:
+        stream_arrive(twin, name)
+    for g in range(sustained_n):
+        if g % 10 == 9:
+            stream_churn(twin, g)
+    twin_cache = SchedulerCache(twin)
+    twin_sched = Scheduler(twin_cache, write_text(STREAM_CONF.format(device=device, streaming="false"), "stream"))
+    if on_card:
+        torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    twin_sched.run_once()
+    rec["twin_run_once_s"] = time.perf_counter() - t0
+    twin_placed = {f"{p.namespace}/{p.name}": p.node_name for p in twin.list(PODS)
+                   if not p.name.startswith("r") and p.node_name}
+    rec["placements_equal_full_cycle"] = stream_placed == twin_placed
+    emit_failures = []
+    if stream_placed != twin_placed:
+        diff = sorted(set(stream_placed.items()) ^ set(twin_placed.items()))
+        emit_failures.append(f"placements differ from the full-cycle twin on {len(diff)} entries, first {diff[:4]}")
+    if len(stream_placed) != len(script) * ARRIVAL_MEMBERS:
+        emit_failures.append(f"{len(stream_placed)} of {len(script) * ARRIVAL_MEMBERS} arrivals bound")
+    bad = {k: v for k, v in outcomes.items() if k not in ("ok", "empty")}
+    if bad:
+        emit_failures.append(f"micro-cycles degraded: {bad}")
+    if not solved or any(r["tier"] != "fused" for r in solved):
+        emit_failures.append(f"micro-cycles off the fused rung: {rec['micro_tiers']}")
+    if rec["builds_after_warm_up"]:
+        emit_failures.append(f"{rec['builds_after_warm_up']} kernel builds after warm-up")
+    if on_card and launches[0] < len(solved):
+        emit_failures.append(f"{launches[0]} B1 launches for {len(solved)} micro solves")
+    if breaker.state != "closed":
+        emit_failures.append(f"the fused breaker is {breaker.state}")
+    if emit_failures:
+        emit(rec)
+        raise AssertionError("; ".join(emit_failures))
+    return rec, launches
+
+
+def session_cluster(base):
+    """A cluster sharing ``base``'s nodes and queues, with job clones that
+    own their PodGroups: a session's close writes its statuses there, and
+    ``base`` stays the world every session starts from."""
+    import copy
+    import dataclasses
+
+    from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
+
+    jobs = {}
+    for uid, job in base.jobs.items():
+        c = job.clone()
+        if c.pod_group is not None:
+            c.pod_group = dataclasses.replace(c.pod_group, status=copy.deepcopy(c.pod_group.status))
+        jobs[uid] = c
+    return ClusterInfo(jobs=jobs, nodes=base.nodes, queues=base.queues)
+
+
+def pipelined_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+    """``pipelined_50k_5k``: ``preempt_mix(50_000, 5_000)`` through
+    ``Scheduler.run_once`` (``torch_allocate`` alone) on the fused rung,
+    one warm and PIPE_SESSIONS measured sessions back to back without the
+    pipeline, then as many with ``KBT_PIPELINE=1``, each session a fresh
+    FakeCache over the same world (all built before the column); then the
+    ``cycle.overrun`` drill under the pipeline. Returns the record and the
+    sessions' (B1, B2) launches. ``column_s`` is the measured sessions'
+    wall clock with their dispatches landed; the overlap fraction is the
+    fence's own reading (a pipelined ``run_once`` closes its session behind
+    the dispatch, and that join is the first)."""
+    import torch
+
+    from kube_batch_tpu_torch import faults, metrics, models, pipeline
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    import gc
+
+    on_card = device != "cpu"
+    # torch_allocate alone, as bench.py's row runs it: a later action
+    # (backfill) would join the deferred dispatch before it runs
+    conf = conf_file(actions="torch_allocate", **({} if on_card else {"device": "cpu"}))
+    t0 = time.perf_counter()
+    base = models.preempt_mix(50_000 // cut, 5_000 // cut)
+    rec: dict = {"phase": "pipelined_50k_5k", "device": device, "cut": cut, "generate_s": time.perf_counter() - t0}
+    saved = os.environ.get(pipeline.ENV)
+    if on_card:
+        torch.cuda.synchronize()
+    fs.fused_solve.launches = bs.block_step.launches = 0
+    before = degradations()
+    columns: dict = {}
+    try:
+        for column, env in (("sync", "0"), ("pipelined", "1")):
+            os.environ[pipeline.ENV] = env
+            pipeline.reset()
+            wait0 = metrics.pipeline_fence_wait_seconds.snapshot()
+            runs, caches, tails = [], [], []
+            # every session's world built first, and the garbage collected,
+            # so the sessions run back to back as a loop's cycles would,
+            # with nothing of the harness inside a dispatch's window
+            clusters = [session_cluster(base) for _ in range(1 + PIPE_SESSIONS)]
+            gc.collect()
+            t_column = 0.0
+            for i, cluster in enumerate(clusters):
+                cache = FakeCache(cluster)
+                sched = Scheduler(cache, conf)
+                alloc = next(a for a in sched.actions if a.name == "torch_allocate")
+                t0 = time.perf_counter()
+                if i == 1:
+                    t_column = t0
+                sched.run_once()
+                run_once_s = time.perf_counter() - t0
+                if alloc.last_solver_tier != "fused" or "aborted" in sched.last_timings:
+                    raise AssertionError(f"{column} session {i}: rung {alloc.last_solver_tier}, "
+                                         f"{sched.last_timings.get('aborted', 'not aborted')}")
+                tails.append(alloc.last_timings)  # the deferred closure writes replay_s here
+                caches.append(cache)
+                if i:
+                    runs.append({"run_once_s": run_once_s, "cycle": dict(sched.last_timings)})
+            del clusters
+            if not pipeline.fence.wait():
+                raise AssertionError(f"{column}: the last dispatch did not land: {pipeline.fence.degraded_reason}")
+            column_s = time.perf_counter() - t_column  # the measured sessions, their dispatches landed
+            wait1 = metrics.pipeline_fence_wait_seconds.snapshot()
+            for r, t in zip(runs, tails[1:]):
+                r["torch_allocate"] = dict(t)
+            columns[column] = {
+                "runs": runs, "run_once_s": [r["run_once_s"] for r in runs],
+                "p50_run_once_s": statistics.median(r["run_once_s"] for r in runs), "column_s": column_s,
+                "deferred_dispatch_s": [t.get("replay_s") for t in tails[1:]] if column == "pipelined" else [],
+                "replay_s": [t.get("replay_s") for t in tails[1:]],
+                "fence_waits": wait1["count"] - wait0["count"], "fence_wait_s": wait1["sum"] - wait0["sum"],
+                "overlap_fraction": pipeline.fence.last_overlap_fraction,
+                "dispatch_s_last": pipeline.fence._dispatch_s,
+                "binds": [dict(c.binder.binds) for c in caches],
+                "degraded": pipeline.fence.degraded_reason,
+            }
+        if on_card:
+            torch.cuda.synchronize()
+        launches = (fs.fused_solve.launches, bs.block_step.launches)
+        grew = {k: v - before[k] for k, v in degradations().items() if v != before[k]}
+        sync, pipe = columns["sync"], columns["pipelined"]
+        want = sync["binds"][0]
+        failures = []
+        if any(b != want for b in sync["binds"] + pipe["binds"]) or not want:
+            failures.append("binds differ from the synchronous column's first session")
+        if not pipe["dispatch_s_last"] > 0 or not all(s and s > 0 for s in pipe["deferred_dispatch_s"]):
+            failures.append("no dispatch was deferred")
+        if pipe["degraded"] or grew:
+            failures.append(f"degraded: {pipe['degraded']} {grew}")
+
+        # the overrun drill under the pipeline: the barrier runs before the
+        # submission, so the aborted cycle binds nothing and defers nothing
+        os.environ[pipeline.ENV] = "1"
+        pipeline.reset()
+        cache = FakeCache(session_cluster(base))
+        sched = Scheduler(cache, conf)
+        faults.registry.arm("cycle.overrun", count=1)
+        try:
+            t0 = time.perf_counter()
+            sched.run_once()
+            aborted_s = time.perf_counter() - t0
+        finally:
+            faults.registry.reset()
+        overrun = {"aborted": sched.last_timings.get("aborted"), "aborted_s": aborted_s,
+                   "binds": len(cache.binder.binds), "pending": pipeline.fence.pending()}
+        if not overrun["aborted"] or overrun["binds"] or overrun["pending"]:
+            failures.append(f"the overrun drill did not discard cleanly: {overrun}")
+        t0 = time.perf_counter()
+        sched.run_once()
+        pipeline.fence.wait()
+        overrun["next_s"] = time.perf_counter() - t0
+        overrun["next_binds_equal"] = dict(cache.binder.binds) == want
+        if not overrun["next_binds_equal"] or pipeline.fence.degraded_reason:
+            failures.append("the cycle after the overrun did not bind as the synchronous column")
+    finally:
+        if saved is None:
+            os.environ.pop(pipeline.ENV, None)
+        else:
+            os.environ[pipeline.ENV] = saved
+        pipeline.reset()
+    for col in columns.values():
+        col["binds"] = len(col["binds"][0])
+    rec.update({"sessions": PIPE_SESSIONS, "columns": columns, "overrun": overrun,
+                "b1_launches": launches[0], "b2_launches": launches[1],
+                "p50_speedup_vs_sync_pct": 100.0 * (1.0 - columns["pipelined"]["p50_run_once_s"]
+                                                     / columns["sync"]["p50_run_once_s"])})
+    if failures:
+        emit(rec)
+        raise AssertionError("; ".join(failures))
+    return rec, launches
+
+
+def drill_store(nodes: int = STREAM_DRILL_NODES):
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.cache import ClusterStore
+
+    store = ClusterStore()
+    store.create_queue(tt.build_queue("default"))
+    for i in range(nodes):
+        store.create_node(tt.build_node(f"n{i}", tt.build_resource_list(cpu=16, memory="16Gi", pods=64)))
+    return store
+
+
+def drill_gang(store, name: str, members: int) -> None:
+    from kube_batch_tpu_torch import testing as tt
+
+    store.create_pod_group(tt.build_pod_group(name, min_member=members))
+    for m in range(members):
+        store.create_pod(tt.build_pod(name=f"{name}-p{m}", group_name=name,
+                                      req=tt.build_resource_list(cpu=1, memory="512Mi")))
+
+
+def wait_for(pred, what: str, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def all_bound(store) -> bool:
+    pods = store.list("pods")
+    return bool(pods) and all(p.node_name for p in pods)
+
+
+def bind_counter(store) -> dict:
+    from kube_batch_tpu_torch.cache.store import PODS, EventHandler
+
+    counts: dict[str, int] = {}
+
+    def on_update(old, new):
+        if not old.node_name and new.node_name:
+            counts[f"{new.namespace}/{new.name}"] = counts.get(f"{new.namespace}/{new.name}", 0) + 1
+
+    store.add_event_handler(PODS, EventHandler(on_update=on_update))
+    return counts
+
+
+def stream_drill(kind: str, device: str, tmp: str) -> dict:
+    """One drill of ``streaming_drills`` on ``device``; returns its
+    outcome, compared between the card and the CPU."""
+    import zlib
+
+    from kube_batch_tpu_torch import faults, federation, pipeline, streaming
+    from kube_batch_tpu_torch.cache import SchedulerCache
+    from kube_batch_tpu_torch.recovery import WriteIntentJournal, reconcile_journal
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    loop_device = "cuda:0" if device != "cpu" else None
+    conf = {s: write_text(streaming.smoke_conf(s, device), "stream-drill") for s in (True, False)}
+    if kind == "a_smoke":
+        r = streaming.smoke(device=device)
+        if not r["ok"]:
+            raise AssertionError(f"streaming.smoke failed: {r}")
+        return {k: r[k] for k in ("ok", "bound", "pods", "parity", "full_cycle_micro_cycles")} | {
+            "micro_cycles_taken": r["micro_cycles"] > 0}
+    if kind == "b_federation":
+        r = federation.smoke_streaming(device=device)
+        if not r["ok"]:
+            raise AssertionError(f"federation.smoke_streaming failed: {r}")
+        return {k: r[k] for k in ("ok", "bound", "pods", "parity", "exactly_once", "listeners_clean",
+                                  "pumps_joined")} | {"micro_cycles_taken": r["micro_cycles"] > 0}
+    if kind == "c_micro_fault":
+        faults.registry.arm("stream.micro_cycle", count=1)
+        store = drill_store()
+        cache = SchedulerCache(store)
+        sched = Scheduler(cache, conf[True], schedule_period=30.0)
+        stop = threading.Event()
+        t = threading.Thread(target=sched.run, args=(stop, loop_device), daemon=True)
+        t.start()
+        try:
+            wait_for(lambda: sched._stream_state is not None and sched._stream_state.valid, "the resident table")
+            drill_gang(store, "g0", 4)
+            wait_for(lambda: all_bound(store), "g0 bound despite the micro fault")
+            before = sched.micro_cycles_run
+            drill_gang(store, "g1", 4)
+            wait_for(lambda: all_bound(store), "g1 bound")
+            wait_for(lambda: sched.micro_cycles_run > before, "the micro path resumed")
+        finally:
+            stop.set()
+            t.join(timeout=30.0)
+            cache.stop()
+            fired = faults.registry.active()["stream.micro_cycle"][2]
+            faults.registry.reset()
+        if fired != 1:
+            raise AssertionError(f"stream.micro_cycle fired {fired} times")
+        return {"fired": fired, "final": placements(store)}
+    if kind == "d_fence":
+        saved = os.environ.get(pipeline.ENV)
+        os.environ[pipeline.ENV] = "1"
+        pipeline.reset()
+        try:
+            store = drill_store(4)
+            counts = bind_counter(store)
+            sched = Scheduler(SchedulerCache(store), conf[False])
+            if loop_device is not None:
+                import torch
+
+                torch.cuda.set_device(0)
+            drill_gang(store, "g0", 3)
+            sched.run_once()
+            if not pipeline.fence._dispatch_s > 0:
+                raise AssertionError("the first cycle deferred no dispatch")
+            faults.registry.arm("pipeline.fence", count=1)
+            drill_gang(store, "g1", 3)
+            sched.run_once()  # the fence wait fires: the cycle is skipped
+            out = {"skipped": sched.last_timings.get("skipped"), "degraded": bool(pipeline.fence.degraded_reason),
+                   "enabled_after": pipeline.enabled()}
+            faults.registry.reset()
+            sched.run_once()
+            drill_gang(store, "g2", 3)
+            sched.run_once()
+            out.update(all_bound=all_bound(store), binds=len(counts), once=all(n == 1 for n in counts.values()),
+                       final=placements(store))
+        finally:
+            faults.registry.reset()
+            pipeline.reset()
+            if saved is None:
+                os.environ.pop(pipeline.ENV, None)
+            else:
+                os.environ[pipeline.ENV] = saved
+        if not (out["degraded"] and not out["enabled_after"] and out["all_bound"] and out["once"]
+                and out["binds"] == 9):
+            raise AssertionError(f"the fence drill: {out}")
+        return out
+    if kind == "e_killed_deferred":
+        twin = drill_store(4)
+        for g in range(2):
+            drill_gang(twin, f"g{g}", 6)
+        Scheduler(SchedulerCache(twin), conf[False]).run_once()
+        expected = placements(twin)
+        saved = os.environ.get(pipeline.ENV)
+        os.environ[pipeline.ENV] = "1"
+        pipeline.reset()
+        wal = os.path.join(tmp, f"stream-{device}.wal")
+        try:
+            store = drill_store(4)
+            counts = bind_counter(store)
+            journal = WriteIntentJournal(wal)
+            sched = Scheduler(SchedulerCache(store, journal=journal, binder=DyingBinder(store, 4)), conf[False])
+            for g in range(2):
+                drill_gang(store, f"g{g}", 6)
+            try:
+                sched.run_once()
+                raise AssertionError("the leader survived its binder")
+            except LeaderKilled:
+                pass
+            landed = sum(1 for v in placements(store).values() if v)
+            orphans = len(WriteIntentJournal.replay(wal).orphans)
+            journal.close()
+            with open(wal, "rb") as f:
+                wal_bytes = f.read()
+        finally:
+            pipeline.reset()
+            if saved is None:
+                os.environ.pop(pipeline.ENV, None)
+            else:
+                os.environ[pipeline.ENV] = saved
+        standby = WriteIntentJournal(wal)
+        report = reconcile_journal(standby, store)
+        Scheduler(SchedulerCache(store), conf[False]).run_once()
+        standby.close()
+        out = {"landed": landed, "orphans": orphans, "redispatched": report.redispatched,
+               "rolled_back": report.rolled_back, "final": placements(store),
+               "once": all(n == 1 for n in counts.values()), "journal_crc": f"{zlib.crc32(wal_bytes):08x}"}
+        if not (0 < landed < 12 and orphans and report.redispatched == orphans and not report.rolled_back
+                and out["final"] == expected and out["once"] and set(counts) == set(expected)):
+            raise AssertionError(f"the killed-leader drill: {out}")
+        return out
+    raise ValueError(kind)
+
+
+STREAM_DRILLS = ("a_smoke", "b_federation", "c_micro_fault", "d_fence", "e_killed_deferred")
+
+
+def streaming_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``streaming_drills``: each drill on ``device`` and again on the CPU,
+    ending equal (module docstring, step 13). Returns the record and the
+    card runs' B1 launches."""
+    import tempfile
+
+    import torch
+
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    rec: dict = {"phase": "streaming_drills", "device": device, "drills": {}}
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        for kind in STREAM_DRILLS:
+            out = {}
+            for dev in dict.fromkeys((device, "cpu")):
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                b1 = fs.fused_solve.launches
+                t0 = time.perf_counter()
+                out[dev] = stream_drill(kind, dev, tmp)
+                out[dev]["s"] = time.perf_counter() - t0
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                    out[dev]["b1_launches"] = fs.fused_solve.launches - b1
+                    launches += out[dev]["b1_launches"]
+                    if not out[dev]["b1_launches"]:
+                        raise AssertionError(f"{kind} on {dev} launched no B1")
+            strip = lambda o: {k: v for k, v in o.items() if k not in ("s", "b1_launches")}  # noqa: E731
+            if strip(out[device]) != strip(out["cpu"]):
+                raise AssertionError(f"{kind}: the card's run ends otherwise than the CPU's: "
+                                     f"{strip(out[device])} != {strip(out['cpu'])}")
+            rec["drills"][kind] = {dev: {k: v for k, v in o.items() if k != "final"} for dev, o in out.items()}
+    rec["b1_launches"] = launches
+    return rec, (launches, 0)
+
+
+def streaming_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict]:
+    """The streaming scheduler's phases: ``streaming_100k``,
+    ``pipelined_50k_5k`` (whose overrun drill checks its own
+    degradations) and ``streaming_drills``. Returns the failures and the
+    launches of each phase's main path."""
+    failures, launches = [], {}
+
+    def streamed():
+        rec, launches["streaming_100k"] = streaming_phase(device, cut)
+        emit(rec)
+
+    def pipelined():
+        rec, launches["pipelined_50k_5k"] = pipelined_phase(device, cut)
+        emit(rec)
+
+    def drills():
+        rec, launches["streaming_drills"] = streaming_drills(device)
+        emit(rec)
+
+    t0 = time.perf_counter()
+    run_phase(failures, "streaming_100k", streamed)
+    run_phase(failures, "pipelined_50k_5k", pipelined, drill=True)
+    run_phase(failures, "streaming_drills", drills, drill=True)
+    emit({"phase": "streaming_phases_total", "s": time.perf_counter() - t0})
+    return failures, launches
+
+
 def pipeline_uncut(card: str, kind: str) -> int:
     """``--pipeline-uncut``: pipeline_reclaim on the card at 50,000 pods,
     the cost of the uncut reclaim pass and of the preempt walk after it
@@ -3959,6 +4724,28 @@ def federation_only(card: str, kind: str) -> int:
     return 0
 
 
+def streaming_only(card: str, kind: str) -> int:
+    """``--streaming``: the kernels' build and the streaming scheduler's
+    three phases alone (step 13)."""
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+
+    t_start = time.perf_counter()
+    nvcc.build(["fused_solve", "block_step"])
+    fs._library.load()
+    bs._library.load()
+    emit(native_build())
+    failures, launches = streaming_phases()
+    emit({"phase": "total", "s": time.perf_counter() - t_start, "launches": {k: list(v) for k, v in launches.items()}})
+    if failures:
+        print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
+        return 1
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})
+    return 0
+
+
 def rehearse(argv: list[str]) -> int:
     """``--rehearse CUT``: the pipeline, fast-path, ladder, trace and process
     phases on the CPU, every world's pod and node counts divided by CUT,
@@ -3984,6 +4771,8 @@ def rehearse(argv: list[str]) -> int:
     failures += server_failures
     fed_failures, _ = federation_phases(device="cpu", cut=cut, shared=shared)
     failures += fed_failures
+    stream_failures, _ = streaming_phases(device="cpu", cut=cut)
+    failures += stream_failures
     emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
     return 1 if failures else 0
 
@@ -4079,7 +4868,8 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"]) or argv[:1] == ["--ab-warm"] and len(argv) == 2:
+    if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"], ["--streaming"]) or (
+            argv[:1] == ["--ab-warm"] and len(argv) == 2):
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
         if argv == ["--cards"]:
@@ -4088,10 +4878,12 @@ def main(argv: list[str]) -> int:
             return ab_warm(argv[1])
         if argv == ["--federation"]:
             return federation_only(card, torch.cuda.get_device_name(0))
+        if argv == ["--streaming"]:
+            return streaming_only(card, torch.cuda.get_device_name(0))
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--federation | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
+              "--federation | --streaming | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.ops import block_step as bs
@@ -4286,6 +5078,9 @@ def main(argv: list[str]) -> int:
     fed_failures, fed_launches = federation_phases(shared=shared)
     failures += fed_failures
     shared.clear()
+    # -- the streaming scheduler: streamed bursts, pipelined cycles, drills -
+    stream_failures, stream_launches = streaming_phases()
+    failures += stream_failures
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
@@ -4294,6 +5089,7 @@ def main(argv: list[str]) -> int:
     cycle_launches.update(ladder_launches)
     cycle_launches.update(server_launches)
     cycle_launches.update(fed_launches)
+    cycle_launches.update(stream_launches)
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 

@@ -80,15 +80,35 @@ ops/encode_cache.py), and the replay runs the native hot loops
 Python twin, behind the fault points ``native.load``, ``native.prepass``
 and ``native.dispatch``.
 
-Under tracing (obs) the action opens the ``encode`` span (``tasks``,
-``nodes``, ``warm_fraction``), the ``solve`` span (``mesh``, ``tier``, a
-``host_step`` event per pause; ``torch.profiler.record_function("kbt.solve")``
-around it) and the ``gang.assign`` span (the replay and the dispatch,
-``assigned``), the JAX action's tree.
+Under tracing (obs) the action opens the ``encode`` span (``micro``,
+``tasks``, ``nodes``, ``warm_fraction``), the ``solve`` span (``mesh``,
+``tier``, a ``host_step`` event per pause;
+``torch.profiler.record_function("kbt.solve")`` around it) and the
+``gang.assign`` span (the replay and the dispatch, ``assigned``), the JAX
+action's tree.
+
+Streaming and pipelined cycles, as in the JAX action:
+
+- a streaming micro-cycle's session (``ssn.micro_cycle``, scheduler.py
+  ``run_micro``) encodes with the ``resident_interpod`` hint, the last
+  full cycle's verdict on resident pod-affinity terms
+  (``last_interpod_active``, kept from full cycles only; one that skips
+  the encode, with nothing pending or routed to serial, sweeps the
+  resident pods for it), so the encode skips the sweep over every
+  resident pod; it solves on the same rungs;
+- with ``KBT_PIPELINE`` on (pipeline.py) and outside micro-cycles, the
+  post-solve phase (the replay, the gang barrier and the dispatch) is
+  deferred onto the cache's kb-write pool (``pipeline.submit``) and its
+  Future left on ``ssn.deferred_dispatch`` and armed on the dispatch
+  fence. The dispatch barrier's budget check then runs on the scheduling
+  thread before the submission, so an abort (``cycle.overrun``) still
+  leaves the cache untouched. The closure reads only host arrays taken
+  from the fetched ``SolveState`` on the scheduling thread and makes no
+  CUDA call (the card is made current on the scheduling thread alone).
 
 The JAX package's action also keeps a device-resident arena, node-class
-compression, pipelined dispatch and forensics; those come with the
-port's later items (ROADMAP).
+compression and forensics; those come with the port's later items
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -99,7 +119,7 @@ import time
 import numpy as np
 import torch
 
-from kube_batch_tpu_torch import faults, metrics, native, obs
+from kube_batch_tpu_torch import faults, metrics, native, obs, pipeline
 from kube_batch_tpu_torch import log as pkg_log
 from kube_batch_tpu_torch.actions.envelope import kernel_supported
 from kube_batch_tpu_torch.api.types import TaskStatus
@@ -340,6 +360,11 @@ class TorchAllocateAction(Action):
         # The sharded rung's counts summed over the last execute()'s solve
         # segments: iterations, placing_iterations, launches (kernel B2).
         self.last_counts: dict[str, int] = {}
+        # Whether the last FULL-cycle encode saw any pod-affinity terms
+        # (pending or resident). Streaming micro-cycles pass this as the
+        # resident_interpod hint so the encode skips the sweep over every
+        # node's resident pods (see encode_session).
+        self.last_interpod_active = False
 
     @property
     def name(self) -> str:
@@ -380,6 +405,7 @@ class TorchAllocateAction(Action):
                 # order costs jobs² comparisons, about 15 s over 4,500 jobs)
                 # and bind nothing.
                 self.last_timings = {"pending": 0}
+                self._note_resident_interpod(ssn)
                 return
             if pend * max(len(ssn.nodes), 1) < self._min_device_pairs(args):
                 log.debug(
@@ -405,10 +431,9 @@ class TorchAllocateAction(Action):
         enable_drf = "drf" in order
         enable_proportion = "proportion" in order
 
+        micro = bool(getattr(ssn, "micro_cycle", False))
         t0 = time.perf_counter()
-        # micro: the JAX action's streaming micro-cycle flag; the port runs
-        # full cycles only
-        with obs.span("encode", micro=False) as espan:
+        with obs.span("encode", micro=micro) as espan:
             enc = encode_session(
                 ssn.jobs,
                 ssn.nodes,
@@ -416,7 +441,10 @@ class TorchAllocateAction(Action):
                 drf=ssn.plugins.get("drf") if enable_drf else None,
                 proportion=ssn.plugins.get("proportion") if enable_proportion else None,
                 session=ssn,
+                resident_interpod=self.last_interpod_active if micro else None,
             )
+            if not micro:
+                self.last_interpod_active = bool(enc.interpod_active)
             espan.set_attr("tasks", len(enc.tasks))
             espan.set_attr("nodes", len(ssn.nodes))
             espan.set_attr("warm_fraction", enc.warm_fraction)
@@ -493,25 +521,78 @@ class TorchAllocateAction(Action):
         self.last_encoded = enc
         self.last_timings = timings
 
-        t0 = time.perf_counter()
-        with obs.span("gang.assign", assigned=int(state.step)):
-            replay.apply_upto(
-                state.assign_pos.numpy(), state.assigned_node.numpy(), state.assigned_kind.numpy(), int(state.step)
-            )
-            if budget is not None:
-                # The last pre-dispatch gate: past this point binds reach
-                # the cache and the cycle can no longer abort cleanly. The
-                # cycle.overrun drill injects here (inject=True): the most
-                # discardable work, no cache mutation.
-                budget.check("dispatch barrier", inject=True)
-            replay.finish(state.ready_cnt.numpy())
-        timings["replay_s"] = time.perf_counter() - t0
+        # Pipelined cycles (pipeline.py, KBT_PIPELINE): the post-solve
+        # phase (replay, gang barrier, dispatch) is host and cache work
+        # that needs nothing more from the card, so it can ride the
+        # cache's kb-write pool while the next cycle encodes and solves.
+        # The fence keeps the ordering the synchronous path gets for free
+        # (dispatch N < snapshot N+1), close_session joins before the
+        # commit write-back, and micro-cycles never defer (their outcome
+        # accounting reads the session synchronously).
+        defer = pipeline.enabled() and not micro
+        if defer and budget is not None:
+            # The last pre-dispatch gate stays on the scheduling thread, so
+            # a deadline abort (and the cycle.overrun drill's inject=True)
+            # still unwinds through run_once's discard path with no cache
+            # mutation.
+            budget.check("dispatch barrier", inject=True)
+        # Host arrays, taken here on the scheduling thread: the fetched
+        # SolveState lies on the CPU, so the closure below makes no CUDA
+        # call.
+        assign_pos = state.assign_pos.numpy()
+        assigned_node = state.assigned_node.numpy()
+        assigned_kind = state.assigned_kind.numpy()
+        n_assigned = int(state.step)
+        ready_cnt = state.ready_cnt.numpy()
+
+        def _post_solve(parent=None) -> None:
+            t0 = time.perf_counter()
+            with obs.span("gang.assign", parent=parent, assigned=n_assigned):
+                replay.apply_upto(assign_pos, assigned_node, assigned_kind, n_assigned)
+                if not defer and budget is not None:
+                    # The last pre-dispatch gate: past this point binds
+                    # reach the cache and the cycle can no longer abort
+                    # cleanly. The cycle.overrun drill injects here
+                    # (inject=True): the most discardable work, no cache
+                    # mutation.
+                    budget.check("dispatch barrier", inject=True)
+                replay.finish(ready_cnt)
+            timings["replay_s"] = time.perf_counter() - t0
+
+        if defer:
+            ctx = obs.current()  # pool threads do not inherit the contextvar
+
+            def _deferred() -> None:
+                # stamp the dispatch window for the measured overlap
+                # fraction: [d0, d1] against the consumer's join window
+                d0 = time.perf_counter()
+                _post_solve(parent=ctx)
+                pipeline.fence.record_dispatch_window(d0, time.perf_counter())
+
+            fut = pipeline.submit(ssn.cache, _deferred)
+            ssn.deferred_dispatch = fut
+            pipeline.fence.arm(fut)
+        else:
+            _post_solve()
 
     # -- routing and resolution ---------------------------------------------
+
+    def _note_resident_interpod(self, ssn: Session) -> None:
+        """A full cycle that does not encode still renews the
+        resident-interpod hint the next micro-cycles read (a sweep of the
+        resident pods; the encode's own sweep otherwise), so the hint
+        never outlives the resident world it describes."""
+        if not getattr(ssn, "micro_cycle", False):
+            self.last_interpod_active = any(
+                rt.pod.affinity is not None and rt.pod.affinity.has_pod_affinity_terms()
+                for n in ssn.nodes.values()
+                for rt in n.tasks.values()
+            )
 
     def _route_serial(self, ssn: Session, key: str, reason: str) -> None:
         from kube_batch_tpu_torch.actions.allocate import AllocateAction
 
+        self._note_resident_interpod(ssn)
         self.last_solver_tier = "serial"
         t0 = time.perf_counter()
         AllocateAction().execute(ssn)

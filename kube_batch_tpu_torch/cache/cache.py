@@ -59,10 +59,15 @@ accepts store truth: its intents are confirmed and its tasks resync.
 ``_pod_filter`` is the hook ``federation.FederatedCache`` overrides to keep
 one shard's pending pods (with its own ``_has_task`` dedupe guard).
 
-The JAX package's cache also attaches an explain payload to each intent
-and clones jobs for streaming micro-cycles; those come with the port's
-later items (ROADMAP A), and this constructor does not accept them until
-then.
+Streaming and pipelined cycles: ``clone_jobs_for_stream`` and
+``clone_queues_for_stream`` give a micro-cycle (streaming.py) its
+restricted world with ``snapshot()``'s filters, and ``submit_dispatch``
+runs a pipelined cycle's deferred post-solve closure (pipeline.py) on the
+kb-write pool, or inline when the pool is not started.
+
+The JAX package's cache also attaches an explain payload to each intent;
+that comes with the port's explain layer (ROADMAP A), and this
+constructor does not accept it until then.
 """
 
 from __future__ import annotations
@@ -1431,6 +1436,25 @@ class SchedulerCache:
         else:
             fn(*args)  # run() not started (unit tests): write inline
 
+    def submit_dispatch(self, fn):
+        """Run a deferred post-solve dispatch closure on the kb-write
+        pool, returning its Future (pipeline.py rides this for
+        KBT_PIPELINE cycles). Unlike `_submit_write`, the caller needs the
+        Future: the dispatch fence joins it before the next cycle's
+        snapshot. With the pool off (run() not started), the closure runs
+        inline and the returned Future is already done: the pipelined
+        path degenerates to the synchronous one."""
+        from concurrent.futures import Future
+
+        if self._writer is not None:
+            return self._writer.submit(fn)
+        fut: Future = Future()
+        try:
+            fut.set_result(fn())
+        except BaseException as e:  # noqa: BLE001 - carried by the future
+            fut.set_exception(e)
+        return fut
+
     # -- resync + GC workers (reference cache.go:480-534) ------------------
 
     def resync_task(self, task: TaskInfo) -> None:
@@ -1522,6 +1546,39 @@ class SchedulerCache:
                 len(snapshot.jobs), len(snapshot.queues), len(snapshot.nodes),
             )
             return snapshot
+
+    def clone_jobs_for_stream(self, job_keys) -> tuple[dict[str, JobInfo], set[str]]:
+        """Fresh clones of just the named jobs, with exactly snapshot()'s
+        admission filters and priority resolution: the streaming
+        micro-cycle's restricted job view (streaming.py). Returns
+        ``(jobs, missing)``: keys the mirror does not track at all land
+        in ``missing`` (the gang is gone: prune it from the backlog);
+        jobs that merely fail an admission filter are omitted from both
+        (not schedulable this micro-cycle; the full cycle decides)."""
+        with self._mutex:
+            out: dict[str, JobInfo] = {}
+            missing: set[str] = set()
+            for uid in job_keys:
+                job = self.jobs.get(uid)
+                if job is None:
+                    missing.add(uid)
+                    continue
+                if job.pod_group is None and job.pdb is None:
+                    continue
+                if job.queue not in self.queues:
+                    continue
+                if job.pod_group is not None:
+                    job.priority = self._default_priority
+                    pc = self.priority_classes.get(job.pod_group.spec.priority_class_name)
+                    if pc is not None:
+                        job.priority = pc.value
+                out[uid] = job.clone()
+            return out, missing
+
+    def clone_queues_for_stream(self) -> dict[str, QueueInfo]:
+        """All queues, cloned under the mutex (snapshot()'s queue leg)."""
+        with self._mutex:
+            return {name: q.clone() for name, q in self.queues.items()}
 
     # -- status write-back (reference cache.go:621-666) --------------------
 

@@ -106,8 +106,9 @@ class SchedulerConfiguration:
     ``faults``, ``streaming``, ``trace``, ``explain`` and ``fleet`` are the
     same optional keys the JAX package's schema reads, parsed to the same
     values. The scheduler arms ``faults`` (the fault registry's grammar)
-    when the conf changes and passes ``trace`` to ``obs.configure`` every
-    cycle; ``streaming``, ``explain`` and ``fleet`` wait for their layers.
+    when the conf changes, passes ``trace`` to ``obs.configure`` every
+    cycle, and runs its streaming loop while ``streaming`` is true;
+    ``explain`` and ``fleet`` wait for their layers.
     """
 
     actions: str = ""

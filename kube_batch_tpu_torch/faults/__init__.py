@@ -56,6 +56,15 @@ Federation's points (cache/cache.py, cache/backend.py, federation.py):
 - ``shard.lease_flap``: one renewal round of the owned slots is dropped;
   the owner reacquires without a double adoption.
 
+Streaming and pipelined cycles (scheduler.py, pipeline.py):
+
+- ``stream.micro_cycle``: a micro-cycle fails before it solves; the
+  resident node table is invalidated and the loop runs a full cycle at
+  once, with every arrival kept in the backlog;
+- ``pipeline.fence``: the next cycle's wait on the deferred dispatch
+  times out; the pipeline degrades to synchronous cycles for the
+  process (sticky until ``pipeline.reset()``) and that cycle is skipped.
+
 The HA pair's points (server.py, recovery/):
 
 - ``lease.renew``: a lease round-trip to the arbiter fails; past the
@@ -169,6 +178,10 @@ POINTS = (
     "shard.lease_flap",    # own slot renewal dropped once -> reacquire, no double-adopt
     # incremental encode cache (ops/encode_cache.py)
     "encode.cache",        # cache poisoned -> state dropped, encode runs cold
+    # streaming micro-cycles (scheduler.py run_micro)
+    "stream.micro_cycle",  # micro-cycle solve fails -> degrade to full cycle, no pod dropped
+    # pipelined cycles (pipeline.py DispatchFence)
+    "pipeline.fence",      # deferred dispatch wedged -> fence timeout -> sync degrade
     # native extension boundary (ops/, the bulk replay)
     "native.load",         # extension unavailable for the replay -> Python twins
     "native.prepass",      # bulk_assign prepass raises -> Python replay

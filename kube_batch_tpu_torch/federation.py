@@ -63,8 +63,10 @@ The shards solve on the card: ``smoke`` and ``smoke_kill_one`` write a
 conf whose ``torch_allocate`` runs on ``device`` (``cuda`` unless the
 caller asks for ``cpu``), and ``bulk=True`` is ``enqueue, torch_allocate``
 with the size floor off, so every gang rides ``bind_many``'s conditional
-transactions. The JAX package's streaming federation drill
-(``smoke_streaming``) comes with the port's streaming layer.
+transactions. ``smoke_streaming`` (``--streaming``) runs the same
+federated world twice, streaming micro-cycles against the periodic loop,
+with ``torch_allocate`` on ``device`` and its size floor off
+(streaming.SMOKE_CONF).
 """
 
 from __future__ import annotations
@@ -114,6 +116,7 @@ __all__ = [
     "FederatedCache",
     "fsck",
     "smoke",
+    "smoke_streaming",
     "smoke_kill_one",
 ]
 
@@ -1245,6 +1248,204 @@ def smoke(
     return out
 
 
+def smoke_streaming(
+    shards: int = 2,
+    gangs: int = 6,
+    members: int = 3,
+    nodes: int = 8,
+    device: str = "cuda",
+) -> dict:
+    """Streaming-federation parity drill (``python -m
+    kube_batch_tpu_torch.federation --streaming``): N federated shards
+    over one live LoopbackBackend wire path each, ``torch_allocate``
+    solving on ``device`` with its size floor off, run twice on an
+    identical arrival sequence —
+
+    1. **streaming**: every shard's conf says ``streaming: true`` with a
+       long (5s) backstop period, so after the initial full cycle the
+       arrivals bind through event-driven micro-cycles over each shard's
+       resident node table, peer binds crossing the shard filter as bound-pod
+       adds the trigger *absorbs* as occupancy patches;
+    2. **periodic**: the same world on ``streaming: false`` with a short
+       full-cycle period.
+
+    Asserts the pinned invariant — federated micro drain + backstop
+    ≡ periodic federated loop, **bind-for-bind** (same pod on the same
+    node, not just the same bound set) — plus exactly-once binds, clean
+    fsck, micro-cycles actually taken, and pump-thread/listener teardown
+    hygiene (zero leaked store listeners after the shards stop)."""
+    import tempfile
+    import threading
+
+    from kube_batch_tpu_torch.cache import LoopbackBackend
+    from kube_batch_tpu_torch.ops import encode_cache
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.server import SchedulerServer
+    from kube_batch_tpu_torch.streaming import _check_device, _loop_device, smoke_conf
+    from kube_batch_tpu_torch.testing import (
+        build_node,
+        build_pod,
+        build_pod_group,
+        build_resource_list,
+    )
+
+    _check_device(device)
+    loop_device = _loop_device(device)
+
+    def run_mode(streaming: bool) -> tuple[dict, dict]:
+        with tempfile.NamedTemporaryFile(
+            "w", suffix=".yaml", prefix="kbt-fedstream-", delete=False
+        ) as fh:
+            fh.write(smoke_conf(streaming, device))
+            conf_path = fh.name
+        with tempfile.NamedTemporaryFile(
+            "w", suffix=".yaml", prefix="kbt-fedstore-", delete=False
+        ) as fh:
+            # the store process's own loop is idle (unmatched scheduler
+            # name) and periodic, so it holds no store listener of its own
+            fh.write(smoke_conf(False, device))
+            store_conf_path = fh.name
+        server = SchedulerServer(
+            scheduler_name="store-arbiter", listen_address="127.0.0.1:0",
+            scheduler_conf=store_conf_path, schedule_period=60.0,
+        )
+        server.start()
+        store = server.store
+        bind_counts: dict[str, int] = {}
+        counts_lock = threading.Lock()
+
+        def _count_bind(old, new) -> None:
+            if not old.node_name and new.node_name:
+                with counts_lock:
+                    key = f"{new.namespace}/{new.name}"
+                    bind_counts[key] = bind_counts.get(key, 0) + 1
+
+        store.add_event_handler(PODS, EventHandler(on_update=_count_bind))
+        listeners_before = encode_cache.listener_count()
+        backends: list[LoopbackBackend] = []
+        scheds: list[tuple[Scheduler, threading.Thread]] = []
+        stop = threading.Event()
+        try:
+            # the in-process server already bootstrapped the default queue
+            for i in range(nodes):
+                store.create_node(
+                    build_node(
+                        f"n{i}", build_resource_list(cpu=8, memory="8Gi", pods=32)
+                    )
+                )
+            base = f"http://127.0.0.1:{server.listen_port}"
+            for i in range(shards):
+                backend = LoopbackBackend(base)
+                cache = FederatedCache(
+                    backend, shard=i, shards=shards, shard_key="gang",
+                    staleness_fn=backend.snapshot_age,
+                )
+                cache.run()
+                backend.start(period=0.02)
+                backends.append(backend)
+                sched = Scheduler(
+                    cache, scheduler_conf=conf_path,
+                    schedule_period=5.0 if streaming else 0.05,
+                )
+                t = threading.Thread(
+                    target=sched.run, args=(stop, loop_device),
+                    name=f"kb-fedstream-{i}", daemon=True,
+                )
+                t.start()
+                scheds.append((sched, t))
+            # identical sequential arrival schedule both modes: feed one
+            # gang, wait until its owner shard binds it, feed the next —
+            # every micro-cycle solves against a world whose history is
+            # exactly the periodic run's, so parity is bind-for-bind
+            for g in range(gangs):
+                name = f"fs{g}"
+                store.create_pod_group(build_pod_group(name, min_member=members))
+                for m in range(members):
+                    store.create_pod(
+                        build_pod(
+                            name=f"{name}-p{m}", group_name=name,
+                            req=build_resource_list(cpu=1, memory="512Mi"),
+                        )
+                    )
+                deadline = time.monotonic() + 30.0
+                while True:
+                    mine = [
+                        p for p in store.list(PODS)
+                        if p.name.startswith(f"{name}-")
+                    ]
+                    if len(mine) == members and all(p.node_name for p in mine):
+                        break
+                    if time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"gang {name} not bound within 30s "
+                            f"(streaming={streaming})"
+                        )
+                    time.sleep(0.002)
+        finally:
+            stop.set()
+            for _, t in scheds:
+                t.join(timeout=10.0)
+            for backend in backends:
+                backend.stop()
+            for sched, _ in scheds:
+                sched.cache.stop()
+            for path in (conf_path, store_conf_path):
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+        placed = {
+            f"{p.namespace}/{p.name}": p.node_name for p in store.list(PODS)
+        }
+        violations = fsck(store)
+        with counts_lock:
+            counts = dict(bind_counts)
+        stats = {
+            "micro_cycles": sum(s.micro_cycles_run for s, _ in scheds),
+            "exactly_once": sorted(counts.values()) == [1] * (gangs * members),
+            "fsck_violations": violations,
+            # teardown hygiene: stopping the shards must leave zero store
+            # listeners (a leaked trigger would fire into a dead loop)
+            # and every pump thread joined
+            "listeners_clean": encode_cache.listener_count() == listeners_before,
+            "pumps_joined": all(b._thread is None for b in backends),
+        }
+        server.stop()
+        return placed, stats
+
+    stream_placed, stream_stats = run_mode(True)
+    full_placed, full_stats = run_mode(False)
+    total = gangs * members
+    out = {
+        "shards": shards,
+        "gangs": gangs,
+        "pods": total,
+        "bound": sum(1 for v in stream_placed.values() if v),
+        "micro_cycles": stream_stats["micro_cycles"],
+        "parity": stream_placed == full_placed,
+        "exactly_once": stream_stats["exactly_once"] and full_stats["exactly_once"],
+        "fsck_violations": (
+            stream_stats["fsck_violations"] + full_stats["fsck_violations"]
+        ),
+        "listeners_clean": (
+            stream_stats["listeners_clean"] and full_stats["listeners_clean"]
+        ),
+        "pumps_joined": stream_stats["pumps_joined"] and full_stats["pumps_joined"],
+        "full_cycle_micro_cycles": full_stats["micro_cycles"],
+    }
+    out["ok"] = bool(
+        out["parity"]
+        and out["bound"] == total
+        and out["micro_cycles"] > 0
+        and out["full_cycle_micro_cycles"] == 0
+        and out["exactly_once"]
+        and not out["fsck_violations"]
+        and out["listeners_clean"]
+        and out["pumps_joined"]
+    )
+    return out
+
+
 def smoke_kill_one(
     shards: int = 4,
     gangs: int = 16,
@@ -1578,8 +1779,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     )
     parser.add_argument(
         "--streaming", action="store_true",
-        help="the streaming-federation parity drill; it needs the streaming "
-        "layer, which the port does not have yet, so it exits with an error",
+        help="streaming-federation parity drill: the same federated world "
+        "scheduled by event-driven micro-cycles (watch pump -> absorbed "
+        "occupancy patches) and by the periodic loop must bind "
+        "bind-for-bind identically",
     )
     parser.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
@@ -1590,11 +1793,14 @@ def main(argv: Optional[list[str]] = None) -> int:
     )
     args = parser.parse_args(argv)
     if args.streaming:
-        parser.error(
-            "--streaming needs the streaming scheduler (streaming.py), which "
-            "the port does not have yet"
+        result = smoke_streaming(
+            shards=args.shards or 2,
+            gangs=args.gangs or 6,
+            members=args.members or 3,
+            nodes=args.nodes or 8,
+            device=args.device,
         )
-    if args.kill_one:
+    elif args.kill_one:
         result = smoke_kill_one(
             shards=args.shards or 4,
             gangs=args.gangs or 16,
@@ -1617,6 +1823,17 @@ def main(argv: Optional[list[str]] = None) -> int:
         )
     if args.json:
         print(json.dumps(result, sort_keys=True))
+    elif args.streaming:
+        status = "ok" if result["ok"] else "FAILED"
+        print(
+            f"federation streaming parity: {status} "
+            f"({result['bound']}/{result['pods']} pods bound across "
+            f"{result['shards']} streaming shards, "
+            f"micro_cycles={result['micro_cycles']}, "
+            f"parity={result['parity']}, exactly_once={result['exactly_once']}, "
+            f"listeners_clean={result['listeners_clean']}, "
+            f"fsck={'clean' if not result['fsck_violations'] else result['fsck_violations']})"
+        )
     elif args.kill_one:
         status = "ok" if result["ok"] else "FAILED"
         print(

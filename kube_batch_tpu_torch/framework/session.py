@@ -28,12 +28,16 @@ back under a ``commit`` span (obs); every plugin's open and close hooks
 feed ``plugin_scheduling_latency``, and each serial dispatch feeds
 ``task_scheduling_latency`` and the SLO accountant's ``queue_wait``.
 ``open_session`` also records its phases' wall clock in
-``Session.open_timings``. The JAX package's session also joins a deferred
-(pipelined) dispatch at close; that waits for the port's pipeline fence.
+``Session.open_timings``. Under pipelined cycles (``KBT_PIPELINE``,
+pipeline.py) ``close_session`` first joins the session's deferred
+post-solve dispatch (``Session.deferred_dispatch``); a dispatch that
+raised is logged and degrades the pipeline, and the session closes as the
+synchronous path would.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 import uuid as _uuid
 from typing import TYPE_CHECKING, Callable, Optional
@@ -59,6 +63,8 @@ from kube_batch_tpu_torch.framework.arguments import Arguments
 from kube_batch_tpu_torch.framework.event import Event, EventHandler
 from kube_batch_tpu_torch.framework.interface import Cache, Plugin
 from kube_batch_tpu_torch.framework.registry import get_plugin_builder
+
+_log = logging.getLogger(__name__)
 
 
 class Session:
@@ -89,6 +95,16 @@ class Session:
         # Wall clock of open_session's phases: snapshot_s, plugins_s
         # (every plugin's on_session_open), job_valid_s (the gate).
         self.open_timings: dict[str, float] = {}
+        # Pipelined cycles (KBT_PIPELINE): the Future of this session's
+        # in-flight post-solve dispatch, set by torch_allocate when it
+        # defers the phase onto the kb-write pool. close_session joins it
+        # before the commit write-back; the scheduler's actions loop joins
+        # it before running a later action over the same session.
+        self.deferred_dispatch = None
+        # A streaming micro-cycle's session (scheduler.run_micro):
+        # torch_allocate reads it for the resident-interpod hint and never
+        # defers a micro-cycle's dispatch.
+        self.micro_cycle = False
 
         self.plugins: dict[str, Plugin] = {}
         self.event_handlers: list[EventHandler] = []
@@ -580,6 +596,22 @@ def close_session(ssn: Session, discard: bool = False) -> None:
     skipped: the aborted cycle's session state is rolled back wholesale
     — Statement.discard at cycle granularity — leaving the cache/store
     byte-identical to the cycle's start."""
+    # Pipelined cycles (KBT_PIPELINE): a deferred post-solve dispatch
+    # must land before anything below — the plugin close hooks and the
+    # commit write-back read the session state the deferred replay
+    # mutates, and job status must describe binds that actually
+    # happened. A dispatch failure closes the session like the
+    # synchronous path would (logged, no binds beyond what landed) and
+    # degrades the pipeline loudly.
+    if getattr(ssn, "deferred_dispatch", None) is not None:
+        from kube_batch_tpu_torch import pipeline
+
+        try:
+            pipeline.join_session(ssn)
+        except Exception as e:  # noqa: BLE001 - parity with sync-path logging
+            _log.error("deferred dispatch failed while closing session %s: %s", ssn.uid, e)
+            pipeline.fence.degrade(f"deferred dispatch raised {type(e).__name__}: {e}")
+
     for plugin in ssn.plugins.values():
         start = time.perf_counter()
         plugin.on_session_close(ssn)

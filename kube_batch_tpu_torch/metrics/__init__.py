@@ -38,6 +38,12 @@ label sets:
   ``shard_slot_owned{slot}``, ``shard_adoptions_total{outcome}``,
   ``shard_handoffs_total{outcome}`` and ``shard_takeover_seconds``;
 - ``exchange_batched_iters_total`` (the sharded rung's K-deep exchange);
+- the streaming scheduler (streaming.py, scheduler.py's micro-cycles):
+  ``time_to_bind_seconds`` (arrival event to bind echo, per pod),
+  ``micro_cycles_total{outcome}`` and ``streaming_backlog_pods``;
+- pipelined cycles (pipeline.py): ``pipeline_overlap_fraction`` (the
+  measured share of the last deferred dispatch that did not block the
+  next cycle) and ``pipeline_fence_wait_seconds``;
 - ``encode_cache_hits_total``, ``encode_cache_invalidations_total{reason}``
   and ``encode_warm_fraction`` (ops/encode_cache.py);
 - ``slo_time_to_bind_seconds`` and ``slo_queue_wait_seconds``
@@ -45,9 +51,10 @@ label sets:
   ``obs.slo.publish()``.
 
 The JAX package's series of layers the port does not have yet
-(admission, fleet, streaming, the tensor arena, the class-compressed solve and explain)
+(admission, fleet, the tensor arena, the class-compressed solve and explain)
 come with those layers; so do exemplars (the ``exemplar=`` argument of
-``register_federation_conflict`` is accepted and not stored).
+``register_federation_conflict`` and ``observe_time_to_bind`` is accepted
+and not stored).
 """
 
 from __future__ import annotations
@@ -312,6 +319,22 @@ encode_warm_fraction = Gauge(
     "(0 = fully cold)",
 )
 
+# -- streaming scheduler (streaming.py) ----------------------------------------
+time_to_bind = Histogram(
+    f"{_SUBSYSTEM}_time_to_bind_seconds",
+    "Arrival-event to bind-ack latency per pod in seconds",
+    E2E_BUCKETS,
+)
+micro_cycles = Counter(
+    f"{_SUBSYSTEM}_micro_cycles_total",
+    "Streaming micro-cycles run, by outcome "
+    "(ok/empty/aborted/fault/stale/degraded)",
+)
+streaming_backlog = Gauge(
+    f"{_SUBSYSTEM}_streaming_backlog_pods",
+    "Pods arrived but not yet bound that streaming mode is tracking",
+)
+
 # -- sharded federation (federation.py, the cache's conditional writes) --------
 federation_conflicts = Counter(
     f"{_SUBSYSTEM}_federation_conflicts_total",
@@ -392,11 +415,23 @@ shard_takeover_seconds = Histogram(
     E2E_BUCKETS,
 )
 
+# -- pipelined cycles (pipeline.py, KBT_PIPELINE) ------------------------------
+pipeline_overlap_fraction = Gauge(
+    f"{_SUBSYSTEM}_pipeline_overlap_fraction",
+    "Fraction of the last deferred dispatch that overlapped the next "
+    "cycle's work (1.0 = fence never waited on, 0.0 = fully serialized)",
+)
 # -- the sharded rung's K-deep batched exchange (parallel/sharded_block.py) ---
 exchange_batched_iters_total = Counter(
     f"{_SUBSYSTEM}_exchange_batched_iters_total",
     "Gang iterations committed straight from a K-deep batched mesh "
     "exchange instead of a per-iteration all-gather",
+)
+pipeline_fence_wait_seconds = Histogram(
+    f"{_SUBSYSTEM}_pipeline_fence_wait_seconds",
+    "Time a cycle waited on the previous cycle's dispatch fence before "
+    "taking its snapshot",
+    FINE_BUCKETS,
 )
 
 
@@ -553,6 +588,26 @@ def set_encode_warm_fraction(fraction: float) -> None:
     encode_warm_fraction.set(fraction)
 
 
+def observe_time_to_bind(seconds: float, exemplar: str | None = None) -> None:
+    time_to_bind.observe(seconds)
+
+
+def register_micro_cycle(outcome: str) -> None:
+    micro_cycles.inc({"outcome": outcome})
+
+
+def set_streaming_backlog(n: int) -> None:
+    streaming_backlog.set(n)
+
+
+def set_pipeline_overlap_fraction(fraction: float) -> None:
+    pipeline_overlap_fraction.set(fraction)
+
+
+def observe_pipeline_fence_wait(seconds: float) -> None:
+    pipeline_fence_wait_seconds.observe(seconds)
+
+
 def register_federation_conflict(outcome: str, exemplar: str | None = None) -> None:
     federation_conflicts.inc({"outcome": outcome})
 
@@ -665,6 +720,9 @@ FAMILIES = (
     encode_cache_hits,
     encode_cache_invalidations,
     encode_warm_fraction,
+    time_to_bind,
+    micro_cycles,
+    streaming_backlog,
     federation_conflicts,
     federation_node_conflicts,
     bind_retries,
@@ -678,7 +736,9 @@ FAMILIES = (
     shard_adoptions,
     shard_handoffs,
     shard_takeover_seconds,
+    pipeline_overlap_fraction,
     exchange_batched_iters_total,
+    pipeline_fence_wait_seconds,
     slo_time_to_bind,
     slo_queue_wait,
     slo_evicted_queues,

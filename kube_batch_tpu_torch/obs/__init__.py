@@ -37,9 +37,12 @@ the binds; ``gang.bind`` and ``txn.batch`` cover a federated shard's
 conditional writes, and the store side of such a write (``store.bind``,
 ``store.txn``, server.py) joins the shard's trace through the
 ``X-KBT-Trace-Id``/``X-KBT-Span-Id`` headers (``current_headers`` on the
-client, ``from_headers`` on the server). The JAX package's spans of layers
-the port does not have yet (streaming, explain) come with those layers. ``install_signal_dump`` dumps the
-ring on SIGTERM (the server's ``run``).
+client, ``from_headers`` on the server). A streaming micro-cycle opens the
+root ``micro_cycle`` (scheduler.py ``run_micro``) in place of ``cycle``,
+and the streaming trigger emits one synthetic ``time_to_bind`` span per
+pod (arrival to bind echo) after the fact. The JAX package's ``explain``
+span comes with that layer. ``install_signal_dump`` dumps the ring on
+SIGTERM (the server's ``run``).
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ __all__ = [
     "emit",
     "event",
     "current",
+    "current_trace_id",
     "current_headers",
     "from_headers",
     "annotate",
@@ -102,6 +106,7 @@ HDR_SPAN = "X-KBT-Span-Id"
 # typo'd name cannot silently fork the trace tree.
 SPAN_NAMES = (
     "cycle",        # scheduler.run_once root
+    "micro_cycle",  # scheduler.run_micro root (streaming)
     "snapshot",     # session open: cache snapshot/clone
     "encode",       # torch_allocate's SoA encode (warm_fraction as attr)
     "solve",        # solver entry to the last segment (tier, mesh size)
@@ -113,6 +118,7 @@ SPAN_NAMES = (
     "txn.batch",    # coalesced multi-gang conditional-write round trip
     "store.bind",   # store side of a conditional bind (remote parent)
     "store.txn",    # store side of a coalesced txn batch (remote parent)
+    "time_to_bind",  # synthetic: streaming arrival -> bind echo, per pod
 )
 
 # Wall/perf anchor pair: spans are stamped with the monotonic clock (so
@@ -280,6 +286,14 @@ def current():
     if not _enabled:
         return None
     return _current.get()
+
+
+def current_trace_id() -> str:
+    """The current span's trace id, or "" (the metric-exemplar hook)."""
+    if not _enabled:
+        return ""
+    cur = _current.get()
+    return cur.trace_id if cur is not None else ""
 
 
 def current_headers() -> dict:
@@ -573,8 +587,8 @@ class QuantileSketch:
 
 class SLOAccountant:
     """Per-queue sliding-window latency percentiles. Two kinds:
-    ``time_to_bind`` (arrival -> bind echo; fed by the streaming layer,
-    which the port does not have yet) and ``queue_wait`` (pod creation ->
+    ``time_to_bind`` (arrival -> bind echo; fed by the streaming
+    trigger) and ``queue_wait`` (pod creation ->
     dispatch). Unlike the cumulative histograms in metrics/, these windows
     answer "is queue Q meeting its SLO right now".
 

@@ -424,6 +424,7 @@ def encode_session(
     proportion=None,
     dtype=np.float32,
     session=None,
+    resident_interpod=None,
 ) -> EncodedSnapshot:
     """Build the SoA snapshot for one allocate solve.
 
@@ -448,6 +449,15 @@ def encode_session(
     per-object signatures / group-pair products validated by API-object
     identity. Warm output is byte-identical to cold by construction —
     every reused value is the value this function would recompute.
+
+    ``resident_interpod`` (optional) short-circuits the O(resident-pods)
+    affinity sweep over every node's task map: a streaming micro-cycle
+    (streaming.py) passes the last full cycle's ``interpod_active``
+    verdict for the resident side, and only the micro-session's own
+    host-only tasks are swept. Passing True when no resident pod has
+    affinity terms costs score work but never correctness; the reverse is
+    prevented by the caller (external bound-pod churn invalidates the
+    resident table entirely).
     """
     from kube_batch_tpu_torch.ops import encode_cache as _encode_cache
 
@@ -510,10 +520,14 @@ def encode_session(
     interpod_active = any(
         t.pod.affinity is not None and t.pod.affinity.has_pod_affinity_terms()
         for t in host_only
-    ) or any(
-        rt.pod.affinity is not None and rt.pod.affinity.has_pod_affinity_terms()
-        for n in node_list
-        for rt in n.tasks.values()
+    ) or (
+        bool(resident_interpod)
+        if resident_interpod is not None
+        else any(
+            rt.pod.affinity is not None and rt.pod.affinity.has_pod_affinity_terms()
+            for n in node_list
+            for rt in n.tasks.values()
+        )
     )
 
     if tb is not None and tb.scalar_task_names is not None:

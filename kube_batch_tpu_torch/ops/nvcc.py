@@ -51,6 +51,12 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{_digest(name)}.so")
 
 
+# nvcc processes started by this process: a warm path that builds a kernel
+# again is a regression (a source or its hash changed under a running
+# scheduler), so a smoke reads this around its warm phases.
+builds = 0
+
+
 def build(names: list[str]) -> dict[str, str]:
     """Compile csrc/<name>.cu for every name whose library is not built
     yet, all at once; returns name -> compiler output ("" when the library
@@ -63,6 +69,7 @@ def build(names: list[str]) -> dict[str, str]:
 
 
 def _build_locked(names: list[str]) -> dict[str, str]:
+    global builds
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     logs: dict[str, str] = {}
@@ -82,6 +89,7 @@ def _build_locked(names: list[str]) -> dict[str, str]:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         except OSError as e:
             raise KernelBuildError(f"cannot start nvcc for {name}.cu: {e}") from e
+        builds += 1
         procs[name] = (path, tmp, proc)
     failed = []
     for name, (path, tmp, proc) in procs.items():

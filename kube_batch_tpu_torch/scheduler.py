@@ -70,8 +70,32 @@ Faults, deadlines and telemetry, as in the JAX package:
   (faults/mutation_detector.py): an in-place mutation of a stored object
   raises ``CacheMutationError`` out of ``run_once``.
 
-The JAX package's scheduler also streams micro-cycles and fences
-pipelined dispatch; those come with the port's later items (ROADMAP A).
+Streaming and pipelined cycles, as in the JAX package:
+
+- **streaming** (streaming.py; the conf's ``streaming: true`` or
+  ``KBT_STREAMING=1``): ``run`` hands over to ``_run_streaming``, which
+  runs a full cycle every ``schedule_period`` as the fairness and
+  preemption backstop and, in between, wakes on store churn
+  (``StreamTrigger`` on the encode cache's dirty feed) and runs
+  ``run_micro``: a micro-cycle over the dirty gangs only, against the
+  resident node table the last full cycle left (``StreamState``, taken
+  from the session before ``close_session`` rebinds it), under a
+  ``micro_cycle`` root span. A micro-cycle that cannot finish (stale
+  table, the ``stream.micro_cycle`` point, an abort, an error)
+  invalidates the table and degrades to a full cycle at once; no arrival
+  is dropped. ``micro_cycles_run`` counts them and
+  ``micro_cycles_total{outcome}`` meters each outcome; the trigger
+  observes ``time_to_bind_seconds`` at each bind echo. On a federated
+  cache the trigger absorbs peer shards' binds as occupancy patches, and
+  ``on_owned_slots_changed`` seeds adopted gang keys into it;
+- **pipelined cycles** (pipeline.py, ``KBT_PIPELINE=1``): each cycle
+  first waits on the dispatch fence (a timeout or the ``pipeline.fence``
+  point degrades the pipeline, stickily, and skips the cycle); a
+  deferred dispatch of one action is joined before the next action runs;
+  and when the last action deferred its dispatch, the cycle's tail (the
+  streaming harvest, ``close_session``, the e2e metrics, the detector's
+  verify) is chained behind the dispatch's Future (``_finish_deferred``)
+  so ``run_once`` returns while the binds land.
 """
 
 from __future__ import annotations
@@ -83,7 +107,8 @@ from typing import Optional
 
 import kube_batch_tpu_torch.actions  # noqa: F401  (registers the action pipeline)
 import kube_batch_tpu_torch.plugins  # noqa: F401  (registers the plugin builders)
-from kube_batch_tpu_torch import faults, metrics, obs
+from kube_batch_tpu_torch import faults, metrics, obs, pipeline
+from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.conf import load_scheduler_conf, parse_scheduler_conf, read_scheduler_conf
 from kube_batch_tpu_torch.faults import _env_float, mutation_detector
 from kube_batch_tpu_torch.framework import close_session, open_session
@@ -151,6 +176,18 @@ class Scheduler:
         # "aborted" (the reason) when the hard budget aborted it, and
         # "skipped" when the staleness guard refused it.
         self.last_timings: dict[str, float | str] = {}
+        # Streaming mode (streaming.py): event-driven micro-cycles between
+        # periodic full cycles, armed by the conf's streaming: key or
+        # KBT_STREAMING. _stream_state is set only while _run_streaming is
+        # live, and run_once harvests its resident node table through it.
+        self._conf_streaming = False
+        self._stream_state = None
+        self._stream_trigger = None
+        self.micro_cycles_run = 0
+        # Wall clock of the last run_micro that opened a session: open_s
+        # (the job and queue clones and open_session), one "<action>_s"
+        # per action, close_s, micro_s.
+        self.last_micro_timings: dict[str, float] = {}
         self._load_conf()
 
     def _load_conf(self) -> None:
@@ -177,6 +214,7 @@ class Scheduler:
             self.actions, self.plugins, self.action_arguments = load_scheduler_conf(conf_str)
             self._conf_cache = conf_str
             parsed = parse_scheduler_conf(conf_str)
+            self._conf_streaming = parsed.streaming
             self._conf_trace = parsed.trace
             obs.configure(parsed.trace)
             # Conf-driven fault drills (the faults: key, KBT_FAULTS'
@@ -194,7 +232,11 @@ class Scheduler:
         (reference scheduler.go:63-86). A cycle that raises is logged and
         the loop goes on. ``device``: a CUDA device this thread makes
         current before its first cycle, so a conf's bare ``device: cuda``
-        names it and not whichever device the thread would default to."""
+        names it and not whichever device the thread would default to.
+        When streaming mode is armed (the conf's ``streaming:`` key or
+        KBT_STREAMING), the fixed-period sleep gives way to the
+        event-driven micro-cycle loop; turning the key off returns here
+        on that loop's next iteration."""
         if device is not None:
             import torch
 
@@ -204,6 +246,9 @@ class Scheduler:
         self.cache.run()
         self.cache.wait_for_cache_sync()
         while not stop.is_set():
+            if self._streaming_on():
+                self._run_streaming(stop)
+                continue
             start = time.perf_counter()
             try:
                 self.run_once()
@@ -212,14 +257,221 @@ class Scheduler:
             elapsed = time.perf_counter() - start
             stop.wait(max(0.0, self.schedule_period - elapsed))
 
+    def _streaming_on(self) -> bool:
+        from kube_batch_tpu_torch import streaming
+
+        return streaming.enabled() or self._conf_streaming
+
+    def _run_streaming(self, stop: threading.Event) -> None:
+        """The streaming loop (streaming.py): full cycles keep running
+        every schedule_period as the fairness/preemption backstop; in
+        between, the trigger wakes on store churn and micro-cycles drain
+        the dirty-gang backlog against the resident node table. Any
+        micro-cycle that cannot complete degrades to an immediate full
+        cycle: arrivals are never dropped, only served slower."""
+        from kube_batch_tpu_torch import streaming
+
+        # Federated cache (duck-typed by its slot-ownership surface):
+        # peer shards' binds cross the pod filter as bound-pod
+        # adds/deletes; absorb them as occupancy patches instead of
+        # degrading to a full cycle per peer bind. Safe because a
+        # federated cache forces conditional binds: if the absorbed view
+        # ever lags, the store rejects and the retry ladder resyncs.
+        absorb = hasattr(self.cache, "set_owned_slots")
+        trigger = streaming.StreamTrigger(absorb_external=absorb)
+        state = streaming.StreamState()
+        self._stream_trigger = trigger
+        self._stream_state = state
+        log.info("streaming mode on: micro-cycles between full cycles every %.2fs", self.schedule_period)
+        # attach immediately before the try: anything between the
+        # registration and the protecting finally is one exception away
+        # from a leaked listener firing into a dead loop
+        trigger.attach()
+        try:
+            next_full = time.monotonic()  # first full cycle immediately
+            while not stop.is_set() and self._streaming_on():
+                now = time.monotonic()
+                if now >= next_full:
+                    try:
+                        self.run_once()  # harvests the resident table
+                    except Exception as e:  # noqa: BLE001
+                        log.error("scheduling cycle failed: %s", e, exc_info=True)
+                        state.invalidate("full cycle failed")
+                    next_full = time.monotonic() + self.schedule_period
+                    continue
+                if not trigger.wait(min(next_full - now, 0.5)):
+                    continue
+                work = trigger.drain()
+                handled = False
+                try:
+                    handled = self.run_micro(work)
+                except Exception as e:  # noqa: BLE001
+                    log.error("micro-cycle failed: %s; degrading to a full cycle", e, exc_info=True)
+                    state.invalidate("micro-cycle failed")
+                    metrics.register_micro_cycle("degraded")
+                if not handled:
+                    next_full = time.monotonic()  # backstop now, not in a period
+        finally:
+            trigger.detach()
+            self._stream_trigger = None
+            self._stream_state = None
+            log.info("streaming mode off: back to the fixed-period loop")
+
     def on_owned_slots_changed(self, adopted_keys, removed_keys=()) -> None:
         """Shard-slot ownership changed mid-run (federation.py
-        ShardSlotManager adoption/handoff). In periodic mode the next
-        full cycle re-snapshots the widened mirror, so there is nothing
-        to do. The JAX package's streaming mode seeds the adopted gang
-        keys into its trigger here; that branch comes with the port's
-        streaming layer."""
-        del adopted_keys, removed_keys
+        ShardSlotManager adoption/handoff). In streaming mode, seed the
+        adopted gang keys into the trigger and prune the handed-off ones:
+        the resident node table stays valid (node state did not change),
+        so only the adopted keys' gangs need solving and the next
+        micro-cycle serves exactly them. In periodic mode the next full
+        cycle re-snapshots the widened mirror; nothing to do."""
+        trigger = self._stream_trigger
+        if trigger is None:
+            return
+        if removed_keys:
+            trigger.prune(set(removed_keys))
+        if adopted_keys:
+            trigger.seed(set(adopted_keys))
+
+    def run_micro(self, work) -> bool:
+        """One micro-cycle over the drained churn. Returns True when the
+        backlog was served (or there was nothing to solve); False means
+        the caller must run a full cycle now: the resident table was
+        stale or invalid, a fault fired, or the cycle aborted on its
+        deadline. Either way no arrival is lost: the trigger keeps every
+        gang until ``prune`` sees it bound or gone."""
+        from kube_batch_tpu_torch.streaming import open_micro_session
+
+        st = self._stream_state
+        trigger = self._stream_trigger
+        if st is None or trigger is None:
+            return False
+        # A previous full cycle's deferred dispatch must land before the
+        # micro-cycle clones jobs (micro-cycles themselves never defer:
+        # their outcome accounting reads the session synchronously).
+        if not pipeline.fence.wait():
+            metrics.register_micro_cycle("fence")
+            log.error(
+                "dispatch fence did not clear before micro-cycle; degrading to a full cycle "
+                "(pipeline degraded: %s)", pipeline.fence.degraded_reason,
+            )
+            return False
+        if not st.valid:
+            metrics.register_micro_cycle("stale")
+            log.debug("micro-cycle skipped: resident table invalid (%s)", st.reason)
+            return False
+        if work.stale:
+            st.invalidate(work.stale_reason)
+            metrics.register_micro_cycle("stale")
+            log.info("resident table stale (%s); degrading to a full cycle", work.stale_reason)
+            return False
+        micro_start = time.perf_counter()
+        with obs.span("micro_cycle", gangs=len(work.gangs)) as mspan:
+            if faults.should_fire("stream.micro_cycle"):
+                # injected micro-solve failure: invalidate and degrade to
+                # the backstop full cycle; the backlog is untouched
+                st.invalidate("stream.micro_cycle fault")
+                metrics.register_micro_cycle("fault")
+                return False
+            # no _load_conf() here: a conf reload (a file read and parse)
+            # stays a full-cycle affair; the backstop cycle picks up pushes
+            # within one schedule_period
+            detector = None
+            if mutation_detector.enabled():
+                store = getattr(self.cache, "store", None)
+                if store is not None:
+                    detector = mutation_detector.MutationDetector(store)
+                    detector.snapshot()
+            if hasattr(self.cache, "cycle"):
+                self.cache.cycle += 1
+                mspan.set_attr("cycle", self.cache.cycle)
+            st.apply_node_patches(work.node_patches)
+            if work.bound_patches and not st.apply_bound_patches(work.bound_patches):
+                # peer-shard occupancy churn the resident table could not
+                # absorb: degrade to the backstop full cycle, backlog kept
+                metrics.register_micro_cycle("stale")
+                log.info(
+                    "resident table could not absorb bound-pod churn (%s); degrading to a full cycle",
+                    st.reason,
+                )
+                return False
+            cloned, missing = self.cache.clone_jobs_for_stream(work.gangs)
+            # A gang is solvable only once enough of it exists: the
+            # podgroup's add event lands before its member pods, and a
+            # mid-burst drain sees a partial gang; opening a session for
+            # either wastes a micro-cycle (the gang gate would discard it).
+            # A deferred gang stays in the backlog; its remaining arrivals
+            # wake the trigger again, and the backstop full cycle catches
+            # any gang that never completes.
+            jobs = {}
+            settled = set(missing)
+            for uid, job in cloned.items():
+                pending = job.task_status_index.get(TaskStatus.PENDING)
+                if not pending:
+                    settled.add(uid)  # fully placed (or empty): nothing to solve
+                elif len(job.tasks) >= job.min_available:
+                    jobs[uid] = job
+            if settled:
+                trigger.prune(settled)
+            if not jobs:
+                metrics.register_micro_cycle("empty")
+                return True
+            timings: dict[str, float] = {}
+            budget = CycleBudget(self._soft_deadline, self._hard_deadline)
+            t0 = time.perf_counter()
+            ssn = open_micro_session(
+                self.cache, self.plugins, self.action_arguments,
+                jobs, st.nodes, self.cache.clone_queues_for_stream(),
+            )
+            timings["open_s"] = time.perf_counter() - t0
+            ssn.cycle_budget = budget
+            ssn.micro_cycle = True  # torch_allocate reads it for the resident-interpod hint
+            aborted: Optional[CycleDeadlineExceeded] = None
+            failed = True
+            try:
+                for action in self.actions:
+                    t0 = time.perf_counter()
+                    try:
+                        action.execute(ssn)
+                        metrics.update_action_duration(action.name, time.perf_counter() - t0)
+                        budget.check(f"after action {action.name}")
+                    except CycleDeadlineExceeded as e:
+                        aborted = e
+                        break
+                    finally:
+                        timings[f"{action.name}_s"] = time.perf_counter() - t0
+                failed = False
+            finally:
+                if failed or aborted is not None:
+                    # the session may have mutated the resident table before
+                    # dying: rebuild it from the next full snapshot
+                    st.invalidate("micro-cycle aborted" if aborted else "micro-cycle failed")
+                else:
+                    done = {
+                        uid
+                        for uid, job in ssn.jobs.items()
+                        if not job.task_status_index.get(TaskStatus.PENDING)
+                    }
+                    trigger.prune(done)
+                t0 = time.perf_counter()
+                close_session(ssn, discard=failed or aborted is not None)
+                timings["close_s"] = time.perf_counter() - t0
+                timings["micro_s"] = time.perf_counter() - micro_start
+                self.last_micro_timings = timings
+                self.micro_cycles_run += 1
+            if aborted is not None:
+                metrics.register_micro_cycle("aborted")
+                metrics.register_cycle_overrun("hard")
+                mspan.set_attr("aborted", str(aborted))
+                obs.recorder.dump(reason="hard_deadline", min_interval_s=1.0)
+                log.error(
+                    "micro-cycle aborted: %s (session discarded; degrading to a full cycle)", aborted,
+                )
+                return False
+            if detector is not None:
+                detector.verify()  # raises CacheMutationError on violation
+            metrics.register_micro_cycle("ok")
+            return True
 
     def run_once(self) -> None:
         """One scheduling cycle (reference scheduler.go:88-102)."""
@@ -229,6 +481,21 @@ class Scheduler:
         self.last_timings = timings
 
         with obs.span("cycle") as cspan:
+            # Dispatch fence (pipeline.py, KBT_PIPELINE): the previous
+            # cycle's deferred dispatch must land before this cycle
+            # snapshots, the ordering the synchronous path gets for free.
+            # A timeout degrades the pipeline to synchronous cycles
+            # (sticky, loud) and skips this cycle; the wedged dispatch
+            # stays armed, so the next cycle joins it again.
+            if not pipeline.fence.wait():
+                cspan.set_attr("skipped", "pipeline_fence")
+                timings["skipped"] = "pipeline_fence"
+                log.error(
+                    "dispatch fence did not clear; skipping this cycle (pipeline degraded: %s)",
+                    pipeline.fence.degraded_reason,
+                )
+                return
+
             # Bounded-staleness guard: scheduling over a stale mirror binds
             # pods onto nodes that may no longer exist — refuse the cycle
             # and let the mirror catch up (the k8s contract is the same: a
@@ -268,10 +535,15 @@ class Scheduler:
             # barrier).
             ssn.cycle_budget = budget
             aborted: Optional[CycleDeadlineExceeded] = None
+            deferred_finish = False
             try:
                 for action in self.actions:
                     t0 = time.perf_counter()
                     try:
+                        # a previous action's deferred dispatch must land
+                        # before the next action reads the session
+                        if ssn.deferred_dispatch is not None:
+                            pipeline.join_session(ssn)
                         action.execute(ssn)
                         metrics.update_action_duration(action.name, time.perf_counter() - t0)
                         # post-action gate: a cycle already past its hard
@@ -283,15 +555,31 @@ class Scheduler:
                     finally:
                         timings[f"{action.name}_s"] = time.perf_counter() - t0
             finally:
-                t0 = time.perf_counter()
-                # discard on abort: skip the status write-back so the cache
-                # stays byte-identical to the cycle's start (every abort
-                # point is pre-dispatch)
-                close_session(ssn, discard=aborted is not None)
-                timings["close_s"] = time.perf_counter() - t0
-                metrics.update_e2e_duration(time.perf_counter() - cycle_start)
-                metrics.schedule_attempts.inc()
-                timings["run_once_s"] = time.perf_counter() - cycle_start
+                if ssn.deferred_dispatch is not None and aborted is None:
+                    # Pipelined cycle: the last action's dispatch is in
+                    # flight on the kb-write pool. Chain the cycle's tail
+                    # (streaming harvest, close, e2e metrics, detector
+                    # verify) behind its Future so run_once returns and the
+                    # next cycle's encode and solve overlap the dispatch;
+                    # the fence keeps the cycles ordered.
+                    deferred_finish = True
+                    self._finish_deferred(ssn, cycle_start, detector, timings)
+                    timings["run_once_s"] = time.perf_counter() - cycle_start
+                else:
+                    # streaming harvest: take the session's node table
+                    # BEFORE close_session rebinds it; micro-cycles solve
+                    # against this resident state until the next full cycle
+                    if self._stream_state is not None:
+                        self._stream_state.adopt_full_cycle(ssn, aborted=aborted is not None)
+                    t0 = time.perf_counter()
+                    # discard on abort: skip the status write-back so the
+                    # cache stays byte-identical to the cycle's start (every
+                    # abort point is pre-dispatch)
+                    close_session(ssn, discard=aborted is not None)
+                    timings["close_s"] = time.perf_counter() - t0
+                    metrics.update_e2e_duration(time.perf_counter() - cycle_start)
+                    metrics.schedule_attempts.inc()
+                    timings["run_once_s"] = time.perf_counter() - cycle_start
             if aborted is not None:
                 timings["aborted"] = str(aborted)
                 metrics.register_cycle_overrun("hard")
@@ -307,8 +595,33 @@ class Scheduler:
                 self._arm_tier_downgrade(budget)
             else:
                 self._soft_overruns = 0  # a cycle within budget clears the streak
-            if detector is not None:
+            if detector is not None and not deferred_finish:
                 detector.verify()  # raises CacheMutationError on violation
+
+    def _finish_deferred(self, ssn, cycle_start: float, detector, timings: dict) -> None:
+        """Chain a pipelined cycle's tail behind its deferred dispatch.
+        Runs on the kb-write pool thread when the dispatch lands (at once,
+        on this thread, when it already has); any failure is logged and
+        degrades the pipeline (the synchronous path would have surfaced
+        it through run()'s log)."""
+        stream_state = self._stream_state
+
+        def _finish(_fut) -> None:
+            try:
+                if stream_state is not None:
+                    stream_state.adopt_full_cycle(ssn, aborted=False)
+                t0 = time.perf_counter()
+                close_session(ssn)  # joins the (now done) deferred future
+                timings["close_s"] = time.perf_counter() - t0
+                metrics.update_e2e_duration(time.perf_counter() - cycle_start)
+                metrics.schedule_attempts.inc()
+                if detector is not None:
+                    detector.verify()  # raises CacheMutationError on violation
+            except Exception as e:  # noqa: BLE001 - must not kill the pool thread
+                log.error("pipelined cycle tail failed: %s", e, exc_info=True)
+                pipeline.fence.degrade(f"cycle tail raised {type(e).__name__}: {e}")
+
+        ssn.deferred_dispatch.add_done_callback(_finish)
 
     def _arm_tier_downgrade(self, budget: CycleBudget) -> None:
         """Soft overrun: consecutive slow cycles trip the breaker of the

@@ -1168,10 +1168,17 @@ def test_federation_cli_measures_the_v2_bulk_row(capsys):
 
 
 def test_federation_cli_refuses_streaming_until_the_port_has_it(capsys):
-    with pytest.raises(SystemExit) as ei:
-        torch_federation.main(["--streaming", "--device", "cpu"])
-    assert ei.value.code == 2
-    assert "streaming" in capsys.readouterr().err
+    """The port has the streaming layer now: ``--streaming --device cpu``
+    runs the streaming-federation drill and exits 0; without ``--device
+    cpu`` and with no card it raises before any shard starts."""
+    import torch
+
+    assert torch_federation.main(["--streaming", "--device", "cpu", "--gangs", "2", "--members", "2", "--json"]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["ok"] and result["micro_cycles"] > 0 and result["bound"] == 4
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            torch_federation.main(["--streaming"])
 
 
 def _free_port() -> int:

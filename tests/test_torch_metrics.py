@@ -151,8 +151,9 @@ def test_the_exposition_holds_every_series_under_the_jax_name(tmp_path):
         m.set_shard_slot_owned(0, True)
         m.register_shard_adoption("adopted")
         m.register_shard_handoff("completed")
+        m.register_micro_cycle("ok")
     port, jax = _families(torch_metrics.render_prometheus_text()), _families(jax_metrics.render_prometheus_text())
-    assert len(port) == len(torch_metrics.FAMILIES) == 43
+    assert len(port) == len(torch_metrics.FAMILIES) == 48
     for name in ("journal_records_total", "reconcile_ops_total", "watch_snapshot_age_seconds", "watch_relists_total"):
         assert f"kube_batch_tpu_{name}" in port, name
     for name, (help_text, kind, label_sets) in port.items():

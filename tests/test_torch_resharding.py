@@ -13,12 +13,12 @@ backfill/dedupe, lease-flap single-ownership, breaker-backed adoption
 failure, handoff abort-on-fault, the reclaim protocol, and the
 owned-slot callback.
 
-Two cases of tests/test_resharding.py wait for the port's streaming layer
-(ROADMAP A15.6), since both drive its ``StreamTrigger``:
-``test_on_owned_slots_changed_seeds_and_prunes_stream_trigger`` (its
-periodic-mode half is mirrored here as
-``test_on_owned_slots_changed_is_a_noop_in_periodic_mode``) and
-``test_handoff_parity_under_streaming_micro_cycles``. The fleet series that
+The two streaming cases (``test_on_owned_slots_changed_seeds_and_prunes_
+stream_trigger``, whose periodic-mode half is also
+``test_on_owned_slots_changed_is_a_noop_in_periodic_mode``, and
+``test_handoff_parity_under_streaming_micro_cycles``) drive the port's
+``StreamTrigger``; the handoff runs through both packages and ends at the
+same placements. The fleet series that
 the JAX exposition test also names come with the fleet rollup (A15.5).
 The parity cases at the end hold the port's adoption against the JAX
 package's: a dead shard's journal written by one package is reconciled
@@ -435,7 +435,109 @@ def test_on_owned_slots_changed_is_a_noop_in_periodic_mode(tmp_path):
     # periodic mode: the next full cycle re-snapshots the widened mirror
     sched.on_owned_slots_changed({"default/ga"}, {"default/gb"})
     sched.on_owned_slots_changed(set())
-    assert not hasattr(sched, "_stream_trigger")
+    assert sched._stream_trigger is None
+
+
+def test_on_owned_slots_changed_seeds_and_prunes_stream_trigger(tmp_path):
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.streaming import StreamTrigger
+
+    store = ClusterStore()
+    seed_store(store)
+    cache = SchedulerCache(store)
+    sched = Scheduler(cache, schedule_period=1000.0)
+    # periodic mode: no trigger, the call is a no-op
+    sched.on_owned_slots_changed({"default/ga"}, {"default/gb"})
+    trigger = StreamTrigger()
+    sched._stream_trigger = trigger
+    with trigger._lock:
+        trigger._gangs.add("default/gb")
+    sched.on_owned_slots_changed({"default/ga"}, {"default/gb"})
+    with trigger._lock:
+        backlog = set(trigger._gangs)
+    assert backlog == {"default/ga"}  # adopted seeded, removed pruned
+    assert trigger._event.is_set()
+
+
+def _handoff_under_streaming(m, tmp_path) -> dict:
+    """The JAX suite's handoff-under-streaming case on one package's
+    modules ``m``; returns the final placements."""
+    store = m.ClusterStore()
+    picks = m.gangs_for_slots(2, per_slot=1)
+    m.seed_store(store, nodes=2, gangs=[picks[1][0]], members=2)
+    bind_counts: dict[str, int] = {}
+
+    def on_update(old, new):
+        if not old.node_name and new.node_name:
+            key = f"{new.namespace}/{new.name}"
+            bind_counts[key] = bind_counts.get(key, 0) + 1
+
+    store.add_event_handler(PODS, m.EventHandler(on_update=on_update))
+    caches, mgrs = m.make_pair(store, tmp_path)
+    receiver = caches[1]  # slot 1's gang will be handed TO shard 1...
+    # ...but first shard 0 adopted it (shard 1 restarted empty)
+    store.release_lease(slot_lease_name(1), "mgr-1")
+    mgrs[1]._set_owned(set())
+    mgrs[0].step()
+    assert mgrs[0].owned_slots() == {0, 1}
+    assert not receiver._has_task(next(iter(store.list(PODS))))
+    conf = tmp_path / f"conf-{m.name}.yaml"
+    conf.write_text(m.conf)
+    sched = m.Scheduler(receiver, scheduler_conf=str(conf), schedule_period=1000.0)
+    trigger, state = m.StreamTrigger(), m.StreamState()
+    sched._stream_trigger = trigger
+    sched._stream_state = state
+    trigger.attach()
+    try:
+        sched.run_once()  # adopt the resident table (nothing to bind yet)
+        mgrs[1]._on_owned_change = lambda adopted, removed: sched.on_owned_slots_changed(adopted, removed)
+        # the planned move: mgr-0 drains and releases, mgr-1 re-adopts; the
+        # owned-change callback seeds the gang into the trigger
+        assert mgrs[0].handoff(1)
+        mgrs[1].step()
+        assert mgrs[1].owned_slots() == {1}
+        work = trigger.drain()
+        assert f"default/{picks[1][0]}" in work.gangs
+        assert sched.run_micro(work)
+    finally:
+        trigger.detach()
+    placed = {f"{p.namespace}/{p.name}": p.node_name for p in store.list(PODS)}
+    assert all(placed.values()), placed
+    assert sorted(bind_counts.values()) == [1] * len(placed)
+    assert m.fsck(store, shard_key="gang") == []
+    return placed
+
+
+def test_handoff_parity_under_streaming_micro_cycles(tmp_path):
+    """A graceful handoff while the receiving scheduler runs streaming
+    micro-cycles: the adopted gang keys are seeded into the trigger, the
+    next micro drain binds exactly the handed-off backlog, the world ends
+    exactly-once and fsck-clean, and at the JAX package's placements."""
+    from types import SimpleNamespace
+
+    import test_resharding as jax_side
+    from kube_batch_tpu import cache as jax_cache
+    from kube_batch_tpu import federation as jax_federation
+    from kube_batch_tpu import scheduler as jax_scheduler
+    from kube_batch_tpu import streaming as jax_streaming
+    from kube_batch_tpu_torch import streaming
+    from kube_batch_tpu_torch.cache import EventHandler
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    port = SimpleNamespace(
+        name="port", ClusterStore=ClusterStore, EventHandler=EventHandler, Scheduler=Scheduler,
+        StreamTrigger=streaming.StreamTrigger, StreamState=streaming.StreamState, seed_store=seed_store,
+        make_pair=make_pair, gangs_for_slots=gangs_for_slots, fsck=fsck,
+        conf=streaming.smoke_conf(True, "cpu"),
+    )
+    jax = SimpleNamespace(
+        name="jax", ClusterStore=jax_cache.ClusterStore, EventHandler=jax_cache.EventHandler,
+        Scheduler=jax_scheduler.Scheduler, StreamTrigger=jax_streaming.StreamTrigger,
+        StreamState=jax_streaming.StreamState, seed_store=jax_side.seed_store, make_pair=jax_side.make_pair,
+        gangs_for_slots=jax_side.gangs_for_slots, fsck=jax_federation.fsck,
+        conf=jax_streaming.SMOKE_CONF.format(streaming="true"),
+    )
+    assert _handoff_under_streaming(port, tmp_path) == _handoff_under_streaming(jax, tmp_path)
 
 
 # -- journals -----------------------------------------------------------------
