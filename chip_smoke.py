@@ -231,7 +231,9 @@
      series and retries from ``/metrics``, the wire bytes per bind and
      ``all_bound_s``;
    - ``federation_scaleout_50k_5k``: bench.py's ``federation_scaleout_row``
-     at N = 4: 5,000 gangs x 10 pods on 5,000 nodes, four
+     at N = 4, its depth halved for the script's clock (``SCALEOUT_CUT``):
+     2,500 gangs x 10 pods on 2,500 nodes (the row's 5,000 x 10 on 5,000
+     in the record's ``reduced``), four
      ``FederatedCache`` + ``Scheduler`` threads over one ``ClusterStore``
      (``enqueue, torch_allocate``, the size floor off) on ``cuda:0``:
      ``drain_s`` within 300 s, binds/s, the conflict deltas, B1 launches
@@ -289,7 +291,43 @@
      every gang once; (e) a leader killed after 4 binds of its deferred
      dispatch, whose journal a standby reconciles before one full cycle
      ends at the uninterrupted twin's placements;
-14. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+14. drives the port's operator surfaces (``obs/explain.py`` with
+   ``ops/explain.py``'s batched pass, ``obs/fleet.py``, ``admission.py``
+   and their server routes), the counters read as each phase's deltas:
+   - ``explain_50k_1k``: ``preempt_mix(50_000, 1_000)`` through
+     ``Scheduler.run_once`` with ``enqueue, torch_allocate`` (the cycle
+     conf's tiers) on the fused rung, once with ``KBT_EXPLAIN`` off and
+     twice on (a fresh FakeCache each; the first explain cycle pays the
+     first launch of the pass's kernels, the second is the one held and
+     timed). Fails unless the binds and the two cycles' records are equal,
+     the records the cycle published equal ``explain_rows_np``'s over the
+     same final state as canonical JSON, and the pass on the card (the
+     cycle's own and re-runs) equals the same call on the CPU bit for bit.
+     Records G (the pending gangs explained), ``explain_s`` (the pass with
+     its fetch and the publish), the pass's device time (CUDA events over
+     re-runs), its share of the cycle and the B1 launches;
+   - ``explain_drills``, each on the card and again on the CPU, ending
+     equal: (a) ``obs.explain.smoke``: the per-plane world's records
+     through serial allocate, the fused rung and the sharded rung (``mesh:
+     cuda:2``), all equal; (b) a streaming micro-cycle that explains its
+     dirty gang only; (c) journal intents that carry ``explain``; (d)
+     ``/debug/explain``, the reason counter on ``/metrics`` and ``kbt-ctl
+     explain`` over a server whose loop scheduled the store;
+   - ``fleet_smoke``: ``obs.fleet.smoke(shards=2)`` (two loopback shards
+     over a store server, on the card): merged p50/p90/p99 within the
+     sketch's declared relative error of the pooled samples, exact sample
+     counts, every pod bound once, ``fsck`` clean, and ``fleet_shard_up``
+     flipping for the killed observatory;
+   - ``admission_storm``: ``admission.smoke()`` (the fake-clock plant),
+     then ``admission.storm_row(shards=2, duration_s=8.0)``: the storm with
+     admission on, off and with a shard killed, each checked by its own
+     invariants (exactly once, ``fsck`` clean, drained, every 429 with
+     Retry-After, micro-cycles ran; on: the protected lane never shed and
+     its p99 within the storm's bound; kill: a measured MTTR and no
+     orphaned journal intent). Records each lane's offered, admitted and
+     shed counts, pods/s, the protected lane's p99 against the storm's SLO,
+     the MTTR and the B1 launches of the shards' micro-cycles;
+15. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -324,6 +362,11 @@ runs only the kernels' build and the federation's three phases (step 12).
 runs only the kernels' build and the streaming scheduler's three phases
 (step 13).
 
+    python3 chip_smoke.py --operator
+
+runs only the kernels' build and the operator surfaces' four phases (step
+14).
+
     python3 chip_smoke.py --ab-warm DIR
 
 runs instead ``warm_cycles_50k_5k`` of the checkout at DIR (the parent
@@ -334,7 +377,8 @@ this, this, DIR, each in a process of its own.
 
 needs no card: the pipeline phases (step 8), the fast paths' (step 9),
 the ladder's and the trace's (step 10), the process's (step 11), the
-federation's (step 12) and the streaming scheduler's (step 13) on the CPU,
+federation's (step 12), the streaming scheduler's (step 13) and the
+operator surfaces' (step 14) on the CPU,
 every world's pod and node counts divided by CUT (the drills' small
 world is not cut, and ``ha_failover_50k_5k`` kills its leader after a
 tenth as many binds),
@@ -369,7 +413,8 @@ H100_FP32_OPS_PER_S = 67e12 / 2
 FIT_OPS_PER_DIM = 4
 SCORE_OPS_PER_NODE = 29
 B2_TIMED_CALLS = 200  # block-step launches per timing
-CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py", "tests/test_torch_cycle_card.py"]
+CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py", "tests/test_torch_cycle_card.py",
+              "tests/test_torch_explain.py"]
 AFFINITY_PODS = 36  # pods of scheduler_affinity's world with required pod (anti-)affinity
 # size_floor's preempt_mix(pods, nodes) worlds: 100 to 102,400 pending x nodes
 FLOOR_WORLDS = ((25, 4), (50, 8), (100, 16), (200, 32), (400, 64), (800, 128))
@@ -3252,6 +3297,9 @@ FED_WAIT_S = 300.0  # the limit on the store showing every pending pod of the wo
 FED_START_S = 120.0  # the limit on a shard process answering /healthz
 SCALEOUT_WORLD = (5_000, 10, 5_000)  # bench.py federation_scaleout_row: gangs x members on nodes
 SCALEOUT_SHARDS = 4
+# the scale-out world's depth is halved for the script's clock (2,500 gangs
+# on 2,500 nodes): its drain is enqueue's O(jobs^2) pop (ROADMAP C1)
+SCALEOUT_CUT = 2
 SCALEOUT_WAIT_S = 300.0
 FED_DRILL_WORLD = (6, 3, 8)  # federation.smoke's world: gangs x members on nodes of 8 cpu
 FED_DRILLS = ("a_kill_one", "b_stale_assign", "c_txn_batch", "d_partition", "e_adopt_fails_once",
@@ -3572,7 +3620,8 @@ def seed_scaleout(store, gangs: int, members: int, nodes: int) -> None:
 def scaleout_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
     """``federation_scaleout_50k_5k``: bench.py's ``federation_scaleout_row``
     world (5,000 gangs x 10 pods of 1 cpu / 1Gi on 5,000 nodes of 16 cpu /
-    32Gi / 32 pods) and conf at N = 4: four ``FederatedCache`` +
+    32Gi / 32 pods, gangs and nodes divided by ``cut``) and conf at N = 4:
+    four ``FederatedCache`` +
     ``Scheduler`` threads over one ``ClusterStore`` (``shard_key="gang"``,
     period 0.02 s, inline writes), each solving on ``cuda:0``. Every pod
     must bind exactly once within 300 s and ``fsck`` must be clean; each
@@ -3924,7 +3973,7 @@ def federation_phases(device: str = "cuda", cut: int = 1, shared: dict | None = 
         emit(rec)
 
     def scaleout():
-        rec, launches["federation_scaleout_50k_5k"] = scaleout_phase(device, cut)
+        rec, launches["federation_scaleout_50k_5k"] = scaleout_phase(device, cut * SCALEOUT_CUT)
         emit(rec)
 
     def drills():
@@ -4681,6 +4730,467 @@ def streaming_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dic
     return failures, launches
 
 
+# -- the operator surfaces: explain, the fleet rollup, admission -------------
+
+EXPLAIN_WORLD = (50_000, 1_000)  # preempt_mix: capacity short, hundreds of gangs stay pending
+EXPLAIN_PASS_RUNS = 5  # timed runs of the batched pass on the card (CUDA events)
+STORM_SHARDS = 2
+STORM_S = 8.0  # admission.storm_row's duration per storm
+EXPLAIN_DRILLS = ("a_smoke", "b_micro_cycle", "c_journal", "d_debug_endpoint")
+
+
+class ExplainSpy:
+    """Captures each ``obs.explain.forensics`` call (the encoded snapshot,
+    the arrays, the final SolveState, the pass's device inputs and its
+    fetched result) and every ``publish`` with its session's kind, while
+    armed; restores both on exit."""
+
+    def __init__(self) -> None:
+        self.calls: list[dict] = []
+        self.published: list[tuple[bool, list[str]]] = []
+
+    def __enter__(self) -> "ExplainSpy":
+        from kube_batch_tpu_torch.obs import explain
+
+        self._real = (explain.forensics, explain.publish)
+        forensics, publish = self._real
+
+        def spy(enc, arrays, state, inputs=None, topk=explain.TOP_K):
+            fx = forensics(enc, arrays, state, inputs, topk)
+            self.calls.append({"enc": enc, "arrays": arrays, "state": state, "inputs": inputs, "fx": fx})
+            return fx
+
+        def pub(ssn, recs):
+            self.published.append((bool(getattr(ssn, "micro_cycle", False)), sorted(recs)))
+            return publish(ssn, recs)
+
+        explain.forensics, explain.publish = spy, pub
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from kube_batch_tpu_torch.obs import explain
+
+        explain.forensics, explain.publish = self._real
+
+
+class Explaining:
+    """``KBT_EXPLAIN=1`` (or unset) for a block, the registry cleared; the
+    switch restored on exit."""
+
+    def __init__(self, on: bool = True) -> None:
+        self.on = on
+
+    def __enter__(self) -> None:
+        from kube_batch_tpu_torch.obs import explain
+
+        self._saved = os.environ.get(explain.ENV)
+        if self.on:
+            os.environ[explain.ENV] = "1"
+        else:
+            os.environ.pop(explain.ENV, None)
+        explain.configure()
+        explain.records.clear()
+
+    def __exit__(self, *exc) -> None:
+        from kube_batch_tpu_torch.obs import explain
+
+        if self._saved is None:
+            os.environ.pop(explain.ENV, None)
+        else:
+            os.environ[explain.ENV] = self._saved
+        explain.configure()
+
+
+def canon(obj) -> str:
+    return json.dumps(obj, sort_keys=True)
+
+
+def explain_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+    """``explain_50k_1k`` (module docstring, step 14)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.obs import explain
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import explain as ops_explain
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    on_card = device != "cpu"
+    pods, nodes = EXPLAIN_WORLD[0] // cut, EXPLAIN_WORLD[1] // cut
+    t0 = time.perf_counter()
+    cluster = models.preempt_mix(pods, nodes)
+    generate_s = time.perf_counter() - t0
+    conf = conf_file(actions="enqueue, torch_allocate", device=device)
+
+    def cycle(on: bool) -> tuple[dict, dict, ExplainSpy]:
+        with Explaining(on), ExplainSpy() as spy:
+            cache = FakeCache(cluster)
+            sched = Scheduler(cache, conf)
+            if on_card:
+                torch.cuda.synchronize()
+            fs.fused_solve.launches = bs.block_step.launches = 0
+            t0 = time.perf_counter()
+            sched.run_once()
+            if on_card:
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            b1, b2 = fs.fused_solve.launches, bs.block_step.launches
+            act = next(a for a in sched.actions if a.name == "torch_allocate")
+            if act.last_solver_tier != "fused" or "aborted" in sched.last_timings:
+                raise AssertionError(f"explain {'on' if on else 'off'}: the {act.last_solver_tier!r} rung, "
+                                     f"{sched.last_timings.get('aborted')}")
+            if on_card and (b1 < 1 or b2):
+                raise AssertionError(f"explain {'on' if on else 'off'}: {b1} B1 and {b2} B2 launches")
+            rec = {"run_once_s": wall_s, "cycle": dict(sched.last_timings),
+                   "torch_allocate": dict(act.last_timings), "b1_launches": b1, "b2_launches": b2,
+                   "records": {r["gang"]: r for r in explain.records.snapshot()}}
+        return rec, dict(cache.binder.binds), spy
+
+    off, off_binds, off_spy = cycle(False)
+    # the process's first explain cycle pays the first launch of each of
+    # the pass's torch kernels; the second is the steady state
+    cold, cold_binds, _ = cycle(True)
+    on, on_binds, spy = cycle(True)
+    if off_spy.calls or off["records"] or "explain_s" in off["torch_allocate"]:
+        raise AssertionError("explain off: the cycle ran the forensics")
+    if not on_binds == cold_binds == off_binds:
+        raise AssertionError(f"explain on binds {len(on_binds)} pods, off {len(off_binds)}: the binds differ")
+    if canon(cold["records"]) != canon(on["records"]):
+        raise AssertionError("the two explain cycles published different records")
+    if len(spy.calls) != 1:
+        raise AssertionError(f"{len(spy.calls)} forensics passes in the explain cycle")
+    call = spy.calls[0]
+    enc, arrays, state, inputs = call["enc"], call["arrays"], call["state"], call["inputs"]
+    # the records the cycle published against explain_rows_np's over the
+    # same final state (the numpy twin, task by task)
+    job_rows = call["fx"].job_rows
+    G = len(job_rows)
+    if G < 1:
+        raise AssertionError("no gang stayed pending: the phase explains nothing")
+    rows = [r for _, r in job_rows]
+    t0 = time.perf_counter()
+    twin = ops_explain.explain_rows_np(
+        arrays, state.idle.numpy(), state.rel.numpy(), state.used.numpy(), state.ntasks.numpy(),
+        state.nports.numpy(), rows,
+    )
+    twin_s = time.perf_counter() - t0
+    want = explain.post_solve_records(types.SimpleNamespace(jobs={}, queues={}), enc, arrays,
+                                      state.ready_cnt.numpy(), explain.Forensics(job_rows, twin))
+    got = {uid: on["records"].get(uid) for uid in want}
+    if canon(got) != canon(want):
+        bad = [uid for uid in want if canon(got[uid]) != canon(want[uid])]
+        raise AssertionError(f"{len(bad)} of {G} records differ from explain_rows_np's, first {bad[0]}: "
+                             f"{got[bad[0]]} != {want[bad[0]]}")
+    # the pass on the solve's device (the cycle's own, fetched, and timed
+    # re-runs) against the same call on the CPU
+    rep_rows = ops_explain.pad_rows(rows)
+    a_dev, st_dev = inputs
+    a_cpu, st_cpu = ops_explain.uploaded_inputs(arrays, state, "cpu")
+    t0 = time.perf_counter()
+    cpu_out = ops_explain.explain_batch(a_cpu, *st_cpu, rep_rows)
+    cpu_s = time.perf_counter() - t0
+    for name, d, c in zip(("elim", "feasible", "would_fit", "nm_idx", "nm_score", "nm_planes"), call["fx"].out,
+                          cpu_out):
+        if not np.array_equal(d, c.numpy()) or d.dtype != c.numpy().dtype:
+            raise AssertionError(f"the cycle's explain pass: {name} differs from the CPU run")
+    device_ms = []
+    for _ in range(EXPLAIN_PASS_RUNS if on_card else 1):
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dev_out = ops_explain.explain_batch(a_dev, *st_dev, rep_rows)
+            end.record()
+            torch.cuda.synchronize()
+            device_ms.append(start.elapsed_time(end))
+        else:
+            dev_out = ops_explain.explain_batch(a_dev, *st_dev, rep_rows)
+    if on_card and any(x.device.type != "cuda" for x in dev_out):
+        raise AssertionError("the explain pass left the card")
+    for name, d, c in zip(("elim", "feasible", "would_fit", "nm_idx", "nm_score", "nm_planes"), dev_out, cpu_out):
+        if d.dtype != c.dtype or not torch.equal(d.cpu(), c):
+            raise AssertionError(f"explain_batch's {name} on {device} differs from its CPU run")
+    reasons: dict = {}
+    for r in want.values():
+        reasons[r["reason"]] = reasons.get(r["reason"], 0) + 1
+    explain_s = on["torch_allocate"]["explain_s"]
+    rec = {
+        "phase": "explain_50k_1k", "device": device, "pods": pods, "nodes": nodes, "generate_s": generate_s,
+        "G": G, "padded_rows": len(rep_rows), "n_node_rows": int(arrays["node_valid"].shape[0]),
+        "explain_s": explain_s, "explain_pass_s": on["torch_allocate"]["explain_pass_s"],
+        "explain_share_of_cycle": explain_s / on["run_once_s"],
+        "first_cycle": {"explain_s": cold["torch_allocate"]["explain_s"],
+                        "explain_pass_s": cold["torch_allocate"]["explain_pass_s"], "run_once_s": cold["run_once_s"]},
+        "device_ms": device_ms, "device_ms_median": statistics.median(device_ms) if device_ms else None,
+        "cpu_pass_s": cpu_s, "explain_rows_np_s": twin_s,
+        "run_once_s": {"on": on["run_once_s"], "off": off["run_once_s"]},
+        "torch_allocate": {"on": on["torch_allocate"], "off": off["torch_allocate"]},
+        "binds": len(on_binds), "binds_equal": True, "records_equal_twin": True, "card_equals_cpu": True,
+        "reasons": reasons, "b1_launches": on["b1_launches"] + cold["b1_launches"] + off["b1_launches"],
+        "b1_launches_by_cycle": {"off": off["b1_launches"], "first_on": cold["b1_launches"], "on": on["b1_launches"]},
+    }
+    if cut > 1:
+        rec["reduced"] = {"pods": [EXPLAIN_WORLD[0], pods], "nodes": [EXPLAIN_WORLD[1], nodes]}
+    return rec, (rec["b1_launches"], 0)
+
+
+def explain_seed(store, stuck: bool = True) -> None:
+    """tests/test_explain.py's store: 4 nodes of 16 cpu, a 3-pod gang that
+    fits (``g-fit``) and a 1-pod gang of 999 cpu (``g-stuck``)."""
+    from kube_batch_tpu_torch import testing as tt
+
+    store.create_queue(tt.build_queue("default"))
+    for i in range(4):
+        store.create_node(tt.build_node(f"n{i}", tt.build_resource_list(cpu=16, memory="16Gi", pods=32)))
+    store.create_pod_group(tt.build_pod_group("g-fit", min_member=3))
+    for m in range(3):
+        store.create_pod(tt.build_pod(name=f"g-fit-p{m}", group_name="g-fit",
+                                      req=tt.build_resource_list(cpu=1, memory="512Mi")))
+    if stuck:
+        store.create_pod_group(tt.build_pod_group("g-stuck", min_member=1))
+        store.create_pod(tt.build_pod(name="g-stuck-p0", group_name="g-stuck",
+                                      req=tt.build_resource_list(cpu=999, memory="512Mi")))
+
+
+def explain_drill(kind: str, device: str) -> dict:
+    """One drill of ``explain_drills`` on ``device``; returns its outcome,
+    compared between the card and the CPU."""
+    import io
+    import urllib.request
+
+    from kube_batch_tpu_torch import cli, streaming
+    from kube_batch_tpu_torch import testing as tt
+    from kube_batch_tpu_torch.cache import ClusterStore, SchedulerCache
+    from kube_batch_tpu_torch.cache.store import PODS
+    from kube_batch_tpu_torch.obs import explain
+    from kube_batch_tpu_torch.recovery import WriteIntentJournal
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.server import SchedulerServer
+
+    conf = write_text(streaming.smoke_conf(False, device), "explain-drill")
+    if kind == "a_smoke":
+        # the smoke world through serial allocate, the fused rung and the
+        # sharded rung (a mesh of two shards on the device), all equal
+        r = explain.smoke(device=device)
+        if not r["ok"]:
+            raise AssertionError(f"obs.explain.smoke failed: {r}")
+        return {k: r[k] for k in ("ok", "gangs", "tiers", "parity", "reasons", "aggregate")}
+    if kind == "b_micro_cycle":
+        # a streaming micro-cycle's session holds only its dirty gangs
+        store = ClusterStore()
+        explain_seed(store)
+        cache = SchedulerCache(store)
+        sched = Scheduler(cache, write_text(streaming.smoke_conf(True, device), "explain-drill-stream"),
+                          schedule_period=30.0)
+        stop = threading.Event()
+        with Explaining(), ExplainSpy() as spy:
+            t = threading.Thread(target=sched.run, args=(stop, "cuda:0" if device != "cpu" else None), daemon=True)
+            t.start()
+            try:
+                wait_for(lambda: explain.records.get("default/g-stuck") is not None, "g-stuck's full-cycle record")
+                before = sched.micro_cycles_run
+                store.create_pod_group(tt.build_pod_group("g-new", min_member=2))
+                for m in range(2):
+                    store.create_pod(tt.build_pod(name=f"g-new-p{m}", group_name="g-new",
+                                                  req=tt.build_resource_list(cpu=1, memory="512Mi")))
+                wait_for(lambda: sum(1 for p in store.list(PODS) if p.node_name) >= 5, "g-new's binds")
+                wait_for(lambda: (explain.records.get("default/g-new") or {}).get("verdict") == "bound",
+                         "g-new's bound record")
+            finally:
+                stop.set()
+                t.join(timeout=30)
+                cache.stop()
+            micro = [gangs for is_micro, gangs in spy.published if is_micro]
+            out = {
+                "micro_cycles": sched.micro_cycles_run > before,
+                "micro_publishes_dirty_only": bool(micro) and all(g == ["default/g-new"] for g in micro),
+                "full_cycle_gangs": next(g for is_micro, g in spy.published if not is_micro),
+                "g_new": explain.records.get("default/g-new")["verdict"],
+                "g_stuck": explain.records.get("default/g-stuck")["reason"],
+            }
+        if not (out["micro_cycles"] and out["micro_publishes_dirty_only"]):
+            raise AssertionError(f"micro-cycle explain: {out}, publishes {spy.published}")
+        return out
+    if kind == "c_journal":
+        # the cycle's journal intents carry the gangs' explain payloads
+        import tempfile
+
+        store = ClusterStore()
+        explain_seed(store)
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp, Explaining():
+            wal = os.path.join(tmp, "j.wal")
+            cache = SchedulerCache(store, journal=WriteIntentJournal(wal))
+            Scheduler(cache, conf).run_once()
+            with open(wal) as f:
+                intents = [r for r in map(json.loads, f.read().splitlines()) if r.get("rec") == "intent"]
+            stuck = explain.records.get("default/g-stuck")
+        out = {"intents": len(intents), "tagged": sum("explain" in r for r in intents),
+               "payloads": sorted({canon(r["explain"]) for r in intents if "explain" in r}),
+               "g_stuck": stuck and stuck["reason"]}
+        if not out["intents"] or out["tagged"] != out["intents"] or out["g_stuck"] != "resources":
+            raise AssertionError(f"journal explain: {out}")
+        return out
+    # d_debug_endpoint: /debug/explain, the reason counters and the CLI over
+    # a server whose own loop scheduled the store
+    with Explaining():
+        srv = SchedulerServer(listen_address="127.0.0.1:0", schedule_period=0.05, scheduler_conf=conf)
+        explain_seed(srv.store)
+        srv.start()
+        try:
+            base = f"http://127.0.0.1:{srv.listen_port}"
+            wait_for(lambda: sum(1 for p in srv.store.list(PODS) if p.node_name) >= 3
+                     and explain.records.get("default/g-stuck") is not None, "the server's explain records")
+            with urllib.request.urlopen(base + "/debug/explain", timeout=10) as r:
+                payload = json.loads(r.read())
+            with urllib.request.urlopen(base + "/debug/explain?gang=default/g-stuck", timeout=10) as r:
+                one = json.loads(r.read())
+            with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+                text = r.read().decode()
+            buf = io.StringIO()
+            code = cli.main(["--server", base, "explain"], out=buf)
+        finally:
+            srv.stop()
+    out = {
+        "enabled": payload["enabled"], "gangs": sorted(r["name"] for r in payload["records"]),
+        "aggregate": payload["aggregate"], "one": [r["reason"] for r in one["records"]],
+        "unschedulable_counter": 'kube_batch_tpu_unschedulable_total{reason="resources"}' in text,
+        "cli": (code, sorted(line.split()[0] for line in buf.getvalue().splitlines()[1:])),
+    }
+    if not (out["enabled"] and out["one"] == ["resources"] and out["unschedulable_counter"] and code == 0):
+        raise AssertionError(f"/debug/explain: {out}")
+    return out
+
+
+def explain_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``explain_drills``: each drill on ``device`` and again on the CPU,
+    ending equal (module docstring, step 14). Returns the record and the
+    card runs' B1 launches."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    rec: dict = {"phase": "explain_drills", "device": device, "drills": {}}
+    launches = 0
+    for kind in EXPLAIN_DRILLS:
+        out = {}
+        for dev in dict.fromkeys((device, "cpu")):
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            b1 = fs.fused_solve.launches
+            t0 = time.perf_counter()
+            out[dev] = explain_drill(kind, dev)
+            out[dev]["s"] = time.perf_counter() - t0
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                out[dev]["b1_launches"] = fs.fused_solve.launches - b1
+                launches += out[dev]["b1_launches"]
+                if not out[dev]["b1_launches"]:
+                    raise AssertionError(f"{kind} on {dev} launched no B1")
+        strip = lambda o: {k: v for k, v in o.items() if k not in ("s", "b1_launches")}  # noqa: E731
+        if strip(out[device]) != strip(out["cpu"]):
+            raise AssertionError(f"{kind}: the card's run ends otherwise than the CPU's: "
+                                 f"{strip(out[device])} != {strip(out['cpu'])}")
+        rec["drills"][kind] = out
+    rec["b1_launches"] = launches
+    return rec, (launches, 0)
+
+
+def fleet_phase(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``fleet_smoke`` (module docstring, step 14)."""
+    import torch
+
+    from kube_batch_tpu_torch.obs import fleet
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+    b1 = fs.fused_solve.launches
+    t0 = time.perf_counter()
+    r = fleet.smoke(shards=2, device=device)
+    s = time.perf_counter() - t0
+    b1 = fs.fused_solve.launches - b1
+    if not r["ok"]:
+        raise AssertionError(f"obs.fleet.smoke failed: {r}")
+    rec = {"phase": "fleet_smoke", "device": device, "s": s, "b1_launches": b1,
+           **{k: r[k] for k in ("shards", "pods", "bound", "exactly_once", "fsck_violations", "shards_scraped",
+                                "scraped_after_kill", "killed_shard_detected", "counts_match", "within_bound",
+                                "max_rel_err", "rel_err_bound", "alpha", "pods_per_second", "slo_compare")}}
+    return rec, (b1, 0)
+
+
+def admission_phase(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``admission_storm`` (module docstring, step 14)."""
+    import torch
+
+    from kube_batch_tpu_torch import admission
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    t0 = time.perf_counter()
+    plant = admission.smoke()
+    plant_s = time.perf_counter() - t0
+    if not plant["ok"]:
+        raise AssertionError(f"admission.smoke failed: {plant}")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    b1 = fs.fused_solve.launches
+    t0 = time.perf_counter()
+    row = admission.storm_row(shards=STORM_SHARDS, duration_s=STORM_S, device=device)
+    storm_s = time.perf_counter() - t0
+    b1 = fs.fused_solve.launches - b1
+    if not row["ok"]:
+        raise AssertionError(f"admission.storm_row failed: {row}")
+    if device != "cpu" and b1 < 1:
+        raise AssertionError("the storm's shards launched no B1")
+    slo_s = 2.0  # the storm's KBT_ADMISSION_P99_SLO_S
+    storms = {}
+    for cell in ("on", "off", "kill"):
+        r = row[cell]
+        storms[cell] = {k: r[k] for k in ("offered", "admitted", "shed", "bound", "pods_per_s", "lane_p99_s",
+                                          "cluster_p99_s", "micro_cycles", "mttr_s", "journal_orphans",
+                                          "brownout_level_final", "exactly_once", "drained", "ok")}
+    high = row["on"]["lane_p99_s"]["high"]
+    rec = {"phase": "admission_storm", "device": device, "plant_s": plant_s, "storm_s": storm_s,
+           "plant": {"on": plant["on"], "off": plant["off"]}, "storms": storms,
+           "high_p99_s": high, "slo_s": slo_s, "high_p99_within_slo": high is not None and high <= slo_s,
+           "b1_launches": b1}
+    return rec, (b1, 0)
+
+
+def operator_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict]:
+    """The operator surfaces' phases: ``explain_50k_1k``, ``explain_drills``,
+    ``fleet_smoke`` and ``admission_storm``. Returns the failures and the
+    launches of each phase's main path."""
+    failures, launches = [], {}
+
+    def explained():
+        rec, launches["explain_50k_1k"] = explain_phase(device, cut)
+        emit(rec)
+
+    def drills():
+        rec, launches["explain_drills"] = explain_drills(device)
+        emit(rec)
+
+    def fleet():
+        rec, launches["fleet_smoke"] = fleet_phase(device)
+        emit(rec)
+
+    def storm():
+        rec, launches["admission_storm"] = admission_phase(device)
+        emit(rec)
+
+    t0 = time.perf_counter()
+    run_phase(failures, "explain_50k_1k", explained)
+    run_phase(failures, "explain_drills", drills)
+    run_phase(failures, "fleet_smoke", fleet)
+    run_phase(failures, "admission_storm", storm, drill=True)
+    emit({"phase": "operator_phases_total", "s": time.perf_counter() - t0})
+    return failures, launches
+
+
 def pipeline_uncut(card: str, kind: str) -> int:
     """``--pipeline-uncut``: pipeline_reclaim on the card at 50,000 pods,
     the cost of the uncut reclaim pass and of the preempt walk after it
@@ -4718,6 +5228,28 @@ def federation_only(card: str, kind: str) -> int:
     failures, launches = federation_phases()
     emit({"phase": "total", "s": time.perf_counter() - t_start, "launches": {k: list(v) for k, v in launches.items()}})
     if failures:
+        return 1
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})
+    return 0
+
+
+def operator_only(card: str, kind: str) -> int:
+    """``--operator``: the kernels' build and the operator surfaces' four
+    phases alone (step 14)."""
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+
+    t_start = time.perf_counter()
+    nvcc.build(["fused_solve", "block_step"])
+    fs._library.load()
+    bs._library.load()
+    emit(native_build())
+    failures, launches = operator_phases()
+    emit({"phase": "total", "s": time.perf_counter() - t_start, "launches": {k: list(v) for k, v in launches.items()}})
+    if failures:
+        print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})
@@ -4773,6 +5305,8 @@ def rehearse(argv: list[str]) -> int:
     failures += fed_failures
     stream_failures, _ = streaming_phases(device="cpu", cut=cut)
     failures += stream_failures
+    operator_failures, _ = operator_phases(device="cpu", cut=cut)
+    failures += operator_failures
     emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
     return 1 if failures else 0
 
@@ -4868,7 +5402,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"], ["--streaming"]) or (
+    if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"], ["--streaming"], ["--operator"]) or (
             argv[:1] == ["--ab-warm"] and len(argv) == 2):
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -4880,10 +5414,12 @@ def main(argv: list[str]) -> int:
             return federation_only(card, torch.cuda.get_device_name(0))
         if argv == ["--streaming"]:
             return streaming_only(card, torch.cuda.get_device_name(0))
+        if argv == ["--operator"]:
+            return operator_only(card, torch.cuda.get_device_name(0))
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--federation | --streaming | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
+              "--federation | --streaming | --operator | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.ops import block_step as bs
@@ -5081,6 +5617,9 @@ def main(argv: list[str]) -> int:
     # -- the streaming scheduler: streamed bursts, pipelined cycles, drills -
     stream_failures, stream_launches = streaming_phases()
     failures += stream_failures
+    # -- the operator surfaces: explain, the fleet rollup, admission --------
+    operator_failures, operator_launches = operator_phases()
+    failures += operator_failures
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
@@ -5090,6 +5629,7 @@ def main(argv: list[str]) -> int:
     cycle_launches.update(server_launches)
     cycle_launches.update(fed_launches)
     cycle_launches.update(stream_launches)
+    cycle_launches.update(operator_launches)
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 

@@ -10,13 +10,16 @@ and, if it fits Releasing, pipeline. Jobs are re-pushed when JobReady
 This serial loop is the correctness oracle for the device action
 ``torch_allocate`` (actions/torch_allocate.py), which replaces the whole
 loop with one device solve, and the action that one routes a cycle to
-when the conf or the snapshot is outside the solve's envelope.
+when the conf or the snapshot is outside the solve's envelope. With
+``KBT_EXPLAIN`` on it publishes the cycle's forensics records
+(obs/explain.py ``explain_session``) under an ``explain`` span.
 """
 
 from __future__ import annotations
 
 import logging
 
+from kube_batch_tpu_torch import obs
 from kube_batch_tpu_torch.api.job_info import TaskInfo
 from kube_batch_tpu_torch.api.node_info import NodeInfo
 from kube_batch_tpu_torch.api.types import TaskStatus
@@ -144,6 +147,19 @@ class AllocateAction(Action):
 
             # Round-robin the queue until it has no jobs left (allocate.go:189).
             queues.push(queue)
+
+        # Post-solve forensics (obs/explain): the serial action is the
+        # oracle side of explain parity, re-encoding the post-action world
+        # and walking the planes task by task. Covers direct serial confs
+        # and every torch_allocate routing or degradation to serial.
+        from kube_batch_tpu_torch.obs import explain as _explain
+
+        if _explain.enabled():
+            with obs.span("explain") as sp:
+                recs = _explain.explain_session(ssn)
+                _explain.publish(ssn, recs)
+                for k, v in _explain.summary(recs).items():
+                    sp.set_attr(k, v)
 
 
 def new() -> Action:

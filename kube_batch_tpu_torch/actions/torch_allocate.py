@@ -106,8 +106,21 @@ Streaming and pipelined cycles, as in the JAX action:
   from the fetched ``SolveState`` on the scheduling thread and makes no
   CUDA call (the card is made current on the scheduling thread alone).
 
-The JAX package's action also keeps a device-resident arena, node-class
-compression and forensics; those come with the port's later items
+Forensics (obs/explain.py, ``KBT_EXPLAIN``): after the last segment the
+action runs the batched explain pass (ops/explain.py) on the solve's
+device, on the scheduling thread and before any deferred dispatch is
+submitted: on the fused rung over kernel B1's packed statics and final
+state buffers where they lie, on the sharded rung over an upload of the
+explain subset and the five state fields. The records are built and
+published in the post-solve phase after the dispatch barrier's check and
+before the dispatch, under an ``explain`` span (``pass_s`` the pass,
+with its fetch), so the journal's intents carry them and an aborted cycle
+leaves none; ``last_timings["explain_s"]`` is the pass and the publish,
+``explain_pass_s`` the pass with its fetch alone. A
+micro-cycle's session holds only its dirty gangs, so it explains those.
+
+The JAX package's action also keeps a device-resident arena and
+node-class compression; those come with the port's later items
 (ROADMAP).
 """
 
@@ -126,6 +139,8 @@ from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.arguments import Arguments
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import Session
+from kube_batch_tpu_torch.obs import explain as _explain
+from kube_batch_tpu_torch.ops import explain as ops_explain
 from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
 from kube_batch_tpu_torch.ops.encode import compute_pod_sc, encode_session
 from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
@@ -545,8 +560,25 @@ class TorchAllocateAction(Action):
         n_assigned = int(state.step)
         ready_cnt = state.ready_cnt.numpy()
 
+        # Post-solve forensics (obs/explain): the batched pass and its
+        # fetch run here, on the scheduling thread and the solve's device;
+        # the records are published in _post_solve after the dispatch
+        # barrier, before the dispatch, so the journal's intents carry them
+        # and an aborted cycle leaves none.
+        fx = None
+        t_pass = 0.0
+        if _explain.enabled():
+            te = time.perf_counter()
+            if rungs.tier == "fused":
+                inputs = ops_explain.fused_inputs(rungs.fused, arrays)
+            else:
+                inputs = ops_explain.uploaded_inputs(arrays, state, device)
+            fx = _explain.forensics(enc, arrays, state, inputs)
+            t_pass = time.perf_counter() - te
+
         def _post_solve(parent=None) -> None:
             t0 = time.perf_counter()
+            t_publish = 0.0
             with obs.span("gang.assign", parent=parent, assigned=n_assigned):
                 replay.apply_upto(assign_pos, assigned_node, assigned_kind, n_assigned)
                 if not defer and budget is not None:
@@ -556,8 +588,19 @@ class TorchAllocateAction(Action):
                     # (inject=True): the most discardable work, no cache
                     # mutation.
                     budget.check("dispatch barrier", inject=True)
+                if fx is not None:
+                    tp = time.perf_counter()
+                    with obs.span("explain", micro=micro, pass_s=t_pass) as xsp:
+                        recs = _explain.post_solve_records(ssn, enc, arrays, ready_cnt, fx)
+                        _explain.publish(ssn, recs)
+                        for k, v in _explain.summary(recs).items():
+                            xsp.set_attr(k, v)
+                    t_publish = time.perf_counter() - tp
                 replay.finish(ready_cnt)
-            timings["replay_s"] = time.perf_counter() - t0
+            timings["replay_s"] = time.perf_counter() - t0 - t_publish
+            if fx is not None:
+                timings["explain_s"] = t_pass + t_publish
+                timings["explain_pass_s"] = t_pass
 
         if defer:
             ctx = obs.current()  # pool threads do not inherit the contextvar

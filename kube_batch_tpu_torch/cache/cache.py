@@ -65,9 +65,9 @@ restricted world with ``snapshot()``'s filters, and ``submit_dispatch``
 runs a pipelined cycle's deferred post-solve closure (pipeline.py) on the
 kb-write pool, or inline when the pool is not started.
 
-The JAX package's cache also attaches an explain payload to each intent;
-that comes with the port's explain layer (ROADMAP A), and this
-constructor does not accept it until then.
+With ``KBT_EXPLAIN`` on, each journaled intent carries its gang's
+compact explain payload (obs/explain.py ``intent_payload``), published by
+the allocate action before its dispatch reaches the journal.
 """
 
 from __future__ import annotations
@@ -1034,11 +1034,24 @@ class SchedulerCache:
             # id so a takeover's reconciliation can name the trace that
             # wrote each intent it re-litigates
             cur = obs.current()
+            # explain payloads (obs/explain): the allocate action publishes
+            # per-gang forensics into the process registry before its
+            # dispatch reaches here, so each intent can carry the compact
+            # (verdict, reason) label of the decision it records
+            explain = None
+            from kube_batch_tpu_torch.obs import explain as _explain
+
+            if _explain.enabled():
+                explain = {}
+                for gang in {e[0] for e in entries}:
+                    payload = _explain.intent_payload(gang)
+                    if payload is not None:
+                        explain[gang] = payload
             with obs.span("journal.append", op=op, n=len(entries)) as jspan:
                 seqs = self.journal.append_intents(
                     op, entries, cycle=self.cycle,
                     trace=cur.trace_id if cur is not None else "",
-                    explain=None,
+                    explain=explain,
                 )
                 jspan.set_attr("first_seq", seqs[0] if seqs else None)
                 return seqs

@@ -9,11 +9,11 @@ clientset; here the scheduler server's HTTP queue API
     python -m kube_batch_tpu_torch.cli queue list [--watch]
     python -m kube_batch_tpu_torch.cli queue delete --name q1
     python -m kube_batch_tpu_torch.cli version
+    python -m kube_batch_tpu_torch.cli explain [--gang ns/name] [--json]
 
 `--server` points at the scheduler's listen address (the reference's
---master/--kubeconfig pair collapses to one URL with no auth layer). The
-JAX package's ``explain`` subcommand comes with the port's explain
-(ROADMAP A6).
+--master/--kubeconfig pair collapses to one URL with no auth layer).
+``explain`` reads the server's /debug/explain forensics (``KBT_EXPLAIN``).
 """
 
 from kube_batch_tpu_torch.cli.queue import main

@@ -1,6 +1,7 @@
 """queue create / list / delete against the scheduler's HTTP API
-(reference pkg/cli/queue/create.go:46-67, list.go:54-87), and
-``version``."""
+(reference pkg/cli/queue/create.go:46-67, list.go:54-87), ``version``,
+and the ``explain`` subcommand over /debug/explain (unschedulability
+forensics, obs/explain.py)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import argparse
 import json
 import sys
 import urllib.error
+import urllib.parse
 import urllib.request
 from typing import Optional, TextIO
 
@@ -91,6 +93,41 @@ def cmd_delete(args, out: TextIO) -> int:
     return 0
 
 
+def cmd_explain(args, out: TextIO) -> int:
+    """Fetch unschedulability forensics from /debug/explain: per gang the
+    dominant reason, per-plane elimination counts, would-fit-if planes and
+    near-miss nodes from the last allocate cycle."""
+    url = f"{args.server}/debug/explain"
+    if args.gang:
+        url += "?gang=" + urllib.parse.quote(args.gang)
+    payload = _request("GET", url)
+    if args.as_json:
+        out.write(json.dumps(payload, sort_keys=True) + "\n")
+        return 0
+    if not payload.get("enabled", False):
+        out.write("explain is disabled (set KBT_EXPLAIN=1 or conf "
+                  "'explain: \"1\"')\n")
+        return 0
+    recs = payload.get("records", [])
+    if args.gang:
+        if not recs:
+            out.write(f"no explain record for gang {args.gang!r} "
+                      "(bound earlier, or not seen by the last cycle)\n")
+            return 1
+        for rec in recs:
+            out.write(json.dumps(rec, sort_keys=True, indent=2) + "\n")
+        return 0
+    out.write(f"{'Gang':<32}{'Verdict':<15}{'Reason':<12}"
+              f"{'Ready':<7}{'Min':<5}\n")
+    for rec in sorted(recs, key=lambda r: r.get("name", "")):
+        out.write(
+            f"{rec.get('name', ''):<32}{rec.get('verdict', ''):<15}"
+            f"{rec.get('reason', ''):<12}{rec.get('ready', 0):<7}"
+            f"{rec.get('min', 0):<5}\n"
+        )
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="kbt-ctl", description="kube-batch-tpu admin CLI"
@@ -130,6 +167,20 @@ def build_parser() -> argparse.ArgumentParser:
     delete = qsub.add_parser("delete", help="delete a queue")
     delete.add_argument("--name", required=True, help="queue name")
     delete.set_defaults(fn=cmd_delete)
+
+    explain = sub.add_parser(
+        "explain",
+        help="why gangs are unschedulable (/debug/explain forensics)",
+    )
+    explain.add_argument(
+        "--gang", default=None,
+        help="filter to one gang (uid, PodGroup name, or namespace/name)",
+    )
+    explain.add_argument(
+        "--json", action="store_true", dest="as_json",
+        help="print the raw /debug/explain payload",
+    )
+    explain.set_defaults(fn=cmd_explain)
 
     return parser
 

@@ -106,9 +106,10 @@ class SchedulerConfiguration:
     ``faults``, ``streaming``, ``trace``, ``explain`` and ``fleet`` are the
     same optional keys the JAX package's schema reads, parsed to the same
     values. The scheduler arms ``faults`` (the fault registry's grammar)
-    when the conf changes, passes ``trace`` to ``obs.configure`` every
-    cycle, and runs its streaming loop while ``streaming`` is true;
-    ``explain`` and ``fleet`` wait for their layers.
+    when the conf changes, passes ``trace``, ``explain`` and ``fleet`` to
+    ``obs.configure``, ``obs.explain.configure`` and
+    ``obs.fleet.configure`` every cycle, and runs its streaming loop while
+    ``streaming`` is true.
     """
 
     actions: str = ""

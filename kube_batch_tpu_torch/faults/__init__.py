@@ -77,6 +77,13 @@ The HA pair's points (server.py, recovery/):
 - ``reconcile.scan``: the takeover scan dies part-way; reconciliation
   reports ``aborted`` and the loop heals.
 
+Admission control's points (admission.py, server.py's front door):
+
+- ``admission.shed``: the gate sheds an admit that would have passed
+  (the 429 path, with its Retry-After);
+- ``admission.controller``: a controller tick dies; the last good lane
+  factors stay in force (fail-static).
+
 The host fast paths' points, each of whose degraded paths gives the same
 bytes as the fast path it replaces:
 
@@ -187,6 +194,9 @@ POINTS = (
     "native.prepass",      # bulk_assign prepass raises -> Python replay
     "native.dispatch",     # bulk_dispatch raises -> Python dispatch barrier
     "native.class_dedup",  # class_dedup unavailable -> np.unique
+    # admission control (admission.py, server.py front door)
+    "admission.shed",      # gate sheds an admit that would have passed -> 429
+    "admission.controller",  # controller tick dies -> fail-static last outputs
 )
 
 

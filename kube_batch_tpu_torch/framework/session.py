@@ -101,6 +101,10 @@ class Session:
         # before the commit write-back; the scheduler's actions loop joins
         # it before running a later action over the same session.
         self.deferred_dispatch = None
+        # Per-gang forensics records the allocate actions publish when
+        # KBT_EXPLAIN is on (obs/explain.py), keyed by JobInfo.uid; read by
+        # the gang plugin's conditions. Empty when explain is off.
+        self.explain_records: dict[str, dict] = {}
         # A streaming micro-cycle's session (scheduler.run_micro):
         # torch_allocate reads it for the resident-interpod hint and never
         # defers a micro-cycle's dispatch.

@@ -48,17 +48,32 @@ label sets:
   and ``encode_warm_fraction`` (ops/encode_cache.py);
 - ``slo_time_to_bind_seconds`` and ``slo_queue_wait_seconds``
   ``{queue,quantile}`` and ``slo_evicted_queues_total``, set by
-  ``obs.slo.publish()``.
+  ``obs.slo.publish()``;
+- unschedulability forensics (obs/explain.py): ``unschedulable_total{reason}``
+  and ``would_fit_if_total{plane}``;
+- the fleet rollup (obs/fleet.py): ``fleet_slo_time_to_bind_seconds`` and
+  ``fleet_slo_queue_wait_seconds`` ``{queue,quantile}``,
+  ``fleet_node_conflicts{node}``, ``fleet_backlog_pods``,
+  ``fleet_pods_per_second``, ``fleet_shards_scraped``,
+  ``fleet_shard_up{shard}`` and ``fleet_shard_last_scrape_age_seconds{shard}``;
+- admission control (admission.py): ``admission_decisions_total{lane,outcome}``,
+  ``admission_lane_backlog_pods{lane}``, ``admission_lane_admit_rate{lane}``,
+  ``admission_brownout_level``, ``admission_pressure`` and
+  ``admission_controller_ticks_total{outcome}``.
 
-The JAX package's series of layers the port does not have yet
-(admission, fleet, the tensor arena, the class-compressed solve and explain)
-come with those layers; so do exemplars (the ``exemplar=`` argument of
-``register_federation_conflict`` and ``observe_time_to_bind`` is accepted
-and not stored).
+OpenMetrics exemplars: with ``KBT_METRICS_EXEMPLARS`` on, an observation
+that passes ``exemplar=`` (a trace id: ``observe_time_to_bind``,
+``register_federation_conflict``) keeps the latest one per label set, and
+the exposition appends ``# {trace_id="..."} value`` to the matching sample
+or lowest containing bucket. Storage is gated like rendering.
+
+The JAX package's series of layers the port does not have yet (the tensor
+arena and the class-compressed solve) come with those layers.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from bisect import bisect_left
 from typing import Iterable, Optional
@@ -69,6 +84,13 @@ import numpy as np
 # (metrics.go:49-72). Values recorded in seconds.
 E2E_BUCKETS = tuple(0.005 * 2**k for k in range(12))
 FINE_BUCKETS = tuple(5e-6 * 2**k for k in range(18))
+
+EXEMPLARS_ENV = "KBT_METRICS_EXEMPLARS"
+_EXEMPLAR_OFF = ("", "0", "false", "off", "no")
+
+
+def exemplars_enabled() -> bool:
+    return os.environ.get(EXEMPLARS_ENV, "").strip().lower() not in _EXEMPLAR_OFF
 
 
 def _key(labels: Optional[dict[str, str]]) -> tuple:
@@ -85,6 +107,8 @@ class Histogram:
         self.buckets = tuple(sorted(buckets))
         # label tuple -> [counts per bucket + overflow, sum, total]
         self._series: dict[tuple, list] = {}
+        # label tuple -> (trace_id, value): the latest exemplar per series
+        self._exemplars: dict[tuple, tuple[str, float]] = {}
         self._lock = threading.Lock()
 
     def _series_for(self, key: tuple) -> list:
@@ -93,13 +117,18 @@ class Histogram:
             series = self._series[key] = [[0] * (len(self.buckets) + 1), 0.0, 0]
         return series
 
-    def observe(self, value: float, labels: Optional[dict[str, str]] = None) -> None:
+    def observe(
+        self, value: float, labels: Optional[dict[str, str]] = None, exemplar: str | None = None
+    ) -> None:
         i = bisect_left(self.buckets, value)  # first bucket with value <= bound
+        key = _key(labels)
         with self._lock:
-            series = self._series_for(_key(labels))
+            series = self._series_for(key)
             series[0][i] += 1
             series[1] += value
             series[2] += 1
+            if exemplar and exemplars_enabled():
+                self._exemplars[key] = (exemplar, value)
 
     def observe_many(self, values, labels: Optional[dict[str, str]] = None) -> None:
         """Batch observe: one lock acquisition for a whole list of values —
@@ -163,12 +192,17 @@ class Counter:
         self.name = name
         self.help = help_text
         self._values: dict[tuple, float] = {}
+        self._exemplars: dict[tuple, tuple[str, float]] = {}
         self._lock = threading.Lock()
 
-    def inc(self, labels: Optional[dict[str, str]] = None, by: float = 1.0) -> None:
+    def inc(
+        self, labels: Optional[dict[str, str]] = None, by: float = 1.0, exemplar: str | None = None
+    ) -> None:
         key = _key(labels)
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + by
+            if exemplar and exemplars_enabled():
+                self._exemplars[key] = (exemplar, by)
 
     def value(self, labels: Optional[dict[str, str]] = None) -> float:
         with self._lock:
@@ -208,6 +242,10 @@ class Gauge:
             for k in dead:
                 del self._values[k]
             return len(dead)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._values.clear()
 
 
 _SUBSYSTEM = "kube_batch_tpu"
@@ -415,6 +453,18 @@ shard_takeover_seconds = Histogram(
     E2E_BUCKETS,
 )
 
+# -- unschedulability forensics (obs/explain.py) -------------------------------
+unschedulable_total = Counter(
+    f"{_SUBSYSTEM}_unschedulable_total",
+    "Gangs left unschedulable by an allocate cycle, by dominant reason "
+    "(static/room/ports/resources/starved)",
+)
+would_fit_if_total = Counter(
+    f"{_SUBSYSTEM}_would_fit_if_total",
+    "Single-plane relaxations that would make an unschedulable gang "
+    "feasible, by plane",
+)
+
 # -- pipelined cycles (pipeline.py, KBT_PIPELINE) ------------------------------
 pipeline_overlap_fraction = Gauge(
     f"{_SUBSYSTEM}_pipeline_overlap_fraction",
@@ -453,6 +503,91 @@ slo_evicted_queues = Counter(
     f"{_SUBSYSTEM}_slo_evicted_queues_total",
     "Queues evicted from the SLO accountant's LRU cardinality bound "
     "(a tenant-name churn storm shows up here, not as unbounded labels)",
+)
+
+# -- the fleet rollup (obs/fleet.py, KBT_FLEET) --------------------------------
+# Cluster-wide rollups an aggregator computes by scraping peer shards'
+# /debug/slo?raw=1 sketches and key counters and merging them: percentiles
+# do not average, so merged sketches are the composable path.
+fleet_slo_time_to_bind = Gauge(
+    f"{_SUBSYSTEM}_fleet_slo_time_to_bind_seconds",
+    "Cluster-wide sliding-window time-to-bind quantiles merged from all "
+    "scraped shards' sketches (labels: queue, quantile=p50/p90/p99)",
+)
+fleet_slo_queue_wait = Gauge(
+    f"{_SUBSYSTEM}_fleet_slo_queue_wait_seconds",
+    "Cluster-wide sliding-window queue-wait quantiles merged from all "
+    "scraped shards' sketches (labels: queue, quantile=p50/p90/p99)",
+)
+_FLEET_SLO_GAUGES = {
+    "time_to_bind": fleet_slo_time_to_bind,
+    "queue_wait": fleet_slo_queue_wait,
+}
+fleet_node_conflicts = Gauge(
+    f"{_SUBSYSTEM}_fleet_node_conflicts",
+    "Per-node bind-conflict heatmap: top-K contended nodes by conflict "
+    "delta since the previous fleet scrape, summed across shards (by node)",
+)
+fleet_backlog = Gauge(
+    f"{_SUBSYSTEM}_fleet_backlog_pods",
+    "Aggregate arrived-but-unbound backlog summed across scraped shards",
+)
+fleet_pods_per_second = Gauge(
+    f"{_SUBSYSTEM}_fleet_pods_per_second",
+    "Aggregate bind throughput across scraped shards, from bind-count "
+    "deltas between fleet scrapes",
+)
+fleet_shards_scraped = Gauge(
+    f"{_SUBSYSTEM}_fleet_shards_scraped",
+    "Peer shards the fleet aggregator reached on its last scrape "
+    "(a drop below the configured peer count means a dark shard)",
+)
+fleet_shard_up = Gauge(
+    f"{_SUBSYSTEM}_fleet_shard_up",
+    "Per-peer reachability on the last fleet scrape (labels: shard = "
+    "peer URL; 1 = scraped, 0 = dark) — attributes a dark shard before "
+    "its slot lease even expires",
+)
+fleet_shard_scrape_age = Gauge(
+    f"{_SUBSYSTEM}_fleet_shard_last_scrape_age_seconds",
+    "Seconds since the fleet aggregator last successfully scraped each "
+    "peer (labels: shard = peer URL; grows without bound on a dark "
+    "shard, -1 = never scraped)",
+)
+
+# -- admission control (admission.py, KBT_ADMISSION) ---------------------------
+# Per-tenant lanes at the workload API's front door and the backpressure
+# controller that retunes them from measured fleet state. Every shed is
+# counted here and carried a 429 with Retry-After on the wire.
+admission_decisions = Counter(
+    f"{_SUBSYSTEM}_admission_decisions_total",
+    "Front-door admission decisions, by lane and outcome "
+    "(admitted/shed_rate/shed_backlog/shed_brownout/shed_fault)",
+)
+admission_lane_backlog = Gauge(
+    f"{_SUBSYSTEM}_admission_lane_backlog_pods",
+    "Admitted-but-unbound pods the gate currently charges to each lane "
+    "(labels: lane) — the bounded backlog that 429s when full",
+)
+admission_lane_rate = Gauge(
+    f"{_SUBSYSTEM}_admission_lane_admit_rate",
+    "Token-bucket refill rate in pods/s the controller currently grants "
+    "each lane (labels: lane)",
+)
+admission_brownout_level = Gauge(
+    f"{_SUBSYSTEM}_admission_brownout_level",
+    "Current rung on the brownout ladder (0 = all lanes at configured "
+    "rate; higher rungs defer lower-priority tiers first)",
+)
+admission_pressure = Gauge(
+    f"{_SUBSYSTEM}_admission_pressure",
+    "Composite overload signal the backpressure controller computed from "
+    "merged fleet state (1.0 = at the configured SLO band ceiling)",
+)
+admission_controller_ticks = Counter(
+    f"{_SUBSYSTEM}_admission_controller_ticks_total",
+    "Backpressure controller evaluations, by outcome "
+    "(steady/escalate/recover/fault/dark)",
 )
 
 
@@ -589,7 +724,7 @@ def set_encode_warm_fraction(fraction: float) -> None:
 
 
 def observe_time_to_bind(seconds: float, exemplar: str | None = None) -> None:
-    time_to_bind.observe(seconds)
+    time_to_bind.observe(seconds, exemplar=exemplar)
 
 
 def register_micro_cycle(outcome: str) -> None:
@@ -609,7 +744,7 @@ def observe_pipeline_fence_wait(seconds: float) -> None:
 
 
 def register_federation_conflict(outcome: str, exemplar: str | None = None) -> None:
-    federation_conflicts.inc({"outcome": outcome})
+    federation_conflicts.inc({"outcome": outcome}, exemplar=exemplar)
 
 
 def register_federation_node_conflict(node: str, n: int = 1) -> None:
@@ -656,11 +791,90 @@ def observe_shard_takeover(seconds: float) -> None:
     shard_takeover_seconds.observe(seconds)
 
 
+def register_unschedulable(reason: str) -> None:
+    unschedulable_total.inc({"reason": reason})
+
+
+def register_would_fit_if(plane: str) -> None:
+    would_fit_if_total.inc({"plane": plane})
+
+
+def set_fleet_slo_quantile(kind: str, queue: str, quantile: str, value: float) -> None:
+    gauge = _FLEET_SLO_GAUGES.get(kind)
+    if gauge is not None:
+        gauge.set(value, {"queue": queue, "quantile": quantile})
+
+
+def set_fleet_node_heatmap(deltas: dict[str, float]) -> None:
+    """Replace the per-node conflict heatmap wholesale (top-K only: stale
+    nodes drop out rather than linger at their old value)."""
+    fleet_node_conflicts.clear()
+    for node, value in deltas.items():
+        fleet_node_conflicts.set(value, {"node": node})
+
+
+def set_fleet_backlog(n: float) -> None:
+    fleet_backlog.set(n)
+
+
+def set_fleet_pods_per_second(value: float) -> None:
+    fleet_pods_per_second.set(value)
+
+
+def set_fleet_shards_scraped(n: int) -> None:
+    fleet_shards_scraped.set(n)
+
+
+def set_fleet_shard_up(shard: str, up: bool) -> None:
+    fleet_shard_up.set(1 if up else 0, {"shard": shard})
+
+
+def set_fleet_shard_scrape_age(shard: str, age_s: float) -> None:
+    fleet_shard_scrape_age.set(age_s, {"shard": shard})
+
+
+def register_admission_decision(lane: str, outcome: str) -> None:
+    admission_decisions.inc({"lane": lane, "outcome": outcome})
+
+
+def set_admission_lane_backlog(lane: str, n: int) -> None:
+    admission_lane_backlog.set(n, {"lane": lane})
+
+
+def set_admission_lane_rate(lane: str, rate: float) -> None:
+    admission_lane_rate.set(rate, {"lane": lane})
+
+
+def set_admission_brownout_level(level: int) -> None:
+    admission_brownout_level.set(level)
+
+
+def set_admission_pressure(value: float) -> None:
+    admission_pressure.set(value)
+
+
+def register_admission_controller_tick(outcome: str) -> None:
+    admission_controller_ticks.inc({"outcome": outcome})
+
+
 def _escape_label_value(value) -> str:
     """Prometheus text-format label escaping: backslash, double quote and
     newline are escaped inside the quoted value, so a queue named ``a"b``
     or a fault reason with a newline cannot corrupt the scrape."""
     return str(value).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _exemplar_of(metric, key) -> tuple[str, float] | None:
+    """The OpenMetrics exemplar annotation of one series as ``(suffix,
+    value)``, or None; rendered only while KBT_METRICS_EXEMPLARS is on."""
+    if not exemplars_enabled():
+        return None
+    with metric._lock:
+        ex = metric._exemplars.get(key)
+    if ex is None:
+        return None
+    trace_id, value = ex
+    return (f' # {{trace_id="{_escape_label_value(trace_id)}"}} {value}', value)
 
 
 def _render_family(metric) -> list[str]:
@@ -671,9 +885,15 @@ def _render_family(metric) -> list[str]:
             snap = metric.snapshot(dict(key) if key else None)
             prefix = ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in key)
             sep = "," if prefix else ""
+            ex = _exemplar_of(metric, key)
+            ex_suffix, ex_value = ex if ex else ("", None)
             for boundary, cum in snap["buckets"].items():
-                lines.append(f'{metric.name}_bucket{{{prefix}{sep}le="{boundary}"}} {cum}')
-            lines.append(f'{metric.name}_bucket{{{prefix}{sep}le="+Inf"}} {snap["count"]}')
+                mark = ex_suffix if ex_value is not None and ex_value <= boundary else ""
+                if mark:
+                    ex_value = None  # the exemplar rides its lowest containing bucket
+                lines.append(f'{metric.name}_bucket{{{prefix}{sep}le="{boundary}"}} {cum}{mark}')
+            mark = ex_suffix if ex_value is not None else ""
+            lines.append(f'{metric.name}_bucket{{{prefix}{sep}le="+Inf"}} {snap["count"]}{mark}')
             suffix = f"{{{prefix}}}" if prefix else ""
             lines.append(f"{metric.name}_sum{suffix} {snap['sum']}")
             lines.append(f"{metric.name}_count{suffix} {snap['count']}")
@@ -684,11 +904,15 @@ def _render_family(metric) -> list[str]:
         if not items:
             lines.append(f"{metric.name} 0")
         for key, value in items.items():
+            ex = ""
+            if kind == "counter":
+                found = _exemplar_of(metric, key)
+                ex = found[0] if found else ""
             if key:
                 label_str = ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in key)
-                lines.append(f"{metric.name}{{{label_str}}} {value}")
+                lines.append(f"{metric.name}{{{label_str}}} {value}{ex}")
             else:
-                lines.append(f"{metric.name} {value}")
+                lines.append(f"{metric.name} {value}{ex}")
     return lines
 
 
@@ -736,12 +960,28 @@ FAMILIES = (
     shard_adoptions,
     shard_handoffs,
     shard_takeover_seconds,
+    unschedulable_total,
+    would_fit_if_total,
     pipeline_overlap_fraction,
     exchange_batched_iters_total,
     pipeline_fence_wait_seconds,
     slo_time_to_bind,
     slo_queue_wait,
     slo_evicted_queues,
+    fleet_slo_time_to_bind,
+    fleet_slo_queue_wait,
+    fleet_node_conflicts,
+    fleet_backlog,
+    fleet_pods_per_second,
+    fleet_shards_scraped,
+    fleet_shard_up,
+    fleet_shard_scrape_age,
+    admission_decisions,
+    admission_lane_backlog,
+    admission_lane_rate,
+    admission_brownout_level,
+    admission_pressure,
+    admission_controller_ticks,
 )
 
 

@@ -40,8 +40,9 @@ conditional writes, and the store side of such a write (``store.bind``,
 client, ``from_headers`` on the server). A streaming micro-cycle opens the
 root ``micro_cycle`` (scheduler.py ``run_micro``) in place of ``cycle``,
 and the streaming trigger emits one synthetic ``time_to_bind`` span per
-pod (arrival to bind echo) after the fact. The JAX package's ``explain``
-span comes with that layer. ``install_signal_dump`` dumps the ring on
+pod (arrival to bind echo) after the fact, and the allocate actions open
+``explain`` over their post-solve forensics (obs/explain.py) when
+``KBT_EXPLAIN`` is on. ``install_signal_dump`` dumps the ring on
 SIGTERM (the server's ``run``).
 """
 
@@ -90,6 +91,8 @@ __all__ = [
     "export_chrome",
     "check_tree",
     "install_signal_dump",
+    "smoke",
+    "main",
 ]
 
 log = logging.getLogger(__name__)
@@ -119,6 +122,7 @@ SPAN_NAMES = (
     "store.bind",   # store side of a conditional bind (remote parent)
     "store.txn",    # store side of a coalesced txn batch (remote parent)
     "time_to_bind",  # synthetic: streaming arrival -> bind echo, per pod
+    "explain",      # post-solve unschedulability forensics (obs/explain)
 )
 
 # Wall/perf anchor pair: spans are stamped with the monotonic clock (so
@@ -494,9 +498,12 @@ _SKETCH_MIN = 1e-9
 
 class QuantileSketch:
     """DDSketch-style relative-error quantile sketch over a sliding
-    time window (cell assignment is a pure function of the observation's
-    wall-clock time and value, given ``alpha`` and ``slice_s``, so two
-    sketches of one geometry add cell for cell).
+    time window, built to merge: two shards' sketches combined with
+    :meth:`merge` are cell for cell one sketch fed the pooled samples
+    (cell assignment is a pure function of the observation's wall-clock
+    time and value, given equal ``alpha`` and ``slice_s``, which
+    :meth:`merge` asserts). ``to_wire``/``from_wire`` are the JSON form
+    ``/debug/slo?raw=1`` serves and obs/fleet.py merges.
 
     Geometry: bucket ``i = ceil(ln(v) / ln(gamma))`` with
     ``gamma = (1 + alpha) / (1 - alpha)``; the bucket midpoint
@@ -583,6 +590,60 @@ class QuantileSketch:
             if seen >= target:
                 return self.value_of(b)
         return self.value_of(max(merged)) if merged else 0.0
+
+    def merge(self, other: "QuantileSketch") -> "QuantileSketch":
+        """Fold ``other`` into self (cell-wise count sums). Requires the
+        same geometry: sketches of different ``alpha`` or ``slice_s`` mean
+        different buckets."""
+        if not math.isclose(other.alpha, self.alpha, rel_tol=1e-9):
+            raise ValueError(f"cannot merge sketches with alpha {other.alpha} into {self.alpha}")
+        if not math.isclose(other.slice_s, self.slice_s, rel_tol=1e-9):
+            raise ValueError(f"cannot merge sketches with slice_s {other.slice_s} into {self.slice_s}")
+        for epoch, osl in other._slices.items():
+            sl = self._slices.get(epoch)
+            if sl is None:
+                sl = self._slices[epoch] = [{}, 0, 0, 0.0]
+            for b, c in osl[0].items():
+                sl[0][b] = sl[0].get(b, 0) + c
+            sl[1] += osl[1]
+            sl[2] += osl[2]
+            sl[3] += osl[3]
+        return self
+
+    def to_wire(self) -> dict:
+        """JSON-safe wire form (the /debug/slo?raw=1 payload unit)."""
+        return {
+            "alpha": self.alpha,
+            "window_s": self.window_s,
+            "slice_s": self.slice_s,
+            "slices": {
+                str(epoch): {
+                    "b": {str(b): c for b, c in sl[0].items()},
+                    "z": sl[1],
+                    "n": sl[2],
+                    "s": sl[3],
+                }
+                for epoch, sl in self._slices.items()
+            },
+        }
+
+    @classmethod
+    def from_wire(cls, data: dict) -> "QuantileSketch":
+        window_s = float(data["window_s"])
+        slice_s = float(data.get("slice_s") or window_s / cls.DEFAULT_SLICES)
+        sk = cls(
+            alpha=float(data["alpha"]),
+            window_s=window_s,
+            slices=max(1, round(window_s / slice_s)),
+        )
+        for epoch, sl in (data.get("slices") or {}).items():
+            sk._slices[int(epoch)] = [
+                {int(b): int(c) for b, c in (sl.get("b") or {}).items()},
+                int(sl.get("z", 0)),
+                int(sl.get("n", 0)),
+                float(sl.get("s", 0.0)),
+            ]
+        return sk
 
 
 class SLOAccountant:
@@ -672,6 +733,22 @@ class SLOAccountant:
                     out[kind][queue] = stats
         return out
 
+    def raw(self) -> dict:
+        """The mergeable wire form (``/debug/slo?raw=1``): per kind and
+        queue, the serialized sketches a fleet aggregator deserializes
+        with :meth:`QuantileSketch.from_wire` and merges."""
+        now = time.time()
+        out: dict = {"alpha": self.alpha, "window_s": self.window_s, "kinds": {}}
+        with self._lock:
+            for kind, per_queue in self._sketches.items():
+                out["kinds"][kind] = {}
+                for queue, sk in per_queue.items():
+                    sk.trim(now)
+                    if sk.count() == 0:
+                        continue
+                    out["kinds"][kind][queue] = sk.to_wire()
+        return out
+
     def publish(self) -> dict:
         """Push the current window percentiles into the exposition's
         ``slo_*`` gauges and return the snapshot."""
@@ -756,6 +833,260 @@ def check_tree(spans: list[dict]) -> list[str]:
                     f"has dangling parent {s['parent_id']}"
                 )
     return out
+
+
+# -- smoke -------------------------------------------------------------------
+
+# The device pipeline, so the smoke exercises the full span tree: encode,
+# solve and gang.assign come from torch_allocate, and the dispatch goes
+# through bind_many to the conditional per-gang transaction whose conflict
+# retries the smoke asserts on. No ``trace:`` key on purpose: every
+# scheduler (the shards and the arbiter's idle loop) defers to the
+# KBT_TRACE the smoke arms, so their conf reloads cannot fight over the
+# module-wide switch. ``{device}`` is where torch_allocate solves.
+SMOKE_CONF = """
+actions: "enqueue, torch_allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: predicates
+  - name: nodeorder
+actionArguments:
+  torch_allocate:
+    device: {device}
+    min_device_pairs: 0
+"""
+
+
+def smoke(
+    shards: int = 2,
+    gangs: int = 4,
+    members: int = 3,
+    nodes: int = 6,
+    out_dir: str | None = None,
+    device: str = "cuda",
+) -> dict:
+    """Tracing end to end (``python -m kube_batch_tpu_torch.obs``), with
+    ``torch_allocate`` solving on ``device``:
+
+    1. arm tracing, explain, and a one-shot ``federation.stale_assign``
+       fault (the dispatched gang carries snapshot version 0, so a 409
+       conflict and a winning retry are certain);
+    2. run a seeded two-shard federated run over live LoopbackBackends
+       against a real SchedulerServer store arbiter, headers and all;
+    3. check the collected spans form a complete parent-child tree, that a
+       ``gang.bind`` span carries a conflict event, and that a
+       ``store.bind`` span recorded on the arbiter side joined a
+       scheduler's trace;
+    4. seed one unfittable gang and check its explain record
+       (obs/explain) lands in the registry, rides an ``explain`` span, and
+       that dispatched gangs' journal intents carry ``explain`` payloads;
+    5. export the Chrome trace-event file and JSONL and return the paths.
+    """
+    import json as _json
+    import threading as _threading
+
+    from kube_batch_tpu_torch import faults
+    from kube_batch_tpu_torch.cache import LoopbackBackend
+    from kube_batch_tpu_torch.cache.store import PODS as _PODS
+    from kube_batch_tpu_torch.federation import FederatedCache, _seed_world, fsck
+    from kube_batch_tpu_torch.obs import explain as _explain
+    from kube_batch_tpu_torch.recovery.journal import WriteIntentJournal
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.server import SchedulerServer
+    from kube_batch_tpu_torch.streaming import _check_device
+    from kube_batch_tpu_torch.testing import build_pod, build_pod_group, build_resource_list
+
+    _check_device(device)
+    # Arm through the environment, not configure() directly: every
+    # scheduler cycle re-resolves the switches from conf and environment.
+    prev_env = os.environ.get(ENV)
+    os.environ[ENV] = "1"
+    prev_explain = os.environ.get(_explain.ENV)
+    os.environ[_explain.ENV] = "1"
+    configure()
+    _explain.configure()
+    recorder.clear()
+    slo.reset()
+    _explain.records.clear()
+    faults.registry.configure("federation.stale_assign:1:1")
+
+    total = gangs * members
+    out_dir = out_dir or os.path.join(tempfile.gettempdir(), "kbt-obs-smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.NamedTemporaryFile("w", suffix=".yaml", delete=False) as fh:
+        fh.write(SMOKE_CONF.format(device=device))
+        conf_path = fh.name
+    server = SchedulerServer(
+        scheduler_name="obs-arbiter", listen_address="127.0.0.1:0",
+        scheduler_conf=conf_path, schedule_period=60.0,
+    )
+    server.start()
+    backends: list = []
+    scheds: list = []
+    journal_paths: list[str] = []
+    stop = _threading.Event()
+    all_bound = False
+    try:
+        _seed_world(server.store, gangs, members, nodes)
+        # One unfittable gang (cpu far beyond any node): the run leaves it
+        # pending with an explain record whose reason is resources.
+        server.store.create_pod_group(build_pod_group("fg-stuck", min_member=1))
+        server.store.create_pod(
+            build_pod(
+                name="fg-stuck-p0",
+                group_name="fg-stuck",
+                req=build_resource_list(cpu=999, memory="512Mi"),
+            )
+        )
+        base = f"http://127.0.0.1:{server.listen_port}"
+        for i in range(shards):
+            backend = LoopbackBackend(base)
+            jpath = os.path.join(out_dir, f"smoke-journal-{i}.jsonl")
+            if os.path.exists(jpath):
+                os.unlink(jpath)
+            journal_paths.append(jpath)
+            cache = FederatedCache(
+                backend, shard=i, shards=shards, shard_key="gang",
+                staleness_fn=backend.snapshot_age,
+                journal=WriteIntentJournal(jpath),
+            )
+            cache.run()
+            backend.start(period=0.02)
+            backends.append(backend)
+            sched = Scheduler(cache, scheduler_conf=conf_path, schedule_period=0.05)
+            t = _threading.Thread(target=sched.run, args=(stop,), name=f"kb-obs-{i}", daemon=True)
+            t.start()
+            scheds.append((sched, t))
+        # the stuck pod never binds: wait on the bound count
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            pods = server.store.list(_PODS)
+            if sum(1 for p in pods if p.node_name) >= total:
+                all_bound = True
+                break
+            time.sleep(0.005)
+    finally:
+        stop.set()
+        for _, t in scheds:
+            t.join(timeout=10.0)
+        for backend in backends:
+            backend.stop()
+        for sched, _ in scheds:
+            sched.cache.stop()
+        server.stop()
+        faults.registry.disarm("federation.stale_assign")
+        os.unlink(conf_path)
+
+    spans = recorder.spans()
+    violations = check_tree(spans)
+    names = collections.Counter(s["name"] for s in spans)
+    conflict_binds = [
+        s for s in spans
+        if s["name"] == "gang.bind" and any(ev["name"] == "conflict" for ev in s["events"])
+    ]
+    scheduler_traces = {s["trace_id"] for s in spans if s["name"] == "cycle"}
+    joined_remote = [
+        s for s in spans if s["name"] == "store.bind" and s["trace_id"] in scheduler_traces
+    ]
+    stuck_rec = _explain.records.get("default/fg-stuck")
+    explain_spans = [
+        s for s in spans if s["name"] == "explain" and s["attrs"].get("unschedulable", 0) > 0
+    ]
+    journaled_explains = 0
+    for jpath in journal_paths:
+        try:
+            with open(jpath, encoding="utf-8") as f:
+                for line in f:
+                    try:
+                        rec = _json.loads(line)
+                    except ValueError:
+                        continue
+                    if rec.get("rec") == "intent" and "explain" in rec:
+                        journaled_explains += 1
+        except OSError:
+            pass
+
+    jsonl_path = export_jsonl(spans, os.path.join(out_dir, "smoke.jsonl"))
+    chrome_path = export_chrome(spans, os.path.join(out_dir, "smoke.trace.json"))
+
+    for env, prev in ((ENV, prev_env), (_explain.ENV, prev_explain)):
+        if prev is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = prev
+    configure()
+    _explain.configure()
+    result = {
+        "shards": shards,
+        "pods": total,
+        "all_bound": all_bound,
+        "spans": len(spans),
+        "span_names": dict(sorted(names.items())),
+        "tree_violations": violations,
+        "conflicted_gang_binds": len(conflict_binds),
+        "remote_spans_joined": len(joined_remote),
+        "fsck_violations": fsck(server.store),
+        "slo": slo.snapshot(),
+        "jsonl": jsonl_path,
+        "chrome_trace": chrome_path,
+        "stuck_gang_reason": stuck_rec["reason"] if stuck_rec else None,
+        "explain_spans": len(explain_spans),
+        "journaled_explains": journaled_explains,
+    }
+    result["ok"] = bool(
+        all_bound
+        and not violations
+        and not result["fsck_violations"]
+        and names.get("cycle", 0) > 0
+        and names.get("solve", 0) > 0
+        and names.get("gang.bind", 0) > 0
+        and conflict_binds
+        and joined_remote
+        and stuck_rec is not None
+        and stuck_rec["verdict"] == "unschedulable"
+        and explain_spans
+        and journaled_explains > 0
+    )
+    return result
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="tracing smoke: seeded two-shard federated run, span "
+        "tree checked, Chrome trace exported"
+    )
+    parser.add_argument("--shards", type=int, default=2)
+    parser.add_argument("--gangs", type=int, default=4)
+    parser.add_argument("--members", type=int, default=3)
+    parser.add_argument("--out", default=None, help="export directory")
+    parser.add_argument(
+        "--device", default="cuda", choices=("cuda", "cpu"),
+        help="where torch_allocate solves (default: the card)",
+    )
+    parser.add_argument("--json", action="store_true", help="print the result dict as JSON")
+    args = parser.parse_args(argv)
+    result = smoke(
+        shards=args.shards, gangs=args.gangs, members=args.members,
+        out_dir=args.out, device=args.device,
+    )
+    if args.json:
+        print(json.dumps(result, sort_keys=True, default=str))
+    else:
+        status = "ok" if result["ok"] else "FAILED"
+        print(
+            f"obs smoke: {status} ({result['spans']} spans, "
+            f"{result['conflicted_gang_binds']} conflicted binds, "
+            f"{result['remote_spans_joined']} remote spans joined, "
+            f"tree={'complete' if not result['tree_violations'] else result['tree_violations']}, "
+            f"chrome={result['chrome_trace']})"
+        )
+    return 0 if result["ok"] else 1
 
 
 configure()

@@ -116,7 +116,7 @@ def _ports_mask(ports_bool: np.ndarray) -> np.ndarray:
 
 
 def _ports_bool(mask: torch.Tensor, P: int) -> torch.Tensor:
-    bits = 1 << torch.arange(P, dtype=torch.int64)
+    bits = 1 << torch.arange(P, dtype=torch.int64, device=mask.device)
     return (mask.long()[:, None] & bits[None, :]) != 0
 
 
@@ -588,6 +588,9 @@ class FusedSolver:
             index = torch.cuda.current_device() if self.device.index is None else self.device.index
             _check_occupancy(index, _launch_args(self.packed.dims)[1])
         self.timings: dict[str, float] = {}  # seconds per phase of the last solve
+        # the last solve's state buffers on the solver's device, before
+        # the fetch (ops/explain.py's forensics read them in place)
+        self.device_state: PackedState | None = None
 
     def solve(self, state: SolveState | None = None) -> SolveState:
         p = self.packed
@@ -609,6 +612,7 @@ class FusedSolver:
         t2 = time.perf_counter()
         host.istate.copy_(ps.istate)
         host.fstate.copy_(ps.fstate)
+        self.device_state = ps
         out = _state_of(host)
         self.timings = {"state_upload_s": t1 - t0, "fused_solve_s": t2 - t1, "fetch_s": time.perf_counter() - t2}
         return out

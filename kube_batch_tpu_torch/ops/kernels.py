@@ -121,8 +121,9 @@ def ieee_div(x, y):
 
 def _le_eps(req: torch.Tensor, pool: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     """Vectorized Resource.less_equal over the node axis
-    (resource_info.go:255-278): per-dimension l < r + eps."""
-    return (req[None, :] < pool + eps[None, :]).all(dim=1)
+    (resource_info.go:255-278): per-dimension l < r + eps. ``req`` is one
+    task's [R] row ([N] out) or a batch of rows [G, R] ([G, N] out)."""
+    return (req[..., None, :] < pool + eps[None, :]).all(dim=-1)
 
 
 def _share_rows(alloc: np.ndarray, denom: np.ndarray, dims: np.ndarray) -> np.ndarray:

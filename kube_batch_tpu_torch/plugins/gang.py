@@ -3,10 +3,11 @@
 
 At session close each non-ready job gets an Unschedulable condition and
 is metered (``unschedule_task_count`` per job, ``job_retry_counts``, and
-the cycle's ``unschedule_job_count``), as in the JAX package. The JAX
-plugin also takes a condition's reason and message from the allocate
-action's forensics records when those are on; that comes with the
-port's explain layer."""
+the cycle's ``unschedule_job_count``), as in the JAX package. When the
+allocate action published a forensics record for the job
+(obs/explain.py, ``KBT_EXPLAIN``), the condition carries the record's
+dominant plane as its reason and the elimination / would-fit-if
+breakdown as its message."""
 
 from __future__ import annotations
 
@@ -91,6 +92,7 @@ class GangPlugin(Plugin):
     def on_session_close(self, ssn: Session) -> None:
         """Emit Unschedulable conditions + metrics for non-ready jobs
         (gang.go:132-162)."""
+        explain_records = getattr(ssn, "explain_records", {}) or {}
         unschedulable_jobs = 0
         for job in ssn.jobs.values():
             if not job.ready():
@@ -99,6 +101,17 @@ class GangPlugin(Plugin):
                     f"{unready}/{len(job.tasks)} tasks in gang unschedulable: "
                     f"{job.fit_error()}"
                 )
+                reason = NOT_ENOUGH_RESOURCES_REASON
+                # Forensics (obs/explain): the record's dominant plane is
+                # the reason and its breakdown the message. Conditions ride
+                # /backend/v1/ commits into the store, so this is also the
+                # cross-shard channel (explain.aggregate_conditions).
+                rec = explain_records.get(job.uid)
+                if rec is not None and rec.get("verdict") != "bound":
+                    from kube_batch_tpu_torch.obs import explain as _explain
+
+                    reason = rec["reason"]
+                    msg = _explain.condition_message(rec)
                 unschedulable_jobs += 1
                 metrics.update_unschedule_task_count(job.name, unready)
                 metrics.register_job_retries(job.name)
@@ -110,7 +123,7 @@ class GangPlugin(Plugin):
                             status="True",
                             transition_id=ssn.uid,
                             last_transition_time=time.time(),
-                            reason=NOT_ENOUGH_RESOURCES_REASON,
+                            reason=reason,
                             message=msg,
                         ),
                     )

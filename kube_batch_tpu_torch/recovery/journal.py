@@ -121,9 +121,9 @@ class WriteIntentJournal:
         ``trace`` is the dispatching cycle's trace id (obs);
         when set it rides each intent record so a takeover post-mortem
         can join the journal against a flight-recorder dump. ``explain``
-        maps gang uid -> compact forensics payload (the JAX package's
-        explain ``intent_payload``; the port's cache passes None until
-        explain is ported); when the dispatching gang has one it rides
+        maps gang uid -> compact forensics payload (obs/explain.py
+        ``intent_payload``; the cache passes it with ``KBT_EXPLAIN`` on);
+        when the dispatching gang has one it rides
         the intent record, giving the journal labeled (state, decision,
         reason) tuples. The record format is the JAX package's byte for
         byte, so a journal either package wrote replays in the other.

@@ -46,8 +46,10 @@ Faults, deadlines and telemetry, as in the JAX package:
   ``aborted`` and ``skipped`` attributes) and writes
   ``action_scheduling_latency`` per
   action, ``e2e_scheduling_latency`` and ``schedule_attempts``;
-- the conf's ``trace:`` key goes to ``obs.configure`` every cycle (an
-  empty key defers to ``KBT_TRACE``, so the environment still flips it);
+- the conf's ``trace:``, ``explain:`` and ``fleet:`` keys go to
+  ``obs.configure``, ``obs.explain.configure`` and ``obs.fleet.configure``
+  every cycle (an empty key defers to ``KBT_TRACE``, ``KBT_EXPLAIN`` or
+  ``KBT_FLEET``, so the environment still flips each);
   its ``faults:`` key arms ``faults.registry`` when the conf changed;
 - the deadline budget (recovery/budget.py): the hard deadline
   (``hard_deadline_s`` or ``KBT_CYCLE_HARD_DEADLINE_S``) aborts a cycle
@@ -112,6 +114,8 @@ from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.conf import load_scheduler_conf, parse_scheduler_conf, read_scheduler_conf
 from kube_batch_tpu_torch.faults import _env_float, mutation_detector
 from kube_batch_tpu_torch.framework import close_session, open_session
+from kube_batch_tpu_torch.obs import explain as _obs_explain
+from kube_batch_tpu_torch.obs import fleet as _obs_fleet
 from kube_batch_tpu_torch.recovery.budget import CycleBudget, CycleDeadlineExceeded
 
 log = logging.getLogger(__name__)
@@ -156,6 +160,8 @@ class Scheduler:
         self.action_arguments: dict[str, dict[str, str]] = {}
         self._conf_cache: Optional[str] = None
         self._conf_trace = ""
+        self._conf_explain = ""
+        self._conf_fleet = ""
         if hard_deadline_s is None:
             hard_deadline_s = _env_float("KBT_CYCLE_HARD_DEADLINE_S", 0.0) or None
         if soft_deadline_s is None:
@@ -206,9 +212,11 @@ class Scheduler:
                 )
                 conf_str = self._conf_cache or DEFAULT_SCHEDULER_CONF
         if conf_str == self._conf_cache:
-            # KBT_TRACE flips still apply between conf pushes; the conf
-            # value, when set, wins
+            # KBT_TRACE / KBT_EXPLAIN / KBT_FLEET flips still apply between
+            # conf pushes; the conf value, when set, wins
             obs.configure(self._conf_trace)
+            _obs_explain.configure(self._conf_explain)
+            _obs_fleet.configure(self._conf_fleet)
             return
         try:
             self.actions, self.plugins, self.action_arguments = load_scheduler_conf(conf_str)
@@ -217,6 +225,10 @@ class Scheduler:
             self._conf_streaming = parsed.streaming
             self._conf_trace = parsed.trace
             obs.configure(parsed.trace)
+            self._conf_explain = parsed.explain
+            _obs_explain.configure(parsed.explain)
+            self._conf_fleet = parsed.fleet
+            _obs_fleet.configure(parsed.fleet)
             # Conf-driven fault drills (the faults: key, KBT_FAULTS'
             # grammar): armed only when the conf changed, so a drill's fire
             # counts are not re-armed every cycle.

@@ -15,7 +15,14 @@ ThreadingHTTPServer (``kb-http``) that exposes:
 - ``GET /debug/trace`` — flight-recorder ring (recent cycle traces;
   ``?dump=1`` also writes the JSONL + Chrome trace files);
 - ``GET /debug/slo`` — per-queue time-to-bind / queue-wait quantiles
-  (``obs.slo``);
+  (``obs.slo``); ``?raw=1`` serves the mergeable sketches and key
+  counters a fleet aggregator scrapes (obs/fleet.py ``raw_slo_payload``);
+- ``GET /debug/fleet`` — the cluster-wide rollup of the ``--fleet`` /
+  ``KBT_FLEET`` peers (a forced scrape; ``{"enabled": false}`` when off);
+- ``GET /debug/explain`` — per-gang unschedulability forensics and their
+  aggregate (obs/explain.py, ``KBT_EXPLAIN``; ``?gang=ns/name`` filters);
+- ``GET /debug/admission`` — the admission gate's lanes and controller
+  (admission.py, ``KBT_ADMISSION``; ``{"enabled": false}`` when off);
 - ``GET|POST /apis/v1alpha1/queues`` and
   ``DELETE /apis/v1alpha1/queues/<name>`` — the queue CRD surface the
   CLI talks to (cli/queue.py);
@@ -83,10 +90,13 @@ in-process store, as shard ``KBT_FEDERATION=i/N`` of N, keyed by
 ``KBT_SHARD_KEY``, with its slot leased through the store
 (federation.py).
 
-The JAX package's server also serves admission (``/debug/admission``),
-the fleet rollup (``--fleet``, ``/debug/fleet``) and ``/debug/explain``;
-those come with the port's later items (ROADMAP A), and this server does
-not offer them until then.
+Operator surfaces: ``--fleet URL,...`` (or ``KBT_FLEET``) makes any
+scheduler, or a process with an unmatched ``--scheduler-name``, a fleet
+aggregator that refreshes its rollup on each ``/metrics`` scrape;
+``KBT_ADMISSION`` arms the workload POST's admission gate, which refuses
+overload with 429 and ``Retry-After`` and is credited when an admitted pod
+binds or is deleted while pending; ``KBT_EXPLAIN`` fills
+``/debug/explain``.
 """
 
 from __future__ import annotations
@@ -737,8 +747,15 @@ def _make_handler(server: "SchedulerServer"):
             if path == "/metrics":
                 # Refresh the SLO quantile gauges from the sliding windows
                 # right before exposition: scrape-time freshness without a
-                # publisher thread.
+                # publisher thread. An aggregator (KBT_FLEET) refreshes its
+                # rollup the same way (rate-limited inside), and the
+                # admission gate its gauges.
                 obs.slo.publish()
+                from kube_batch_tpu_torch import admission
+                from kube_batch_tpu_torch.obs import fleet as obs_fleet
+
+                obs_fleet.refresh()
+                admission.publish()
                 self._reply(
                     200, metrics.render_prometheus_text(), "text/plain; version=0.0.4"
                 )
@@ -760,7 +777,35 @@ def _make_handler(server: "SchedulerServer"):
                     payload["dump"] = obs.recorder.dump(reason="debug_endpoint")
                 self._reply(200, json.dumps(payload))
             elif path == "/debug/slo":
-                self._reply(200, json.dumps(obs.slo.snapshot()))
+                # ``?raw=1``: the serialized mergeable sketches (the fleet
+                # aggregation wire form) instead of the quantile snapshot
+                query = urllib.parse.parse_qs(parsed.query)
+                if query.get("raw", ["0"])[0] not in ("", "0", "false"):
+                    from kube_batch_tpu_torch.obs import fleet as obs_fleet
+
+                    self._reply(200, json.dumps(obs_fleet.raw_slo_payload()))
+                else:
+                    self._reply(200, json.dumps(obs.slo.snapshot()))
+            elif path == "/debug/fleet":
+                # the cluster-wide rollup: a forced scrape of the configured
+                # peers, merged ({"enabled": false} when KBT_FLEET is off)
+                from kube_batch_tpu_torch.obs import fleet as obs_fleet
+
+                self._reply(200, json.dumps(obs_fleet.refresh(force=True)))
+            elif path == "/debug/explain":
+                # the forensics registry (obs/explain): per-gang records and
+                # their aggregate; ``?gang=ns/name`` filters to one gang
+                from kube_batch_tpu_torch.obs import explain as obs_explain
+
+                query = urllib.parse.parse_qs(parsed.query)
+                gang = query.get("gang", [""])[0] or None
+                self._reply(200, json.dumps(obs_explain.debug_payload(gang)))
+            elif path == "/debug/admission":
+                # the admission control plane (admission.py): lanes and the
+                # backpressure controller ({"enabled": false} when off)
+                from kube_batch_tpu_torch import admission
+
+                self._reply(200, json.dumps(admission.debug_payload()))
             elif path == "/backend/v1/version":
                 # Store-backend protocol (cache/backend.py): the store
                 # version optimistic writes are checked against. A v2
@@ -1186,10 +1231,45 @@ def _make_handler(server: "SchedulerServer"):
                             )
                         if pc is not None:
                             pod.priority = pc.value
-                    server.store.create_pod(pod)
-                    self._reply(
-                        201, json.dumps({"namespace": pod.namespace, "name": pod.name})
-                    )
+                    # Per-tenant admission (admission.py): resolve the pod's
+                    # queue (the explicit field, else its podgroup's, else
+                    # the default), ask the lane gate, and refuse overload
+                    # loudly: 429 with Retry-After, never a silent drop or
+                    # an unbounded queue.
+                    from kube_batch_tpu_torch import admission
+
+                    decision = None
+                    pod_key = f"{pod.namespace}/{pod.name}"
+                    if admission.enabled():
+                        from kube_batch_tpu_torch.apis.types import GROUP_NAME_ANNOTATION_KEY
+
+                        queue = field(body, "queue", str, "")
+                        group = pod.metadata.annotations.get(GROUP_NAME_ANNOTATION_KEY, "")
+                        if not queue and group:
+                            pg = server.store.get("podgroups", f"{pod.namespace}/{group}")
+                            if pg is not None:
+                                queue = pg.spec.queue
+                        decision = admission.decide(queue or server.cache.default_queue, pod_key)
+                    if decision is not None and not decision.admitted:
+                        self._reply(
+                            429,
+                            json.dumps({
+                                "error": "admission shed",
+                                "lane": decision.lane,
+                                "reason": decision.reason,
+                                "retry_after_s": round(decision.retry_after_s, 3),
+                            }),
+                            headers={"Retry-After": str(max(1, int(decision.retry_after_s + 0.999)))},
+                        )
+                    else:
+                        try:
+                            server.store.create_pod(pod)
+                        except Exception:
+                            admission.release(pod_key)
+                            raise
+                        self._reply(
+                            201, json.dumps({"namespace": pod.namespace, "name": pod.name})
+                        )
                 elif self.path == "/apis/v1alpha1/nodes":
                     name = field(body, "name", str, None, required=True)
                     node = build_node(
@@ -1512,6 +1592,22 @@ class SchedulerServer:
                 Queue(metadata=ObjectMeta(name=self.cache.default_queue))
             )
         self.reconcile()
+        # Arm the workload API's admission gate (KBT_ADMISSION) and keep its
+        # backlog accounting true: an admitted pod stops counting against
+        # its lane when it binds, or when it is deleted while pending.
+        from kube_batch_tpu_torch import admission
+
+        if admission.configure() and self.backend is None:
+            self.store.add_event_handler(
+                "pods",
+                EventHandler(
+                    on_update=lambda old, new: (
+                        admission.note_done(f"{new.namespace}/{new.name}")
+                        if (not old.node_name and new.node_name) else None
+                    ),
+                    on_delete=lambda obj: admission.note_done(f"{obj.namespace}/{obj.name}"),
+                ),
+            )
         if self.backend is not None:
             self.backend.start()
         if self.slot_manager is not None:
@@ -1637,6 +1733,16 @@ def build_parser() -> argparse.ArgumentParser:
         "failover; reconciled against store truth on startup/takeover "
         "(env KBT_JOURNAL; empty = journaling off)",
     )
+    p.add_argument(
+        "--fleet",
+        default="",
+        help="comma-separated peer base URLs (http://host:port) to "
+        "aggregate fleet-wide SLO sketches and counters from — serves "
+        "cluster-wide kbt..._fleet_* gauges on /metrics and the merged "
+        "rollup on /debug/fleet (env KBT_FLEET; empty = off). Works "
+        "from any scheduler, or standalone with an unmatched "
+        "--scheduler-name as a dedicated observatory",
+    )
     p.add_argument("--version", action="store_true", help="show version and quit")
     p.add_argument("-v", type=int, default=0, help="log verbosity (glog -v)")
     return p
@@ -1659,6 +1765,13 @@ def run(argv: Optional[list[str]] = None) -> None:
     # Last-gasp observability: dump the flight-recorder ring on SIGTERM
     # (chains any previously-installed handler).
     obs.install_signal_dump()
+    if opt.fleet:
+        # the flag arms the environment the conf reload resolves, so a conf
+        # without a fleet: key cannot undo it on the next cycle
+        from kube_batch_tpu_torch.obs import fleet as _fleet
+
+        os.environ[_fleet.ENV] = opt.fleet
+        _fleet.configure()
 
     elector = None
     if opt.leader_elect:

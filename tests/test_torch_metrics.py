@@ -152,8 +152,19 @@ def test_the_exposition_holds_every_series_under_the_jax_name(tmp_path):
         m.register_shard_adoption("adopted")
         m.register_shard_handoff("completed")
         m.register_micro_cycle("ok")
+        m.register_unschedulable("resources")
+        m.register_would_fit_if("resources")
+        m.set_fleet_slo_quantile("time_to_bind", "default", "p99", 0.5)
+        m.set_fleet_slo_quantile("queue_wait", "default", "p99", 0.5)
+        m.set_fleet_node_heatmap({"n0": 1.0})
+        m.set_fleet_shard_up("http://peer:1", True)
+        m.set_fleet_shard_scrape_age("http://peer:1", 0.5)
+        m.register_admission_decision("high", "admitted")
+        m.set_admission_lane_backlog("high", 1)
+        m.set_admission_lane_rate("high", 10.0)
+        m.register_admission_controller_tick("steady")
     port, jax = _families(torch_metrics.render_prometheus_text()), _families(jax_metrics.render_prometheus_text())
-    assert len(port) == len(torch_metrics.FAMILIES) == 48
+    assert len(port) == len(torch_metrics.FAMILIES) == 64
     for name in ("journal_records_total", "reconcile_ops_total", "watch_snapshot_age_seconds", "watch_relists_total"):
         assert f"kube_batch_tpu_{name}" in port, name
     for name, (help_text, kind, label_sets) in port.items():

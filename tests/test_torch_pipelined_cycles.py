@@ -9,7 +9,7 @@ off, so every cycle's post-solve phase is the one the pipeline defers.
 Placements, bind counts and the write-intent journal's bytes are compared
 exactly; only wall clock may differ. The JAX suite's
 ``test_arena_bank_pingpong_matches_hosts`` is not mirrored: the port has
-no ``TensorArena`` yet (ROADMAP A8). The port-only cases at the end: the
+no ``TensorArena`` yet (ROADMAP A4). The port-only cases at the end: the
 deferred closure captures only host arrays and makes no CUDA call, and an
 overrun under the pipeline leaves the cache and the store as they were.
 """

@@ -18,8 +18,7 @@ stream_trigger``, whose periodic-mode half is also
 ``test_on_owned_slots_changed_is_a_noop_in_periodic_mode``, and
 ``test_handoff_parity_under_streaming_micro_cycles``) drive the port's
 ``StreamTrigger``; the handoff runs through both packages and ends at the
-same placements. The fleet series that
-the JAX exposition test also names come with the fleet rollup (A15.5).
+same placements.
 The parity cases at the end hold the port's adoption against the JAX
 package's: a dead shard's journal written by one package is reconciled
 by the other's adoption, and the kill drill ends the same in both.
@@ -641,6 +640,8 @@ def test_resharding_metrics_in_exposition():
         "kube_batch_tpu_shard_adoptions_total",
         "kube_batch_tpu_shard_handoffs_total",
         "kube_batch_tpu_shard_takeover_seconds",
+        "kube_batch_tpu_fleet_shard_up",
+        "kube_batch_tpu_fleet_shard_last_scrape_age_seconds",
     ):
         assert family in text, family
 

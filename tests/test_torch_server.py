@@ -557,9 +557,9 @@ def test_add_flags_snapshot():
     jopt = JAX.server.build_parser().parse_args(["--schedule-period", "300"])
     assert opt.schedule_period == jopt.schedule_period == 300.0
     for key in ("scheduler_name", "default_queue", "listen_address", "scheduler_conf", "v", "version",
-                "leader_elect", "lock_file", "lease_url", "lease_name", "journal", "store_backend"):
+                "leader_elect", "lock_file", "lease_url", "lease_name", "journal", "store_backend", "fleet"):
         assert getattr(opt, key) == getattr(jopt, key), key
-    assert sorted(vars(opt)) == ["default_queue", "journal", "leader_elect", "lease_name", "lease_url",
+    assert sorted(vars(opt)) == ["default_queue", "fleet", "journal", "leader_elect", "lease_name", "lease_url",
                                  "listen_address", "lock_file", "schedule_period", "scheduler_conf",
                                  "scheduler_name", "store_backend", "v", "version"]
 
