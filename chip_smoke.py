@@ -4,14 +4,14 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds both kernels from their sources, one nvcc each, at once:
-   csrc/fused_solve.cu (B1, the whole solve) and csrc/block_step.cu (B2,
-   one shard's block step), and prints each entry function's registers,
+2. builds the three kernels from their sources, one nvcc each, at once:
+   csrc/fused_solve.cu (B1, the whole solve), csrc/block_step.cu (B2,
+   one shard's block step) and csrc/class_step.cu (B3, one
+   class-compressed segment), and prints each entry function's registers,
    spills and static shared memory from ptxas;
-   then runs the card tests of both kernels (the ``cuda``-marked tests of
-   tests/test_torch_kernel.py and tests/test_torch_block_step.py, pytest
-   in a subprocess): bit-equality at the cluster's slice bounds, ties
-   across CTAs, pauses, global scratch;
+   then runs the card tests (the ``cuda``-marked tests of ``CARD_TESTS``,
+   pytest in a subprocess): bit-equality at the cluster's slice bounds,
+   ties across CTAs, pauses, global scratch, B3 on seeded segments;
 3. holds B1 against its plain version (fused_solve_plain, on the CPU) on
    the same packed inputs of five worlds, ``preempt_mix(50_000, 1_000)``
    the largest: integer state exactly, float state bit for bit (the
@@ -327,7 +327,34 @@
      orphaned journal intent). Records each lane's offered, admitted and
      shed counts, pods/s, the protected lane's p99 against the storm's SLO,
      the MTTR and the B1 launches of the shards' micro-cycles;
-15. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+15. drives the class-compressed solve (``ops/class_solve.py``, kernel B3,
+   ``KBT_CLASS_COMPRESS``), the counters zeroed just before each session
+   and read just after:
+   - ``classes_400k_40k``: ``uniform_pool(400_000, 40_000, churn=0.01)``,
+     config 7 at full width (bench.py's ``uniform_pool_400k_40k_classes``;
+     ``CLASS_CUT`` divides its pods, not its nodes), one ``enqueue,
+     torch_allocate`` session compressed (B3 only) against the same
+     snapshot on B1 (k = 16), bind for bind, then a churn session with a
+     fresh salt on the warm table: ``c_pad`` holds and nothing is built.
+     Records the class table's stats, ``group_s``, ``kernel_s``, B3's
+     device time summed over segments (CUDA events) and launches,
+     ``solve_s`` and ``run_once_s`` of both, and B1's time;
+   - ``classes_50k_5k``: ``preempt_mix(50_000, 5_000)`` compressed against
+     B1, bind for bind;
+   - ``class_step_vs_plain``: B3 against ``class_step_plain`` (on the CPU)
+     bit for bit on every ``ClassSolveState`` field, on config 7's first
+     segment (timed, CUDA events), on ``_smoke_world()``, on a cut slot
+     axis that overflows, and on both padded to ``CLASS_GLOBAL_CPAD``
+     slots (several a thread, the working state in global memory); its
+     bound counts the bytes the segment's data needs
+     (``class_segment_bytes``);
+   - ``class_drills``, each on the card and again on the CPU, ending equal:
+     (a) serial = fused = ``class_fused`` = ``class_sharded`` (``mesh:
+     cuda:2``) over two cycles with arrivals; (b) ``solve.class_table``
+     degrades, binds equal, counted; (c) the pod-affinity hybrid; (d) a
+     streaming micro-cycle equal to one full cycle; (e) explain records
+     under compression equal those without;
+16. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -367,6 +394,11 @@ runs only the kernels' build and the streaming scheduler's three phases
 runs only the kernels' build and the operator surfaces' four phases (step
 14).
 
+    python3 chip_smoke.py --classes
+
+runs only the kernels' build and the class-compressed solve's four phases
+(step 15).
+
     python3 chip_smoke.py --ab-warm DIR
 
 runs instead ``warm_cycles_50k_5k`` of the checkout at DIR (the parent
@@ -377,8 +409,9 @@ this, this, DIR, each in a process of its own.
 
 needs no card: the pipeline phases (step 8), the fast paths' (step 9),
 the ladder's and the trace's (step 10), the process's (step 11), the
-federation's (step 12), the streaming scheduler's (step 13) and the
-operator surfaces' (step 14) on the CPU,
+federation's (step 12), the streaming scheduler's (step 13), the
+operator surfaces' (step 14) and the class solve's (step 15, without
+``class_step_vs_plain``) on the CPU,
 every world's pod and node counts divided by CUT (the drills' small
 world is not cut, and ``ha_failover_50k_5k`` kills its leader after a
 tenth as many binds),
@@ -414,7 +447,7 @@ FIT_OPS_PER_DIM = 4
 SCORE_OPS_PER_NODE = 29
 B2_TIMED_CALLS = 200  # block-step launches per timing
 CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py", "tests/test_torch_cycle_card.py",
-              "tests/test_torch_explain.py"]
+              "tests/test_torch_explain.py", "tests/test_torch_class_step.py"]
 AFFINITY_PODS = 36  # pods of scheduler_affinity's world with required pod (anti-)affinity
 # size_floor's preempt_mix(pods, nodes) worlds: 100 to 102,400 pending x nodes
 FLOOR_WORLDS = ((25, 4), (50, 8), (100, 16), (200, 32), (400, 64), (800, 128))
@@ -5191,6 +5224,592 @@ def operator_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict
     return failures, launches
 
 
+# -- the class-compressed solve (kernel B3) -----------------------------------
+
+CLASS_WORLD = (400_000, 40_000)  # bench.py uniform_pool_400k_40k_classes: config 7 at full width
+CLASS_CHURN = 0.01
+# classes_400k_40k's pods are divided by this on the card, for the script's
+# clock; its 40,000 nodes, the axis compression folds, are kept
+CLASS_CUT = 1
+CLASS_MIX = (50_000, 5_000)  # classes_50k_5k: preempt_mix, the low-duplication world
+CLASS_ACTIONS = "enqueue, torch_allocate"
+CLASS_SCORE_OPS_PER_SLOT = SCORE_OPS_PER_NODE + 2  # the class score adds the pod-affinity term
+CLASS_TIMED_RUNS = 5
+# class_step_vs_plain's padded slot axis: four slots a thread, and at R = 2
+# past the shared-memory budget, so B3's global-memory form runs
+CLASS_GLOBAL_CPAD = 4096
+CLASS_DRILLS = ("a_parity", "b_class_table", "c_affinity", "d_micro_cycle", "e_explain")
+
+
+class Compressing:
+    """``KBT_CLASS_COMPRESS`` on or off for the block, restored after."""
+
+    def __init__(self, on: bool) -> None:
+        self.on = on
+
+    def __enter__(self):
+        from kube_batch_tpu_torch.ops import class_solve as cs
+
+        self.saved = os.environ.get(cs.ENV)
+        os.environ[cs.ENV] = "1" if self.on else "0"
+
+    def __exit__(self, *exc):
+        from kube_batch_tpu_torch.ops import class_solve as cs
+
+        if self.saved is None:
+            os.environ.pop(cs.ENV, None)
+        else:
+            os.environ[cs.ENV] = self.saved
+
+
+def class_launches() -> tuple[int, int, int]:
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import class_solve as cs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    return fs.fused_solve.launches, bs.block_step.launches, cs.class_step.launches
+
+
+def zero_launches() -> None:
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import class_solve as cs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    fs.fused_solve.launches = bs.block_step.launches = cs.class_step.launches = 0
+
+
+def class_session(cluster, device: str, compress: bool, action=None) -> tuple[dict, dict, object]:
+    """One ``enqueue, torch_allocate`` session (the cycle conf's tiers) over
+    a FakeCache of ``cluster``, with compression on or off, the launch
+    counters zeroed just before and read just after; ``action`` is the
+    torch_allocate object to run (its class table warm), else a fresh one.
+    Returns (record, binds, the action)."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import nvcc
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    on_card = device != "cpu"
+    conf = conf_file(actions=CLASS_ACTIONS, device=device)
+    with Compressing(compress):
+        cache = FakeCache(cluster)
+        sched = Scheduler(cache, conf)
+        sched.actions = [action if action is not None and a.name == "torch_allocate" else type(a)()
+                         for a in sched.actions]
+        act = next(a for a in sched.actions if a.name == "torch_allocate")
+        if on_card:
+            torch.cuda.synchronize()
+        zero_launches()
+        builds = nvcc.builds
+        t0 = time.perf_counter()
+        sched.run_once()
+        if on_card:
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        b1, b2, b3 = class_launches()
+    if "aborted" in sched.last_timings:
+        raise AssertionError(f"the session aborted: {sched.last_timings['aborted']}")
+    binds = dict(cache.binder.binds)
+    stats = dict(act.last_class_stats or {})
+    ta = dict(act.last_timings)
+    rec = {
+        "run_once_s": wall_s, "tier": act.last_solver_tier, "binds": len(binds),
+        "solve_s": ta.get("solve_s"), "encode_s": ta.get("encode_s"), "pack_s": ta.get("pack_s"),
+        "replay_s": ta.get("replay_s"), "fused_solve_s": ta.get("fused_solve_s"),
+        "cycle": {k: v for k, v in sched.last_timings.items() if isinstance(v, (int, float))},
+        "b1_launches": b1, "b2_launches": b2, "b3_launches": b3, "builds": nvcc.builds - builds,
+    }
+    if stats:
+        rec["class"] = stats
+    return rec, binds, act
+
+
+def same_binds(name: str, want: dict, got: dict) -> None:
+    if got != want:
+        diff = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+        raise AssertionError(f"{name}: {len(diff)} binds differ (of {len(want)}), first {diff[:3]}: "
+                             f"{[(want.get(k), got.get(k)) for k in diff[:3]]}")
+
+
+def classes_400k_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int, int], dict]:
+    """``classes_400k_40k`` (module docstring, step 15). Returns the record,
+    the launches and the encoded arrays of its snapshot."""
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.solve import solver_inputs
+
+    on_card = device != "cpu"
+    pods = CLASS_WORLD[0] // (CLASS_CUT if on_card else 1) // cut
+    nodes = CLASS_WORLD[1] // cut
+    t0 = time.perf_counter()
+    cluster = models.uniform_pool(pods, nodes, churn=CLASS_CHURN)
+    generate_s = time.perf_counter() - t0
+    comp, comp_binds, act = class_session(cluster, device, True)
+    if comp["tier"] != "class_fused" or "class" not in comp:
+        raise AssertionError(f"the compressed session solved on the {comp['tier']!r} rung")
+    if on_card and (comp["b3_launches"] < 1 or comp["b1_launches"] or comp["b2_launches"]):
+        raise AssertionError(f"the compressed session launched B1 {comp['b1_launches']}, B2 {comp['b2_launches']}, "
+                             f"B3 {comp['b3_launches']} times")
+    arrays = solver_inputs(act.last_encoded, (1, 1, 1, 1))
+    plain, plain_binds, _ = class_session(cluster, device, False)
+    if plain["tier"] != "fused" or (on_card and (plain["b1_launches"] != 1 or plain["b3_launches"])):
+        raise AssertionError(f"the uncompressed session: the {plain['tier']!r} rung, "
+                             f"{plain['b1_launches']} B1 launches")
+    same_binds("classes_400k_40k compressed against B1", plain_binds, comp_binds)
+    if not comp_binds:
+        raise AssertionError("classes_400k_40k bound nothing")
+    del cluster
+    # one churn session with a fresh salt on the same action: the warm table
+    # re-keys the churned nodes, the slot bucket holds, nothing is built
+    t0 = time.perf_counter()
+    churned = models.uniform_pool(pods, nodes, churn=CLASS_CHURN, churn_salt=1)
+    churn_generate_s = time.perf_counter() - t0
+    churn, churn_binds, _ = class_session(churned, device, True, action=act)
+    del churned
+    if churn["tier"] != "class_fused" or churn["class"]["c_pad"] != comp["class"]["c_pad"]:
+        raise AssertionError(f"the churn session: the {churn['tier']!r} rung, c_pad "
+                             f"{churn['class'].get('c_pad')} against {comp['class']['c_pad']}")
+    if churn["builds"] or comp["builds"] > 1:
+        raise AssertionError(f"kernel builds: {comp['builds']} in the first session, {churn['builds']} in the churn one")
+    if not churn_binds:
+        raise AssertionError("the churn session bound nothing")
+    st = comp["class"]
+    b1_ms = (plain["fused_solve_s"] or 0.0) * 1e3
+    rec = {
+        "phase": "classes_400k_40k", "device": device, "pods": pods, "nodes": nodes, "generate_s": generate_s,
+        "churn_generate_s": churn_generate_s,
+        **{k: st[k] for k in ("class_count", "classes_valid", "compression_ratio", "splits", "remerges", "segments",
+                              "c_pad", "group_s", "kernel_s")},
+        "b3_device_ms": st["kernel_ms"], "b3_launches": comp["b3_launches"],
+        "b3_ms_per_segment": st["kernel_ms"] / max(st["launches"], 1),
+        "solve_s": {"compressed": comp["solve_s"], "uncompressed": plain["solve_s"]},
+        "run_once_s": {"compressed": comp["run_once_s"], "uncompressed": plain["run_once_s"]},
+        "b1_ms": b1_ms, "compressed_over_b1_solve": comp["solve_s"] / plain["solve_s"] if plain["solve_s"] else None,
+        "binds": len(comp_binds), "binds_equal": True,
+        "compressed": comp, "uncompressed": plain, "churn": churn,
+    }
+    if pods != CLASS_WORLD[0] or nodes != CLASS_WORLD[1]:
+        rec["reduced"] = {"pods": [CLASS_WORLD[0], pods], "nodes": [CLASS_WORLD[1], nodes]}
+    launches = (comp["b1_launches"] + plain["b1_launches"] + churn["b1_launches"], 0,
+                comp["b3_launches"] + churn["b3_launches"])
+    return rec, launches, arrays
+
+
+def classes_50k_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int, int]]:
+    """``classes_50k_5k``: preempt_mix compressed against B1."""
+    from kube_batch_tpu_torch import models
+
+    on_card = device != "cpu"
+    pods, nodes = CLASS_MIX[0] // cut, CLASS_MIX[1] // cut
+    cluster = models.preempt_mix(pods, nodes)
+    comp, comp_binds, _ = class_session(cluster, device, True)
+    plain, plain_binds, _ = class_session(cluster, device, False)
+    if comp["tier"] != "class_fused" or plain["tier"] != "fused":
+        raise AssertionError(f"rungs {comp['tier']!r} and {plain['tier']!r}")
+    if on_card and (comp["b3_launches"] < 1 or plain["b1_launches"] != 1):
+        raise AssertionError(f"{comp['b3_launches']} B3 and {plain['b1_launches']} B1 launches")
+    same_binds("classes_50k_5k compressed against B1", plain_binds, comp_binds)
+    st = comp["class"]
+    rec = {
+        "phase": "classes_50k_5k", "device": device, "pods": pods, "nodes": nodes,
+        **{k: st[k] for k in ("class_count", "classes_valid", "compression_ratio", "splits", "remerges", "segments",
+                              "c_pad", "group_s", "kernel_s")},
+        "b3_device_ms": st["kernel_ms"], "b3_launches": comp["b3_launches"],
+        "solve_s": {"compressed": comp["solve_s"], "uncompressed": plain["solve_s"]},
+        "run_once_s": {"compressed": comp["run_once_s"], "uncompressed": plain["run_once_s"]},
+        "binds": len(comp_binds), "binds_equal": True,
+    }
+    if cut > 1:
+        rec["reduced"] = {"pods": [CLASS_MIX[0], pods], "nodes": [CLASS_MIX[1], nodes]}
+    return rec, (comp["b1_launches"] + plain["b1_launches"], 0, comp["b3_launches"])
+
+
+def class_segment_bytes(ca: dict, state, want, work: dict) -> int:
+    """The bytes one B3 segment must move on this run's data, each input
+    read once and each output written once: the entry's live slots (their
+    InterPodAffinity columns for the popped tasks' groups only), the
+    popped tasks' rows and those groups' compat and affinity rows, the
+    member rows a split reads, every job and queue row when the segment
+    selected (else the rows it changed), and every state element that
+    changed, written."""
+    import numpy as np
+
+    from kube_batch_tpu_torch.ops import class_solve as cs
+
+    def n(x) -> np.ndarray:
+        return x.cpu().numpy()
+
+    def row_bytes(x) -> int:
+        return x[0].numel() * x.element_size()
+
+    live = int((n(state.cmult) > 0).sum())
+    ptr0, ptr1 = n(state.ptr), n(want.ptr)
+    popped = np.concatenate([np.arange(a, b) for a, b in zip(ptr0, ptr1) if b > a] or [np.zeros(0, np.int64)])
+    if int(want.paused_at) >= 0:
+        popped = np.append(popped, int(want.paused_at))
+    groups = np.unique(n(ca["task_gid"])[popped]).size
+    nbytes = live * sum(row_bytes(getattr(state, f)) for f in cs.SLOT_FIELDS if f != "cpod_sc")
+    nbytes += groups * live * state.cpod_sc.element_size()
+    nbytes += popped.size * sum(row_bytes(ca[f]) for f in (
+        "task_req", "task_res", "task_gid", "task_has_sc", "task_res_has_sc", "task_host_only", "task_ports"))
+    nbytes += groups * (row_bytes(ca["compat"]) + row_bytes(ca["aff_sc"])) + ca["eps"].numel() * 4
+    nbytes += (int(want.free_ptr) - int(state.free_ptr)) * 4  # members_sorted, one row a split
+    job_in = [ca[f] for f in ("job_end", "job_min", "job_queue", "job_prio", "job_rank")]
+    job_in += [getattr(state, f) for f in ("ptr", "ready_cnt", "job_active", "job_alloc")]
+    queue_in = [ca[f] for f in ("queue_rank", "q_deserved", "q_dims")]
+    queue_in += [getattr(state, f) for f in ("q_dropped", "q_alloc", "q_alloc_has_sc")]
+    if work.get("selections", 0):
+        nbytes += sum(x.numel() * x.element_size() for x in job_in + queue_in)
+        nbytes += sum(ca[f].numel() * ca[f].element_size() for f in ("drf_total", "drf_dims"))
+    else:
+        jobs = int((ptr1 != ptr0).sum())
+        nbytes += jobs * sum(row_bytes(x) for x in job_in + queue_in)
+    for f in type(state)._fields:  # the writes: every element that changed
+        a, b = n(getattr(state, f)), n(getattr(want, f))
+        changed = a != b if a.dtype.kind != "f" else a.view(np.uint32) != b.view(np.uint32)
+        nbytes += int(changed.sum()) * a.itemsize
+    return int(nbytes)
+
+
+def class_step_vs_plain(
+    name: str, arrays: dict, overflow: bool = False, timed_runs: int = 1, cpad: int | None = None,
+) -> dict:
+    """Kernel B3 (card) against class_step_plain (CPU) on one segment
+    packed from ``arrays``' entry state, the segment budget the packed
+    bucket's half; with ``overflow`` the slot axis cut to its live slots,
+    so the first split overflows; with ``cpad`` the slot axis padded with
+    dead slots to ``cpad`` (past 1,024 slots a thread owns several, and
+    past the shared-memory budget the working state is in global
+    memory). Every ClassSolveState field equal, integers exactly and
+    floats bit for bit; raises otherwise."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.ops import class_solve as cs
+
+    solver = cs.ClassCompressedSolver(cs.ClassTable(), arrays, True, True)
+    state = solver._pack(solver._init_node_state())
+    ca = solver._ca()
+    budget = max(int(state.cmult.shape[0]) // 2, 1)
+    if overflow:
+        fp = int(state.free_ptr)
+        cut = {f: getattr(state, f)[:fp].clone() for f in cs.SLOT_FIELDS if f != "cpod_sc"}
+        cut["cpod_sc"] = state.cpod_sc[:, :fp].clone()
+        state = state._replace(**cut)
+    if cpad is not None:
+        state = cs.grow_slots(state, cpad)
+    work: dict = {}
+    t0 = time.perf_counter()
+    want = cs.class_step_plain(ca, state, True, True, budget, work=work)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    dev = torch.device("cuda", 0)
+    dca = {k: (v if isinstance(v, float) else v.to(dev)) for k, v in ca.items()}
+    dstate = cs.ClassSolveState(*(x.to(dev) for x in state))
+    saved = cs.class_step.launches
+    times = []
+    for _ in range(timed_runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = cs.class_step(dca, dstate, True, True, budget)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    cs.class_step.launches = saved  # comparison launches are not a main path's
+    max_abs_err = 0.0
+    for f in cs.ClassSolveState._fields:
+        w, g = getattr(want, f).numpy(), getattr(got, f).cpu().numpy()
+        if w.dtype != g.dtype or w.shape != g.shape:
+            raise AssertionError(f"{name}: {f} is {g.dtype} {g.shape} on the card, {w.dtype} {w.shape} plain")
+        if w.dtype.kind == "f":
+            if not np.array_equal(w.view(np.uint32), g.view(np.uint32)):
+                bad = np.flatnonzero(w.view(np.uint32).ravel() != g.view(np.uint32).ravel())[:5]
+                raise AssertionError(f"{name}: {f} differs at {bad.tolist()}: card {g.ravel()[bad].tolist()} "
+                                     f"plain {w.ravel()[bad].tolist()}")
+            if w.size:
+                max_abs_err = max(max_abs_err, float(np.abs(w.astype(np.float64) - g).max()))
+        elif not np.array_equal(w, g):
+            bad = np.flatnonzero(w.ravel() != g.ravel())[:5]
+            raise AssertionError(f"{name}: {f} differs at {bad.tolist()}: card {g.ravel()[bad].tolist()} "
+                                 f"plain {w.ravel()[bad].tolist()}")
+    if overflow and not bool(want.overflow):
+        raise AssertionError(f"{name}: the cut slot axis did not overflow")
+    C, R = int(state.cmult.shape[0]), int(ca["task_req"].shape[1])
+    threads, smem_bytes, in_smem = cs.geometry(C, int(ca["queue_rank"].shape[0]), R)
+    if cpad is not None and cpad > cs.MAX_THREADS and threads >= C:
+        raise AssertionError(f"{name}: {C} slots on {threads} threads is no stride")
+    iters = int(want.it) - int(state.it)
+    nbytes = class_segment_bytes(ca, state, want, work)
+    ops = work.get("fit_slots", 0) * FIT_OPS_PER_DIM * R + work.get("scored_slots", 0) * CLASS_SCORE_OPS_PER_SLOT
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    ms = times[-1] if timed_runs == 1 else statistics.median(times[1:])
+    return {
+        "world": name, "T": int(ca["task_req"].shape[0]), "N": int(ca["members_sorted"].shape[0]),
+        "C": int(state.free_ptr), "c_pad": C, "seg_budget": budget, "R": R,
+        "threads": threads, "working_bytes": smem_bytes, "in_smem": in_smem,
+        "iterations": iters, "assigned": int(want.step) - int(state.step),
+        "splits": int(want.free_ptr) - int(state.free_ptr),
+        "overflow": bool(want.overflow), "paused_at": int(want.paused_at),
+        "ms": ms, "ms_per_iteration": ms / max(iters, 1), "first_ms": times[0], "runs_ms": times,
+        "plain_ms": plain_ms, "max_abs_err": max_abs_err, "bytes": nbytes, "ops": ops, **work,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "match": True,
+    }
+
+
+def class_drill(kind: str, device: str) -> dict:
+    """One of ``class_drills`` on ``device``; returns what the CPU run must
+    equal (binds, records) beside its own checks' readings."""
+    import json as _json
+
+    from kube_batch_tpu_torch import faults, metrics
+    from kube_batch_tpu_torch.actions.allocate import AllocateAction
+    from kube_batch_tpu_torch.actions.torch_allocate import TorchAllocateAction
+    from kube_batch_tpu_torch.ops import class_solve as cs
+
+    kind_dev = "cuda" if device != "cpu" else "cpu"
+    fused = {"torch_allocate": {"device": device, "min_device_pairs": "0"}}
+    out: dict = {"drill": kind}
+    if kind == "a_parity":
+        # serial = fused = class_fused = class_sharded, over two cycles with
+        # arrivals (cycle 1's placements resident in cycle 2)
+        sharded = {"torch_allocate": {"device": device, "mesh": f"{kind_dev}:2"}}
+        world = cs._smoke_world()
+        for cycle in (1, 2):
+            sides, tiers = {}, {}
+            sides["serial"] = cs._smoke_run(AllocateAction(), world)
+            for side, on, args in (("fused", False, fused), ("class_fused", True, fused),
+                                   ("class_sharded", True, sharded)):
+                with Compressing(on):
+                    act = TorchAllocateAction()
+                    sides[side] = cs._smoke_run(act, world, args)
+                    tiers[side] = act.last_solver_tier
+            if tiers != {"fused": "fused", "class_fused": "class_fused", "class_sharded": "class_sharded"}:
+                raise AssertionError(f"cycle {cycle}: rungs {tiers}")
+            for side, binds in sides.items():
+                same_binds(f"a_parity cycle {cycle} {side}", sides["serial"], binds)
+            out[f"binds_cycle{cycle}"] = sides["serial"]
+            world = cs._smoke_world(bound=sides["serial"], arrivals=6)
+    elif kind == "b_class_table":
+        with Compressing(False):
+            want = cs._smoke_run(TorchAllocateAction(), cs._smoke_world(), fused)
+        labels = {"tier": "class_solve", "reason": "class_table"}
+        before = metrics.degraded_cycles.value(labels)
+        faults.registry.arm("solve.class_table", count=1)
+        try:
+            with Compressing(True):
+                act = TorchAllocateAction()
+                got = cs._smoke_run(act, cs._smoke_world(), fused)
+        finally:
+            faults.registry.reset()
+        same_binds("b_class_table", want, got)
+        if act.last_solver_tier != "fused" or act.last_class_stats is not None:
+            raise AssertionError(f"b_class_table: the {act.last_solver_tier!r} rung")
+        if metrics.degraded_cycles.value(labels) != before + 1:
+            raise AssertionError("b_class_table: the degrade was not counted")
+        out["binds"] = got
+    elif kind == "c_affinity":
+        from kube_batch_tpu_torch.apis.types import Affinity, PodAffinityTerm, PodPhase
+        from kube_batch_tpu_torch.testing import (
+            build_cluster,
+            build_node,
+            build_pod,
+            build_pod_group,
+            build_queue,
+            build_resource_list,
+        )
+
+        def world():
+            anchor = build_pod(name="anchor", node_name="n0", phase=PodPhase.RUNNING,
+                               req=build_resource_list(cpu=1, memory="128Mi"), labels={"app": "db"})
+            pods, groups = [anchor], []
+            for i in range(12):
+                p = build_pod(name=f"p{i}", group_name=f"g{i}", req=build_resource_list(cpu=1, memory="256Mi"))
+                p.metadata.creation_timestamp = float(i)
+                if i in (4, 9):
+                    p.affinity = Affinity(pod_affinity_required=[PodAffinityTerm(label_selector={"app": "db"})])
+                pg = build_pod_group(f"g{i}", min_member=1)
+                pg.metadata.creation_timestamp = float(i)
+                pods.append(p)
+                groups.append(pg)
+            nodes = [build_node(f"n{i}", build_resource_list(cpu=8, memory="8Gi", pods=20)) for i in range(4)]
+            return build_cluster(pods, nodes, groups, [build_queue("default")])
+
+        with Compressing(False):
+            want = cs._smoke_run(TorchAllocateAction(), world(), fused)
+        with Compressing(True):
+            act = TorchAllocateAction()
+            got = cs._smoke_run(act, world(), fused)
+        same_binds("c_affinity", want, got)
+        if act.last_solver_tier != "class_fused" or act.last_timings.get("host_steps") != 2 or len(got) != 12:
+            raise AssertionError(f"c_affinity: the {act.last_solver_tier!r} rung, "
+                                 f"{act.last_timings.get('host_steps')} host steps, {len(got)} binds")
+        out["binds"] = got
+    elif kind == "d_micro_cycle":
+        from kube_batch_tpu_torch.conf import parse_scheduler_conf
+        from kube_batch_tpu_torch.framework import close_session, open_session
+        from kube_batch_tpu_torch.streaming import StreamState, open_micro_session
+        from kube_batch_tpu_torch.testing import FakeCache
+
+        tiers = parse_scheduler_conf(cs._SMOKE_TIERS).tiers
+
+        def arrival_jobs():
+            # two arrival gangs, as _smoke_world's arrivals (the same names
+            # and shapes as the full-cycle reference's), as a session holds them
+            ssn = open_session(FakeCache(cs._smoke_world(arrivals=2)), tiers)
+            jobs = {uid: j for uid, j in ssn.jobs.items() if j.name.startswith("arrival-")}
+            queues = dict(ssn.queues)
+            close_session(ssn, discard=True)
+            return jobs, queues
+
+        def micro(compress):
+            with Compressing(compress):
+                act = TorchAllocateAction()
+                cache = FakeCache(cs._smoke_world())
+                ssn = open_session(cache, tiers, fused)
+                act.execute(ssn)
+                st = StreamState()
+                st.adopt_full_cycle(ssn)
+                close_session(ssn)
+                full = dict(cache.binder.binds)
+                jobs, queues = arrival_jobs()
+                mssn = open_micro_session(cache, tiers, fused, jobs, st.nodes, queues)
+                mssn.micro_cycle = True
+                act.execute(mssn)
+                close_session(mssn)
+                return full, {k: v for k, v in cache.binder.binds.items() if k not in full}, act.last_solver_tier
+
+        full_c, micro_c, tier = micro(True)
+        full_p, micro_p, _ = micro(False)
+        # the reference: one full cycle over cycle 1's placements and the arrivals
+        with Compressing(False):
+            one = cs._smoke_run(TorchAllocateAction(), cs._smoke_world(bound=full_p, arrivals=2), fused)
+        same_binds("d_micro_cycle full cycle", full_p, full_c)
+        same_binds("d_micro_cycle compressed micro against uncompressed", micro_p, micro_c)
+        same_binds("d_micro_cycle micro against one full cycle", one, micro_c)
+        if tier != "class_fused" or len(micro_c) != 4:
+            raise AssertionError(f"d_micro_cycle: the {tier!r} rung, {len(micro_c)} arrivals bound")
+        out["binds"] = micro_c
+    elif kind == "e_explain":
+        from kube_batch_tpu_torch.obs import explain
+
+        def records(compress):
+            with Compressing(compress), Explaining(True):
+                act = TorchAllocateAction()
+                binds = cs._smoke_run(act, explain._smoke_world(), fused)
+                recs = sorted(explain.records.snapshot(), key=lambda r: _json.dumps(r, sort_keys=True))
+            return binds, act.last_solver_tier, _json.dumps(recs, sort_keys=True)
+
+        plain_binds, _, plain_recs = records(False)
+        comp_binds, tier, comp_recs = records(True)
+        same_binds("e_explain", plain_binds, comp_binds)
+        if tier != "class_fused" or comp_recs != plain_recs or '"unschedulable"' not in comp_recs:
+            raise AssertionError(f"e_explain: the {tier!r} rung; records equal: {comp_recs == plain_recs}")
+        out["records"] = comp_recs
+        out["binds"] = comp_binds
+    else:
+        raise ValueError(kind)
+    return out
+
+
+def class_drills(device: str = "cuda") -> tuple[dict, tuple[int, int, int]]:
+    """``class_drills`` (a)-(e), each on ``device`` and again on the CPU,
+    ending equal."""
+    rec: dict = {"phase": "class_drills", "device": device, "drills": {}}
+    totals = [0, 0, 0]
+    for kind in CLASS_DRILLS:
+        t0 = time.perf_counter()
+        zero_launches()
+        got = class_drill(kind, device)
+        n = class_launches()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = class_drill(kind, "cpu") if device != "cpu" else got
+        if cpu != got:
+            raise AssertionError(f"{kind}: the card's run and the CPU's differ")
+        rec["drills"][kind] = {"s": card_s, "cpu_s": time.perf_counter() - t0, "launches": list(n)}
+        for i in range(3):
+            totals[i] += n[i]
+    if device != "cpu" and totals[2] < 1:
+        raise AssertionError("the class drills launched B3 no time")
+    rec["launches"] = totals
+    return rec, tuple(totals)
+
+
+def class_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict, list[dict]]:
+    """The class-compressed solve's phases: ``classes_400k_40k``,
+    ``classes_50k_5k``, ``class_step_vs_plain`` (on the card) and
+    ``class_drills``. Returns the failures, the launches (B1, B2, B3) of
+    each phase's main path and B3's comparison records."""
+    failures, launches, b3 = [], {}, []
+    shared: dict = {}
+
+    def big():
+        rec, launches["classes_400k_40k"], shared["arrays"] = classes_400k_phase(device, cut)
+        emit(rec)
+
+    def mix():
+        rec, launches["classes_50k_5k"] = classes_50k_phase(device, cut)
+        emit(rec)
+
+    def versus():
+        from kube_batch_tpu_torch.ops import class_solve as cs
+        from kube_batch_tpu_torch.solve import solver_arrays
+
+        small = solver_arrays(cs._smoke_world())[1]
+        cases = [("smoke_world", small, False, 3, None), ("smoke_world_overflow", small, True, 1, None),
+                 ("smoke_world_global", small, False, 1, CLASS_GLOBAL_CPAD)]
+        if "arrays" in shared:
+            big = shared.pop("arrays")
+            cases[:0] = [("uniform_pool_400k_40k_segment", big, False, CLASS_TIMED_RUNS, None),
+                         ("uniform_pool_400k_40k_segment_global", big, False, 3, CLASS_GLOBAL_CPAD)]
+        for name, arrays, overflow, runs, cpad in cases:
+            rec = class_step_vs_plain(name, arrays, overflow, runs, cpad)
+            if cpad is not None and rec["in_smem"]:
+                raise AssertionError(f"{name}: {cpad} slots did not take B3's global-memory form")
+            b3.append(rec)
+            emit({"phase": "class_step_vs_plain", **rec})
+
+    def drills():
+        rec, launches["class_drills"] = class_drills(device)
+        emit(rec)
+
+    t0 = time.perf_counter()
+    run_phase(failures, "classes_400k_40k", big)
+    run_phase(failures, "classes_50k_5k", mix)
+    if device != "cpu":
+        run_phase(failures, "class_step_vs_plain", versus)
+    run_phase(failures, "class_drills", drills, drill=True)
+    emit({"phase": "class_phases_total", "s": time.perf_counter() - t0})
+    return failures, launches, b3
+
+
+def classes_only(card: str, kind: str) -> int:
+    """``--classes``: the kernels' build and the class-compressed solve's
+    phases alone (step 15)."""
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import class_solve as cs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+
+    t_start = time.perf_counter()
+    logs = nvcc.build(["fused_solve", "block_step", "class_step"])
+    fs._library.load()
+    bs._library.load()
+    cs._library.load()
+    emit({"phase": "build", "s": time.perf_counter() - t_start,
+          "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
+    emit(native_build())
+    failures, launches, _ = class_phases()
+    emit({"phase": "total", "s": time.perf_counter() - t_start, "launches": {k: list(v) for k, v in launches.items()}})
+    if failures:
+        print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
+        return 1
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})
+    return 0
+
+
 def pipeline_uncut(card: str, kind: str) -> int:
     """``--pipeline-uncut``: pipeline_reclaim on the card at 50,000 pods,
     the cost of the uncut reclaim pass and of the preempt walk after it
@@ -5307,6 +5926,8 @@ def rehearse(argv: list[str]) -> int:
     failures += stream_failures
     operator_failures, _ = operator_phases(device="cpu", cut=cut)
     failures += operator_failures
+    class_failures, _, _ = class_phases(device="cpu", cut=cut)
+    failures += class_failures
     emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
     return 1 if failures else 0
 
@@ -5402,7 +6023,8 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"], ["--streaming"], ["--operator"]) or (
+    if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"], ["--streaming"], ["--operator"],
+                ["--classes"]) or (
             argv[:1] == ["--ab-warm"] and len(argv) == 2):
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -5416,13 +6038,16 @@ def main(argv: list[str]) -> int:
             return streaming_only(card, torch.cuda.get_device_name(0))
         if argv == ["--operator"]:
             return operator_only(card, torch.cuda.get_device_name(0))
+        if argv == ["--classes"]:
+            return classes_only(card, torch.cuda.get_device_name(0))
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--federation | --streaming | --operator | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
+              "--federation | --streaming | --operator | --classes | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import class_solve as cs
     from kube_batch_tpu_torch.ops import fused_solve as fs
     from kube_batch_tpu_torch.ops import nvcc
     from kube_batch_tpu_torch.ops.kernels import init_state
@@ -5447,9 +6072,10 @@ def main(argv: list[str]) -> int:
 
     native_thread = threading.Thread(target=build_native)
     native_thread.start()  # g++ beside the nvcc processes
-    logs = nvcc.build(["fused_solve", "block_step"])
+    logs = nvcc.build(["fused_solve", "block_step", "class_step"])
     fs._library.load()
     bs._library.load()
+    cs._library.load()
     native_thread.join()
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
@@ -5620,6 +6246,9 @@ def main(argv: list[str]) -> int:
     # -- the operator surfaces: explain, the fleet rollup, admission --------
     operator_failures, operator_launches = operator_phases()
     failures += operator_failures
+    # -- the class-compressed solve: config 7, preempt_mix, B3, drills ------
+    class_failures, class_launches, b3 = class_phases()
+    failures += class_failures
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
@@ -5630,6 +6259,11 @@ def main(argv: list[str]) -> int:
     cycle_launches.update(fed_launches)
     cycle_launches.update(stream_launches)
     cycle_launches.update(operator_launches)
+    cycle_launches.update({k: v[:2] for k, v in class_launches.items()})
+    b3_by_path = {k: v[2] for k, v in class_launches.items() if v[2]}
+    if b3_by_path.get("classes_400k_40k", 0) < 1:
+        raise AssertionError("the class-compressed main path launched B3 no time")
+    b3_head = b3[0]
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 
@@ -5680,6 +6314,32 @@ def main(argv: list[str]) -> int:
             "widths": [
                 {key: r[key] for key in ("N", "k", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes")}
                 for _, r in sorted(b2_timed.items(), reverse=True)
+            ],
+        },
+        {
+            "name": "class_step",
+            "route": "cuda",
+            "source": "kube_batch_tpu_torch/csrc/class_step.cu",
+            "replaces": "kube_batch_tpu/ops/class_solve.py:326",
+            "launches": sum(b3_by_path.values()),
+            "launches_by_path": b3_by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in b3),
+            "ms": b3_head["ms"],
+            "plain_ms": b3_head["plain_ms"],
+            "bound_ms": b3_head["bound_ms"],
+            "bound_by": b3_head["bound_by"],
+            "library_ms": None,
+            "world": b3_head["world"] + ", one segment from the entry state",
+            "c_pad": b3_head["c_pad"],
+            "threads": b3_head["threads"],
+            "in_smem": b3_head["in_smem"],
+            "iterations": b3_head["iterations"],
+            "ms_per_iteration": b3_head["ms_per_iteration"],
+            "inputs": [
+                {key: r[key] for key in (
+                    "world", "c_pad", "threads", "in_smem", "iterations", "ms", "plain_ms", "bound_ms", "bytes",
+                    "overflow")}
+                for r in b3
             ],
         },
     ]})

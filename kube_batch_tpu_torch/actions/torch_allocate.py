@@ -119,9 +119,21 @@ leaves none; ``last_timings["explain_s"]`` is the pass and the publish,
 ``explain_pass_s`` the pass with its fetch alone. A
 micro-cycle's session holds only its dirty gangs, so it explains those.
 
-The JAX package's action also keeps a device-resident arena and
-node-class compression; those come with the port's later items
-(ROADMAP).
+Node-class compression (ops/class_solve.py, ``KBT_CLASS_COMPRESS``, off by
+default): the class layer sits over the rungs, inside the solver-entry
+budget gate, and solves each segment at class granularity with kernel B3
+(``csrc/class_step.cu``), one launch a segment, the class table kept on
+the action across cycles (``_class_table``) and the segment's stats in
+``last_class_stats``; ``last_solver_tier`` reads ``class_fused`` or, with
+a mesh, ``class_sharded``. The rungs' packs are built only when a
+segment degrades to them: the ``solve.class_table`` fault point or a
+host-side failure of the table, the re-pack or the expansion, each logged
+and counted as ``degraded_cycles{tier="class_solve",reason="class_table"}``.
+A kernel B3 that cannot be built raises ``KernelBuildError``, and B3
+failing on a card raises ``DeviceSolveError``: neither is degraded.
+
+The JAX package's action also keeps a device-resident arena; that comes
+with the port's later items (ROADMAP).
 """
 
 from __future__ import annotations
@@ -140,6 +152,7 @@ from kube_batch_tpu_torch.framework.arguments import Arguments
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import Session
 from kube_batch_tpu_torch.obs import explain as _explain
+from kube_batch_tpu_torch.ops import class_solve
 from kube_batch_tpu_torch.ops import explain as ops_explain
 from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
 from kube_batch_tpu_torch.ops.encode import compute_pod_sc, encode_session
@@ -245,7 +258,15 @@ class _Rungs:
       blocks, so a deadline abort never feeds a breaker either.
 
     The solver's own timings are summed over segments into ``split`` and,
-    on the sharded rung, its counts into the action's ``last_counts``."""
+    on the sharded rung, its counts into the action's ``last_counts``.
+
+    With ``KBT_CLASS_COMPRESS`` on, ``solve`` runs the class-compressed
+    layer (ops/class_solve ``wrap_solver``) over these rungs, which it
+    degrades to (built then, their pack added to ``pack_s``) on the
+    ``solve.class_table`` fault point or a host-side table failure only.
+    Kernel B3 refusing its inputs or failing, and any other error of the
+    layer on a card, raise ``DeviceSolveError`` as a fused failure on a
+    card does."""
 
     def __init__(self, action, arrays, enable_drf, enable_proportion, device, mesh, args) -> None:
         self.action = action
@@ -254,18 +275,37 @@ class _Rungs:
         self.device = device
         self.tier = "none"
         self.split: dict[str, float] = {}
-        self.pack_s = 0.0  # the fused rung's pack when it is built after a sharded failure
+        self.pack_s = 0.0  # a rung's pack when it is built after the rungs' own construction
         self.sharded = None
         self.fused = None
+        self.mesh = mesh
+        self.exchange_batch = 1
         if mesh is not None:
             spec = args.get("exchange_batch", "").strip() or "1"
             try:
-                k = int(spec)
+                self.exchange_batch = int(spec)
             except ValueError:
                 raise ValueError(f"torch_allocate: exchange_batch={spec!r} is not an integer") from None
+        self.class_fn = None
+        if class_solve.enabled():
+            # the class-compressed layer over the rungs (ops/class_solve):
+            # the rungs' packs are needed only as its degrade target, so
+            # they are built at its first degrade
+            self.class_fn = class_solve.wrap_solver(
+                action, self._solve_rungs, arrays, enable_drf, enable_proportion, mesh=mesh, device=device,
+            )
+            self._built = False
+        else:
+            self._build()
+
+    def _build(self) -> None:
+        """The sharded rung when a mesh is resolved and its breaker allows,
+        else the fused rung."""
+        self._built = True
+        mesh = self.mesh
         if mesh is not None and faults.solver_ladder.allow("sharded"):
             try:
-                self.sharded = ShardedBlockSolver(self.a, mesh, *self.flags, exchange_batch=k)
+                self.sharded = ShardedBlockSolver(self.a, mesh, *self.flags, exchange_batch=self.exchange_batch)
             except KernelBuildError:
                 raise
             except Exception:
@@ -297,9 +337,37 @@ class _Rungs:
             counts[key] = counts.get(key, 0) + v
 
     def solve(self, state, budget) -> SolveState:
-        """One solve segment behind the solver-entry budget gate."""
+        """One solve segment behind the solver-entry budget gate, through
+        the class-compressed layer when it is on."""
         if budget is not None:
             budget.check("solver entry")
+        if self.class_fn is None:
+            return self._solve_rungs(state)
+        try:
+            out = self.class_fn(state)
+        except (KernelBuildError, DeviceSolveError, _FusedRungFailed):
+            raise  # a build failure, or the rungs' own verdict after a degrade
+        except Exception as e:
+            if isinstance(e, class_solve.ClassKernelError) or self.device.type == "cuda":
+                raise DeviceSolveError(
+                    f"torch_allocate: the class-compressed solve (kernel B3) failed on {self.device}: "
+                    f"{type(e).__name__}: {e}"
+                ) from e
+            raise
+        stats = self.action.last_class_stats
+        if stats is not None:  # None: this segment degraded to the rungs
+            self.tier = self.action.last_solver_tier
+            self.split["class_group_s"] = stats["group_s"]
+            self.split["class_kernel_s"] = stats["kernel_s"]
+            self.split["class_segments"] = stats["segments"]
+        return out
+
+    def _solve_rungs(self, state) -> SolveState:
+        """One segment on the rungs: sharded, then fused."""
+        if not self._built:
+            t0 = time.perf_counter()
+            self._build()
+            self.pack_s += time.perf_counter() - t0
         ladder = faults.solver_ladder
         if self.sharded is not None:
             try:
@@ -380,6 +448,13 @@ class TorchAllocateAction(Action):
         # resident_interpod hint so the encode skips the sweep over every
         # node's resident pods (see encode_session).
         self.last_interpod_active = False
+        # Stats of the last class-compressed solve segment (ops/class_solve,
+        # KBT_CLASS_COMPRESS): class_count, compression_ratio, splits,
+        # remerges, rekeys, segments, c_pad, group_s / kernel_s, rung, and
+        # kernel B3's launches and device time (kernel_ms). None when the
+        # compression was off or the segment degraded to the rungs. The
+        # class table itself persists across cycles as ``_class_table``.
+        self.last_class_stats = None
 
     @property
     def name(self) -> str:
@@ -396,6 +471,7 @@ class TorchAllocateAction(Action):
         self.last_device = None
         self.last_batched_iters = 0
         self.last_counts = {}
+        self.last_class_stats = None
         if not kernel_supported(ssn):
             log.info("conf outside the solve's envelope; running serial allocate")
             self._route_serial(ssn, "serial_routed_s", "envelope")

@@ -22,6 +22,10 @@ The solver and cycle points (actions/torch_allocate.py, recovery/budget.py):
   allocate;
 - ``solve.nan``: a NaN poisons ``w_least``; the finite guard routes the
   cycle to serial;
+- ``solve.class_table``: the class-compressed layer (ops/class_solve,
+  ``KBT_CLASS_COMPRESS``) finds its table poisoned; the segment runs on
+  the uncompressed rungs, counted as
+  ``degraded_cycles{tier="class_solve",reason="class_table"}``;
 - ``cycle.overrun``: the dispatch barrier's budget check reports a hard
   overrun; the cycle aborts before any bind and its session is discarded.
 
@@ -158,6 +162,7 @@ POINTS = (
     "solve.sharded",       # sharded rung (B2) segment fails -> fused rung resumes, same cycle
     "solve.fused",         # fused rung (B1) segment fails -> serial for the cycle
     "solve.nan",           # NaN poisons a score weight -> finite guard -> serial
+    "solve.class_table",   # class table poisoned -> uncompressed rungs for the segment
     # cache write side (cache/cache.py)
     "bind.write",          # binder write rejected -> retry w/ jitter -> errTasks
     "bind.slow",           # slow binder (50ms stall per attempt)

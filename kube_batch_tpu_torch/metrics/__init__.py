@@ -590,6 +590,26 @@ admission_controller_ticks = Counter(
     "(steady/escalate/recover/fault/dark)",
 )
 
+# -- node-class compressed solve (ops/class_solve, KBT_CLASS_COMPRESS) -------
+class_solve_classes = Gauge(
+    f"{_SUBSYSTEM}_class_solve_classes",
+    "Node equivalence classes at the last compressed solve's entry "
+    "(the axis the solver actually scanned, padding excluded)",
+)
+class_solve_compression_ratio = Gauge(
+    f"{_SUBSYSTEM}_class_solve_compression_ratio",
+    "Valid nodes per valid node class at the last compressed solve's "
+    "entry — the node-axis shrink factor; a sustained fall toward 1.0 "
+    "means the fleet's shapes have diverged and compression is buying "
+    "nothing",
+)
+class_table_splits = Counter(
+    f"{_SUBSYSTEM}_class_table_splits_total",
+    "Class-table member movements: in-solve bind splits (a chosen node "
+    "leaves its class as a singleton) plus static re-keys from node "
+    "churn (encode-cache dirty nodes re-hashed into new classes)",
+)
+
 
 def update_e2e_duration(seconds: float) -> None:
     e2e_scheduling_latency.observe(seconds)
@@ -857,6 +877,18 @@ def register_admission_controller_tick(outcome: str) -> None:
     admission_controller_ticks.inc({"outcome": outcome})
 
 
+def set_class_solve_classes(n: int) -> None:
+    class_solve_classes.set(n)
+
+
+def set_class_solve_compression_ratio(ratio: float) -> None:
+    class_solve_compression_ratio.set(ratio)
+
+
+def register_class_table_splits(n: int) -> None:
+    class_table_splits.inc(by=n)
+
+
 def _escape_label_value(value) -> str:
     """Prometheus text-format label escaping: backslash, double quote and
     newline are escaped inside the quoted value, so a queue named ``a"b``
@@ -982,6 +1014,9 @@ FAMILIES = (
     admission_brownout_level,
     admission_pressure,
     admission_controller_ticks,
+    class_solve_classes,
+    class_solve_compression_ratio,
+    class_table_splits,
 )
 
 

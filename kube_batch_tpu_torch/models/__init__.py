@@ -16,6 +16,8 @@ BASELINE.md "Benchmark configs to reproduce":
 4. `preempt_mix`       — 50k x 5k, priority spread + running victims
 5. `multi_tenant_ml`   — TFJob/MPIJob-style PS+worker gangs, 100 queues,
                          GPU/TPU scalar resources
+7. `uniform_pool`      — 400k x 40k interchangeable fleet, 250-task gangs
+                         (the node-class compression world)
 
 All quantities are milli-CPU / MiB granular so float32 device arithmetic
 is exact (see ops/encode.py).
@@ -200,6 +202,57 @@ def multi_tenant_ml(
             rl[accel] = float(rng.choice([1, 2, 4]))
             pods.append(build_pod(name=f"{name}-worker-{w}", group_name=name, req=rl))
     return build_cluster(pods, nodes, pgs, queues)
+
+
+def uniform_pool(
+    n_pods: int = 400_000, n_nodes: int = 40_000, tasks_per_job: int = 250,
+    churn: float = 0.0, churn_salt: int = 0,
+) -> ClusterInfo:
+    """Config 7: the node-class compression world. An interchangeable
+    fleet with pod-slice-sized gangs (250 tasks): every node is
+    byte-identical to the encoder (same shape, no labels, no residents)
+    and the gangs cycle through two request shapes, so the solver's node
+    axis folds to a handful of equivalence classes.
+
+    ``churn > 0`` plants a RUNNING resident on every ``1/churn``-th node
+    with one of 64 request shapes picked from ``churn_salt``: the ~1% of a
+    real fleet that differs from the pool at any moment. Varying the salt
+    session to session moves which nodes differ (and the exact class
+    count) without moving the class axis' power-of-two bucket."""
+    nodes = _uniform_nodes(n_nodes)
+    pods, pgs = [], []
+    if churn > 0.0:
+        step = max(int(1.0 / churn), 1)
+        for i in range(0, n_nodes, step):
+            v = (i * 31 + churn_salt * 7919) % 64
+            pods.append(
+                build_pod(
+                    name=f"churn-{churn_salt:03d}-{i:05d}",
+                    node_name=f"node-{i:05d}",
+                    phase=PodPhase.RUNNING,
+                    req=build_resource_list(
+                        cpu=f"{100 + 25 * (v % 8)}m",
+                        memory=f"{256 + 64 * (v // 8)}Mi",
+                    ),
+                )
+            )
+    n_jobs = max(n_pods // tasks_per_job, 1)
+    for j in range(n_jobs):
+        name = f"job-{j:05d}"
+        pgs.append(build_pod_group(name, min_member=max(tasks_per_job // 2, 1)))
+        small = j % 2 == 0
+        for t in range(tasks_per_job):
+            pods.append(
+                build_pod(
+                    name=f"{name}-t{t}",
+                    group_name=name,
+                    req=build_resource_list(
+                        cpu="250m" if small else "500m",
+                        memory="512Mi" if small else "1024Mi",
+                    ),
+                )
+            )
+    return build_cluster(pods, nodes, pgs, [build_queue("default")])
 
 
 CONFIGS = {

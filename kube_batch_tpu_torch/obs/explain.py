@@ -256,6 +256,7 @@ def forensics(enc, arrays: dict, state, inputs=None, topk: int = TOP_K) -> Foren
     pass is never redone elsewhere."""
     import numpy as np
 
+    from kube_batch_tpu_torch.ops import class_solve
     from kube_batch_tpu_torch.ops import explain as ops_explain
 
     kinds = state.assigned_kind.numpy()
@@ -273,7 +274,12 @@ def forensics(enc, arrays: dict, state, inputs=None, topk: int = TOP_K) -> Foren
         inputs = ops_explain.uploaded_inputs(arrays, state, "cpu")
     a, st = inputs
     rep_rows = ops_explain.pad_rows([r for _, r in job_rows])
-    out = ops_explain.explain_batch(a, *st, rep_rows, topk=topk)
+    # Under KBT_CLASS_COMPRESS the pass folds the node axis the way the
+    # solver does: one evaluated row per equivalence class, expanded back
+    # by membership. Its outputs equal explain_batch's, so records never
+    # change shape when the flag flips.
+    explain_fn = ops_explain.explain_batch_classes if class_solve.enabled() else ops_explain.explain_batch
+    out = explain_fn(a, *st, rep_rows, topk=topk)
     return Forensics(job_rows, tuple(x.cpu().numpy() for x in out))
 
 

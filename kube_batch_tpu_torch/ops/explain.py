@@ -55,6 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch.ops.class_solve import _pow2, dedup_rows
 from kube_batch_tpu_torch.ops.kernels import MAX_PRIORITY, _le_eps, ieee_div
 
 # Fixed plane order: elimination counts, would-fit-if verdicts and
@@ -221,26 +222,6 @@ _CLASS_NODE_KEYS = (
 )
 
 
-def _pow2(n: int) -> int:
-    return max(8, 1 << (max(int(n), 1) - 1).bit_length())
-
-
-def _dedup_rows(slabs) -> tuple[np.ndarray, np.ndarray]:
-    """Dedup rows over the concatenated bytes of ``slabs`` (each [N] or
-    [N, k]): (first row int64 per class, inverse int32 per row). Class
-    order carries no meaning; representatives come from member lists."""
-    mats = []
-    for s in slabs:
-        s = np.ascontiguousarray(s)
-        if s.ndim == 1:
-            s = s.reshape(-1, 1)
-        mats.append(s.view(np.uint8).reshape(s.shape[0], -1))
-    rows = np.ascontiguousarray(np.concatenate(mats, axis=1))
-    void = rows.view(np.dtype((np.void, rows.shape[1]))).ravel()
-    _, first, inv = np.unique(void, return_index=True, return_inverse=True)
-    return first.astype(np.int64), inv.astype(np.int32).ravel()
-
-
 def explain_batch_classes(a, idle, rel, used, ntasks, nports, rep_rows, topk: int = 3):
     """Class-compressed forensics: the outputs of ``explain_batch``, with
     the per-node evaluation folded to one row per node equivalence class
@@ -250,8 +231,8 @@ def explain_batch_classes(a, idle, rel, used, ntasks, nports, rep_rows, topk: in
     elimination / feasible counts by valid member multiplicity,
     would-fit-if by class validity, and the top-k by replaying the
     node-level argmax tie contract (score descending, lowest node row
-    wins ties) from the sorted member lists. Returns CPU tensors. Nothing
-    routes to it until the class-compressed solve is ported."""
+    wins ties) from the sorted member lists. Returns CPU tensors.
+    ``obs/explain.forensics`` routes here under ``KBT_CLASS_COMPRESS``."""
     device = _tensor(a["task_req"]).device
 
     def host(x):
@@ -259,7 +240,7 @@ def explain_batch_classes(a, idle, rel, used, ntasks, nports, rep_rows, topk: in
 
     idle, rel, used, ntasks, nports = (host(x) for x in (idle, rel, used, ntasks, nports))
     sub = {k: host(a[k]) for k in ARRAY_KEYS}
-    first, inv = _dedup_rows([sub[k] for k in _CLASS_NODE_KEYS] + [idle, rel, used, ntasks, nports])
+    first, inv = dedup_rows([sub[k] for k in _CLASS_NODE_KEYS] + [idle, rel, used, ntasks, nports])
     C = int(first.shape[0])
     counts = np.bincount(inv, minlength=C).astype(np.int64)
     order = np.argsort(inv, kind="stable").astype(np.int64)
