@@ -79,9 +79,10 @@
    allocate step, and the launches, and fails without a B1 launch:
    - ``pipeline_fused_50k_5k``: ``preempt_mix(50_000, 5_000)``, one B1
      launch, binds equal to ``allocate``'s (and so ``scheduler_fused``'s);
-   - ``pipeline_fused_50k_1k``: ``preempt_mix(50_000, 1_000)``: starved
-     gangs remain, torch_preempt evicts priority-1 residents (about two
-     minutes of host work), binds equal to ``allocate``'s;
+   - ``pipeline_fused_50k_1k``: ``preempt_mix(50_000, 1_000)`` with pods
+     and nodes halved (``PREEMPT_WALK_CUT``, ``reduced`` in its record):
+     starved gangs remain, torch_preempt evicts priority-1 residents,
+     binds equal to ``allocate``'s on the same world;
    - ``pipeline_reclaim``: ``reclaim_world(38_500, 1_000)`` (cut from
      50,000 pods, ``reduced`` in its record), config 4 with its residents
      in running gang jobs of an over-served second queue; torch_reclaim
@@ -347,14 +348,37 @@
      axis that overflows, and on both padded to ``CLASS_GLOBAL_CPAD``
      slots (several a thread, the working state in global memory); its
      bound counts the bytes the segment's data needs
-     (``class_segment_bytes``);
+     (``class_segment_bytes``); then ``class_step_floor``, B3's time per
+     iteration on ``_smoke_world()``'s 128 slots (the slope between a
+     one-iteration and a whole segment);
    - ``class_drills``, each on the card and again on the CPU, ending equal:
      (a) serial = fused = ``class_fused`` = ``class_sharded`` (``mesh:
      cuda:2``) over two cycles with arrivals; (b) ``solve.class_table``
      degrades, binds equal, counted; (c) the pod-affinity hybrid; (d) a
      streaming micro-cycle equal to one full cycle; (e) explain records
      under compression equal those without;
-16. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
+16. runs the port's analyzers on the card (``kube_batch_tpu_torch.analysis``),
+   over solves and worlds the earlier steps already made:
+   - ``trace_audit_50k_5k``: ``warm_cycles_50k_5k``'s cycles run inside
+     the build sentinel with budget 0 (no nvcc, no library load); then one
+     more warm cycle of its scheduler under
+     ``torch.cuda.set_sync_debug_mode("warn")``, every sync attributed to a
+     port ``file:line`` and counted, each site printed, and the phase fails
+     on a site the port's ``analysis/trace-baseline.toml`` does not name;
+     then B1 alone on the cycle's snapshot (upload done, up to the fetch)
+     under ``"error"``. B2's launches in ``allocate_mesh_*`` (step 5) and
+     B3's comparison launch (step 15) run under ``"error"`` too;
+   - ``signature_drift``: KBT-P002 (no float64 field) and KBT-P005 (field
+     names, shapes and dtypes) on the ``SolveState``s that ``allocate``
+     (fused), ``allocate_mesh_*`` (sharded, m = 1 and 4) and
+     ``classes_50k_5k`` (class, expanded to node space) returned, each
+     against the entry state of the CPU plain version on the same world;
+     no new solve;
+   - ``interleave_card``: the interleaving model checker's
+     ``dispatch_vs_next_solve`` scenario on the card (B1 in every
+     schedule), every schedule clean and equal to the CPU explorer's
+     (schedule count, trace ids, per-schedule binds);
+17. prints one JSON line per phase, the ``{"kernels": [...]}`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Each kernel record carries its cluster size ``k`` (CTAs per launch), the
@@ -363,7 +387,13 @@ float32 operations over the float32 rate, with the operations counted from
 the node-axis work these inputs need) and, for B1, the time per iteration
 of every world it times and a latency bound (``latency_bound_ms``: the
 world's dependent iterations times the kernel's time per iteration on a
-128-node world, measured in the same run).
+128-node world, measured in the same run); B3's ``latency_bound_ms`` is
+config 7's segment iterations times B3's time per iteration on the
+smallest slot bucket ``class_step_vs_plain`` runs to its end
+(``_smoke_world()``, 128 slots; the overflow case stops at its first
+split), taken as the slope between a one-iteration and a whole segment so
+that the launch's fixed cost (``floor_fixed_ms``) drops out, measured in
+the same run.
 
 Any failed phase raises and exits non-zero. Without a CUDA device it exits
 with code 2 before printing any result.
@@ -377,8 +407,9 @@ on the last card against it too.
 
     python3 chip_smoke.py --pipeline-uncut
 
-runs only ``pipeline_reclaim`` on the card at 50,000 pods: the uncut
-reclaim pass and the preempt walk after it, minutes of host work.
+runs only ``pipeline_fused_50k_1k`` uncut and ``pipeline_reclaim`` at
+50,000 pods on the card: the uncut preempt walk and reclaim pass,
+minutes of host work.
 
     python3 chip_smoke.py --federation
 
@@ -453,9 +484,13 @@ AFFINITY_PODS = 36  # pods of scheduler_affinity's world with required pod (anti
 FLOOR_WORLDS = ((25, 4), (50, 8), (100, 16), (200, 32), (400, 64), (800, 128))
 # pending pods of pipeline_reclaim's reclaim_world on 1,000 nodes, cut from
 # 50,000 so that torch_preempt's walk over the starved tasks (each against
-# every node; about two minutes in pipeline_fused_50k_1k) is not run twice;
+# every node; about two minutes uncut) is not run twice;
 # ``--pipeline-uncut`` runs it at 50,000
 RECLAIM_PODS = 38_500
+# pipeline_fused_50k_1k's pods and nodes divided by this for the script's
+# clock: torch_preempt's walk (each starved task against every node, about
+# 110 s uncut) falls to about a quarter; ``--pipeline-uncut`` runs it uncut
+PREEMPT_WALK_CUT = 2
 
 
 def emit(obj: dict) -> None:
@@ -1132,14 +1167,16 @@ def pipeline_cycle(phase: str, cluster, conf: str, device: str) -> tuple[dict, o
 
 
 def pipeline_phases(clusters: dict, results: dict, device: str = "cuda", cut: int = 1,
-                    reclaim_pods: int = RECLAIM_PODS, only: tuple = ()) -> tuple[list[str], dict]:
+                    reclaim_pods: int = RECLAIM_PODS, walk_cut: int = PREEMPT_WALK_CUT,
+                    only: tuple = ()) -> tuple[list[str], dict]:
     """The twin pipeline's phases (module docstring, step 8): the whole
     pipeline of examples/scheduler-conf-torch-pipeline.yaml through
     ``Scheduler.run_once``. ``device: cpu`` with ``cut`` > 1 is the CPU
     rehearsal (``--rehearse``): the worlds' pod and node counts divided by
     ``cut``, the kernels' plain versions, no launches to count.
-    ``reclaim_pods`` is reclaim_world's pod count, ``only`` a subset of
-    the phases to run. Returns the failures and the launches of each
+    ``reclaim_pods`` is reclaim_world's pod count, ``walk_cut`` divides
+    ``pipeline_fused_50k_1k``'s world further, ``only`` a subset of the
+    phases to run. Returns the failures and the launches of each
     phase's main path."""
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch import testing as tt
@@ -1151,11 +1188,12 @@ def pipeline_phases(clusters: dict, results: dict, device: str = "cuda", cut: in
     def run(name, fn):
         run_phase(failures, name, fn)
 
-    def world(name, nodes, pods=50_000, make=models.preempt_mix):
+    def world(name, nodes, pods=50_000, make=models.preempt_mix, div=cut):
         """A config-4 world of ``nodes`` nodes with ``pods`` of its 50,000
-        pods, divided by ``cut``, and what was cut (``reduced``, empty
-        when nothing was); an uncut main world is reused."""
-        p, n = pods // cut, nodes // cut
+        pods, divided by ``div`` (``cut`` by default), and what was cut
+        (``reduced``, empty when nothing was); an uncut main world is
+        reused."""
+        p, n = pods // div, nodes // div
         reduced = {key: [full, got] for key, full, got in (("pods", 50_000, p), ("nodes", nodes, n)) if full != got}
         if not reduced and name in clusters:
             return clusters[name], reduced
@@ -1170,24 +1208,32 @@ def pipeline_phases(clusters: dict, results: dict, device: str = "cuda", cut: in
         if want_b1 is not None and rec["b1_launches"] != want_b1:
             raise AssertionError(f"{rec['b1_launches']} B1 launches; expected {want_b1}")
 
-    def fused(name, nodes, want_b1=None):
-        """The twin pipeline on a preempt_mix main world: uncut, its binds
-        must equal allocate()'s (single queue: reclaim has no victims and
-        preempt only pipelines, so the allocate step decides the binds)."""
-        cluster, reduced = world(name, nodes)
+    def fused(name, nodes, want_b1=None, div=1):
+        """The twin pipeline on a preempt_mix main world, divided by ``cut``
+        times ``div``: its binds must equal allocate()'s on the same world
+        (the main path's run where the world is uncut, else one on the
+        card; single queue: reclaim has no victims and preempt only
+        pipelines, so the allocate step decides the binds)."""
+        from kube_batch_tpu_torch.solve import allocate
+
+        cluster, reduced = world(name, nodes, div=cut * div)
+        if not reduced and name in results:
+            want = results[name].binds
+        else:
+            want = allocate(cluster, device="cuda").binds if on_card else None
         rec, cache, _ = pipeline_cycle(f"pipeline_fused_50k_{nodes // 1000}k", cluster, twin, device)
         launched(rec, want_b1)
         if rec["tier"] != "fused":
             raise AssertionError(f"torch_allocate solved on the {rec['tier']!r} rung")
-        if not reduced and cache.binder.binds != results[name].binds:
-            raise AssertionError("the pipeline's binds differ from allocate()'s (and the scheduler phase's)")
-        return {**rec, "reduced": reduced, **({} if reduced else {"equal_to_allocate": True})}
+        if want is not None and cache.binder.binds != want:
+            raise AssertionError("the pipeline's binds differ from allocate()'s on the same world")
+        return {**rec, "reduced": reduced, **({} if want is None else {"equal_to_allocate": True})}
 
     def fused_5k():
         emit(fused("preempt_mix_50k_5k", 5_000, want_b1=1))
 
     def fused_1k():
-        rec = fused("preempt_mix_50k_1k", 1_000)
+        rec = fused("preempt_mix_50k_1k", 1_000, div=walk_cut)
         if rec["evicts_by_reason"].get("preempt", 0) < 1:
             raise AssertionError("torch_preempt evicted nothing")
         emit(rec)
@@ -1415,7 +1461,7 @@ def add_gang(cluster, name: str, size: int) -> None:
     cluster.jobs.update(gang.jobs)
 
 
-def warm_cycles_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
+def warm_cycles_phase(device: str = "cuda", cut: int = 1, keep: dict | None = None) -> tuple[dict, tuple[int, int]]:
     """``warm_cycles_50k_5k``: one Scheduler over the twin pipeline conf on
     ``FakeCache(preempt_mix(50_000, 5_000))`` (divided by ``cut``), three
     ``run_once``: cycle 1 cold, cycle 2 with nothing changed, and before
@@ -1423,12 +1469,15 @@ def warm_cycles_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[i
     job added. A second scheduler over a twin cache runs the same cycles
     with the encode cache and the native loops off; binds, evicts and task
     states must be equal cycle for cycle. The launch counters are zeroed
-    just before each cycle of the fast scheduler and read just after.
-    Returns the record and the B1 and B2 launches of those cycles."""
+    just before each cycle of the fast scheduler and read just after; the
+    cycles run inside the build sentinel with budget 0. ``keep`` (a dict)
+    receives the fast scheduler as ``"sched"``. Returns the record and the
+    B1 and B2 launches of those cycles."""
     import torch
 
     import kube_batch_tpu_torch.scheduler as sched_mod
     from kube_batch_tpu_torch import metrics, models, native
+    from kube_batch_tpu_torch.analysis.trace.sentinel import CompileSentinel
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import encode_cache
     from kube_batch_tpu_torch.ops import fused_solve as fs
@@ -1443,73 +1492,75 @@ def warm_cycles_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[i
         cache = FakeCache(models.preempt_mix(pods, nodes))
         return {"fast": fast, "cache": cache, "sched": sched_mod.Scheduler(cache, conf), "cycles": []}
 
-    arms = [arm(True), arm(False)]
-    close = sched_mod.close_session
-    b1 = b2 = 0
-    for cycle in range(3):
-        if cycle == 2:
+    # raises past budget 0: a kernel built or loaded in a warm cycle
+    with CompileSentinel("warm_cycles_50k_5k", budget=0) as sentinel:
+        arms = [arm(True), arm(False)]
+        close = sched_mod.close_session
+        b1 = b2 = 0
+        for cycle in range(3):
+            if cycle == 2:
+                for a in arms:
+                    for node_name in sorted(a["cache"].cluster.nodes)[: max(int(nodes * CHURN), 1)]:
+                        relabel(a["cache"].cluster.nodes[node_name], "churn")
+                    add_gang(a["cache"].cluster, "warm-cycles-new-gang", 8)
             for a in arms:
-                for node_name in sorted(a["cache"].cluster.nodes)[: max(int(nodes * CHURN), 1)]:
-                    relabel(a["cache"].cluster.nodes[node_name], "churn")
-                add_gang(a["cache"].cluster, "warm-cycles-new-gang", 8)
-        for a in arms:
-            native.set_enabled(a["fast"])
-            encode_cache.set_enabled(a["fast"])
-            if a["fast"] and cycle == 0:
-                encode_cache.get().invalidate_all("chip_smoke")
-            states = {}
+                native.set_enabled(a["fast"])
+                encode_cache.set_enabled(a["fast"])
+                if a["fast"] and cycle == 0:
+                    encode_cache.get().invalidate_all("chip_smoke")
+                states = {}
 
-            def close_reading_states(ssn, discard=False):
-                states.update({t.uid: (t.status.name, t.node_name) for j in ssn.jobs.values()
-                               for t in j.tasks.values()})
-                close(ssn, discard=discard)
+                def close_reading_states(ssn, discard=False):
+                    states.update({t.uid: (t.status.name, t.node_name) for j in ssn.jobs.values()
+                                   for t in j.tasks.values()})
+                    close(ssn, discard=discard)
 
-            native.reset_counts()
-            faults_before = sum(metrics.fault_injections.samples().values())
-            sync()
-            sched_mod.close_session = close_reading_states
-            fs.fused_solve.launches = bs.block_step.launches = 0
-            try:
-                with GcClock() as gc_clock:
-                    t0 = time.perf_counter()
-                    a["sched"].run_once()
-                    sync()
-                    wall_s = time.perf_counter() - t0
-            finally:
-                sched_mod.close_session = close
-            launches = (fs.fused_solve.launches, bs.block_step.launches)
-            if "aborted" in a["sched"].last_timings:
-                raise AssertionError(f"cycle {cycle + 1}: the cycle aborted: {a['sched'].last_timings['aborted']}")
-            acts = {x.name: x for x in a["sched"].actions}
-            t = {name: dict(getattr(acts[name], "last_timings", {}))
-                 for name in ("torch_reclaim", "torch_allocate", "torch_preempt")}
-            rec = {
-                "run_once_s": wall_s, "snapshot_s": a["sched"].last_timings.get("snapshot_s"),
-                "encode_s": {name: t[name].get("encode_s") for name in t},
-                "warm_fraction": {name: t[name].get("warm_fraction") for name in t},
-                "pack_s": t["torch_allocate"].get("pack_s"), "solve_s": t["torch_allocate"].get("solve_s"),
-                "fused_solve_s": t["torch_allocate"].get("fused_solve_s"),
-                "replay_s": t["torch_allocate"].get("replay_s"),
-                "actions_s": {k: v for k, v in a["sched"].last_timings.items() if k.endswith("_s")},
-                "native_calls": dict(native.calls), "native_fallbacks": dict(native.fallbacks),
-                "faults_fired": sum(metrics.fault_injections.samples().values()) - faults_before,
-                "tier": acts["torch_allocate"].last_solver_tier, "b1_launches": launches[0],
-                "b2_launches": launches[1], "binds": len(a["cache"].binder.binds),
-                "evicts": len(a["cache"].evictor.evicts), **gc_clock.record(),
-            }
-            a["cycles"].append((rec, states, dict(a["cache"].binder.binds), list(a["cache"].evictor.evicts)))
-            if a["fast"]:
-                b1 += launches[0]
-                b2 += launches[1]
-                if on_card and (launches[0] < 1 or launches[1]):
-                    raise AssertionError(f"cycle {cycle + 1}: {launches[0]} B1 and {launches[1]} B2 launches")
-                if rec["native_fallbacks"] or rec["faults_fired"]:
-                    raise AssertionError(f"cycle {cycle + 1}: native fallbacks {rec['native_fallbacks']}, "
-                                         f"{rec['faults_fired']} faults fired")
-                if not rec["native_calls"].get("bulk_assign"):
-                    raise AssertionError(f"cycle {cycle + 1}: the replay did not run bulk_assign")
-            elif rec["native_calls"]:
-                raise AssertionError(f"cycle {cycle + 1}: native calls with the native loops off")
+                native.reset_counts()
+                faults_before = sum(metrics.fault_injections.samples().values())
+                sync()
+                sched_mod.close_session = close_reading_states
+                fs.fused_solve.launches = bs.block_step.launches = 0
+                try:
+                    with GcClock() as gc_clock:
+                        t0 = time.perf_counter()
+                        a["sched"].run_once()
+                        sync()
+                        wall_s = time.perf_counter() - t0
+                finally:
+                    sched_mod.close_session = close
+                launches = (fs.fused_solve.launches, bs.block_step.launches)
+                if "aborted" in a["sched"].last_timings:
+                    raise AssertionError(f"cycle {cycle + 1}: the cycle aborted: {a['sched'].last_timings['aborted']}")
+                acts = {x.name: x for x in a["sched"].actions}
+                t = {name: dict(getattr(acts[name], "last_timings", {}))
+                     for name in ("torch_reclaim", "torch_allocate", "torch_preempt")}
+                rec = {
+                    "run_once_s": wall_s, "snapshot_s": a["sched"].last_timings.get("snapshot_s"),
+                    "encode_s": {name: t[name].get("encode_s") for name in t},
+                    "warm_fraction": {name: t[name].get("warm_fraction") for name in t},
+                    "pack_s": t["torch_allocate"].get("pack_s"), "solve_s": t["torch_allocate"].get("solve_s"),
+                    "fused_solve_s": t["torch_allocate"].get("fused_solve_s"),
+                    "replay_s": t["torch_allocate"].get("replay_s"),
+                    "actions_s": {k: v for k, v in a["sched"].last_timings.items() if k.endswith("_s")},
+                    "native_calls": dict(native.calls), "native_fallbacks": dict(native.fallbacks),
+                    "faults_fired": sum(metrics.fault_injections.samples().values()) - faults_before,
+                    "tier": acts["torch_allocate"].last_solver_tier, "b1_launches": launches[0],
+                    "b2_launches": launches[1], "binds": len(a["cache"].binder.binds),
+                    "evicts": len(a["cache"].evictor.evicts), **gc_clock.record(),
+                }
+                a["cycles"].append((rec, states, dict(a["cache"].binder.binds), list(a["cache"].evictor.evicts)))
+                if a["fast"]:
+                    b1 += launches[0]
+                    b2 += launches[1]
+                    if on_card and (launches[0] < 1 or launches[1]):
+                        raise AssertionError(f"cycle {cycle + 1}: {launches[0]} B1 and {launches[1]} B2 launches")
+                    if rec["native_fallbacks"] or rec["faults_fired"]:
+                        raise AssertionError(f"cycle {cycle + 1}: native fallbacks {rec['native_fallbacks']}, "
+                                             f"{rec['faults_fired']} faults fired")
+                    if not rec["native_calls"].get("bulk_assign"):
+                        raise AssertionError(f"cycle {cycle + 1}: the replay did not run bulk_assign")
+                elif rec["native_calls"]:
+                    raise AssertionError(f"cycle {cycle + 1}: native calls with the native loops off")
     native.set_enabled(True)
     encode_cache.set_enabled(True)
     fast, slow = arms
@@ -1524,10 +1575,61 @@ def warm_cycles_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[i
         "new_gang": 8, "fast": [c[0] for c in fast["cycles"]], "off": [c[0] for c in slow["cycles"]],
         "equal_cycle_for_cycle": True, "b1_launches": b1, "b2_launches": b2,
         "binds_by_cycle": [len(c[2]) for c in fast["cycles"]],
+        "kernel_builds": sentinel.builds, "library_loads": sentinel.loads,
     }
+    if keep is not None:
+        keep["sched"] = fast["sched"]
     if cut > 1:
         rec["reduced"] = {"pods": [CYCLES_WORLD[0], pods], "nodes": [CYCLES_WORLD[1], nodes]}
     return rec, (b1, b2)
+
+
+def trace_audit_phase(sched, device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``trace_audit_50k_5k`` (step 16): one more warm cycle of
+    ``warm_cycles_50k_5k``'s fast scheduler inside the build sentinel
+    (budget 0). On the card that cycle, the sharded solve of the trace
+    audit's warm world and B1 alone run through
+    ``analysis.trace.audit_card_path`` (KBT-P001): every sync site is
+    printed with its count, and the phase fails on a site the trace
+    baseline does not name or on an entry's count past its max_count. On
+    the CPU the cycle runs under the sentinel only. Returns the record and
+    the cycle's B1 and B2 launches."""
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.analysis import baseline_path, load_baseline
+    from kube_batch_tpu_torch.analysis import trace
+    from kube_batch_tpu_torch.analysis.trace.sentinel import CompileSentinel
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.solve import solver_arrays
+
+    label = "warm cycle 4 of warm_cycles_50k_5k"
+    t0 = time.perf_counter()
+    fs.fused_solve.launches = bs.block_step.launches = 0
+    with CompileSentinel("trace_audit_50k_5k", budget=0) as sentinel:
+        if device == "cpu":
+            sched.run_once()
+        else:
+            arrays = solver_arrays(models.preempt_mix(*trace.WARM_WORLD, seed=1))[1]
+            sites, audit = trace.audit_card_path(sched.run_once, arrays)
+    launches = (fs.fused_solve.launches, bs.block_step.launches)
+    rec = {"phase": "trace_audit_50k_5k", "device": device, "s": time.perf_counter() - t0,
+           "kernel_builds": sentinel.builds, "library_loads": sentinel.loads,
+           "b1_launches": launches[0], "b2_launches": launches[1]}
+    if device == "cpu":
+        return {**rec, "p001": "not run: the sync audit needs a card"}, launches
+    if launches[0] < 1 or launches[1]:
+        raise AssertionError(f"the audited cycle launched B1 {launches[0]} and B2 {launches[1]} times")
+    root = os.path.dirname(os.path.abspath(__file__))
+    bl = load_baseline(baseline_path(root, "trace"), root)
+    kept, suppressed, _ = trace.apply_trace_baseline(trace.check_syncs(sites, label), bl, sites)
+    for site, n in audit["sites"].items():
+        print(f"sync site {site}: {n}", flush=True)
+    print(f"syncs in {label}: {audit['total']}; in the sharded solve of preempt_mix{trace.WARM_WORLD} "
+          f"(m = {trace.MESH_AUDIT}): {audit['sharded_total']}", flush=True)
+    if bl.errors or kept:
+        raise AssertionError("sync sites with no trace-baseline entry or past its max_count:\n" + "\n".join(
+            f.render() for f in [*bl.errors, *kept]))
+    return {**rec, **audit, "baselined_sites": len(suppressed)}, launches
 
 
 def native_parity_phase(clusters: dict, results: dict, device: str = "cuda") -> dict:
@@ -1611,22 +1713,29 @@ def native_parity_phase(clusters: dict, results: dict, device: str = "cuda") -> 
 def fast_path_phases(clusters: dict, results: dict, device: str = "cuda", cut: int = 1,
                      only: tuple = ()) -> tuple[list[str], dict]:
     """The host fast paths' phases: ``encode_cache_100k_10k``,
-    ``warm_cycles_50k_5k`` and ``native_parity`` (``native_build`` runs
-    with the kernels' build). Each runs whatever the others did; returns
+    ``warm_cycles_50k_5k``, ``trace_audit_50k_5k`` (step 16, on the warm
+    cycles' scheduler) and ``native_parity`` (``native_build`` runs with
+    the kernels' build). Each runs whatever the others did; returns
     the failures and the launches of the warm cycles' main path."""
     failures, launches = [], {}
+    kept: dict = {}
 
     def run(name, fn):
         run_phase(failures, name, fn)
 
     def warm():
-        rec, launches["warm_cycles_50k_5k"] = warm_cycles_phase(device, cut)
+        rec, launches["warm_cycles_50k_5k"] = warm_cycles_phase(device, cut, keep=kept)
+        emit(rec)
+
+    def audit():
+        rec, launches["trace_audit_50k_5k"] = trace_audit_phase(kept.pop("sched"), device)
         emit(rec)
 
     for name, fn in (("encode_cache_100k_10k", lambda: emit(encode_cache_phase(cut))),
                      ("warm_cycles_50k_5k", warm),
+                     ("trace_audit_50k_5k", audit),
                      ("native_parity", lambda: emit(native_parity_phase(clusters, results, device)))):
-        if not only or name in only:
+        if (not only or name in only) and (name != "trace_audit_50k_5k" or "sched" in kept):
             run(name, fn)
     return failures, launches
 
@@ -2315,7 +2424,7 @@ class StoreBinds:
 
 class CycleLog:
     """Wraps a ``Scheduler``'s ``run_once`` on its loop thread: per cycle
-    its wall clock and split, the pending tasks of its snapshot,
+    its wall clock and split, the pending tasks of its snapshot's valid jobs,
     torch_allocate's split and rung, the B1 and B2 launches and the
     collector's time; and every exception the loop logs (the loop goes on
     after a failed cycle, so the phase reads them here)."""
@@ -2334,9 +2443,15 @@ class CycleLog:
 
         def counting_snapshot():
             from kube_batch_tpu_torch.api.types import TaskStatus
+            from kube_batch_tpu_torch.framework.session import gate_exempt
+            from kube_batch_tpu_torch.plugins.gang import job_valid
 
             snap = snapshot()
-            self._pending = sum(len(j.task_status_index.get(TaskStatus.PENDING, ())) for j in snap.jobs.values())
+            # only the jobs the session's JobValid gate keeps: a gang whose
+            # pods are still being posted (fewer than min_member) is dropped
+            # there, and its pending pods leave the allocator nothing to solve
+            self._pending = sum(len(j.task_status_index.get(TaskStatus.PENDING, ())) for j in snap.jobs.values()
+                                if gate_exempt(j) or job_valid(j) is None)
             return snap
 
         sched.cache.snapshot = counting_snapshot
@@ -5262,6 +5377,11 @@ class Compressing:
             os.environ[cs.ENV] = self.saved
 
 
+# SolveStates the main paths returned, kept for ``signature_drift`` (step
+# 16): entry -> (the state, the solver arrays of its world)
+DRIFT: dict = {}
+
+
 def class_launches() -> tuple[int, int, int]:
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import class_solve as cs
@@ -5278,12 +5398,14 @@ def zero_launches() -> None:
     fs.fused_solve.launches = bs.block_step.launches = cs.class_step.launches = 0
 
 
-def class_session(cluster, device: str, compress: bool, action=None) -> tuple[dict, dict, object]:
+def class_session(cluster, device: str, compress: bool, action=None,
+                  drift: str | None = None) -> tuple[dict, dict, object]:
     """One ``enqueue, torch_allocate`` session (the cycle conf's tiers) over
     a FakeCache of ``cluster``, with compression on or off, the launch
     counters zeroed just before and read just after; ``action`` is the
     torch_allocate object to run (its class table warm), else a fresh one.
-    Returns (record, binds, the action)."""
+    ``drift`` names the session's SolveState in ``DRIFT``. Returns (record,
+    binds, the action)."""
     import torch
 
     from kube_batch_tpu_torch.ops import nvcc
@@ -5311,6 +5433,10 @@ def class_session(cluster, device: str, compress: bool, action=None) -> tuple[di
     if "aborted" in sched.last_timings:
         raise AssertionError(f"the session aborted: {sched.last_timings['aborted']}")
     binds = dict(cache.binder.binds)
+    if drift is not None:
+        from kube_batch_tpu_torch.solve import solver_inputs
+
+        DRIFT[drift] = (act.last_state, solver_inputs(act.last_encoded, (1, 1, 1, 1)))
     stats = dict(act.last_class_stats or {})
     ta = dict(act.last_timings)
     rec = {
@@ -5402,7 +5528,7 @@ def classes_50k_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[i
     on_card = device != "cpu"
     pods, nodes = CLASS_MIX[0] // cut, CLASS_MIX[1] // cut
     cluster = models.preempt_mix(pods, nodes)
-    comp, comp_binds, _ = class_session(cluster, device, True)
+    comp, comp_binds, _ = class_session(cluster, device, True, drift="class_preempt_mix_50k_5k")
     plain, plain_binds, _ = class_session(cluster, device, False)
     if comp["tier"] != "class_fused" or plain["tier"] != "fused":
         raise AssertionError(f"rungs {comp['tier']!r} and {plain['tier']!r}")
@@ -5471,6 +5597,49 @@ def class_segment_bytes(ca: dict, state, want, work: dict) -> int:
     return int(nbytes)
 
 
+# B3's time per iteration on the smallest slot bucket, for its latency bound
+B3_FLOOR: dict = {}
+
+
+def b3_iteration_floor(name: str, arrays: dict, runs: int = CLASS_TIMED_RUNS) -> dict:
+    """B3's own time per iteration on ``arrays``' entry segment (the
+    smallest slot bucket ``class_step_vs_plain`` runs to its end): the
+    slope between a one-iteration segment and the whole segment, each the
+    median of ``runs`` launches after one warm-up (CUDA events), so the
+    launch's fixed cost drops out. Comparison launches: the counter is
+    restored."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import class_solve as cs
+
+    solver = cs.ClassCompressedSolver(cs.ClassTable(), arrays, True, True)
+    state = solver._pack(solver._init_node_state())
+    ca = solver._ca()
+    max_iter = cs.max_iterations(ca)
+    dev = torch.device("cuda", 0)
+    dca = {k: (v if isinstance(v, float) else v.to(dev)) for k, v in ca.items()}
+    dstate = cs.ClassSolveState(*(x.to(dev) for x in state))
+    saved = cs.class_step.launches
+    points = []
+    for budget in (1, max(int(state.cmult.shape[0]) // 2, 1)):
+        times = []
+        for _ in range(runs + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = cs.class_step(dca, dstate, True, True, budget, max_iter)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        points.append((statistics.median(times[1:]), int(got.it) - int(state.it)))
+    cs.class_step.launches = saved
+    (t1, n1), (t2, n2) = points
+    if n2 <= n1:
+        raise AssertionError(f"{name}: the whole segment ran {n2} iterations, the one-iteration segment {n1}")
+    per = (t2 - t1) / (n2 - n1)
+    return {"world": name, "c_pad": int(state.cmult.shape[0]), "iterations": [n1, n2], "ms": [t1, t2],
+            "ms_per_iteration": per, "fixed_ms": t1 - n1 * per}
+
+
 def class_step_vs_plain(
     name: str, arrays: dict, overflow: bool = False, timed_runs: int = 1, cpad: int | None = None,
 ) -> dict:
@@ -5485,6 +5654,7 @@ def class_step_vs_plain(
     import numpy as np
     import torch
 
+    from kube_batch_tpu_torch.analysis.trace import no_sync
     from kube_batch_tpu_torch.ops import class_solve as cs
 
     solver = cs.ClassCompressedSolver(cs.ClassTable(), arrays, True, True)
@@ -5506,11 +5676,15 @@ def class_step_vs_plain(
     dca = {k: (v if isinstance(v, float) else v.to(dev)) for k, v in ca.items()}
     dstate = cs.ClassSolveState(*(x.to(dev) for x in state))
     saved = cs.class_step.launches
+    max_iter = cs.max_iterations(ca)
+    torch.cuda.synchronize()
+    with no_sync():  # the launch alone, inputs on the card: no torch-side sync
+        cs.class_step(dca, dstate, True, True, budget, max_iter)
     times = []
     for _ in range(timed_runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        got = cs.class_step(dca, dstate, True, True, budget)
+        got = cs.class_step(dca, dstate, True, True, budget, max_iter)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -5553,7 +5727,7 @@ def class_step_vs_plain(
         "ms": ms, "ms_per_iteration": ms / max(iters, 1), "first_ms": times[0], "runs_ms": times,
         "plain_ms": plain_ms, "max_abs_err": max_abs_err, "bytes": nbytes, "ops": ops, **work,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "match": True,
+        "match": True, "launch_without_sync": True,
     }
 
 
@@ -5769,6 +5943,8 @@ def class_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict, l
                 raise AssertionError(f"{name}: {cpad} slots did not take B3's global-memory form")
             b3.append(rec)
             emit({"phase": "class_step_vs_plain", **rec})
+        B3_FLOOR.update(b3_iteration_floor("smoke_world", small))
+        emit({"phase": "class_step_floor", **B3_FLOOR})
 
     def drills():
         rec, launches["class_drills"] = class_drills(device)
@@ -5782,6 +5958,90 @@ def class_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict, l
     run_phase(failures, "class_drills", drills, drill=True)
     emit({"phase": "class_phases_total", "s": time.perf_counter() - t0})
     return failures, launches, b3
+
+
+def signature_drift_phase() -> dict:
+    """``signature_drift`` (step 16): KBT-P002 and KBT-P005 on the
+    SolveStates the fused, sharded and class main paths returned
+    (``DRIFT``), each against the entry state of the CPU plain version on
+    the same world (``init_state``: the protocol every rung resumes from).
+    Runs no solve."""
+    import numpy as np
+
+    from kube_batch_tpu_torch.analysis import trace
+    from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
+    from kube_batch_tpu_torch.ops.kernels import init_state
+
+    t0 = time.perf_counter()
+    rungs = {"fused", "sharded@1", "sharded@4", "class"}
+    seen = {entry.split("_")[0] for entry in DRIFT}
+    if not rungs <= seen:
+        raise AssertionError(f"signature_drift: no SolveState of the {sorted(rungs - seen)} rung(s)")
+    findings, fields = [], 0
+    for entry, (state, arrays) in sorted(DRIFT.items()):
+        if any(isinstance(v, np.ndarray) for v in arrays.values()):
+            arrays = arrays_from_numpy(arrays)
+        ref = init_state(arrays, True, True)  # on the CPU: the plain version's entry state
+        path = trace.rung_path(entry.split("_")[0])
+        findings += trace.check_f64(state, entry, path)
+        findings += trace.check_signature_drift(trace.state_signature(ref), trace.state_signature(state),
+                                                "plain_entry", entry, path)
+        fields += len(state._fields)
+    if findings:
+        raise AssertionError("signature drift:\n" + "\n".join(f.render() for f in findings))
+    return {"phase": "signature_drift", "states": sorted(DRIFT), "fields_checked": fields,
+            "equal": True, "float64_fields": 0, "s": time.perf_counter() - t0}
+
+
+def interleave_card_phase(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
+    """``interleave_card`` (step 16): ``dispatch_vs_next_solve`` through
+    every schedule with its torch_allocate on the card (B1 launched in
+    every schedule), each clean and equal to the CPU explorer's: schedule
+    count, trace ids and per-schedule binds. Returns the record and the
+    card run's B1 and B2 launches."""
+    from kube_batch_tpu_torch.analysis import interleave
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    scenario = "dispatch_vs_next_solve"
+    t0 = time.perf_counter()
+    want = interleave.explore(scenario, device="cpu")
+    t1 = time.perf_counter()
+    fs.fused_solve.launches = bs.block_step.launches = 0
+    got = interleave.explore(scenario, device=device)
+    launches = (fs.fused_solve.launches, bs.block_step.launches)
+    t2 = time.perf_counter()
+    if got.counterexamples or want.counterexamples:
+        raise AssertionError(f"{scenario}: counterexamples on the card {[r.trace for r in got.counterexamples]}, "
+                             f"on the CPU {[r.trace for r in want.counterexamples]}")
+    summary = [(r.trace, r.violations, r.fingerprint) for r in got.results]
+    if (got.schedules, summary) != (want.schedules, [(r.trace, r.violations, r.fingerprint) for r in want.results]):
+        raise AssertionError(f"{scenario}: the card's schedules differ from the CPU explorer's")
+    if device != "cpu" and (launches[0] < got.schedules or launches[1]):
+        raise AssertionError(f"{scenario}: {launches[0]} B1 and {launches[1]} B2 launches over {got.schedules} schedules")
+    return {
+        "phase": "interleave_card", "scenario": scenario, "device": device, "schedules": got.schedules,
+        "traces": [r.trace for r in got.results], "clean": True, "equal_to_cpu": True,
+        "b1_launches": launches[0], "cpu_s": t1 - t0, "card_s": t2 - t1,
+    }, launches
+
+
+def analyzer_phases(device: str = "cuda") -> tuple[list[str], dict]:
+    """The analyzers' card phases after the main paths: ``signature_drift``
+    and ``interleave_card`` (``trace_audit_50k_5k`` runs beside the warm
+    cycles). Returns the failures and the launches of each phase's main
+    path."""
+    failures, launches = [], {}
+
+    def interleave_card():
+        rec, launches["interleave_card"] = interleave_card_phase(device)
+        emit(rec)
+
+    t0 = time.perf_counter()
+    run_phase(failures, "signature_drift", lambda: emit(signature_drift_phase()))
+    run_phase(failures, "interleave_card", interleave_card)
+    emit({"phase": "analyzer_phases_total", "s": time.perf_counter() - t0})
+    return failures, launches
 
 
 def classes_only(card: str, kind: str) -> int:
@@ -5811,9 +6071,10 @@ def classes_only(card: str, kind: str) -> int:
 
 
 def pipeline_uncut(card: str, kind: str) -> int:
-    """``--pipeline-uncut``: pipeline_reclaim on the card at 50,000 pods,
-    the cost of the uncut reclaim pass and of the preempt walk after it
-    (minutes of host work; not part of the smoke run)."""
+    """``--pipeline-uncut``: pipeline_fused_50k_1k uncut and
+    pipeline_reclaim at 50,000 pods on the card, the cost of the uncut
+    preempt walk and reclaim pass (minutes of host work; not part of the
+    smoke run)."""
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import fused_solve as fs
     from kube_batch_tpu_torch.ops import nvcc
@@ -5822,7 +6083,8 @@ def pipeline_uncut(card: str, kind: str) -> int:
     nvcc.build(["fused_solve", "block_step"])
     fs._library.load()
     bs._library.load()
-    failures, _ = pipeline_phases({}, {}, reclaim_pods=50_000, only=("pipeline_reclaim",))
+    failures, _ = pipeline_phases({}, {}, reclaim_pods=50_000, walk_cut=1,
+                                  only=("pipeline_fused_50k_1k", "pipeline_reclaim"))
     emit({"phase": "total", "s": time.perf_counter() - t_start})
     if failures:
         return 1
@@ -6046,6 +6308,7 @@ def main(argv: list[str]) -> int:
               "--federation | --streaming | --operator | --classes | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.analysis.trace import guard_calls
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import class_solve as cs
     from kube_batch_tpu_torch.ops import fused_solve as fs
@@ -6155,6 +6418,8 @@ def main(argv: list[str]) -> int:
         })
     if not results["preempt_mix_50k_1k"].pipelined:
         raise AssertionError("preempt_mix_50k_1k pipelined nothing: the releasing branch did not run")
+    for name, _ in main_worlds:
+        DRIFT[f"fused_{name}"] = (results[name].state, arrays[name])
     b1_ms_5k, b1_iters_5k = [], 0
     for _ in range(2):  # B1 at the headline, kernel only (its plain run is the sharded path's job)
         packed = fs.pack(arrays["preempt_mix_50k_5k"], True, True)
@@ -6183,10 +6448,14 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize()
         fs.fused_solve.launches = bs.block_step.launches = 0
         t0 = time.perf_counter()
-        res = allocate(clusters[name], device="cuda", mesh=make_mesh(devices=[cuda0] * m))
+        with guard_calls(bs.BlockStep, "__call__") as guarded:  # each B2 launch under "error"
+            res = allocate(clusters[name], device="cuda", mesh=make_mesh(devices=[cuda0] * m))
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches, stray = bs.block_step.launches, fs.fused_solve.launches
+        if guarded["calls"] != launches:
+            raise AssertionError(f"{name} m={m}: {guarded['calls']} guarded B2 calls for {launches} launches")
+        DRIFT[f"sharded@{m}_{name}"] = (res.state, arrays[name])
         placing = int((res.state.ptr - arrays[name]["job_start"]).sum())
         if stray:
             raise AssertionError(f"the sharded rung launched the fused solve {stray} times")
@@ -6201,7 +6470,7 @@ def main(argv: list[str]) -> int:
         emit({
             "phase": f"allocate_mesh_{name}_m{m}", "total_s": total_s, **res.timings,
             "iterations": int(res.state.it), "placing_iterations": placing, "launches": launches,
-            "binds": len(res.binds), "pipelined": len(res.pipelined),
+            "launches_without_sync": guarded["calls"], "binds": len(res.binds), "pipelined": len(res.pipelined),
             "equal_to_fused": True, **check_binds(res),
         })
 
@@ -6249,6 +6518,9 @@ def main(argv: list[str]) -> int:
     # -- the class-compressed solve: config 7, preempt_mix, B3, drills ------
     class_failures, class_launches, b3 = class_phases()
     failures += class_failures
+    # -- the port's analyzers on the card: drift across rungs, interleavings -
+    analyzer_failures, analyzer_launches = analyzer_phases()
+    failures += analyzer_failures
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
         return 1
@@ -6260,10 +6532,12 @@ def main(argv: list[str]) -> int:
     cycle_launches.update(stream_launches)
     cycle_launches.update(operator_launches)
     cycle_launches.update({k: v[:2] for k, v in class_launches.items()})
+    cycle_launches.update(analyzer_launches)
     b3_by_path = {k: v[2] for k, v in class_launches.items() if v[2]}
     if b3_by_path.get("classes_400k_40k", 0) < 1:
         raise AssertionError("the class-compressed main path launched B3 no time")
     b3_head = b3[0]
+    b3_latency_bound_ms = b3_head["iterations"] * B3_FLOOR["ms_per_iteration"]
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 
@@ -6335,6 +6609,11 @@ def main(argv: list[str]) -> int:
             "in_smem": b3_head["in_smem"],
             "iterations": b3_head["iterations"],
             "ms_per_iteration": b3_head["ms_per_iteration"],
+            "latency_bound_ms": b3_latency_bound_ms,
+            "floor_ms_per_iteration": B3_FLOOR["ms_per_iteration"],
+            "floor_fixed_ms": B3_FLOOR["fixed_ms"],
+            "floor_world": B3_FLOOR["world"],
+            "floor_c_pad": B3_FLOOR["c_pad"],
             "inputs": [
                 {key: r[key] for key in (
                     "world", "c_pad", "threads", "in_smem", "iterations", "ms", "plain_ms", "bound_ms", "bytes",

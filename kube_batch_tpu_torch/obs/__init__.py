@@ -67,6 +67,7 @@ __all__ = [
     "RECORDER_CYCLES_ENV",
     "SLO_WINDOW_ENV",
     "SPAN_NAMES",
+    "DEBUG_ENDPOINTS",
     "HDR_TRACE",
     "HDR_SPAN",
     "Span",
@@ -104,6 +105,16 @@ SLO_WINDOW_ENV = "KBT_SLO_WINDOW_S"  # SLO sliding window, seconds
 
 HDR_TRACE = "X-KBT-Trace-Id"
 HDR_SPAN = "X-KBT-Span-Id"
+
+# Every /debug/* route server.py serves. The analyzers hold it against
+# server.py's route literals and the runbook's route table (KBT-R009/R010).
+DEBUG_ENDPOINTS = (
+    "/debug/trace",
+    "/debug/slo",
+    "/debug/explain",
+    "/debug/fleet",
+    "/debug/admission",
+)
 
 # Every span name a call site may open; check_tree flags any other, so a
 # typo'd name cannot silently fork the trace tree.

@@ -162,18 +162,18 @@ class ClassTable:
     table's (another thread's snapshot may replace them next)."""
 
     def __init__(self) -> None:
-        self.key_bytes: np.ndarray | None = None  # [N, K] uint8
-        self.class0_of: np.ndarray | None = None  # [N] int32 stable static ids
-        self.key_to_id: dict[bytes, int] = {}
-        self.sticky_cpad = 8
-        self.rekeys_total = 0  # static-key churn (encode-cache dirty nodes)
-        self.splits_total = 0  # in-solve bind splits
-        self.remerges_total = 0
-        self.rebuilds = 0
-        self._prev_singleton: np.ndarray | None = None  # [N] bool at last solve end
+        self.key_bytes: np.ndarray | None = None  #: guarded_by _lock ([N, K] uint8)
+        self.class0_of: np.ndarray | None = None  #: guarded_by _lock ([N] int32 stable static ids)
+        self.key_to_id: dict[bytes, int] = {}  #: guarded_by _lock
+        self.sticky_cpad = 8  #: guarded_by _lock
+        self.rekeys_total = 0  #: guarded_by _lock (static-key churn, encode-cache dirty nodes)
+        self.splits_total = 0  #: guarded_by _lock (in-solve bind splits)
+        self.remerges_total = 0  #: guarded_by _lock
+        self.rebuilds = 0  #: guarded_by _lock
+        self._prev_singleton: np.ndarray | None = None  #: guarded_by _lock ([N] bool at last solve end)
         self._lock = threading.RLock()
 
-    def _next_id(self, key: bytes) -> int:
+    def _next_id_locked(self, key: bytes) -> int:
         cid = self.key_to_id.get(key)
         if cid is None:
             cid = len(self.key_to_id)
@@ -189,7 +189,7 @@ class ClassTable:
                 # cold (or a re-bucketed fleet): one dedup pass, ids minted in
                 # class order so a later warm refresh maps changed rows only
                 first, inv = dedup_rows([key])
-                ids = np.fromiter((self._next_id(key[r].tobytes()) for r in first), np.int32, count=len(first))
+                ids = np.fromiter((self._next_id_locked(key[r].tobytes()) for r in first), np.int32, count=len(first))
                 self.class0_of = ids[inv]
                 self.key_bytes = key
                 self.rebuilds += 1
@@ -199,7 +199,7 @@ class ClassTable:
             if changed.size:
                 out = self.class0_of.copy()
                 for r in changed:
-                    out[r] = self._next_id(key[r].tobytes())
+                    out[r] = self._next_id_locked(key[r].tobytes())
                 self.class0_of = out
                 self.key_bytes = key
                 self.rekeys_total += int(changed.size)
@@ -572,12 +572,16 @@ def _host_side(what: str):
 
 def class_step(
     ca: dict, cs: ClassSolveState, enable_drf: bool, enable_proportion: bool, seg_budget: int,
+    max_iter: int,
 ) -> ClassSolveState:
     """One class-compressed segment. CUDA tensors launch kernel B3 on their
     device's current stream and return a new state on that device (the
     input is not modified); CPU tensors run ``class_step_plain``. A build
     failure raises ``KernelBuildError``; any other device, inputs the
-    kernel refuses and a launch failure raise ``ClassKernelError``."""
+    kernel refuses and a launch failure raise ``ClassKernelError``.
+    ``max_iter`` is ``max_iterations`` of the snapshot, computed by the
+    caller on the host: the launch itself reads nothing back from the
+    card (the plain version computes its own)."""
     device = cs.cmult.device
     if device.type == "cpu":
         return class_step_plain(ca, cs, enable_drf, enable_proportion, seg_budget)
@@ -605,7 +609,8 @@ def class_step(
     out = ClassSolveState(*(x.clone(memory_format=torch.contiguous_format) for x in cs))
     args = _Args(
         T=T, N=ca["members_sorted"].shape[0], J=ca["job_min"].shape[0], Q=Q, C=C,
-        GT=ca["compat"].shape[0], GN=ca["compat"].shape[1], R=R, P=P, max_iter=max_iterations(ca),
+        GT=ca["compat"].shape[0], GN=ca["compat"].shape[1], R=R, P=P,
+        max_iter=int(max_iter),
         drf=int(bool(enable_drf)), proportion=int(bool(enable_proportion)), seg_budget=int(seg_budget),
         in_smem=int(in_smem), smem_bytes=nbytes, nthreads=threads,
         w_least=float(ca["w_least"]), w_balanced=float(ca["w_balanced"]),
@@ -711,6 +716,7 @@ class ClassCompressedSolver:
         self._entry_C = 0
         self._members_sorted: np.ndarray | None = None
         self._ca_base: dict | None = None
+        self._max_iter: int | None = None  # the solve's iteration bound, on the host
 
     # -- node-space <-> class-space -----------------------------------------
 
@@ -882,10 +888,10 @@ class ClassCompressedSolver:
         """One B3 launch (or plain segment), its device time on a card."""
         if cs.cmult.device.type != "cuda":
             self.launches += 1
-            return class_step(ca, cs, self.enable_drf, self.enable_proportion, seg_budget)
+            return class_step(ca, cs, self.enable_drf, self.enable_proportion, seg_budget, self._max_iter)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = class_step(ca, cs, self.enable_drf, self.enable_proportion, seg_budget)
+        out = class_step(ca, cs, self.enable_drf, self.enable_proportion, seg_budget, self._max_iter)
         end.record()
         try:
             end.synchronize()  # an asynchronous CUDA error surfaces here
@@ -898,7 +904,7 @@ class ClassCompressedSolver:
     def solve(self, st=None) -> SolveState:
         if st is None:
             st = self._init_node_state()
-        max_iter = max_iterations(self.arrays)
+        max_iter = self._max_iter = max_iterations(self.arrays)
         self._ca_base = None  # the arrays may differ from the last solve's
         while True:
             cs = self._pack(st)

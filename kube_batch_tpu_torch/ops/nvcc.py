@@ -54,7 +54,10 @@ def library_path(name: str) -> str:
 # nvcc processes started by this process: a warm path that builds a kernel
 # again is a regression (a source or its hash changed under a running
 # scheduler), so a smoke reads this around its warm phases.
-builds = 0
+builds = 0  #: guarded_by _LOCK
+# kernel libraries this process loaded (``Library.load``'s dlopen): the
+# same regression signal for a warm path as ``builds``
+loads = 0  #: guarded_by _LOCK
 
 
 def build(names: list[str]) -> dict[str, str]:
@@ -104,6 +107,11 @@ def _build_locked(names: list[str]) -> dict[str, str]:
     return logs
 
 
+def _count_load_locked() -> None:
+    global loads
+    loads += 1
+
+
 class Library:
     """One kernel's shared library, built and bound on first ``load``;
     ``bind`` sets the ctypes signatures of its entry points."""
@@ -124,6 +132,7 @@ class Library:
                     lib = ctypes.CDLL(library_path(self.name))
                 except OSError as e:
                     raise KernelBuildError(f"cannot load the {self.name} kernel's library: {e}") from e
+                _count_load_locked()
                 lib.kbt_error_string.argtypes = [ctypes.c_int]
                 lib.kbt_error_string.restype = ctypes.c_char_p
                 self._bind(lib)

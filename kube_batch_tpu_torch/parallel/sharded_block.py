@@ -115,7 +115,12 @@ class ShardedBlockSolver:
         enable_proportion: bool = False,
         exchange_batch: int = 1,
     ) -> None:
-        mesh = tuple(torch.device(d) for d in mesh)
+        # a bare "cuda" is the current card: blocks and their per-device
+        # tables key on the indexed device the tensors report
+        mesh = tuple(
+            torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None else d
+            for d in map(torch.device, mesh)
+        )
         if not mesh:
             raise ValueError("a mesh needs at least one device")
         kinds = {d.type for d in mesh}

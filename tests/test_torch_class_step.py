@@ -225,7 +225,7 @@ def test_class_step_refuses_inputs_as_a_kernel_error():
     ca, state = _segment_inputs(lambda: cs._smoke_world(), True, True, 0, 0, False)
     meta = cs.ClassSolveState(*(x.to("meta") for x in state))
     with pytest.raises(cs.ClassKernelError, match="meta"):
-        cs.class_step(ca, meta, True, True, 64)
+        cs.class_step(ca, meta, True, True, 64, cs.max_iterations(ca))
 
 
 def test_grow_slots_pads_with_dead_slots_and_keeps_the_segment():
@@ -289,7 +289,7 @@ def _b3_against_plain(case, cpad=None):
     dca = {k: (v if isinstance(v, float) else v.to(dev)) for k, v in ca.items()}
     dstate = cs.ClassSolveState(*(x.to(dev) for x in state))
     launches = cs.class_step.launches
-    got = cs.class_step(dca, dstate, drf, prop, budget)
+    got = cs.class_step(dca, dstate, drf, prop, budget, cs.max_iterations(ca))
     torch.cuda.synchronize()
     assert cs.class_step.launches == launches + 1
     assert_state_equal(want, cs.ClassSolveState(*(x.cpu() for x in got)), f"{case} c_pad {state.cmult.shape[0]}")

@@ -6,11 +6,11 @@ accountant's LRU cardinality bound, the KBT_FLEET off switch, an
 in-process scrape -> merge aggregator drill, OpenMetrics exemplar gating,
 and the dispatch fence's measured overlap.
 
+The KBT-R012 SLO-kind registry cases run through the port's own
+analyzer (``kube_batch_tpu_torch.analysis.registry_consistency``).
+
 Left out, each with the queue item it waits for:
-``test_registry_slo_kinds_both_directions``,
-``test_registry_slo_kinds_compliant_is_clean`` and
-``test_live_tree_slo_kind_registry_is_consistent`` (the KBT-R012
-registry analyzer, ROADMAP A1); ``test_arena_accounts_hbm_bytes_and_watermark``
+``test_arena_accounts_hbm_bytes_and_watermark``
 (the tensor arena, ROADMAP A4); the six ``test_bench_diff_*`` cases, which
 test the JAX package's ``hack/bench_diff.py`` script, a tool of its own
 bench that no queue item ports.
@@ -23,6 +23,7 @@ rollup, and the live smoke (two loopback shards on the CPU) passes.
 
 from __future__ import annotations
 
+import ast
 import json
 import math
 import os
@@ -31,8 +32,9 @@ import time
 
 import pytest
 
-from kube_batch_tpu_torch import metrics
+from kube_batch_tpu_torch import metrics, obs
 from kube_batch_tpu_torch import pipeline
+from kube_batch_tpu_torch.analysis import SourceFile, registry_consistency
 from kube_batch_tpu_torch.obs import QuantileSketch, SLOAccountant
 from kube_batch_tpu_torch.obs import fleet
 
@@ -428,6 +430,70 @@ def test_exemplar_storage_gated_like_rendering(monkeypatch):
     c.inc(exemplar="ghost")
     monkeypatch.setenv(metrics.EXEMPLARS_ENV, "1")
     assert "ghost" not in "\n".join(metrics._render_family(c))
+
+
+# -- KBT-R012: SLO kind registry ---------------------------------------------
+
+
+def sf(path: str, source: str) -> SourceFile:
+    return SourceFile(path, source, ast.parse(source, path))
+
+
+R012_OBS = """
+class SLOAccountant:
+    KINDS = ("time_to_bind", "queue_wait", "ghost")
+"""
+
+R012_METRICS = """
+_SLO_GAUGES = {
+    "time_to_bind": slo_time_to_bind,
+    "queue_wait": slo_queue_wait,
+    "orphan": slo_orphan,
+}
+_FLEET_SLO_GAUGES = {
+    "time_to_bind": fleet_slo_time_to_bind,
+    "queue_wait": fleet_slo_queue_wait,
+}
+"""
+
+
+def test_registry_slo_kinds_both_directions():
+    files = [
+        sf(registry_consistency.OBS_MODULE, R012_OBS),
+        sf(registry_consistency.METRICS_MODULE, R012_METRICS),
+    ]
+    findings = []
+    registry_consistency._check_slo_kind_registry(files, findings)
+    assert all(f.code == "KBT-R012" for f in findings)
+    syms = sorted((f.symbol, f.path) for f in findings)
+    # "ghost" is a kind with no gauge entry in EITHER map (two findings,
+    # anchored on obs); "orphan" is a gauge key that is not a kind
+    # (anchored on metrics)
+    assert syms == [
+        ("slo_kind:ghost", registry_consistency.OBS_MODULE),
+        ("slo_kind:ghost", registry_consistency.OBS_MODULE),
+        ("slo_kind:orphan", registry_consistency.METRICS_MODULE),
+    ]
+
+
+def test_registry_slo_kinds_compliant_is_clean():
+    files = [
+        sf(registry_consistency.OBS_MODULE, 'class SLOAccountant:\n    KINDS = ("time_to_bind", "queue_wait")\n'),
+        sf(
+            registry_consistency.METRICS_MODULE,
+            '_SLO_GAUGES = {"time_to_bind": a, "queue_wait": b}\n'
+            '_FLEET_SLO_GAUGES = {"time_to_bind": c, "queue_wait": d}\n',
+        ),
+    ]
+    findings = []
+    registry_consistency._check_slo_kind_registry(files, findings)
+    assert findings == []
+
+
+def test_live_tree_slo_kind_registry_is_consistent():
+    kinds = tuple(obs.SLOAccountant.KINDS)
+    assert tuple(metrics._SLO_GAUGES) == kinds
+    assert tuple(metrics._FLEET_SLO_GAUGES) == kinds
 
 
 # -- measured pipeline overlap -----------------------------------------------

@@ -15,12 +15,14 @@ The tolerance is exact: these are bytes and discrete placements.
 
 from __future__ import annotations
 
+import itertools
 import json
 import random
 import time
 
 import pytest
 
+from kube_batch_tpu.apis import types as jax_types
 from kube_batch_tpu.apis import wire as jax_wire
 from kube_batch_tpu.cache import EventHandler as JaxEventHandler
 from kube_batch_tpu.cache import LoopbackBackend as JaxLoopbackBackend
@@ -33,7 +35,7 @@ from kube_batch_tpu.testing import build_queue as jax_build_queue
 from kube_batch_tpu.testing import build_resource_list as jax_build_resource_list
 
 from kube_batch_tpu_torch import faults
-from kube_batch_tpu_torch.apis import wire
+from kube_batch_tpu_torch.apis import types, wire
 from kube_batch_tpu_torch.cache import EventHandler, LoopbackBackend, StaleWrite
 from kube_batch_tpu_torch.cache.store import LEASES, NODES, PODS, QUEUES
 from kube_batch_tpu_torch.federation import write_conf
@@ -64,6 +66,16 @@ def frozen_clock(monkeypatch):
     monkeypatch.setattr(time, "time", lambda: 1_700_000_000.25)
 
 
+@pytest.fixture
+def same_uids(monkeypatch):
+    """ObjectMeta stamps a missing uid from its package's process-wide
+    counter, which every object made earlier in the process advances;
+    start both packages' counters afresh so the seeded objects agree
+    whatever ran before in the same worker."""
+    monkeypatch.setattr(jax_types, "_uid_counter", itertools.count(1))
+    monkeypatch.setattr(types, "_uid_counter", itertools.count(1))
+
+
 def _seeded_objects(mod, kind: str, seed: int) -> list:
     """``CASES`` seeded objects of one kind, made by the package's own
     property-test generator (the same draw sequence in both packages)."""
@@ -87,7 +99,7 @@ def test_kind_tables_and_content_types_match():
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_to_wire_and_binary_frames_are_byte_identical(kind, frozen_clock):
+def test_to_wire_and_binary_frames_are_byte_identical(kind, frozen_clock, same_uids):
     for seed in (0, 7):
         ours = _seeded_objects(wire, kind, seed)
         theirs = _seeded_objects(jax_wire, kind, seed)
@@ -98,7 +110,7 @@ def test_to_wire_and_binary_frames_are_byte_identical(kind, frozen_clock):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_delta_of_is_byte_identical(kind, frozen_clock):
+def test_delta_of_is_byte_identical(kind, frozen_clock, same_uids):
     ours = _seeded_objects(wire, kind, 3)
     theirs = _seeded_objects(jax_wire, kind, 3)
     for i in range(CASES - 1):
@@ -112,7 +124,7 @@ def test_delta_of_is_byte_identical(kind, frozen_clock):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_each_package_decodes_the_others_frames(kind, frozen_clock):
+def test_each_package_decodes_the_others_frames(kind, frozen_clock, same_uids):
     ours = _seeded_objects(wire, kind, 11)
     theirs = _seeded_objects(jax_wire, kind, 11)
     for o, t in zip(ours, theirs):
@@ -131,7 +143,7 @@ def test_each_package_decodes_the_others_frames(kind, frozen_clock):
         assert wire.decode_kind(kind, json.loads(text)) == o
 
 
-def test_self_check_summaries_agree(frozen_clock):
+def test_self_check_summaries_agree(frozen_clock, same_uids):
     ours = wire.self_check(seed=5, cases=6)
     theirs = jax_wire.self_check(seed=5, cases=6)
     assert ours["ok"] and theirs["ok"], (ours["errors"], theirs["errors"])
