@@ -338,19 +338,32 @@
      snapshot on B1 (k = 16), bind for bind, then a churn session with a
      fresh salt on the warm table: ``c_pad`` holds and nothing is built.
      Records the class table's stats, ``group_s``, ``kernel_s``, B3's
-     device time summed over segments (CUDA events) and launches,
-     ``solve_s`` and ``run_once_s`` of both, and B1's time;
+     device time summed over segments (CUDA events around each in-place
+     launch alone) and launches, the cost of a segment inside the solve
+     (``segment_ms_in_solve``: ``kernel_s`` over the launches, host clock
+     from the launch to the overflow read), ``solve_s`` and ``run_once_s``
+     of both, and B1's time;
    - ``classes_50k_5k``: ``preempt_mix(50_000, 5_000)`` compressed against
      B1, bind for bind;
    - ``class_step_vs_plain``: B3 against ``class_step_plain`` (on the CPU)
-     bit for bit on every ``ClassSolveState`` field, on config 7's first
-     segment (timed, CUDA events), on ``_smoke_world()``, on a cut slot
-     axis that overflows, and on both padded to ``CLASS_GLOBAL_CPAD``
-     slots (several a thread, the working state in global memory); its
-     bound counts the bytes the segment's data needs
-     (``class_segment_bytes``); then ``class_step_floor``, B3's time per
-     iteration on ``_smoke_world()``'s 128 slots (the slope between a
-     one-iteration and a whole segment);
+     bit for bit on every ``ClassSolveState`` field, through the
+     functional wrapper and through every in-place launch, on config 7's
+     first segment, on ``_smoke_world()``, on a cut slot axis that
+     overflows, and on both padded to ``CLASS_GLOBAL_CPAD`` slots (several
+     a thread, the working state in global memory). Each is timed twice:
+     B3 alone (``device_ms``: CUDA events around the raw launch of a
+     ``ClassLaunch`` prepared beforehand, each launch on its own copy of
+     the state) and the functional wrapper (``wrapper_ms``: the copy, the
+     argument block, the launch). On config 7's segment also the
+     profiler's device time of ``class_step_kernel`` and B3's latency bound,
+     the probe ``csrc/class_floor.cu`` (built with the kernels, launched
+     only here) at the segment's slots, B3's threads and the segment's
+     iterations. The roofline bound counts the bytes the segment's data
+     needs (``class_segment_bytes``); then ``class_step_floor``, B3's
+     device time per iteration on ``_smoke_world()``'s 128 slots (the
+     slope between a one-iteration and a whole segment; a reading of B3,
+     not its bound), and the split of its fixed cost into the device's
+     part and the wrapper's;
    - ``class_drills``, each on the card and again on the CPU, ending equal:
      (a) serial = fused = ``class_fused`` = ``class_sharded`` (``mesh:
      cuda:2``) over two cycles with arrivals; (b) ``solve.class_table``
@@ -388,12 +401,10 @@ the node-axis work these inputs need) and, for B1, the time per iteration
 of every world it times and a latency bound (``latency_bound_ms``: the
 world's dependent iterations times the kernel's time per iteration on a
 128-node world, measured in the same run); B3's ``latency_bound_ms`` is
-config 7's segment iterations times B3's time per iteration on the
-smallest slot bucket ``class_step_vs_plain`` runs to its end
-(``_smoke_world()``, 128 slots; the overflow case stops at its first
-split), taken as the slope between a one-iteration and a whole segment so
-that the launch's fixed cost (``floor_fixed_ms``) drops out, measured in
-the same run.
+the latency probe's time on config 7's segment (``class_step_vs_plain``),
+measured in the same run, beside its ``device_ms``, ``wrapper_ms``, the
+profiler's device time, its registers and spills (``ptxas``) and its
+slope at 128 slots (``slope_*``).
 
 Any failed phase raises and exits non-zero. Without a CUDA device it exits
 with code 2 before printing any result.
@@ -5438,6 +5449,7 @@ def class_session(cluster, device: str, compress: bool, action=None,
 
         DRIFT[drift] = (act.last_state, solver_inputs(act.last_encoded, (1, 1, 1, 1)))
     stats = dict(act.last_class_stats or {})
+    segment_ms = stats.pop("segment_ms", [])
     ta = dict(act.last_timings)
     rec = {
         "run_once_s": wall_s, "tier": act.last_solver_tier, "binds": len(binds),
@@ -5448,7 +5460,26 @@ def class_session(cluster, device: str, compress: bool, action=None,
     }
     if stats:
         rec["class"] = stats
+    if segment_ms:
+        rec["segment_ms"] = segment_summary(segment_ms)
     return rec, binds, act
+
+
+def segment_summary(ms: list) -> dict:
+    """B3's device time a launch over a session, in launch order: its
+    quantiles and the means of the first and the second half of the
+    launches (config 7's gangs place their first halves before their
+    second halves, which select a job every iteration)."""
+    import numpy as np
+
+    a = np.asarray(ms, dtype=np.float64)
+    half = len(a) // 2
+    return {
+        "launches": int(len(a)), "p10": float(np.quantile(a, 0.1)), "p50": float(np.median(a)),
+        "p90": float(np.quantile(a, 0.9)), "max": float(a.max()),
+        "first_half_mean": float(a[:half].mean()) if half else float(a.mean()),
+        "second_half_mean": float(a[half:].mean()),
+    }
 
 
 def same_binds(name: str, want: dict, got: dict) -> None:
@@ -5508,6 +5539,8 @@ def classes_400k_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[
                               "c_pad", "group_s", "kernel_s")},
         "b3_device_ms": st["kernel_ms"], "b3_launches": comp["b3_launches"],
         "b3_ms_per_segment": st["kernel_ms"] / max(st["launches"], 1),
+        "segment_ms_in_solve": st["kernel_s"] * 1e3 / max(st["launches"], 1),
+        "b3_segment_ms": comp.get("segment_ms"),
         "solve_s": {"compressed": comp["solve_s"], "uncompressed": plain["solve_s"]},
         "run_once_s": {"compressed": comp["run_once_s"], "uncompressed": plain["run_once_s"]},
         "b1_ms": b1_ms, "compressed_over_b1_solve": comp["solve_s"] / plain["solve_s"] if plain["solve_s"] else None,
@@ -5597,17 +5630,144 @@ def class_segment_bytes(ca: dict, state, want, work: dict) -> int:
     return int(nbytes)
 
 
-# B3's time per iteration on the smallest slot bucket, for its latency bound
+# B3's time per iteration on the smallest slot bucket (a reading of B3, not
+# its bound)
 B3_FLOOR: dict = {}
+B3_PROBE_ROWS = 64  # task rows the latency probe cycles through, in shared memory
+B3_PROFILED_RUNS = 3
+_PROBE: dict = {}
+
+
+def probe_library():
+    """The latency probe's library (csrc/class_floor.cu), built by the
+    kernels' route (ops/nvcc.py) into the build directory, and its
+    argument struct."""
+    import ctypes
+
+    from kube_batch_tpu_torch.ops import nvcc
+
+    if not _PROBE:
+        class FloorArgs(ctypes.Structure):
+            _fields_ = ([(f, ctypes.c_int) for f in ("C", "R", "iterations", "rows", "nthreads", "smem_bytes")]
+                        + [(f, ctypes.c_void_p) for f in ("slot_idle", "slot_used", "task_req", "task_res", "out")])
+
+        def bind(lib):
+            lib.kbt_class_floor.argtypes = [ctypes.POINTER(FloorArgs), ctypes.c_int, ctypes.c_void_p]
+            lib.kbt_class_floor.restype = ctypes.c_int
+
+        _PROBE.update(library=nvcc.Library("class_floor", bind), args=FloorArgs)
+    return _PROBE["library"], _PROBE["args"]
+
+
+def b3_latency_probe(ca: dict, state, want, threads: int, runs: int = CLASS_TIMED_RUNS) -> dict:
+    """B3's latency bound: the probe of csrc/class_floor.cu (the dependent
+    chain every single-CTA design pays an iteration: a task row read from
+    shared memory, each slot's row read and scored from shared memory, a
+    block arg-max with one barrier, an owner write) at the segment's slot
+    count, B3's ``threads`` and the segment's iteration count, over its
+    slot rows and popped task rows; the median device time of ``runs``
+    launches after a first, CUDA events around each launch alone."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    library, FloorArgs = probe_library()
+    lib = library.load()
+    dev = torch.device("cuda", 0)
+    C, R = int(state.cmult.shape[0]), int(ca["task_req"].shape[1])
+    iters = int(want.it) - int(state.it)
+    ptr0, ptr1 = state.ptr.cpu().numpy(), want.ptr.cpu().numpy()
+    popped = np.concatenate([np.arange(a, b) for a, b in zip(ptr0, ptr1) if b > a] or [np.zeros(0, np.int64)])
+    popped = popped[:B3_PROBE_ROWS] if popped.size else np.arange(min(B3_PROBE_ROWS, ca["task_req"].shape[0]))
+    rows = torch.from_numpy(popped.astype(np.int64))
+    req = ca["task_req"].cpu()[rows].contiguous().to(dev)
+    res = ca["task_res"].cpu()[rows].contiguous().to(dev)
+    idle, used = state.cidle.contiguous().to(dev), state.cused.contiguous().to(dev)
+    out = torch.zeros(2, dtype=torch.int32, device=dev)
+    smem = 4 * (2 * R * C + 2 * R * int(rows.numel()))
+    args = FloorArgs(C=C, R=R, iterations=iters, rows=int(rows.numel()), nthreads=threads, smem_bytes=smem,
+                     slot_idle=idle.data_ptr(), slot_used=used.data_ptr(), task_req=req.data_ptr(),
+                     task_res=res.data_ptr(), out=out.data_ptr())
+    stream = torch.cuda.current_stream(0).cuda_stream
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(runs + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = lib.kbt_class_floor(ctypes.byref(args), 0, stream)
+        end.record()
+        if err != 0:
+            raise AssertionError(f"the latency probe's launch failed: {library.error(err)}")
+        events.append((start, end))
+    torch.cuda.synchronize()
+    times = [s.elapsed_time(e) for s, e in events]
+    if int(out[0]) < 0 and iters:
+        raise AssertionError("the latency probe's sweep found no fitting slot")
+    ms = statistics.median(times[1:])
+    return {"latency_bound_ms": ms, "probe_ms_per_iteration": ms / max(iters, 1), "probe_runs_ms": times,
+            "probe_threads": threads, "probe_c_pad": C, "probe_iterations": iters,
+            "probe_rows": int(rows.numel())}
+
+
+def b3_in_place(dca: dict, dstate, budget: int, max_iter: int, runs: int) -> tuple[list[float], list]:
+    """B3 alone: ``runs`` launches, each over its own copy of ``dstate``
+    made (and its ``ClassLaunch`` prepared) beforehand, back to back, CUDA
+    events around each launch alone; returns the device times and the
+    states the launches updated in place. Comparison launches: the
+    counter is restored."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import class_solve as cs
+
+    saved = cs.class_step.launches
+    copies = [cs.ClassSolveState(*(x.clone() for x in dstate)) for _ in range(runs)]
+    prepared = [cs.ClassLaunch(dca, s, True, True, budget, max_iter) for s in copies]
+    torch.cuda.synchronize()
+    events = []
+    for launch in prepared:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch.launch()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    cs.class_step.launches = saved
+    return [s.elapsed_time(e) for s, e in events], copies
+
+
+def b3_wrapper(dca: dict, dstate, budget: int, max_iter: int, runs: int) -> tuple[list[float], object]:
+    """The functional wrapper ``class_step`` as the comparisons and tests
+    call it (the state's copy, the argument block, the launch), CUDA events
+    around the call, a synchronise after each; returns its times and the
+    last result. Comparison launches: the counter is restored."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import class_solve as cs
+
+    saved = cs.class_step.launches
+    times, got = [], None
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = cs.class_step(dca, dstate, True, True, budget, max_iter)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    cs.class_step.launches = saved
+    return times, got
 
 
 def b3_iteration_floor(name: str, arrays: dict, runs: int = CLASS_TIMED_RUNS) -> dict:
     """B3's own time per iteration on ``arrays``' entry segment (the
     smallest slot bucket ``class_step_vs_plain`` runs to its end): the
-    slope between a one-iteration segment and the whole segment, each the
-    median of ``runs`` launches after one warm-up (CUDA events), so the
-    launch's fixed cost drops out. Comparison launches: the counter is
-    restored."""
+    slope of the kernel's device time (``b3_in_place``) between a
+    one-iteration segment and the whole segment, each the median of
+    ``runs`` launches after a first, so the launch's fixed cost drops out.
+    The fixed cost splits into its device part (``fixed_ms``: the
+    prologue's loads and the epilogue's write-back) and its host part
+    (``host_fixed_ms``: the functional wrapper's time over the kernel's on
+    the one-iteration segment). A reading of B3, not its bound."""
     import torch
 
     from kube_batch_tpu_torch.ops import class_solve as cs
@@ -5619,39 +5779,62 @@ def b3_iteration_floor(name: str, arrays: dict, runs: int = CLASS_TIMED_RUNS) ->
     dev = torch.device("cuda", 0)
     dca = {k: (v if isinstance(v, float) else v.to(dev)) for k, v in ca.items()}
     dstate = cs.ClassSolveState(*(x.to(dev) for x in state))
-    saved = cs.class_step.launches
     points = []
     for budget in (1, max(int(state.cmult.shape[0]) // 2, 1)):
-        times = []
-        for _ in range(runs + 1):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            got = cs.class_step(dca, dstate, True, True, budget, max_iter)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        points.append((statistics.median(times[1:]), int(got.it) - int(state.it)))
-    cs.class_step.launches = saved
-    (t1, n1), (t2, n2) = points
+        wrapper, got = b3_wrapper(dca, dstate, budget, max_iter, runs + 1)
+        device, _ = b3_in_place(dca, dstate, budget, max_iter, runs + 1)
+        points.append((statistics.median(device[1:]), statistics.median(wrapper[1:]), int(got.it) - int(state.it)))
+    (d1, w1, n1), (d2, w2, n2) = points
     if n2 <= n1:
         raise AssertionError(f"{name}: the whole segment ran {n2} iterations, the one-iteration segment {n1}")
-    per = (t2 - t1) / (n2 - n1)
-    return {"world": name, "c_pad": int(state.cmult.shape[0]), "iterations": [n1, n2], "ms": [t1, t2],
-            "ms_per_iteration": per, "fixed_ms": t1 - n1 * per}
+    per = (d2 - d1) / (n2 - n1)
+    return {"world": name, "c_pad": int(state.cmult.shape[0]), "iterations": [n1, n2], "device_ms": [d1, d2],
+            "wrapper_ms": [w1, w2], "ms_per_iteration": per, "fixed_ms": d1 - n1 * per, "host_fixed_ms": w1 - d1}
+
+
+def same_class_state(name: str, want, got) -> float:
+    """Every ClassSolveState field of ``got`` (any device) equal to
+    ``want``'s (CPU), integers exactly and floats bit for bit; raises
+    otherwise. Returns the largest absolute float difference (0.0)."""
+    import numpy as np
+
+    from kube_batch_tpu_torch.ops import class_solve as cs
+
+    max_abs_err = 0.0
+    for f in cs.ClassSolveState._fields:
+        w, g = getattr(want, f).cpu().numpy(), getattr(got, f).cpu().numpy()
+        if w.dtype != g.dtype or w.shape != g.shape:
+            raise AssertionError(f"{name}: {f} is {g.dtype} {g.shape} on the card, {w.dtype} {w.shape} plain")
+        if w.dtype.kind == "f":
+            if not np.array_equal(w.view(np.uint32), g.view(np.uint32)):
+                bad = np.flatnonzero(w.view(np.uint32).ravel() != g.view(np.uint32).ravel())[:5]
+                raise AssertionError(f"{name}: {f} differs at {bad.tolist()}: card {g.ravel()[bad].tolist()} "
+                                     f"plain {w.ravel()[bad].tolist()}")
+            if w.size:
+                max_abs_err = max(max_abs_err, float(np.abs(w.astype(np.float64) - g).max()))
+        elif not np.array_equal(w, g):
+            bad = np.flatnonzero(w.ravel() != g.ravel())[:5]
+            raise AssertionError(f"{name}: {f} differs at {bad.tolist()}: card {g.ravel()[bad].tolist()} "
+                                 f"plain {w.ravel()[bad].tolist()}")
+    return max_abs_err
 
 
 def class_step_vs_plain(
     name: str, arrays: dict, overflow: bool = False, timed_runs: int = 1, cpad: int | None = None,
+    headline: bool = False,
 ) -> dict:
     """Kernel B3 (card) against class_step_plain (CPU) on one segment
     packed from ``arrays``' entry state, the segment budget the packed
     bucket's half; with ``overflow`` the slot axis cut to its live slots,
     so the first split overflows; with ``cpad`` the slot axis padded with
-    dead slots to ``cpad`` (past 1,024 slots a thread owns several, and
+    dead slots to ``cpad`` (past the threads a thread owns several, and
     past the shared-memory budget the working state is in global
     memory). Every ClassSolveState field equal, integers exactly and
-    floats bit for bit; raises otherwise."""
-    import numpy as np
+    floats bit for bit, for the functional wrapper and for every in-place
+    launch; raises otherwise. Times B3 alone (``device_ms``, the median
+    of the in-place launches after a first) and the functional wrapper
+    (``wrapper_ms``). With ``headline``: also the profiler's device time
+    of B3 (``profiler_device_ms``) and the latency probe's bound."""
     import torch
 
     from kube_batch_tpu_torch.analysis.trace import no_sync
@@ -5680,43 +5863,38 @@ def class_step_vs_plain(
     torch.cuda.synchronize()
     with no_sync():  # the launch alone, inputs on the card: no torch-side sync
         cs.class_step(dca, dstate, True, True, budget, max_iter)
-    times = []
-    for _ in range(timed_runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        got = cs.class_step(dca, dstate, True, True, budget, max_iter)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    cs.class_step.launches = saved  # comparison launches are not a main path's
-    max_abs_err = 0.0
-    for f in cs.ClassSolveState._fields:
-        w, g = getattr(want, f).numpy(), getattr(got, f).cpu().numpy()
-        if w.dtype != g.dtype or w.shape != g.shape:
-            raise AssertionError(f"{name}: {f} is {g.dtype} {g.shape} on the card, {w.dtype} {w.shape} plain")
-        if w.dtype.kind == "f":
-            if not np.array_equal(w.view(np.uint32), g.view(np.uint32)):
-                bad = np.flatnonzero(w.view(np.uint32).ravel() != g.view(np.uint32).ravel())[:5]
-                raise AssertionError(f"{name}: {f} differs at {bad.tolist()}: card {g.ravel()[bad].tolist()} "
-                                     f"plain {w.ravel()[bad].tolist()}")
-            if w.size:
-                max_abs_err = max(max_abs_err, float(np.abs(w.astype(np.float64) - g).max()))
-        elif not np.array_equal(w, g):
-            bad = np.flatnonzero(w.ravel() != g.ravel())[:5]
-            raise AssertionError(f"{name}: {f} differs at {bad.tolist()}: card {g.ravel()[bad].tolist()} "
-                                 f"plain {w.ravel()[bad].tolist()}")
+        cs.class_step_inplace(dca, cs.ClassSolveState(*(x.clone() for x in dstate)), True, True, budget, max_iter)
+    cs.class_step.launches = saved
+    wrapper, got = b3_wrapper(dca, dstate, budget, max_iter, timed_runs)
+    device, updated = b3_in_place(dca, dstate, budget, max_iter, max(timed_runs, 2))
+    max_abs_err = same_class_state(name, want, got)
+    for k, s in enumerate(updated):
+        same_class_state(f"{name}, in-place launch {k}", want, s)
+    rec_extra: dict = {}
+    if headline:
+        copies = [cs.ClassSolveState(*(x.clone() for x in dstate)) for _ in range(B3_PROFILED_RUNS)]
+        prepared = iter([cs.ClassLaunch(dca, s, True, True, budget, max_iter) for s in copies])
+        rec_extra["profiler_device_ms"] = kernel_device_ms(lambda: next(prepared).launch(), B3_PROFILED_RUNS,
+                                                           "class_step_kernel")
+        cs.class_step.launches = saved
     if overflow and not bool(want.overflow):
         raise AssertionError(f"{name}: the cut slot axis did not overflow")
     C, R = int(state.cmult.shape[0]), int(ca["task_req"].shape[1])
-    threads, smem_bytes, in_smem = cs.geometry(C, int(ca["queue_rank"].shape[0]), R)
+    threads, smem_bytes, in_smem = cs.geometry(C, int(ca["queue_rank"].shape[0]), R, int(ca["compat"].shape[0]),
+                                                int(ca["job_min"].shape[0]))
     if cpad is not None and cpad > cs.MAX_THREADS and threads >= C:
         raise AssertionError(f"{name}: {C} slots on {threads} threads is no stride")
+    if headline:
+        t0 = time.perf_counter()
+        rec_extra.update(b3_latency_probe(ca, state, want, threads))
+        rec_extra["probe_s"] = time.perf_counter() - t0  # the probe's library load and its launches
     iters = int(want.it) - int(state.it)
     nbytes = class_segment_bytes(ca, state, want, work)
     ops = work.get("fit_slots", 0) * FIT_OPS_PER_DIM * R + work.get("scored_slots", 0) * CLASS_SCORE_OPS_PER_SLOT
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP32_OPS_PER_S * 1e3
-    ms = times[-1] if timed_runs == 1 else statistics.median(times[1:])
+    device_ms = device[-1] if len(device) < 3 else statistics.median(device[1:])
+    wrapper_ms = wrapper[-1] if timed_runs == 1 else statistics.median(wrapper[1:])
     return {
         "world": name, "T": int(ca["task_req"].shape[0]), "N": int(ca["members_sorted"].shape[0]),
         "C": int(state.free_ptr), "c_pad": C, "seg_budget": budget, "R": R,
@@ -5724,10 +5902,11 @@ def class_step_vs_plain(
         "iterations": iters, "assigned": int(want.step) - int(state.step),
         "splits": int(want.free_ptr) - int(state.free_ptr),
         "overflow": bool(want.overflow), "paused_at": int(want.paused_at),
-        "ms": ms, "ms_per_iteration": ms / max(iters, 1), "first_ms": times[0], "runs_ms": times,
+        "device_ms": device_ms, "ms_per_iteration": device_ms / max(iters, 1), "device_runs_ms": device,
+        "wrapper_ms": wrapper_ms, "wrapper_runs_ms": wrapper,
         "plain_ms": plain_ms, "max_abs_err": max_abs_err, "bytes": nbytes, "ops": ops, **work,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "match": True, "launch_without_sync": True,
+        "match": True, "in_place_match": len(updated), "launch_without_sync": True, **rec_extra,
     }
 
 
@@ -5938,7 +6117,7 @@ def class_phases(device: str = "cuda", cut: int = 1) -> tuple[list[str], dict, l
             cases[:0] = [("uniform_pool_400k_40k_segment", big, False, CLASS_TIMED_RUNS, None),
                          ("uniform_pool_400k_40k_segment_global", big, False, 3, CLASS_GLOBAL_CPAD)]
         for name, arrays, overflow, runs, cpad in cases:
-            rec = class_step_vs_plain(name, arrays, overflow, runs, cpad)
+            rec = class_step_vs_plain(name, arrays, overflow, runs, cpad, headline=name.endswith("_40k_segment"))
             if cpad is not None and rec["in_smem"]:
                 raise AssertionError(f"{name}: {cpad} slots did not take B3's global-memory form")
             b3.append(rec)
@@ -6053,7 +6232,7 @@ def classes_only(card: str, kind: str) -> int:
     from kube_batch_tpu_torch.ops import nvcc
 
     t_start = time.perf_counter()
-    logs = nvcc.build(["fused_solve", "block_step", "class_step"])
+    logs = nvcc.build(["fused_solve", "block_step", "class_step", "class_floor"])
     fs._library.load()
     bs._library.load()
     cs._library.load()
@@ -6335,7 +6514,7 @@ def main(argv: list[str]) -> int:
 
     native_thread = threading.Thread(target=build_native)
     native_thread.start()  # g++ beside the nvcc processes
-    logs = nvcc.build(["fused_solve", "block_step", "class_step"])
+    logs = nvcc.build(["fused_solve", "block_step", "class_step", "class_floor"])
     fs._library.load()
     bs._library.load()
     cs._library.load()
@@ -6537,7 +6716,7 @@ def main(argv: list[str]) -> int:
     if b3_by_path.get("classes_400k_40k", 0) < 1:
         raise AssertionError("the class-compressed main path launched B3 no time")
     b3_head = b3[0]
-    b3_latency_bound_ms = b3_head["iterations"] * B3_FLOOR["ms_per_iteration"]
+    b3_ptxas = {r["function"]: r for r in ptxas_summary(logs.get("class_step", ""))}
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
     b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 
@@ -6598,25 +6777,34 @@ def main(argv: list[str]) -> int:
             "launches": sum(b3_by_path.values()),
             "launches_by_path": b3_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in b3),
-            "ms": b3_head["ms"],
+            "ms": b3_head["device_ms"],
             "plain_ms": b3_head["plain_ms"],
             "bound_ms": b3_head["bound_ms"],
             "bound_by": b3_head["bound_by"],
             "library_ms": None,
             "world": b3_head["world"] + ", one segment from the entry state",
+            "device_ms": b3_head["device_ms"],
+            "wrapper_ms": b3_head["wrapper_ms"],
+            "profiler_device_ms": b3_head.get("profiler_device_ms"),
             "c_pad": b3_head["c_pad"],
             "threads": b3_head["threads"],
             "in_smem": b3_head["in_smem"],
+            "working_bytes": b3_head["working_bytes"],
             "iterations": b3_head["iterations"],
             "ms_per_iteration": b3_head["ms_per_iteration"],
-            "latency_bound_ms": b3_latency_bound_ms,
-            "floor_ms_per_iteration": B3_FLOOR["ms_per_iteration"],
-            "floor_fixed_ms": B3_FLOOR["fixed_ms"],
-            "floor_world": B3_FLOOR["world"],
-            "floor_c_pad": B3_FLOOR["c_pad"],
+            "latency_bound_ms": b3_head["latency_bound_ms"],
+            "latency_bound_by": "csrc/class_floor.cu at the segment's slots, threads and iterations",
+            "share_of_latency_bound": b3_head["latency_bound_ms"] / b3_head["device_ms"],
+            "ptxas": list(b3_ptxas.values()),
+            "slope_ms_per_iteration": B3_FLOOR["ms_per_iteration"],
+            "slope_fixed_ms": B3_FLOOR["fixed_ms"],
+            "slope_host_fixed_ms": B3_FLOOR["host_fixed_ms"],
+            "slope_world": B3_FLOOR["world"],
+            "slope_c_pad": B3_FLOOR["c_pad"],
             "inputs": [
                 {key: r[key] for key in (
-                    "world", "c_pad", "threads", "in_smem", "iterations", "ms", "plain_ms", "bound_ms", "bytes",
+                    "world", "c_pad", "threads", "in_smem", "iterations", "device_ms", "wrapper_ms", "plain_ms",
+                    "bound_ms", "bytes",
                     "overflow")}
                 for r in b3
             ],

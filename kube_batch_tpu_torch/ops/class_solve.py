@@ -30,9 +30,12 @@ granularity:
   split members whose rows re-converged **re-merge**, and a node whose
   static key changed is re-keyed (``class_table_splits_total``).
 
-``class_step`` launches kernel B3 (csrc/class_step.cu: one persistent CTA
-runs a whole segment) for CUDA tensors and runs ``class_step_plain``, the
-plain torch version, for CPU tensors. ``ClassCompressedSolver`` speaks the
+Kernel B3 (csrc/class_step.cu: one persistent CTA runs a whole segment)
+runs through ``ClassLaunch``, prepared once over a state's buffers and
+launched in place (the solver's path; CPU tensors run ``class_step_plain``,
+the plain torch version, and copy its result in); ``class_step`` is the
+functional form (a copy, then the launch) for comparisons and tests.
+``ClassCompressedSolver`` speaks the
 node-space ``SolveState`` at every boundary, so the action's pause loop,
 host step, replay and explain run unchanged; with a mesh the class table
 lives on the mesh's first device. ``wrap_solver`` puts the layer over the
@@ -79,7 +82,8 @@ R8 = 8  # the kernel's largest resource rank
 MAX_PORTS = 31  # host ports ride an int32 bitmask per slot in the kernel
 SMEM_OPTIN = 232_448  # the most shared memory one H100 CTA may take (227 KB)
 SMEM_BUDGET = SMEM_OPTIN - 4_096  # kept back for the kernel's static shared memory
-MAX_THREADS = 1024
+MAX_THREADS = 256  # B3's largest CTA (its __launch_bounds__)
+SLOTS_PER_THREAD = 4  # slots a thread sweeps before the CTA grows past 128 threads
 
 
 def enabled() -> bool:
@@ -492,19 +496,24 @@ def class_step_plain(
 
 # -- kernel B3: build, bind, launch -------------------------------------------
 
-# ca's fields, in the kernel's argument order, with the dtype each is read as.
+# ca's fields as the solver uploads them, with their dtypes.
+_CA_DTYPES = {
+    "task_req": torch.float32, "task_res": torch.float32, "task_gid": torch.int32, "task_has_sc": torch.bool,
+    "task_res_has_sc": torch.bool, "task_host_only": torch.bool, "task_ports": torch.bool,
+}
+# The fields the kernel reads, in its argument order, with the dtype each
+# is read as (``task_pack``: ``pack_tasks`` of the task fields).
 _CA_FIELDS = (
-    ("task_req", torch.float32), ("task_res", torch.float32), ("task_gid", torch.int32),
-    ("task_has_sc", torch.bool), ("task_res_has_sc", torch.bool), ("task_host_only", torch.bool),
-    ("task_ports", torch.bool), ("job_end", torch.int32), ("job_min", torch.int32),
+    ("task_pack", torch.int32), ("job_end", torch.int32), ("job_min", torch.int32),
     ("job_queue", torch.int32), ("job_prio", torch.int32), ("job_rank", torch.int32),
     ("queue_rank", torch.int32), ("q_deserved", torch.float32), ("q_dims", torch.bool),
     ("drf_total", torch.float32), ("drf_dims", torch.bool), ("compat", torch.bool),
     ("aff_sc", torch.float32), ("eps", torch.float32), ("members_sorted", torch.int32),
 )
+_CA_DTYPES.update(_CA_FIELDS)
 _DIM_FIELDS = (
     "T", "N", "J", "Q", "C", "GT", "GN", "R", "P", "max_iter", "drf", "proportion", "seg_budget",
-    "in_smem", "smem_bytes", "nthreads",
+    "in_smem", "smem_bytes", "nthreads", "task_words",
 )
 
 
@@ -528,22 +537,71 @@ def _bind(lib) -> None:
 _library = nvcc.Library("class_step", _bind)
 
 
-def slot_words(R: int) -> int:
+def slot_words(R: int, GT: int = 1) -> int:
     """32-bit words of the kernel's working state per slot: idle, releasing
-    and used rows, pod count, port mask, multiplicity, tie row and member
-    cursor, and the statics the sweep reads (the two capacity columns, the
-    feasibility bit, the pod cap, the two scalar-map flags, the group)."""
-    return 3 * R + 11
+    and used rows, pod count, port mask, multiplicity, tie row, member
+    cursor and the next member's row, the statics the sweep reads (the two
+    capacity columns, the flags, the pod cap), the slot it split from, and
+    per task group the staged compat bit, affinity score and
+    InterPodAffinity column."""
+    return 3 * R + 11 + 3 * GT
 
 
-def geometry(C: int, Q: int, R: int) -> tuple[int, int, bool]:
-    """(threads, working-state bytes, in shared memory): one CTA of one
-    thread per slot, at least 128 and at most 1,024 (a stride past that);
-    the working state of every slot and the per-queue active-job counts in
-    shared memory where they fit, else in a global scratch buffer."""
-    threads = min(MAX_THREADS, max(128, -(-C // 32) * 32))
-    nbytes = 4 * (slot_words(R) * C + Q)
+def job_words(R: int) -> int:
+    """Words of the kernel's job table per job: active, queue, -priority,
+    ready count, gang minimum, rank, task pointer, task end, drf share and
+    the drf row."""
+    return 9 + R
+
+
+def queue_words(R: int) -> int:
+    """Words of the kernel's queue table per queue: the active-job count,
+    rank, dropped, scalar-map flag, overused verdict and proportion share,
+    and the allocated, deserved and dims rows."""
+    return 6 + 3 * R
+
+
+def geometry(C: int, Q: int, R: int, GT: int = 1, J: int = 0) -> tuple[int, int, bool]:
+    """(threads, working-state bytes, in shared memory): one CTA of up to
+    ``SLOTS_PER_THREAD`` slots a thread, at least 128 and at most
+    ``MAX_THREADS`` threads (more slots a thread past that); the working
+    state of every slot with its staged group tables, the job table and
+    the queue table in shared memory where they fit, else in a global
+    scratch buffer."""
+    threads = min(MAX_THREADS, max(128, -(-C // (32 * SLOTS_PER_THREAD)) * 32))
+    nbytes = 4 * (slot_words(R, GT) * C + job_words(R) * J + queue_words(R) * Q)
     return threads, nbytes, nbytes <= SMEM_BUDGET
+
+
+def task_words(R: int) -> int:
+    """32-bit words of one packed task row: 2R + 3, rounded up to 16 bytes."""
+    return -(-(2 * R + 3) // 4) * 4
+
+
+def pack_tasks(ca: dict) -> torch.Tensor:
+    """[T, task_words(R)] int32 on the tasks' device: each task's row as
+    kernel B3's ring copies it, 16 bytes at a time: the request and
+    resource rows as float32 bits, the group, the flags (bit 0 a scalar
+    request, bit 1 scalar resources, bit 2 host-only) and the host-port
+    bitmask, then zeros. Torch ops on the device; reads nothing back."""
+    req = ca["task_req"].to(torch.float32).contiguous()
+    res = ca["task_res"].to(torch.float32).contiguous()
+    ports = ca["task_ports"]
+    T, R = req.shape
+    P = ports.shape[1]
+    out = torch.zeros((T, task_words(R)), dtype=torch.int32, device=req.device)
+    out[:, :R] = req.view(torch.int32)
+    out[:, R : 2 * R] = res.view(torch.int32)
+    out[:, 2 * R] = ca["task_gid"].to(torch.int32)
+    out[:, 2 * R + 1] = (
+        ca["task_has_sc"].to(torch.int32)
+        | (ca["task_res_has_sc"].to(torch.int32) << 1)
+        | (ca["task_host_only"].to(torch.int32) << 2)
+    )
+    if P:
+        bits = torch.arange(P, dtype=torch.int32, device=req.device)
+        out[:, 2 * R + 2] = (ports.to(torch.int32) << bits).sum(dim=1, dtype=torch.int32)
+    return out
 
 
 class ClassKernelError(RuntimeError):
@@ -570,68 +628,129 @@ def _host_side(what: str):
         raise ClassTableError(f"{what}: {type(e).__name__}: {e}") from e
 
 
+class ClassLaunch:
+    """Kernel B3's launch over one segment state, prepared once: the
+    argument block points into ``cs``'s own buffers (and ``ca``'s), so each
+    ``launch()`` runs one segment that updates ``cs`` in place on the
+    stream that was current when the launch was prepared. An overflowing
+    iteration commits nothing, so after any launch ``cs`` is a valid
+    segment entry. Prepare it again when the state's buffers change (a
+    re-bucket); ``set_budget`` changes the segment budget between launches.
+    CPU tensors run ``class_step`` (the plain version) and copy its result
+    into ``cs``. Raises ``KernelBuildError`` when B3 cannot be built, and
+    ``ClassKernelError`` for another device, inputs the kernel refuses and
+    a refused launch. Reads nothing back from the card."""
+
+    def __init__(
+        self, ca: dict, cs: ClassSolveState, enable_drf: bool, enable_proportion: bool, seg_budget: int,
+        max_iter: int,
+    ) -> None:
+        self.ca, self.state = ca, cs
+        self.enable_drf, self.enable_proportion = enable_drf, enable_proportion
+        self.seg_budget, self.max_iter = int(seg_budget), int(max_iter)
+        self.lib = None
+        device = cs.cmult.device
+        if device.type == "cpu":
+            return
+        if device.type != "cuda":
+            raise ClassKernelError(f"class_step runs on cuda or cpu, not {device.type}")
+        self.lib = _library.load()
+        T, R = ca["task_req"].shape
+        P = ca["task_ports"].shape[1]
+        C = cs.cmult.shape[0]
+        Q = ca["queue_rank"].shape[0]
+        if R > R8:
+            raise ClassKernelError(f"resource rank {R} exceeds the class kernel's limit of {R8}")
+        if P > MAX_PORTS:
+            raise ClassKernelError(f"{P} host ports exceed the class kernel's limit of {MAX_PORTS}")
+        GT = ca["compat"].shape[0]
+        threads, nbytes, in_smem = geometry(C, Q, R, GT, ca["job_min"].shape[0])
+
+        def ptr(x: torch.Tensor, dtype) -> int:
+            if x.device != device or x.dtype != dtype or not x.is_contiguous():
+                raise ClassKernelError(
+                    f"class_step: a {x.dtype} tensor on {x.device} (contiguous: {x.is_contiguous()}), "
+                    f"expected a contiguous {dtype} tensor on {device}"
+                )
+            return x.data_ptr()
+
+        if "task_pack" not in ca:
+            ca = {**ca, "task_pack": pack_tasks(ca)}
+        args = _Args(
+            T=T, N=ca["members_sorted"].shape[0], J=ca["job_min"].shape[0], Q=Q, C=C,
+            GT=GT, GN=ca["compat"].shape[1], R=R, P=P,
+            max_iter=int(max_iter),
+            drf=int(bool(enable_drf)), proportion=int(bool(enable_proportion)), seg_budget=int(seg_budget),
+            in_smem=int(in_smem), smem_bytes=nbytes, nthreads=threads, task_words=task_words(R),
+            w_least=float(ca["w_least"]), w_balanced=float(ca["w_balanced"]),
+            w_aff=float(ca["w_aff"]), w_podaff=float(ca["w_podaff"]),
+        )
+        for name, dtype in _CA_FIELDS:
+            setattr(args, name, ptr(ca[name], dtype))
+        for name in ClassSolveState._fields:
+            setattr(args, name, ptr(getattr(cs, name), _STATE_DTYPES[name]))
+        self.scratch = None
+        if not in_smem:
+            # kept with the launch: the caching allocator hands it out again
+            # only after the launch is dropped
+            self.scratch = torch.empty(nbytes // 4, dtype=torch.int32, device=device)
+            args.scratch = self.scratch.data_ptr()
+        self.ca, self.args = ca, args
+        self.threads, self.smem_bytes, self.in_smem = threads, nbytes, in_smem
+        self.index = torch.cuda.current_device() if device.index is None else device.index
+        self.stream = torch.cuda.current_stream(self.index).cuda_stream
+        self._ref = ctypes.byref(args)
+
+    def set_budget(self, seg_budget: int) -> None:
+        self.seg_budget = int(seg_budget)
+        if self.lib is not None:
+            self.args.seg_budget = self.seg_budget
+
+    def launch(self) -> None:
+        """One segment, in place: on a card the raw launch, its error check
+        and the launch count; on the CPU the plain version, copied in."""
+        if self.lib is None:
+            out = class_step(self.ca, self.state, self.enable_drf, self.enable_proportion, self.seg_budget,
+                             self.max_iter)
+            for x, y in zip(self.state, out):
+                x.copy_(y)
+            return
+        err = self.lib.kbt_class_step(self._ref, self.index, self.stream)
+        if err != 0:
+            raise ClassKernelError(f"class_step launch failed: {_library.error(err)}")
+        class_step.launches += 1
+
+
+def class_step_inplace(
+    ca: dict, cs: ClassSolveState, enable_drf: bool, enable_proportion: bool, seg_budget: int,
+    max_iter: int,
+) -> ClassSolveState:
+    """One class-compressed segment that updates ``cs`` in place (a
+    ``ClassLaunch`` prepared and launched once); returns ``cs``."""
+    ClassLaunch(ca, cs, enable_drf, enable_proportion, seg_budget, max_iter).launch()
+    return cs
+
+
 def class_step(
     ca: dict, cs: ClassSolveState, enable_drf: bool, enable_proportion: bool, seg_budget: int,
     max_iter: int,
 ) -> ClassSolveState:
     """One class-compressed segment. CUDA tensors launch kernel B3 on their
-    device's current stream and return a new state on that device (the
-    input is not modified); CPU tensors run ``class_step_plain``. A build
-    failure raises ``KernelBuildError``; any other device, inputs the
-    kernel refuses and a launch failure raise ``ClassKernelError``.
-    ``max_iter`` is ``max_iterations`` of the snapshot, computed by the
-    caller on the host: the launch itself reads nothing back from the
-    card (the plain version computes its own)."""
+    device's current stream over a copy of the state and return the copy
+    (the input is not modified; ``class_step_inplace`` without the copy);
+    CPU tensors run ``class_step_plain``. A build failure raises
+    ``KernelBuildError``; any other device, inputs the kernel refuses and
+    a launch failure raise ``ClassKernelError``. ``max_iter`` is
+    ``max_iterations`` of the snapshot, computed by the caller on the
+    host: the launch itself reads nothing back from the card (the plain
+    version computes its own)."""
     device = cs.cmult.device
     if device.type == "cpu":
         return class_step_plain(ca, cs, enable_drf, enable_proportion, seg_budget)
     if device.type != "cuda":
         raise ClassKernelError(f"class_step runs on cuda or cpu, not {device.type}")
-    lib = _library.load()
-    T, R = ca["task_req"].shape
-    P = ca["task_ports"].shape[1]
-    C = cs.cmult.shape[0]
-    Q = ca["queue_rank"].shape[0]
-    if R > R8:
-        raise ClassKernelError(f"resource rank {R} exceeds the class kernel's limit of {R8}")
-    if P > MAX_PORTS:
-        raise ClassKernelError(f"{P} host ports exceed the class kernel's limit of {MAX_PORTS}")
-    threads, nbytes, in_smem = geometry(C, Q, R)
-    def ptr(x: torch.Tensor, dtype) -> int:
-        if x.device != device or x.dtype != dtype or not x.is_contiguous():
-            raise ClassKernelError(
-                f"class_step: a {x.dtype} tensor on {x.device} (contiguous: {x.is_contiguous()}), "
-                f"expected a contiguous {dtype} tensor on {device}"
-            )
-        return x.data_ptr()
-
-    # the kernel updates the state in place: a copy, so the caller's is kept
     out = ClassSolveState(*(x.clone(memory_format=torch.contiguous_format) for x in cs))
-    args = _Args(
-        T=T, N=ca["members_sorted"].shape[0], J=ca["job_min"].shape[0], Q=Q, C=C,
-        GT=ca["compat"].shape[0], GN=ca["compat"].shape[1], R=R, P=P,
-        max_iter=int(max_iter),
-        drf=int(bool(enable_drf)), proportion=int(bool(enable_proportion)), seg_budget=int(seg_budget),
-        in_smem=int(in_smem), smem_bytes=nbytes, nthreads=threads,
-        w_least=float(ca["w_least"]), w_balanced=float(ca["w_balanced"]),
-        w_aff=float(ca["w_aff"]), w_podaff=float(ca["w_podaff"]),
-    )
-    for name, dtype in _CA_FIELDS:
-        setattr(args, name, ptr(ca[name], dtype))
-    for name in ClassSolveState._fields:
-        setattr(args, name, ptr(getattr(out, name), _STATE_DTYPES[name]))
-    if not in_smem:
-        # freed on return: the caching allocator hands it out again only to
-        # work queued on this stream after the kernel
-        scratch = torch.empty(nbytes // 4, dtype=torch.int32, device=device)
-        args.scratch = scratch.data_ptr()
-    index = torch.cuda.current_device() if device.index is None else device.index
-    stream = torch.cuda.current_stream(index).cuda_stream
-    err = lib.kbt_class_step(ctypes.byref(args), index, stream)
-    if err != 0:
-        raise ClassKernelError(f"class_step launch failed: {_library.error(err)}")
-    class_step.launches += 1
-    return out
+    return class_step_inplace(ca, out, enable_drf, enable_proportion, seg_budget, max_iter)
 
 
 class_step.launches = 0
@@ -711,12 +830,14 @@ class ClassCompressedSolver:
         self.kernel_s = 0.0
         self.c_pad = 0
         self.launches = 0  # B3 launches (or plain segments on the CPU)
-        self.kernel_ms = 0.0  # B3's device time summed over segments (CUDA events)
+        self.kernel_ms = 0.0  # B3's device time summed over segments (CUDA events around each launch)
+        self.segment_ms: list[float] = []  # B3's device time of each launch, in order
         self._slot_of: np.ndarray | None = None
         self._entry_C = 0
         self._members_sorted: np.ndarray | None = None
         self._ca_base: dict | None = None
         self._max_iter: int | None = None  # the solve's iteration bound, on the host
+        self._launch: ClassLaunch | None = None  # B3's prepared launch over the segment's state
 
     # -- node-space <-> class-space -----------------------------------------
 
@@ -823,7 +944,7 @@ class ClassCompressedSolver:
         snapshot's task, job and queue arrays (uploaded once a solve) and
         the member list of this segment's grouping."""
         if self._ca_base is None:
-            dtypes = dict(_CA_FIELDS)
+            dtypes = _CA_DTYPES
             base = {}
             for k in _CA_KEYS:
                 v = self.arrays[k]
@@ -832,6 +953,8 @@ class ClassCompressedSolver:
                     continue
                 x = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
                 base[k] = x.to(device=self.device, dtype=dtypes[k]).contiguous()
+            if self.device.type == "cuda":
+                base["task_pack"] = pack_tasks(base)  # B3's task rows, packed once a solve
             self._ca_base = base
         ca = dict(self._ca_base)
         ca["members_sorted"] = torch.from_numpy(self._members_sorted).to(self.device)
@@ -885,27 +1008,49 @@ class ClassCompressedSolver:
     # -- the solve surface ----------------------------------------------------
 
     def _segment(self, ca: dict, cs: ClassSolveState, seg_budget: int) -> ClassSolveState:
-        """One B3 launch (or plain segment), its device time on a card."""
+        """One segment that updates ``cs`` in place and returns it: one B3
+        launch on a card (the plain version on the CPU), its ``ClassLaunch``
+        prepared once per state (a segment loop's, or a re-bucket's); on a
+        card its device time (CUDA events around the launch alone) adds to
+        ``kernel_ms``."""
+        launch = self._launch
+        if launch is None or launch.state is not cs:
+            launch = self._launch = ClassLaunch(
+                ca, cs, self.enable_drf, self.enable_proportion, seg_budget, self._max_iter)
+        launch.set_budget(seg_budget)
         if cs.cmult.device.type != "cuda":
+            launch.launch()
             self.launches += 1
-            return class_step(ca, cs, self.enable_drf, self.enable_proportion, seg_budget, self._max_iter)
+            return cs
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = class_step(ca, cs, self.enable_drf, self.enable_proportion, seg_budget, self._max_iter)
+        launch.launch()
         end.record()
         try:
             end.synchronize()  # an asynchronous CUDA error surfaces here
         except Exception as e:
             raise ClassKernelError(f"class_step failed on {cs.cmult.device}: {type(e).__name__}: {e}") from e
+        ms = start.elapsed_time(end)
         self.launches += 1
-        self.kernel_ms += start.elapsed_time(end)
-        return out
+        self.kernel_ms += ms
+        self.segment_ms.append(ms)
+        return cs
+
+    def _own(self, st):
+        """``st`` with its tensors on the solver's device copied: a segment
+        updates its state in place, and the state's job, queue and task
+        fields enter the first segment as they are."""
+        return st._replace(**{
+            f: x.clone() for f, x in zip(st._fields, st)
+            if isinstance(x, torch.Tensor) and x.device == self.device
+        })
 
     def solve(self, st=None) -> SolveState:
         if st is None:
             st = self._init_node_state()
         max_iter = self._max_iter = max_iterations(self.arrays)
         self._ca_base = None  # the arrays may differ from the last solve's
+        st = self._own(st)
         while True:
             cs = self._pack(st)
             ca = self._ca()
@@ -928,6 +1073,7 @@ class ClassCompressedSolver:
                 or int(st.it) >= max_iter
                 or (int(st.cur) < 0 and not bool(st.job_active.any()))
             ):
+                self._launch = None
                 return st._replace(**{f: getattr(st, f).detach().cpu() for f in _TASK_FIELDS})
             # segment budget exhausted mid-solve: loop back through _pack so
             # equivalent occupied nodes re-merge and the slot axis stays small
@@ -982,6 +1128,7 @@ def wrap_solver(action, inner, arrays: dict, enable_drf: bool, enable_proportion
         stats = solver.stats()
         stats["launches"] = solver.launches
         stats["kernel_ms"] = solver.kernel_ms
+        stats["segment_ms"] = list(solver.segment_ms)
         action.last_class_stats = stats
         metrics.set_class_solve_classes(stats["class_count"])
         metrics.set_class_solve_compression_ratio(stats["compression_ratio"])

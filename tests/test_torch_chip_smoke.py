@@ -45,3 +45,21 @@ def test_cycle_log_counts_only_the_pending_tasks_of_jobs_the_gate_keeps(tmp_path
         (200, "fused"), (0, "none"), (0, "none"), (8, "fused")]
     log.check("probe")
     assert not log.errors
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A second top-level ``def`` or assignment of a name in chip_smoke.py
+    silently replaces the first for every caller in the module (a helper
+    for ClassSolveState once shadowed the SolveState comparison of the
+    sharded phases, and the card run failed there)."""
+    import ast
+    import collections
+
+    tree = ast.parse(open(chip_smoke.__file__).read())
+    names = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    assert [name for name, n in names.items() if n > 1] == []

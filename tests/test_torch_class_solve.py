@@ -73,7 +73,7 @@ ENV = cs.ENV
 
 N_SMOKE_NODES = 4 * 18
 # stats() keys that are timings or name the rung, not the class table
-_NOT_COMPARED = ("group_s", "kernel_s", "rung", "launches", "kernel_ms")
+_NOT_COMPARED = ("group_s", "kernel_s", "rung", "launches", "kernel_ms", "segment_ms")
 
 
 @pytest.fixture(autouse=True)
@@ -518,6 +518,65 @@ def test_warm_churn_sessions_zero_rebuilds():
     assert action.last_class_stats["compression_ratio"] > 10
     assert action.last_class_stats["rekeys"] >= 0
     assert action._class_table.rebuilds == 1  # one cold dedup, then warm refreshes
+
+
+# -- the solver's in-place segments against the functional path --------------
+
+
+def _functional_segment(self, ca, state, seg_budget):
+    """The solver's segment through the functional ``class_step``: a new
+    state a segment, the input left as it was."""
+    self.launches += 1
+    return cs.class_step(ca, state, self.enable_drf, self.enable_proportion, seg_budget, self._max_iter)
+
+
+def _cut_pack(real):
+    """``ClassCompressedSolver._pack`` with the slot axis cut to its live
+    slots, so a segment's first split overflows and the solver re-buckets."""
+
+    def pack(self, st):
+        state = real(self, st)
+        fp = int(state.free_ptr)
+        cut = {f: getattr(state, f)[:fp].clone() for f in cs.SLOT_FIELDS if f != "cpod_sc"}
+        cut["cpod_sc"] = state.cpod_sc[:, :fp].clone()
+        return state._replace(**cut)
+
+    return pack
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_in_place_solver_binds_and_stats_equal_the_functional_path(monkeypatch, case):
+    """A compressed torch_allocate session over each segment case's world
+    binds the same through the solver's in-place segments (one
+    ``ClassLaunch`` a state, on the CPU the plain version copied in) as
+    through the functional ``class_step``, with equal ``stats()`` and
+    launch counts; ``smoke_overflow`` packs its slot axis cut to the live
+    slots, so the in-place path re-buckets the state it updated."""
+    world = SEGMENT_CASES[case][0]
+    rebuckets = []
+    real_rebucket = cs.ClassCompressedSolver._rebucket
+
+    def counting(self, state):
+        rebuckets.append(int(state.cmult.shape[0]))
+        return real_rebucket(self, state)
+
+    monkeypatch.setattr(cs.ClassCompressedSolver, "_rebucket", counting)
+    if SEGMENT_CASES[case][7]:
+        monkeypatch.setattr(cs.ClassCompressedSolver, "_pack", _cut_pack(cs.ClassCompressedSolver._pack))
+    got, action = run_port(world(), compress=True)
+    got_stats = dict(action.last_class_stats)
+    got_rebuckets = list(rebuckets)
+    rebuckets.clear()
+    with monkeypatch.context() as m:
+        m.setattr(cs.ClassCompressedSolver, "_segment", _functional_segment)
+        want, ref = run_port(world(), compress=True)
+    assert got == want
+    assert action.last_solver_tier == ref.last_solver_tier == "class_fused"
+    assert table_stats(got_stats) == table_stats(ref.last_class_stats)
+    assert got_stats["launches"] == ref.last_class_stats["launches"]
+    assert got_rebuckets == rebuckets
+    if SEGMENT_CASES[case][7]:
+        assert got_rebuckets
 
 
 # -- class_step_plain against JAX _class_step --------------------------------

@@ -7,9 +7,11 @@ It holds the seeded segment inputs (``SEGMENT_CASES``: entry and
 mid-solve states, ``blocks`` 1, 2 and 4, an overflow, pauses, drf and
 proportion) that tests/test_torch_class_solve.py holds against the JAX
 package's ``_class_step``; the kernel's argument block against its CUDA
-struct; the kernel's launch geometry; and, on a card, kernel B3 against
-``class_step_plain`` on every case, field for field (integers exactly,
-floats bit for bit), and warm churn sessions that build B3 once.
+struct; the kernel's launch geometry and packed task rows; the solver's
+in-place segments against the functional path; and, on a card, kernel B3
+against ``class_step_plain`` on every case, field for field (integers
+exactly, floats bit for bit), the in-place launch against the functional
+one, and warm churn sessions that build B3 once.
 """
 
 from __future__ import annotations
@@ -154,6 +156,12 @@ def _segment_inputs(world, drf, prop, seed, advance, cpad_cut):
     a random fifth of its jobs retired, packed, advanced ``advance``
     iterations (plain), and with ``cpad_cut`` the slot axis cut to its live
     slots, so the first split overflows."""
+    return _segment_solver(world, drf, prop, seed, advance, cpad_cut)[1:]
+
+
+def _segment_solver(world, drf, prop, seed, advance, cpad_cut):
+    """``_segment_inputs`` with the solver that packed them first (its
+    member list and table, which a re-bucket reads)."""
     _, arrays = solver_arrays(world(), drf, prop)
     solver = cs.ClassCompressedSolver(cs.ClassTable(), arrays, drf, prop)
     st = solver._init_node_state()
@@ -174,7 +182,7 @@ def _segment_inputs(world, drf, prop, seed, advance, cpad_cut):
             "cidle_has_sc", "crel_has_sc", "cgid", "cmult", "ctie", "cpos")}
         cut["cpod_sc"] = state.cpod_sc[:, :fp].clone()
         state = state._replace(**cut)
-    return ca, state
+    return solver, ca, state
 
 def assert_state_equal(want, got, where=""):
     """Every ClassSolveState field equal: integers and booleans exactly,
@@ -212,11 +220,101 @@ def test_class_args_mirror_the_kernel_struct():
 
 
 def test_geometry_takes_shared_memory_up_to_its_budget():
-    assert cs.geometry(8, 1, 2) == (128, 4 * (17 * 8 + 1), True)
+    assert cs.geometry(8, 1, 2) == (128, 4 * (20 * 8 + 12), True)
     threads, nbytes, smem = cs.geometry(1024, 1, 4)
-    assert (threads, smem) == (1024, True) and nbytes == 4 * (23 * 1024 + 1)
+    assert (threads, smem) == (256, True) and nbytes == 4 * (26 * 1024 + 18)
     assert cs.geometry(4096, 1, 4)[2] is False  # past the budget: global scratch
-    assert cs.geometry(5000, 2, 2)[0] == 1024  # a stride past 1,024 slots
+    assert cs.geometry(5000, 2, 2)[0] == cs.MAX_THREADS  # more slots a thread past 1,024
+
+
+@pytest.mark.parametrize("GT", [1, 2])
+def test_geometry_counts_the_staged_group_tables(GT):
+    """The working state holds, per slot, the resource rows, 11 words of
+    cursors and statics, and three staged words per task group (compat,
+    affinity, pod affinity); per job 9 words and its drf row; per queue 6
+    words and three rows. Config 7's segment (1,024 slots, R = 2, 1,600
+    jobs, two queues) sits in shared memory on 256 threads, four slots a
+    thread; its 4,096-slot padding falls to the global form, as do a group
+    table and a job table too wide for the budget."""
+    assert cs.slot_words(2, GT) == 3 * 2 + 11 + 3 * GT
+    assert (cs.job_words(2), cs.queue_words(2)) == (11, 12)
+    threads, nbytes, smem = cs.geometry(1024, 2, 2, GT, 1600)
+    assert (threads, smem) == (256, True)
+    assert nbytes == 4 * (cs.slot_words(2, GT) * 1024 + 11 * 1600 + 12 * 2) <= cs.SMEM_BUDGET
+    assert -(-1024 // threads) == cs.SLOTS_PER_THREAD
+    threads, nbytes, smem = cs.geometry(4096, 2, 2, GT, 1600)
+    assert (threads, smem) == (cs.MAX_THREADS, False)
+    wide = cs.SMEM_BUDGET // (4 * 3 * 1024) + 1  # groups whose tables alone pass the budget at 1,024 slots
+    assert cs.geometry(1024, 2, 2, wide)[2] is False
+    many = cs.SMEM_BUDGET // (4 * cs.job_words(2)) + 1  # jobs whose table alone passes the budget
+    assert cs.geometry(128, 2, 2, GT, many)[2] is False
+    assert cs.geometry(128, 1, 2, GT) == (128, 4 * (cs.slot_words(2, GT) * 128 + 12), True)
+
+
+@pytest.mark.parametrize("case", ["smoke_mid_b1", "affinity_pause_b1", "uniform_pool_churn_b4"])
+def test_pack_tasks_holds_every_task_row_the_kernel_reads(case):
+    """Kernel B3's packed task rows: each row's request and resource rows
+    bit for bit, its group, its three flags and its host-port bitmask,
+    padded to 16 bytes."""
+    world, drf, prop, seed, advance, blocks, budget, cpad_cut = SEGMENT_CASES[case]
+    ca, _ = _segment_inputs(world, drf, prop, seed, advance, cpad_cut)
+    pack = cs.pack_tasks(ca)
+    T, R = ca["task_req"].shape
+    P = ca["task_ports"].shape[1]
+    assert pack.dtype == torch.int32 and pack.shape == (T, cs.task_words(R)) and cs.task_words(R) % 4 == 0
+    assert torch.equal(pack[:, :R], ca["task_req"].view(torch.int32))
+    assert torch.equal(pack[:, R : 2 * R], ca["task_res"].view(torch.int32))
+    assert torch.equal(pack[:, 2 * R], ca["task_gid"].to(torch.int32))
+    flags = pack[:, 2 * R + 1]
+    assert torch.equal((flags & 1) != 0, ca["task_has_sc"])
+    assert torch.equal((flags & 2) != 0, ca["task_res_has_sc"])
+    assert torch.equal((flags & 4) != 0, ca["task_host_only"]) and not bool((flags & ~7).any())
+    ports = pack[:, 2 * R + 2]
+    for p in range(P):
+        assert torch.equal(((ports >> p) & 1) != 0, ca["task_ports"][:, p])
+    assert not bool((pack[:, 2 * R + 3 :] != 0).any())
+    if case.startswith("affinity"):
+        assert bool((flags & 4).any())  # the host-only tasks the pause reads
+
+
+def _segment_loop(solver, ca, state, budget, drf, prop, functional):
+    """The solver's segment loop on one segment's inputs, re-bucketing on
+    overflow: through ``solver._segment`` (the in-place path: a
+    ``ClassLaunch`` a state, the state updated where it lies), or with
+    ``functional`` through ``class_step`` (a new state a launch). Returns
+    the final state and the re-buckets."""
+    solver._max_iter = cs.max_iterations(ca)
+    rebuckets = 0
+    while True:
+        if functional:
+            out = cs.class_step(ca, state, drf, prop, budget, solver._max_iter)
+        else:
+            out = solver._segment(ca, state, budget)
+            assert out is state
+        if bool(out.overflow):
+            state = solver._rebucket(out)
+            rebuckets += 1
+            continue
+        return out, rebuckets
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_in_place_segments_equal_the_functional_path(case):
+    """The solver's in-place segment path equals the functional
+    ``class_step`` path on every ClassSolveState field (on the CPU through
+    the plain version), across a re-bucket where the cut slot axis
+    overflows; the functional path leaves its input as it was."""
+    world, drf, prop, seed, advance, blocks, budget, cpad_cut = SEGMENT_CASES[case]
+    solver, ca, state = _segment_solver(world, drf, prop, seed, advance, cpad_cut)
+    entry = cs.ClassSolveState(*(x.clone() for x in state))
+    want, rebuckets_f = _segment_loop(solver, ca, state, budget, drf, prop, functional=True)
+    assert_state_equal(entry, state, f"{case} input")
+    solver2, ca2, state2 = _segment_solver(world, drf, prop, seed, advance, cpad_cut)
+    got, rebuckets = _segment_loop(solver2, ca2, state2, budget, drf, prop, functional=False)
+    assert rebuckets == rebuckets_f
+    assert_state_equal(want, got, case)
+    if cpad_cut:
+        assert rebuckets >= 1 and int(got.free_ptr) > int(entry.free_ptr)
 
 def test_class_step_refuses_inputs_as_a_kernel_error():
     """class_step's own refusals (a device it cannot run on, here the meta
@@ -302,6 +400,50 @@ def test_class_step_on_the_card_equals_plain(case):
     _b3_against_plain(case)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_in_place_launch_on_the_card_equals_the_functional_launch(case):
+    """Kernel B3 launched in place (``class_step_inplace``, twice over one
+    prepared ``ClassLaunch`` on two budgets) equals the functional launch
+    bit for bit, and the solver's segment loop on the card equals the
+    functional one across a re-bucket."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: kernel B3 has no CPU mode")
+    world, drf, prop, seed, advance, blocks, budget, cpad_cut = SEGMENT_CASES[case]
+    solver, ca, state = _segment_solver(world, drf, prop, seed, advance, cpad_cut)
+    dev = torch.device("cuda", 0)
+    dca = {k: (v if isinstance(v, float) else v.to(dev)) for k, v in ca.items()}
+    dstate = cs.ClassSolveState(*(x.to(dev) for x in state))
+    max_iter = cs.max_iterations(ca)
+    want = cs.class_step(dca, dstate, drf, prop, budget, max_iter)
+    mine = cs.ClassSolveState(*(x.clone() for x in dstate))
+    assert cs.class_step_inplace(dca, mine, drf, prop, budget, max_iter) is mine
+    torch.cuda.synchronize()
+    assert_state_equal(cs.ClassSolveState(*(x.cpu() for x in want)), cs.ClassSolveState(*(x.cpu() for x in mine)),
+                       case)
+    # one launch prepared once, two budgets: a short segment, then the rest
+    two = cs.ClassSolveState(*(x.clone() for x in dstate))
+    launch = cs.ClassLaunch(dca, two, drf, prop, 3, max_iter)
+    launch.launch()
+    first = cs.class_step(dca, dstate, drf, prop, 3, max_iter)
+    torch.cuda.synchronize()
+    assert_state_equal(cs.ClassSolveState(*(x.cpu() for x in first)), cs.ClassSolveState(*(x.cpu() for x in two)),
+                       f"{case} budget 3")
+    if not bool(two.overflow):
+        launch.set_budget(budget)
+        launch.launch()
+        rest = cs.class_step(dca, first._replace(seg_it=torch.zeros_like(first.seg_it)), drf, prop, budget, max_iter)
+        torch.cuda.synchronize()
+        assert_state_equal(cs.ClassSolveState(*(x.cpu() for x in rest)), cs.ClassSolveState(*(x.cpu() for x in two)),
+                           f"{case} budget 3 then {budget}")
+    # the solver's loop on the card, in place and across a re-bucket
+    solver.device = dev
+    got, rebuckets = _segment_loop(solver, dca, cs.ClassSolveState(*(x.clone() for x in dstate)), budget, drf, prop,
+                                   functional=False)
+    ref, _ = _segment_loop(solver, ca, state, budget, drf, prop, functional=True)
+    assert_state_equal(ref, cs.ClassSolveState(*(x.cpu() for x in got)), f"{case} solver loop")
+
+
 # Slot axes past 1,024 (a thread owns several slots; at 4,096 and R = 2 past
 # the shared-memory budget too), and every case with that budget at 0: the
 # working state in global memory.
@@ -316,7 +458,7 @@ def test_class_step_past_1024_slots_or_shared_memory_equals_plain(monkeypatch, c
         monkeypatch.setattr(cs, "SMEM_BUDGET", 0)
     ca, state = _b3_against_plain(case, None if form == "global" else form)
     C, Q, R = int(state.cmult.shape[0]), int(ca["queue_rank"].shape[0]), int(ca["task_req"].shape[1])
-    threads, _, in_smem = cs.geometry(C, Q, R)
+    threads, _, in_smem = cs.geometry(C, Q, R, int(ca["compat"].shape[0]), int(ca["job_min"].shape[0]))
     if form == "global" or (form == 4096 and R == 2):
         assert not in_smem
     if form != "global":
