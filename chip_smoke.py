@@ -47,7 +47,10 @@
    capacity + eps, every bound job at its gang minimum);
 6. runs the per-iteration exchange and the K-deep batched exchange
    (``preempt_mix(2000, 40, seed=1)``, four shards, K = 1 and K = 4),
-   each timed and held against the fused rung;
+   each timed and held against the fused rung; K = 1 through the JAX
+   GSPMD rung's surface (``parallel.sharded.ShardedSolver``) with a tensor
+   arena, then ``sharded_solve_allocate`` on that arena (``sharded_surface``:
+   the five static blocks reused, the fused rung's result);
 7. drives the scheduling cycle, ``Scheduler(FakeCache(world),
    conf).run_once()`` with ``examples/scheduler-conf-torch.yaml``, the
    counters zeroed just before each cycle and read just after:
@@ -152,7 +155,9 @@
    transition, fired fault point or native fallback during it;
 11. drives the port as a process (the store, the cache and its write
    side, the ``Scheduler.run`` loop on its ``kb-loop`` thread, the HTTP
-   surface; the twin pipeline conf), the main worlds freed first:
+   surface; the twin pipeline conf), the main worlds freed first; this
+   step's and step 12's worlds are divided by ``PROCESS_CUT`` (2: 25,000
+   pods on 2,500 nodes, the uncut counts in each record's ``reduced``):
    - ``server_50k_5k``: ``preempt_mix(50_000, 5_000)`` generated twice
      from its seed, once as the FakeCache world of one twin-pipeline
      cycle (``pipeline_cycle``), once into a ``ClusterStore`` through its
@@ -232,9 +237,9 @@
      series and retries from ``/metrics``, the wire bytes per bind and
      ``all_bound_s``;
    - ``federation_scaleout_50k_5k``: bench.py's ``federation_scaleout_row``
-     at N = 4, its depth halved for the script's clock (``SCALEOUT_CUT``):
-     2,500 gangs x 10 pods on 2,500 nodes (the row's 5,000 x 10 on 5,000
-     in the record's ``reduced``), four
+     at N = 4, its depth quartered for the script's clock (``SCALEOUT_CUT``
+     and ``PROCESS_CUT``): 1,250 gangs x 10 pods on 1,250 nodes (the row's
+     5,000 x 10 on 5,000 in the record's ``reduced``), four
      ``FederatedCache`` + ``Scheduler`` threads over one ``ClusterStore``
      (``enqueue, torch_allocate``, the size floor off) on ``cuda:0``:
      ``drain_s`` within 300 s, binds/s, the conflict deltas, B1 launches
@@ -441,6 +446,12 @@ runs only the kernels' build and the operator surfaces' four phases (step
 runs only the kernels' build and the class-compressed solve's four phases
 (step 15).
 
+    python3 chip_smoke.py --uploads
+
+runs only ``upload_probe``: the host time of one upload to the card by
+route (a plain copy, pinned staging, the tensor arena's miss and reuse) at
+the class rung's shapes, with the card idle and with it busy.
+
     python3 chip_smoke.py --ab-warm DIR
 
 runs instead ``warm_cycles_50k_5k`` of the checkout at DIR (the parent
@@ -489,7 +500,7 @@ FIT_OPS_PER_DIM = 4
 SCORE_OPS_PER_NODE = 29
 B2_TIMED_CALLS = 200  # block-step launches per timing
 CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py", "tests/test_torch_cycle_card.py",
-              "tests/test_torch_explain.py", "tests/test_torch_class_step.py"]
+              "tests/test_torch_explain.py", "tests/test_torch_class_step.py", "tests/test_torch_arena.py"]
 AFFINITY_PODS = 36  # pods of scheduler_affinity's world with required pod (anti-)affinity
 # size_floor's preempt_mix(pods, nodes) worlds: 100 to 102,400 pending x nodes
 FLOOR_WORLDS = ((25, 4), (50, 8), (100, 16), (200, 32), (400, 64), (800, 128))
@@ -502,10 +513,22 @@ RECLAIM_PODS = 38_500
 # clock: torch_preempt's walk (each starved task against every node, about
 # 110 s uncut) falls to about a quarter; ``--pipeline-uncut`` runs it uncut
 PREEMPT_WALK_CUT = 2
+# the process and federation phases' worlds (``server_50k_5k``,
+# ``ha_failover_50k_5k``, ``federation_50k_5k``, and the scale-out on top of
+# ``SCALEOUT_CUT``) divided by this for the script's clock: their host time
+# swung by 150 s between two calls of one tree; each record's ``reduced``
+# holds the uncut counts
+PROCESS_CUT = 2
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    """One record on stdout, and its time since the script started on
+    stderr (the phases' timeline)."""
     print(json.dumps(obj), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - _T0:.2f} s {obj.get('phase', '-')}", file=sys.stderr, flush=True)
 
 
 def card_line() -> str:
@@ -842,6 +865,65 @@ def b2_comparisons(arrays_5k, arrays_1k, arrays_ml) -> list[dict]:
     if not any(t.has_sc for t in ml._tasks):
         raise AssertionError("multi_tenant_ml_200_500 has no task with scalar requests")
     return recs
+
+
+def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict], int]:
+    """The per-iteration and the K-deep batched exchange (step 6) on
+    ``preempt_mix(2000, 40, seed=1)`` and four shards of the card, each
+    timed and held field for field against ``want``, the fused rung's
+    SolveState. K = 1 runs through the JAX package's GSPMD surface
+    (``ShardedSolver``) with a tensor arena, K = 4 through
+    ``ShardedBlockSolver``; then ``sharded_solve_allocate`` on the same
+    arena must reuse all five static blocks and give the fused rung's
+    SolveResult. Returns the records and the surface's B2 launches (K = 1
+    and ``sharded_solve_allocate``), counted from zero."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops.encode_cache import TensorArena
+    from kube_batch_tpu_torch.ops.kernels import result_of
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver
+    from kube_batch_tpu_torch.parallel.sharded import ShardedSolver, sharded_solve_allocate
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = [dev] * 4
+    arena = TensorArena(dev)
+    saved = bs.block_step.launches
+    recs, surface = [], 0
+    for k in (1, 4):
+        bs.block_step.launches = 0
+        if k == 1:
+            solver = ShardedSolver(arrays, mesh, True, True, arena=arena).inner
+        else:
+            solver = ShardedBlockSolver(arrays, mesh, True, True, exchange_batch=k)
+        t0 = time.perf_counter()
+        same_state(f"preempt_mix_2k_40_seed1 m=4 K={k}", want, solver.solve())
+        solve_s = time.perf_counter() - t0
+        if k > 1 and solver.batched_iters < 1:
+            raise AssertionError("the batched exchange committed no iteration from a batch")
+        surface += bs.block_step.launches if k == 1 else 0
+        recs.append({"phase": f"exchange_preempt_mix_2k_40_seed1_m4_k{k}", "s": solve_s,
+                     "surface": "ShardedSolver" if k == 1 else "ShardedBlockSolver",
+                     "batched_iters": solver.batched_iters, **solver.counts, "equal_to_fused": True})
+    before = arena.counters()
+    bs.block_step.launches = 0
+    t0 = time.perf_counter()
+    res = sharded_solve_allocate(arrays, mesh, True, True, arena=arena)
+    solve_s = time.perf_counter() - t0
+    surface += bs.block_step.launches
+    bs.block_step.launches = saved
+    reused = {k: v - before[k] for k, v in arena.counters().items()}
+    if reused["reuses"] != 5 or reused["full_uploads"]:
+        raise AssertionError(f"sharded_solve_allocate did not reuse the five static blocks: {reused}")
+    for field, x in zip(res._fields, res):
+        if not torch.equal(x, getattr(result_of(want), field)):
+            raise AssertionError(f"sharded_solve_allocate: {field} differs from the fused rung's")
+    if device == "cuda" and surface < 1:
+        raise AssertionError("the sharded surface launched B2 no time")
+    recs.append({"phase": "sharded_surface", "world": "preempt_mix_2k_40_seed1", "m": 4, "s": solve_s,
+                 "arena": reused, "launches": surface, "equal_to_fused": True,
+                 "arena_bytes_by_slab": arena.hbm_bytes_by_slab()})
+    return recs, surface
 
 
 def same_state(name: str, want, got) -> None:
@@ -1559,6 +1641,17 @@ def warm_cycles_phase(device: str = "cuda", cut: int = 1, keep: dict | None = No
                     "b2_launches": launches[1], "binds": len(a["cache"].binder.binds),
                     "evicts": len(a["cache"].evictor.evicts), **gc_clock.record(),
                 }
+                arena = acts["torch_allocate"]._arena
+                if a["fast"]:
+                    rec["arena"] = {k[len("arena_"):]: v for k, v in t["torch_allocate"].items()
+                                    if k.startswith("arena_")}
+                    rec["arena_bytes_by_slab"] = arena.hbm_bytes_by_slab()
+                    print(f"warm cycle {cycle + 1} arena: {rec['arena']} bytes {rec['arena_bytes_by_slab']}",
+                          flush=True)
+                    if rec["arena"].get("failures"):
+                        raise AssertionError(f"cycle {cycle + 1}: the tensor arena failed: {rec['arena']}")
+                elif arena is not None:
+                    raise AssertionError(f"cycle {cycle + 1}: the arena ran with the encode cache off")
                 a["cycles"].append((rec, states, dict(a["cache"].binder.binds), list(a["cache"].evictor.evicts)))
                 if a["fast"]:
                     b1 += launches[0]
@@ -1581,6 +1674,9 @@ def warm_cycles_phase(device: str = "cuda", cut: int = 1, keep: dict | None = No
     cycle2 = fast["cycles"][1][0]["warm_fraction"]
     if not any(v for v in cycle2.values()):
         raise AssertionError(f"cycle 2 ran every encode cold: {cycle2}")
+    arena2 = fast["cycles"][1][0]["arena"]
+    if arena2.get("full_uploads") or arena2.get("row_updates") or arena2.get("reuses", 0) < 2:
+        raise AssertionError(f"cycle 2 (nothing changed) did not reuse B1's statics: {arena2}")
     rec = {
         "phase": "warm_cycles_50k_5k", "pods": pods, "nodes": nodes, "churned_nodes": max(int(nodes * CHURN), 1),
         "new_gang": 8, "fast": [c[0] for c in fast["cycles"]], "off": [c[0] for c in slow["cycles"]],
@@ -1598,7 +1694,8 @@ def warm_cycles_phase(device: str = "cuda", cut: int = 1, keep: dict | None = No
 def trace_audit_phase(sched, device: str = "cuda") -> tuple[dict, tuple[int, int]]:
     """``trace_audit_50k_5k`` (step 16): one more warm cycle of
     ``warm_cycles_50k_5k``'s fast scheduler inside the build sentinel
-    (budget 0). On the card that cycle, the sharded solve of the trace
+    (budget 0), under the tensor arena's audit (KBT-P003 and P004 fail
+    the phase; the arena's counters are printed). On the card that cycle, the sharded solve of the trace
     audit's warm world and B1 alone run through
     ``analysis.trace.audit_card_path`` (KBT-P001): every sync site is
     printed with its count, and the phase fails on a site the trace
@@ -1614,18 +1711,29 @@ def trace_audit_phase(sched, device: str = "cuda") -> tuple[dict, tuple[int, int
     from kube_batch_tpu_torch.solve import solver_arrays
 
     label = "warm cycle 4 of warm_cycles_50k_5k"
+    action = next(a for a in sched.actions if a.name == "torch_allocate")
+    arena = action.arena_for(sched.cache, device)
+    audited: dict = {}
+
+    def cycle() -> None:  # the cycle under the arena audit (KBT-P003, P004)
+        audited["records"], audited["summary"] = trace.arena_cycle_audit(sched.run_once, arena)
+
     t0 = time.perf_counter()
     fs.fused_solve.launches = bs.block_step.launches = 0
     with CompileSentinel("trace_audit_50k_5k", budget=0) as sentinel:
         if device == "cpu":
-            sched.run_once()
+            cycle()
         else:
             arrays = solver_arrays(models.preempt_mix(*trace.WARM_WORLD, seed=1))[1]
-            sites, audit = trace.audit_card_path(sched.run_once, arrays)
+            sites, audit = trace.audit_card_path(cycle, arrays)
     launches = (fs.fused_solve.launches, bs.block_step.launches)
+    arena_findings = trace.check_arena(audited["records"], label)
+    print(f"arena in {label}: {audited['summary']}", flush=True)
+    if arena_findings:
+        raise AssertionError("the tensor arena's audit:\n" + "\n".join(f.render() for f in arena_findings))
     rec = {"phase": "trace_audit_50k_5k", "device": device, "s": time.perf_counter() - t0,
            "kernel_builds": sentinel.builds, "library_loads": sentinel.loads,
-           "b1_launches": launches[0], "b2_launches": launches[1]}
+           "b1_launches": launches[0], "b2_launches": launches[1], "arena": audited["summary"]}
     if device == "cpu":
         return {**rec, "p001": "not run: the sync audit needs a card"}, launches
     if launches[0] < 1 or launches[1]:
@@ -4443,6 +4551,14 @@ def streaming_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int
                                  and all(k in p for p in probe_split)} if probe_split else {},
         "micro_split_probes": probe_split,
         "breaker_fused": breaker.state,
+        # the tensor arena's counters summed over micro-cycles and full
+        # cycles apart: a micro-cycle's task axis differs from a full
+        # cycle's, so its statics mostly go up whole
+        "arena_by_cycle_kind": {
+            kind: {k: sum(r["timings"].get(f"arena_{k}", 0) for r in log.records if r["micro"] == (kind == "micro"))
+                   for k in ("reuses", "row_updates", "full_uploads", "rows_uploaded", "failures")}
+            for kind in ("micro", "full")
+        },
     })
     stream_placed = {k: v[1] for k, v in binds.items()}
 
@@ -5419,6 +5535,7 @@ def class_session(cluster, device: str, compress: bool, action=None,
     binds, the action)."""
     import torch
 
+    from kube_batch_tpu_torch.analysis.trace import ArenaAudit
     from kube_batch_tpu_torch.ops import nvcc
     from kube_batch_tpu_torch.scheduler import Scheduler
     from kube_batch_tpu_torch.testing import FakeCache
@@ -5431,12 +5548,25 @@ def class_session(cluster, device: str, compress: bool, action=None,
         sched.actions = [action if action is not None and a.name == "torch_allocate" else type(a)()
                          for a in sched.actions]
         act = next(a for a in sched.actions if a.name == "torch_allocate")
+        arena = act.arena_for(cache, device)
         if on_card:
             torch.cuda.synchronize()
         zero_launches()
         builds = nvcc.builds
         t0 = time.perf_counter()
-        sched.run_once()
+        spent = [0.0]
+        bare = arena.upload
+
+        def timed_upload(*a, **k):  # the host time the session spends in the arena, under the audit
+            t = time.perf_counter()
+            try:
+                return bare(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t
+
+        arena.upload = timed_upload  # the audit wraps it, and its exit unwraps both
+        with ArenaAudit(arena) as uploads:
+            sched.run_once()
         if on_card:
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
@@ -5457,7 +5587,12 @@ def class_session(cluster, device: str, compress: bool, action=None,
         "replay_s": ta.get("replay_s"), "fused_solve_s": ta.get("fused_solve_s"),
         "cycle": {k: v for k, v in sched.last_timings.items() if isinstance(v, (int, float))},
         "b1_launches": b1, "b2_launches": b2, "b3_launches": b3, "builds": nvcc.builds - builds,
+        "arena": {k[len("arena_"):]: v for k, v in ta.items() if k.startswith("arena_")},
+        "arena_upload_s": spent[0],
+        "arena_uploads": {kind: sum(1 for r in uploads.records if r["kind"] == kind) for kind in ("reuse", "row", "full")},
     }
+    if rec["arena"].get("failures"):
+        raise AssertionError(f"the tensor arena failed: {rec['arena']}")
     if stats:
         rec["class"] = stats
     if segment_ms:
@@ -5545,8 +5680,10 @@ def classes_400k_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[
         "run_once_s": {"compressed": comp["run_once_s"], "uncompressed": plain["run_once_s"]},
         "b1_ms": b1_ms, "compressed_over_b1_solve": comp["solve_s"] / plain["solve_s"] if plain["solve_s"] else None,
         "binds": len(comp_binds), "binds_equal": True,
+        "arena_uploads": {"compressed": comp["arena_uploads"], "churn": churn["arena_uploads"]},
         "compressed": comp, "uncompressed": plain, "churn": churn,
     }
+    print(f"classes_400k_40k arena uploads (class_* tables): {rec['arena_uploads']}", flush=True)
     if pods != CLASS_WORLD[0] or nodes != CLASS_WORLD[1]:
         rec["reduced"] = {"pods": [CLASS_WORLD[0], pods], "nodes": [CLASS_WORLD[1], nodes]}
     launches = (comp["b1_launches"] + plain["b1_launches"] + churn["b1_launches"], 0,
@@ -6455,6 +6592,79 @@ def distinct_cards(card: str) -> int:
     return 0
 
 
+def upload_probe(card: str, kind: str) -> int:
+    """``--uploads``: the host time of one upload to the card, by route, at
+    the class rung's shapes: ``class_members`` (int32 over config 7's
+    40,064 nodes) and a task table of config 7's size (float32, 409,600 x
+    4). Each route is timed with the card idle and with the card busy
+    (about 0.75 ms of queued work before each upload, as B3's segments can
+    leave it). Routes: the parent's ``.to(card)`` (waits for the stream),
+    ``.to(card, non_blocking=True)`` from pageable memory, a pinned
+    staging copy, and the tensor arena's upload by its own route
+    (``port``: pageable when the card is idle, else pinned), through
+    pinned staging only and through a pageable copy only:
+    a miss (new content of the same shape) and a reuse (equal content in
+    another array). Prints one record a slab."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.ops import encode_cache
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    reps = 200
+    port_to, pinned_to = encode_cache._to, encode_cache._staged_to
+
+    def pageable_to(src, device):
+        return src.to(device, non_blocking=True)
+
+    def timed(fn, inputs) -> dict:
+        rec = {}
+        for load in ("idle", "busy"):
+            out = []
+            for x in inputs:
+                if load == "busy":
+                    torch.cuda._sleep(1_500_000)
+                else:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(x)
+                out.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+            out.sort()
+            rec[load] = {"p50_us": out[len(out) // 2], "p90_us": out[int(len(out) * 0.9)],
+                         "mean_us": sum(out) / len(out)}
+        return rec
+
+    slabs = {
+        "class_members": lambda: rng.permutation(40_064).astype(np.int32),
+        "class_task_table": lambda: rng.random((409_600, 4), dtype=np.float32),
+    }
+    for name, make in slabs.items():
+        fresh = [make() for _ in range(8)]
+        inputs = [fresh[i % len(fresh)] for i in range(reps)]
+        equal = [fresh[0].copy() for _ in range(8)]
+        rec = {"phase": "upload_probe", "slab": name, "bytes": int(fresh[0].nbytes), "reps": reps}
+        rec["to_sync"] = timed(lambda x: torch.from_numpy(x).to(dev), inputs)
+        rec["to_pageable_non_blocking"] = timed(lambda x: torch.from_numpy(x).to(dev, non_blocking=True), inputs)
+        rec["pinned_stage"] = timed(lambda x: pinned_to(torch.from_numpy(x), dev), inputs)
+        for route, to in (("port", port_to), ("pinned", pinned_to), ("pageable", pageable_to)):
+            encode_cache._to = to
+            try:
+                arena = encode_cache.TensorArena(dev)
+                rec[f"arena_miss_{route}"] = timed(lambda x: arena.upload(name, x), inputs)
+                arena.upload(name, fresh[0])
+                rec[f"arena_reuse_{route}"] = timed(lambda x: arena.upload(name, x), [equal[i % 8] for i in range(reps)])
+                if arena.full_uploads != 2 * reps + 1 or arena.reuses != 2 * reps:
+                    raise AssertionError(f"upload_probe: {arena.counters()}")
+            finally:
+                encode_cache._to = port_to
+        emit(rec)
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -6465,7 +6675,7 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"], ["--streaming"], ["--operator"],
-                ["--classes"]) or (
+                ["--classes"], ["--uploads"]) or (
             argv[:1] == ["--ab-warm"] and len(argv) == 2):
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -6481,10 +6691,12 @@ def main(argv: list[str]) -> int:
             return operator_only(card, torch.cuda.get_device_name(0))
         if argv == ["--classes"]:
             return classes_only(card, torch.cuda.get_device_name(0))
+        if argv == ["--uploads"]:
+            return upload_probe(card, torch.cuda.get_device_name(0))
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--federation | --streaming | --operator | --classes | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
+              "--federation | --streaming | --operator | --classes | --uploads | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.analysis.trace import guard_calls
@@ -6493,7 +6705,7 @@ def main(argv: list[str]) -> int:
     from kube_batch_tpu_torch.ops import fused_solve as fs
     from kube_batch_tpu_torch.ops import nvcc
     from kube_batch_tpu_torch.ops.kernels import init_state
-    from kube_batch_tpu_torch.parallel import ShardedBlockSolver, make_mesh
+    from kube_batch_tpu_torch.parallel import make_mesh
     from kube_batch_tpu_torch.solve import allocate
 
     t_start = time.perf_counter()
@@ -6653,20 +6865,13 @@ def main(argv: list[str]) -> int:
             "equal_to_fused": True, **check_binds(res),
         })
 
-    # -- the K-deep batched exchange, beside the per-iteration exchange -----
+    # -- the K-deep batched exchange, beside the per-iteration exchange, -----
+    # -- K = 1 through the JAX GSPMD rung's surface -------------------------
     small = encoded_arrays(models.preempt_mix(2000, 40, seed=1))
     want = fs.FusedSolver(small, True, True, device=cuda0).solve()
-    saved = bs.block_step.launches
-    for k in (1, 4):
-        solver = ShardedBlockSolver(small, [cuda0] * 4, True, True, exchange_batch=k)
-        t0 = time.perf_counter()
-        same_state(f"preempt_mix_2k_40_seed1 m=4 K={k}", want, solver.solve())
-        solve_s = time.perf_counter() - t0
-        if k > 1 and solver.batched_iters < 1:
-            raise AssertionError("the batched exchange committed no iteration from a batch")
-        emit({"phase": f"exchange_preempt_mix_2k_40_seed1_m4_k{k}", "s": solve_s,
-              "batched_iters": solver.batched_iters, **solver.counts, "equal_to_fused": True})
-    bs.block_step.launches = saved
+    exchange_recs, surface_launches = exchange_phase(small, want)
+    for rec in exchange_recs:
+        emit(rec)
 
     # -- the scheduling cycle: session, plugins, torch_allocate, replay ----
     failures, cycle_launches = cycle_phases(clusters, results, mesh_launches)
@@ -6682,10 +6887,10 @@ def main(argv: list[str]) -> int:
     # -- the port as a process: store, cache, loop and HTTP -----------------
     clusters.clear()  # free the main worlds: the process phases generate their own
     shared: dict = {}
-    server_failures, server_launches = server_phases(shared=shared)
+    server_failures, server_launches = server_phases(cut=PROCESS_CUT, shared=shared)
     failures += server_failures
     # -- the port as a federation: shard processes and threads over one store
-    fed_failures, fed_launches = federation_phases(shared=shared)
+    fed_failures, fed_launches = federation_phases(cut=PROCESS_CUT, shared=shared)
     failures += fed_failures
     shared.clear()
     # -- the streaming scheduler: streamed bursts, pipelined cycles, drills -
@@ -6718,7 +6923,8 @@ def main(argv: list[str]) -> int:
     b3_head = b3[0]
     b3_ptxas = {r["function"]: r for r in ptxas_summary(logs.get("class_step", ""))}
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
-    b2_by_path = {"allocate_mesh": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
+    b2_by_path = {"allocate_mesh": b2_launches, "sharded_surface": surface_launches,
+                  **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
 
     for rec in b2_timed.values():  # B2's device time, with the profiler, last
         time_b2_kernel(rec)

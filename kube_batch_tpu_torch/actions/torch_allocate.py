@@ -132,14 +132,29 @@ and counted as ``degraded_cycles{tier="class_solve",reason="class_table"}``.
 A kernel B3 that cannot be built raises ``KernelBuildError``, and B3
 failing on a card raises ``DeviceSolveError``: neither is degraded.
 
-The JAX package's action also keeps a device-resident arena; that comes
-with the port's later items (ROADMAP).
+The tensor arena (ops/encode_cache ``TensorArena``, on while the encode
+cache is): the statics the device rungs read stay resident on the card
+across cycles. The action keeps one arena per scheduler cache
+(``arena_for``), since a cache's cycles run one at a time while
+in-process shards share the action; the bank flips once per cycle
+(``KBT_PIPELINE``). Through it go kernel B1's two static buffers
+(``fused_istatic``; ``fused_fstatic``, row updated element by element
+after a pod-affinity host step),
+the sharded rung's static blocks (``sharded_*``, mesh placement) and the
+class rung's task, job and queue tables (``class_*``);
+``kube_batch_tpu_torch/RUNBOOK.md`` maps these names to the JAX
+package's. ``last_timings`` carries the cycle's ``arena_reuses``,
+``arena_row_updates``, ``arena_full_uploads``, ``arena_rows_uploaded``
+and ``arena_failures``. A failed upload is logged, counted, clears the
+arena and goes up as a fresh copy to the same device.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -152,7 +167,7 @@ from kube_batch_tpu_torch.framework.arguments import Arguments
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import Session
 from kube_batch_tpu_torch.obs import explain as _explain
-from kube_batch_tpu_torch.ops import class_solve
+from kube_batch_tpu_torch.ops import class_solve, encode_cache
 from kube_batch_tpu_torch.ops import explain as ops_explain
 from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
 from kube_batch_tpu_torch.ops.encode import compute_pod_sc, encode_session
@@ -268,8 +283,9 @@ class _Rungs:
     layer on a card, raise ``DeviceSolveError`` as a fused failure on a
     card does."""
 
-    def __init__(self, action, arrays, enable_drf, enable_proportion, device, mesh, args) -> None:
+    def __init__(self, action, arrays, enable_drf, enable_proportion, device, mesh, args, arena=None) -> None:
         self.action = action
+        self.arena = arena
         self.a = arrays_from_numpy(arrays)  # CPU tensors sharing the arrays' memory
         self.flags = (enable_drf, enable_proportion)
         self.device = device
@@ -293,6 +309,7 @@ class _Rungs:
             # they are built at its first degrade
             self.class_fn = class_solve.wrap_solver(
                 action, self._solve_rungs, arrays, enable_drf, enable_proportion, mesh=mesh, device=device,
+                arena=arena,
             )
             self._built = False
         else:
@@ -305,7 +322,9 @@ class _Rungs:
         mesh = self.mesh
         if mesh is not None and faults.solver_ladder.allow("sharded"):
             try:
-                self.sharded = ShardedBlockSolver(self.a, mesh, *self.flags, exchange_batch=self.exchange_batch)
+                self.sharded = ShardedBlockSolver(
+                    self.a, mesh, *self.flags, exchange_batch=self.exchange_batch, arena=self.arena,
+                )
             except KernelBuildError:
                 raise
             except Exception:
@@ -319,7 +338,7 @@ class _Rungs:
 
     def _make_fused(self) -> None:
         try:
-            self.fused = FusedSolver(self.a, *self.flags, device=self.device)
+            self.fused = FusedSolver(self.a, *self.flags, device=self.device, arena=self.arena)
         except KernelBuildError:
             raise
         except Exception as e:
@@ -455,6 +474,11 @@ class TorchAllocateAction(Action):
         # compression was off or the segment degraded to the rungs. The
         # class table itself persists across cycles as ``_class_table``.
         self.last_class_stats = None
+        # The tensor arenas, one per scheduler cache (weakly keyed: a
+        # cache's arena goes with it), and the last execute()'s arena.
+        self._arenas: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  #: guarded_by _arenas_lock
+        self._arenas_lock = threading.Lock()
+        self._arena: encode_cache.TensorArena | None = None
 
     @property
     def name(self) -> str:
@@ -562,8 +586,12 @@ class TorchAllocateAction(Action):
         replay = _Replayer(ssn, enc, arrays, enable_drf, enable_proportion)
         budget = ssn.cycle_budget
         timings: dict = {"encode_s": t_encode, "warm_fraction": enc.warm_fraction}
+        arena = self._arena = self.arena_for(ssn.cache, device) if encode_cache.enabled() else None
+        if arena is not None:
+            arena._flip_bank()  # once a cycle (pipelined mode: the other bank)
+            arena_before = arena.counters()
         t0 = time.perf_counter()
-        rungs = _Rungs(self, arrays, enable_drf, enable_proportion, device, mesh, args)
+        rungs = _Rungs(self, arrays, enable_drf, enable_proportion, device, mesh, args, arena)
         timings["pack_s"] = time.perf_counter() - t0
 
         host_steps, t_host = 0, 0.0
@@ -607,6 +635,9 @@ class TorchAllocateAction(Action):
             return
         timings["pack_s"] += rungs.pack_s
         timings.update(solve_s=time.perf_counter() - t0, **rungs.split, host_step_s=t_host, host_steps=host_steps)
+        if arena is not None:
+            arena._account_hbm()
+            timings.update({f"arena_{k}": v - arena_before[k] for k, v in arena.counters().items()})
         self.last_solver_tier = rungs.tier
         self.last_state = state
         self.last_encoded = enc
@@ -695,6 +726,18 @@ class TorchAllocateAction(Action):
             _post_solve()
 
     # -- routing and resolution ---------------------------------------------
+
+    def arena_for(self, cache, device) -> encode_cache.TensorArena:
+        """The tensor arena of ``cache``'s cycles (made at its first
+        cycle, on ``device``). One per cache: in-process shards share this
+        action, and a shard's uploads must never write a buffer another
+        shard's solve reads. A cache whose cycles move to another device
+        gets a new arena."""
+        with self._arenas_lock:
+            arena = self._arenas.get(cache)
+            if arena is None or arena.device != encode_cache._indexed(device):
+                arena = self._arenas[cache] = encode_cache.TensorArena(device)
+            return arena
 
     def _note_resident_interpod(self, ssn: Session) -> None:
         """A full cycle that does not encode still renews the

@@ -284,20 +284,21 @@ CODES: dict[str, tuple[str, str]] = {
     ),
     "KBT-P003": (
         "large host constant re-uploaded every warm cycle",
-        "Kept for the code's meaning; nothing fires it yet. Torch captures "
-        "no constants into a traced program; the nearest hazard is "
-        "unchanged statics uploaded again on every warm cycle, which "
-        "belongs to the device-resident tensor arena (not yet ported) and "
-        "will be checked with it. Fix, once it fires: keep the table "
-        "resident and upload only changed rows.",
+        "Torch captures no constants into a traced program; the nearest "
+        "hazard is unchanged statics uploaded again on a warm cycle. The "
+        "audit records every upload of the device-resident tensor arena "
+        "(ops/encode_cache TensorArena) over a warm cycle and fires when "
+        "a slab went up whole although its host content equals the copy "
+        "the arena keeps for that bank. Fix: keep the table resident "
+        "(send it through the arena) and upload only changed rows.",
     ),
     "KBT-P004": (
         "the arena's row update is not in place",
-        "Kept for the code's meaning; nothing fires it yet. The "
-        "device-resident tensor arena (not yet ported) updates changed "
-        "rows with index_copy_ into its resident buffers; an update that "
+        "The device-resident tensor arena updates changed rows with "
+        "index_copy_ into its resident buffers; the audit fires when a "
+        "row update moved the slab's data_ptr(): an update that "
         "allocates a new buffer instead doubles device memory at the "
-        "biggest buffer. It will be checked with the arena.",
+        "biggest buffer and leaves readers of the old one stale.",
     ),
     "KBT-P005": (
         "cross-rung SolveState signature drift",

@@ -25,9 +25,14 @@ builds no program to walk, so each check reads a run:
   space), each also as its plain version, and the twin
   (``ops/kernels.py``). Deliberate float64 inputs (the scans' float64
   encode, ``VectorScan``) are exempt.
-- **P003/P004** keep their codes and ``--explain`` texts; nothing fires
-  them until the device-resident tensor arena is ported (its statics'
-  uploads and its in-place row update are what they will check).
+- **P003/P004 the tensor arena** (ops/encode_cache ``TensorArena``): a
+  warm cycle runs under an :class:`ArenaAudit` that records every upload
+  of the action's arena. P003 fires when an upload went up whole although
+  its host content equals the memo of the bank it replaced (unchanged
+  statics uploaded again); P004 fires when a row update moved the slab's
+  ``data_ptr()`` (not in place). Both run on the CPU too (the arena is
+  the same code there), on a small world; on a card, on the P001 world's
+  audited warm cycle.
 - **P005 signature drift**: the ``SolveState`` field names, shapes and
   dtypes are equal, field for field, across the rungs and the twin.
 
@@ -49,14 +54,17 @@ import numpy as np
 from kube_batch_tpu_torch.analysis import Baseline, Finding, apply_baseline
 
 __all__ = [
+    "ArenaAudit",
     "MESH_SIZES_DEFAULT",
     "SYNC_WARNING",
     "SyncAudit",
     "WARM_WORLD",
     "apply_trace_baseline",
+    "arena_cycle_audit",
     "attribute_syncs",
     "audit_card_path",
     "build_snapshot",
+    "check_arena",
     "check_f64",
     "check_signature_drift",
     "check_sync_bounds",
@@ -88,7 +96,10 @@ _PATHS = {
     "fused": "kube_batch_tpu_torch/ops/fused_solve.py",
     "sharded": "kube_batch_tpu_torch/parallel/sharded_block.py",
     "class": "kube_batch_tpu_torch/ops/class_solve.py",
+    "arena": "kube_batch_tpu_torch/ops/encode_cache.py",
 }
+# preempt_mix(pods, nodes, seed=1): the CPU world of the arena audit
+ARENA_WORLD_CPU = (400, 16)
 
 
 # -- P001: host syncs ---------------------------------------------------------
@@ -307,6 +318,132 @@ def warm_cycle_audit(run_cycle) -> SyncAudit:
     return audit
 
 
+# -- P003 / P004: the tensor arena ---------------------------------------------
+
+
+def _ptrs(dev) -> tuple[int, ...]:
+    return tuple(t.data_ptr() for t in (dev if isinstance(dev, tuple) else (dev,)))
+
+
+class ArenaAudit:
+    """Record every upload of ``arena`` in the region: its name, the bank,
+    the kind (``reuse``, ``row`` or ``full``, from the arena's counters),
+    whether a full upload replaced a memo of equal content at the same
+    placement (``same_content``), its bytes, and the slab's data pointers
+    before and after. The upload is wrapped on the instance and unwrapped
+    on exit. After exit: ``records``."""
+
+    def __init__(self, arena) -> None:
+        self.arena = arena
+        self.records: list[dict] = []
+
+    def __enter__(self) -> "ArenaAudit":
+        arena, records = self.arena, self.records
+        inner = arena.upload
+
+        def upload(name, host, mesh=None, device=None):
+            key = (name, arena.bank)
+            before = arena._slots.get(key)
+            # read now: an upload may update the slot in place
+            memo, placement, ptr_before = (
+                (before.host, before.placement, _ptrs(before.device)) if before is not None else (None, None, None)
+            )
+            counts = (arena.reuses, arena.row_updates, arena.full_uploads)
+            out = inner(name, host, mesh=mesh, device=device)
+            after = arena._slots[key]
+            kind = ("reuse", "row", "full")[
+                [a != b for a, b in zip((arena.reuses, arena.row_updates, arena.full_uploads), counts)].index(True)
+            ]
+            same = (
+                kind == "full" and memo is not None and placement == after.placement
+                and memo.shape == after.host.shape and memo.dtype == after.host.dtype
+                and np.array_equal(memo, after.host)
+            )
+            records.append({
+                "name": name, "bank": key[1], "kind": kind, "same_content": bool(same),
+                "nbytes": int(after.host.nbytes), "ptr_before": ptr_before, "ptr_after": _ptrs(out),
+            })
+            return out
+
+        arena.upload = upload
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        del self.arena.upload
+        return False
+
+
+def check_arena(records: list[dict], label: str) -> list[Finding]:
+    """KBT-P003 for each full upload of a slab, whatever its size, whose
+    content equals the memo it replaced; KBT-P004 for each row
+    update that moved the slab's data pointer."""
+    path = _PATHS["arena"]
+    out: list[Finding] = []
+    for r in records:
+        if r["kind"] == "full" and r["same_content"]:
+            out.append(Finding(
+                path, 1, "KBT-P003",
+                f"{label}: the arena uploaded {r['name']} whole ({r['nbytes']} B, bank {r['bank']}) although "
+                "its content equals the resident copy's; reuse the buffer",
+                symbol=f"arena.{r['name']}.full_upload",
+            ))
+        if r["kind"] == "row" and r["ptr_after"] != r["ptr_before"]:
+            out.append(Finding(
+                path, 1, "KBT-P004",
+                f"{label}: the arena's row update of {r['name']} moved its buffer "
+                f"({r['ptr_before']} -> {r['ptr_after']}); write the rows in place with index_copy_",
+                symbol=f"arena.{r['name']}.row_update",
+            ))
+    return out
+
+
+def arena_cycle_audit(run_cycle, arena) -> tuple[list[dict], dict]:
+    """Run ``run_cycle()`` once under an :class:`ArenaAudit` of ``arena``.
+    Returns the upload records and a summary: the arena's counter deltas
+    and its bytes per slab after the cycle."""
+    before = arena.counters()
+    with ArenaAudit(arena) as audit:
+        run_cycle()
+    summary = {
+        "uploads": len(audit.records),
+        **{k: v - before[k] for k, v in arena.counters().items()},
+        "by_name": {r["name"]: r["kind"] for r in audit.records},
+        "hbm_bytes_by_slab": arena.hbm_bytes_by_slab(),
+    }
+    return audit.records, summary
+
+
+@contextlib.contextmanager
+def _warm_scheduler(cluster, device: str):
+    """A Scheduler of the twin pipeline over ``cluster`` with torch_allocate
+    on ``device``, and its allocate action; the conf file lives as long as
+    the region (the scheduler re-reads it every cycle)."""
+    import tempfile
+
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    with tempfile.NamedTemporaryFile("w", suffix=".yaml", delete=False) as fh:
+        fh.write(_WARM_CONF.replace("device: cuda", f"device: {device}"))
+    try:
+        sched = Scheduler(FakeCache(cluster), fh.name)
+        yield sched, next(a for a in sched.actions if a.name == "torch_allocate")
+    finally:
+        os.unlink(fh.name)
+
+
+def _warm_cycle_arena_cpu() -> tuple[list[Finding], dict]:
+    """P003/P004 on the CPU: two cycles of ``preempt_mix(*ARENA_WORLD_CPU,
+    seed=1)``, then a third under the arena audit."""
+    from kube_batch_tpu_torch import models
+
+    with _warm_scheduler(models.preempt_mix(*ARENA_WORLD_CPU, seed=1), "cpu") as (sched, action):
+        sched.run_once()
+        sched.run_once()
+        records, summary = arena_cycle_audit(sched.run_once, action.arena_for(sched.cache, "cpu"))
+    return check_arena(records, f"a warm cycle of preempt_mix{ARENA_WORLD_CPU}"), summary
+
+
 # -- P002 / P005 ---------------------------------------------------------------
 
 
@@ -509,49 +646,51 @@ def audit_card_path(run_cycle, arrays: dict) -> tuple[dict[tuple[str, int, str],
     return sites, record
 
 
-def _warm_cycle_p001() -> tuple[dict[tuple[str, int, str], int], dict]:
+def _warm_cycle_p001() -> tuple[dict[tuple[str, int, str], int], dict, list[Finding]]:
     """The twin pipeline's Scheduler over ``preempt_mix(*WARM_WORLD,
     seed=1)`` on the card: two cycles, then :func:`audit_card_path` on a
-    third and on the world's solver arrays, all with zero kernel builds."""
-    import tempfile
-
+    third (under the arena audit too) and on the world's solver arrays,
+    all with zero kernel builds. Returns the sync sites, P001's record
+    (with the audited cycle's arena summary under ``"arena"``) and the
+    arena's P003/P004 findings."""
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.analysis.trace.sentinel import CompileSentinel
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import fused_solve as fs
-    from kube_batch_tpu_torch.scheduler import Scheduler
     from kube_batch_tpu_torch.solve import solver_arrays
-    from kube_batch_tpu_torch.testing import FakeCache
 
     cluster = models.preempt_mix(*WARM_WORLD, seed=1)
     arrays = solver_arrays(cluster)[1]
     fs._library.load()  # the builds, before the sentinel's region
     bs._library.load()
-    with tempfile.NamedTemporaryFile("w", suffix=".yaml", delete=False) as fh:
-        fh.write(_WARM_CONF)
-    try:
-        sched = Scheduler(FakeCache(cluster), fh.name)
+    audited: dict = {}
+    with _warm_scheduler(cluster, "cuda") as (sched, action):
+        def cycle() -> None:
+            arena = action.arena_for(sched.cache, "cuda")
+            audited["records"], audited["summary"] = arena_cycle_audit(sched.run_once, arena)
+
         with CompileSentinel("warm cycles", budget=0) as sentinel:
             sched.run_once()
             sched.run_once()
-            sites, record = audit_card_path(sched.run_once, arrays)
-    finally:
-        os.unlink(fh.name)
-    return sites, {**record, "builds": sentinel.builds, "loads": sentinel.loads}
+            sites, record = audit_card_path(cycle, arrays)
+    findings = check_arena(audited["records"], f"a warm cycle of preempt_mix{WARM_WORLD}")
+    return sites, {**record, "builds": sentinel.builds, "loads": sentinel.loads, "arena": audited["summary"]}, findings
 
 
 def run_trace_audit(
     device: str = "cuda",
     mesh_sizes: tuple = MESH_SIZES_DEFAULT,
 ) -> tuple[list[Finding], dict]:
-    """Run the rungs and the P001/P002/P005 checks, on the card by default
+    """Run the rungs and the P001-P005 checks, on the card by default
     (raises without one).
 
     With ``device="cpu"`` the rungs run their plain versions and P001 does
     not run (it needs a card). On a card the rungs launch their kernels,
     their plain versions run on the CPU beside them, and P001 audits a
     warm cycle of the twin pipeline and the sharded solve over
-    ``preempt_mix(*WARM_WORLD)``. Returns ``(findings, info)``; ``info``
+    ``preempt_mix(*WARM_WORLD)``; P003/P004 audit the arena over that warm
+    cycle (on the CPU, over ``preempt_mix(*ARENA_WORLD_CPU)``'s). Returns
+    ``(findings, info)``; ``info``
     carries the audited entries' signatures, P001's record (``"p001"``)
     and its sync counts per site (``"sync_sites"``, empty where it did not
     run), which :func:`apply_trace_baseline` takes.
@@ -575,9 +714,12 @@ def run_trace_audit(
         "snapshot": {k: [list(v.shape), str(v.dtype)] for k, v in sorted(arrays.items())},
     }
     if torch.device(device).type == "cuda":
-        info["sync_sites"], info["p001"] = _warm_cycle_p001()
+        info["sync_sites"], info["p001"], arena_findings = _warm_cycle_p001()
         findings += check_syncs(info["sync_sites"], f"a warm cycle of preempt_mix{WARM_WORLD} and its sharded solve")
+        info["arena"] = info["p001"]["arena"]
     else:
         info["sync_sites"], info["p001"] = {}, "not run: the sync audit needs a card"
+        arena_findings, info["arena"] = _warm_cycle_arena_cpu()
+    findings += arena_findings
     findings.sort(key=lambda f: (f.path, f.line, f.code, f.symbol))
     return findings, info

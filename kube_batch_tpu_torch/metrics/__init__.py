@@ -67,8 +67,9 @@ that passes ``exemplar=`` (a trace id: ``observe_time_to_bind``,
 the exposition appends ``# {trace_id="..."} value`` to the matching sample
 or lowest containing bucket. Storage is gated like rendering.
 
-The JAX package's series of layers the port does not have yet (the tensor
-arena and the class-compressed solve) come with those layers.
+The tensor arena's ``arena_hbm_bytes{slab}`` and
+``arena_hbm_watermark_bytes`` (ops/encode_cache ``TensorArena``) complete
+the JAX package's 69 series.
 """
 
 from __future__ import annotations
@@ -590,6 +591,17 @@ admission_controller_ticks = Counter(
     "(steady/escalate/recover/fault/dark)",
 )
 
+# -- device-phase telemetry (arena HBM accounting, ops/encode_cache) ---------
+arena_hbm_bytes = Gauge(
+    f"{_SUBSYSTEM}_arena_hbm_bytes",
+    "Device bytes currently held by the tensor arena, by slab",
+)
+arena_hbm_watermark = Gauge(
+    f"{_SUBSYSTEM}_arena_hbm_watermark_bytes",
+    "High watermark of total device bytes held by the tensor arena "
+    "since process start (the bench's HBM column)",
+)
+
 # -- node-class compressed solve (ops/class_solve, KBT_CLASS_COMPRESS) -------
 class_solve_classes = Gauge(
     f"{_SUBSYSTEM}_class_solve_classes",
@@ -877,6 +889,14 @@ def register_admission_controller_tick(outcome: str) -> None:
     admission_controller_ticks.inc({"outcome": outcome})
 
 
+def set_arena_hbm_bytes(slab: str, nbytes: float) -> None:
+    arena_hbm_bytes.set(nbytes, {"slab": slab})
+
+
+def set_arena_hbm_watermark(nbytes: float) -> None:
+    arena_hbm_watermark.set(nbytes)
+
+
 def set_class_solve_classes(n: int) -> None:
     class_solve_classes.set(n)
 
@@ -1014,6 +1034,8 @@ FAMILIES = (
     admission_brownout_level,
     admission_pressure,
     admission_controller_ticks,
+    arena_hbm_bytes,
+    arena_hbm_watermark,
     class_solve_classes,
     class_solve_compression_ratio,
     class_table_splits,

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch import faults, metrics, native
-from kube_batch_tpu_torch.ops import nvcc
+from kube_batch_tpu_torch.ops import encode_cache, nvcc
 from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
 from kube_batch_tpu_torch.ops.kernels import (
     KIND_ALLOCATED,
@@ -501,6 +501,7 @@ _CA_DTYPES = {
     "task_req": torch.float32, "task_res": torch.float32, "task_gid": torch.int32, "task_has_sc": torch.bool,
     "task_res_has_sc": torch.bool, "task_host_only": torch.bool, "task_ports": torch.bool,
 }
+_NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32, torch.bool: np.bool_}
 # The fields the kernel reads, in its argument order, with the dtype each
 # is read as (``task_pack``: ``pack_tasks`` of the task fields).
 _CA_FIELDS = (
@@ -807,8 +808,10 @@ class ClassCompressedSolver:
 
     def __init__(
         self, table: ClassTable, arrays: dict, enable_drf: bool, enable_proportion: bool, mesh=None, device=None,
+        arena=None,
     ) -> None:
         self.table = table
+        self.arena = arena
         self.arrays = arrays
         self.enable_drf = bool(enable_drf)
         self.enable_proportion = bool(enable_proportion)
@@ -941,8 +944,11 @@ class ClassCompressedSolver:
 
     def _ca(self) -> dict:
         """The segment's read-only inputs on the solver's device: the
-        snapshot's task, job and queue arrays (uploaded once a solve) and
-        the member list of this segment's grouping."""
+        snapshot's task, job and queue arrays (uploaded once a solve, as
+        ``class_<key>`` through the tensor arena when the solver has one,
+        so a resume after a host step reuses them) and the member list of
+        this segment's grouping, a plain copy: it differs from segment to
+        segment, so a memo would only add its compare."""
         if self._ca_base is None:
             dtypes = _CA_DTYPES
             base = {}
@@ -951,13 +957,13 @@ class ClassCompressedSolver:
                 if k.startswith("w_"):
                     base[k] = float(v)
                     continue
-                x = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
-                base[k] = x.to(device=self.device, dtype=dtypes[k]).contiguous()
+                x = np.ascontiguousarray(_np(v), dtype=_NP_DTYPES[dtypes[k]])
+                base[k] = encode_cache.put(self.arena, f"class_{k}", x, self.device)
             if self.device.type == "cuda":
                 base["task_pack"] = pack_tasks(base)  # B3's task rows, packed once a solve
             self._ca_base = base
         ca = dict(self._ca_base)
-        ca["members_sorted"] = torch.from_numpy(self._members_sorted).to(self.device)
+        ca["members_sorted"] = torch.from_numpy(self._members_sorted).to(self.device, non_blocking=True)
         return ca
 
     def _rebucket(self, cs: ClassSolveState) -> ClassSolveState:
@@ -1094,7 +1100,9 @@ class ClassCompressedSolver:
         }
 
 
-def wrap_solver(action, inner, arrays: dict, enable_drf: bool, enable_proportion: bool, mesh=None, device=None):
+def wrap_solver(
+    action, inner, arrays: dict, enable_drf: bool, enable_proportion: bool, mesh=None, device=None, arena=None,
+):
     """Wrap a rung's ``solve(state)`` with the class-compressed layer. The
     ``solve.class_table`` fault point (a poisoned or stale table) and a
     host-side failure of the table, the re-pack or the expansion
@@ -1103,12 +1111,16 @@ def wrap_solver(action, inner, arrays: dict, enable_drf: bool, enable_proportion
     function of its input state. Anything else raises: a kernel that
     cannot be built (``KernelBuildError``), kernel B3 refusing its inputs
     or failing on a card (``ClassKernelError``), and a device error of the
-    uploads, each of which would fail every cycle."""
+    uploads, each of which would fail every cycle. ``arena`` (the
+    action's ``TensorArena`` for this cycle, or None) keeps the solver's
+    tables resident."""
     table = getattr(action, "_class_table", None)
     if table is None:
         table = ClassTable()
         action._class_table = table
-    solver = ClassCompressedSolver(table, arrays, enable_drf, enable_proportion, mesh=mesh, device=device)
+    solver = ClassCompressedSolver(
+        table, arrays, enable_drf, enable_proportion, mesh=mesh, device=device, arena=arena,
+    )
     metered = [0]
 
     def solve_fn(st):

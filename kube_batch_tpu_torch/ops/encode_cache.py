@@ -34,7 +34,13 @@ module makes the encode cost scale with the *delta*:
   store version onto cache state for debugging. Listeners
   (`add_store_listener`) get every event whether the cache is on or not.
 
-The package switch ``set_enabled(False)`` turns all of it off; the
+- **tensor arena** (`TensorArena`): the solve's static buffers stay
+  resident on the card across cycles; an upload of the same slab reuses
+  the buffer, writes only the changed rows into it in place, or uploads
+  it whole.
+
+The package switch ``set_enabled(False)`` turns all of it off (the
+arena included); the
 ``encode.cache`` fault point poisons the cache for one encode — the whole
 state is dropped and that encode runs cold, which is also the recovery
 story for any suspected-stale cache. Warm output is byte-identical to
@@ -47,6 +53,8 @@ from __future__ import annotations
 import logging
 import threading
 from typing import Optional
+
+import numpy as np
 
 from kube_batch_tpu_torch import faults, metrics
 
@@ -376,3 +384,297 @@ def note_store_event(kind: str, key: str, obj=None, old=None) -> None:
                 fn(kind, key, obj, old)
             except Exception as e:  # noqa: BLE001 - see the listeners' comment
                 log.error("store listener failed on %s/%s: %s", kind, key, e)
+
+
+# -- device-resident tensor arena ---------------------------------------------
+
+
+class _Slot:
+    __slots__ = ("host", "device", "placement")
+
+    def __init__(self, host, device, placement) -> None:
+        self.host = host
+        self.device = device
+        self.placement = placement
+
+
+class TensorArena:
+    """Persistent device buffers for the solve's big inputs.
+
+    The encoder rebuilds its host arrays every cycle, but between
+    consecutive cycles most *rows* are unchanged (only nodes that took
+    or released pods move). The arena keeps last cycle's device buffer
+    plus the host array it was uploaded from; the next upload of the
+    same (name, shape, dtype) to the same placement:
+
+    - reuses the buffer outright when the host array is the *same
+      object* or compares equal;
+    - for a ``ROW_DELTA`` name without a mesh, writes only the changed
+      rows into the resident buffer in place (``index_copy_``: its
+      ``data_ptr()`` does not move) when at most
+      ``ROW_DELTA_MAX_FRACTION`` of the rows moved;
+    - uploads the slab whole otherwise (a new buffer).
+
+    The row comparison runs on host numpy; the comparison is the truth,
+    so no dirty feed is needed. Host arrays handed to the arena must not
+    be mutated afterwards: a caller that changes a slab builds a new host
+    array and uploads it (``FusedSolver``'s affinity refresh does).
+
+    A slot's placement is a ``torch.device`` (``device=``, or the arena's
+    own), or with a mesh the mesh's device tuple plus the name: a mesh
+    slab is a tuple of per-shard tensors, split along the node axis for
+    the names ``parallel.sharded.SHARD_AXIS`` lists and replicated
+    otherwise, and is reused on equal content or put whole, never row
+    updated.
+
+    **Pipelined mode** (``KBT_PIPELINE``): the slots double-buffer. Each
+    name keeps two (host memo, device buffer) banks and every cycle
+    (``_flip_bank``, which ``device_view`` calls) flips the active bank, so cycle
+    N+1's in-place row update writes a buffer that cycle N's readers are
+    not reading. The row delta is computed against the active bank's own
+    memo, two cycles old, so a warm upload may write more rows than the
+    single-buffer path, with the same result.
+
+    The arena has no lock: each one belongs to one owner whose cycles run
+    one at a time (``TorchAllocateAction`` keeps one per scheduler cache).
+
+    **What the program takes.** The port's rungs call ``upload`` (through
+    ``put``) with the names their kernels read (``kube_batch_tpu_torch/
+    RUNBOOK.md`` maps them): only ``fused_fstatic`` is row updated, by the
+    fused rung's affinity refresh after a pod-affinity host step; every
+    other name is reused or uploaded whole. ``MANAGED``, ``device_view``,
+    ``refresh`` and the ``node_*`` row-delta names are the JAX package's
+    surface, kept so that the arena answers as the JAX one does; no path
+    of the program takes them.
+    """
+
+    # JAX's node-axis slabs, and kernel B1's flat float buffer (a "row" is
+    # an element: the affinity refresh rewrites a few scores), take the
+    # row-delta path; the rest are replaced wholesale when their content
+    # changes
+    ROW_DELTA = frozenset({"node_idle", "node_rel", "node_used", "node_alloc", "fused_fstatic"})
+    MANAGED = (
+        "node_idle", "node_rel", "node_used", "node_alloc",
+        "task_req", "task_res", "compat", "aff_sc", "pod_sc",
+    )
+    # past this fraction of changed rows a full transfer is cheaper
+    # than the indexed write
+    ROW_DELTA_MAX_FRACTION = 0.25
+
+    def __init__(self, device=None) -> None:
+        self.device = _indexed("cuda" if device is None else device)
+        self._slots: dict[tuple, _Slot] = {}  # (name, bank) -> slot
+        self._bank = 0
+        self.reuses = 0
+        self.row_updates = 0
+        self.full_uploads = 0
+        self.rows_uploaded = 0
+        # uploads that raised and were redone as a fresh copy (``put``)
+        self.failures = 0
+        # high-water mark of live device bytes across all slabs and banks,
+        # refreshed by _account_hbm
+        self.hbm_watermark_bytes = 0
+
+    @property
+    def bank(self) -> int:
+        return self._bank
+
+    def counters(self) -> dict[str, int]:
+        return {
+            "reuses": self.reuses, "row_updates": self.row_updates, "full_uploads": self.full_uploads,
+            "rows_uploaded": self.rows_uploaded, "failures": self.failures,
+        }
+
+    def _flip_bank(self) -> None:
+        from kube_batch_tpu_torch import pipeline
+
+        self._bank = (self._bank ^ 1) if pipeline.enabled() else 0
+
+    def _placement_key(self, mesh, name: str, device):
+        if mesh is None:
+            return device
+        return (tuple(mesh), name)
+
+    def device_view(self, arrays: dict, mesh=None) -> dict:
+        """``arrays`` with the ``MANAGED`` slabs replaced by device
+        tensors (on the arena's device, or per shard of ``mesh``);
+        everything else passes through."""
+        out = dict(arrays)
+        self._flip_bank()
+        for name in self.MANAGED:
+            host = arrays.get(name)
+            if host is None:
+                continue
+            out[name] = self.upload(name, host, mesh=mesh)
+        self._account_hbm()
+        return out
+
+    def hbm_bytes_by_slab(self) -> dict[str, int]:
+        """Live device bytes per slab, summed over banks (in pipelined
+        mode both double-buffers are resident, so both count) and over a
+        mesh slab's shards."""
+        out: dict[str, int] = {}
+        for (name, _bank), slot in self._slots.items():
+            parts = slot.device if isinstance(slot.device, tuple) else (slot.device,)
+            out[name] = out.get(name, 0) + sum(int(t.nbytes) for t in parts)
+        return out
+
+    def _account_hbm(self) -> None:
+        total = 0
+        for slab, nbytes in self.hbm_bytes_by_slab().items():
+            metrics.set_arena_hbm_bytes(slab, nbytes)
+            total += nbytes
+        if total > self.hbm_watermark_bytes:
+            self.hbm_watermark_bytes = total
+        metrics.set_arena_hbm_watermark(self.hbm_watermark_bytes)
+
+    def refresh(self, views: list, name: str, host, mesh=None) -> None:
+        """Re-upload one array into every live device view."""
+        dev = self.upload(name, host, mesh=mesh)
+        for v in views:
+            v[name] = dev
+
+    def upload(self, name: str, host, mesh=None, device=None):
+        """``host`` (an array, or a CPU tensor) on the device: the
+        resident buffer reused or row updated, or a full upload. Returns
+        the device tensor (a tuple of per-shard tensors with a mesh)."""
+        host = np.asarray(host)
+        device = self.device if device is None else _indexed(device)
+        slot = self._slots.get((name, self._bank))
+        placement = self._placement_key(mesh, name, device)
+        if (
+            slot is not None
+            and slot.placement == placement
+            and slot.host.shape == host.shape
+            and slot.host.dtype == host.dtype
+        ):
+            if slot.host is host:
+                self.reuses += 1
+                return slot.device
+            if name in self.ROW_DELTA and host.ndim >= 1 and mesh is None:
+                neq = slot.host != host
+                changed = (
+                    np.nonzero(neq.any(axis=tuple(range(1, host.ndim))))[0]
+                    if host.ndim > 1
+                    else np.nonzero(neq)[0]
+                )
+                if changed.size == 0:
+                    slot.host = host
+                    self.reuses += 1
+                    return slot.device
+                if changed.size <= self.ROW_DELTA_MAX_FRACTION * host.shape[0]:
+                    _row_scatter(slot.device, changed, host)
+                    slot.host = host
+                    self.row_updates += 1
+                    self.rows_uploaded += int(changed.size)
+                    return slot.device
+            elif np.array_equal(slot.host, host):
+                slot.host = host
+                self.reuses += 1
+                return slot.device
+        dev = _put(host, mesh, name, device)
+        self._slots[(name, self._bank)] = _Slot(host, dev, placement)
+        self.full_uploads += 1
+        return dev
+
+    def clear(self) -> None:
+        self._slots.clear()
+        self._bank = 0
+        self.hbm_watermark_bytes = 0
+
+
+def _indexed(device):
+    """A bare ``cuda`` as the current card's indexed device, so that
+    placements compare equal however the caller named the card."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _to(src, device):
+    """A copy of the CPU tensor ``src`` on ``device``, never waiting for
+    work queued on the card. To a card whose current stream is idle it goes
+    up from pageable memory, as a plain copy would (the CUDA driver stages it
+    before the call returns, and nothing is queued ahead of it); behind
+    queued work, through ``_staged_to``."""
+    import torch
+
+    if device.type != "cuda":
+        return src.to(device, copy=True)
+    if torch.cuda.current_stream(device).query():
+        return src.to(device, non_blocking=True)
+    return _staged_to(src, device)
+
+
+def _staged_to(src, device):
+    """``src`` on the card through a pinned staging copy with
+    ``non_blocking=True`` on the current stream, so the upload does not
+    wait for queued work (the staging block is not handed out again before
+    the copy has run)."""
+    import torch
+
+    stage = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    stage.copy_(src)
+    return stage.to(device, non_blocking=True)
+
+
+def _put(host: np.ndarray, mesh, name: str, device):
+    """A full upload: a new buffer on ``device``, or with a mesh a tuple of
+    per-shard buffers (split along ``SHARD_AXIS[name]``, or replicated)."""
+    import torch
+
+    src = torch.from_numpy(host if host.flags.writeable else host.copy())
+    if mesh is None:
+        return _to(src, device)
+    from kube_batch_tpu_torch.parallel.sharded import SHARD_AXIS
+
+    axis = SHARD_AXIS.get(name)
+    if axis is None:
+        return tuple(_to(src, _indexed(d)) for d in mesh)
+    m = len(mesh)
+    if host.shape[axis] % m:
+        raise ValueError(f"{name}: node axis {host.shape[axis]} not divisible by mesh size {m}")
+    return tuple(_to(part.contiguous(), _indexed(d)) for part, d in zip(src.chunk(m, dim=axis), mesh))
+
+
+def _row_scatter(buf, rows: np.ndarray, new_host: np.ndarray) -> None:
+    """``buf[rows] = new_host[rows]`` in place (``index_copy_``; the
+    buffer's ``data_ptr()`` does not move). On a card the row indices and
+    the rows go up together through one pinned staging buffer, copied
+    with ``non_blocking=True`` on the current stream, which the write
+    then follows."""
+    import torch
+
+    vals = np.ascontiguousarray(new_host[rows])
+    if buf.device.type != "cuda":
+        buf.index_copy_(0, torch.from_numpy(rows.astype(np.int64)), torch.from_numpy(vals))
+        return
+    n = int(rows.size)
+    head = 8 * n  # int64 indices first: the rows after them stay 8-byte aligned
+    stage = torch.empty(head + vals.nbytes, dtype=torch.uint8, pin_memory=True)
+    staged = stage.numpy()
+    staged[:head].view(np.int64)[:] = rows
+    staged[head:] = vals.reshape(-1).view(np.uint8)
+    dev = stage.to(buf.device, non_blocking=True)
+    idx = dev[:head].view(torch.int64)
+    new = dev[head:].view(buf.dtype).view((n,) + tuple(buf.shape[1:]))
+    buf.index_copy_(0, idx, new)
+
+
+def put(arena: Optional[TensorArena], name: str, host, device, mesh=None):
+    """``host`` on ``device`` (or per shard of ``mesh``) through ``arena``,
+    or as a plain copy when there is none. A failed arena upload is
+    logged, counted in ``arena.failures`` and clears the arena (its memo
+    may no longer match its buffers); the slab then goes up as a fresh
+    copy to the same device. There is no fallback to the CPU."""
+    if arena is not None:
+        try:
+            return arena.upload(name, host, mesh=mesh, device=device if mesh is None else None)
+        except Exception:
+            log.exception("tensor arena upload of %s failed; clearing the arena and uploading afresh", name)
+            arena.failures += 1
+            arena.clear()
+    return _put(np.asarray(host), mesh, name, None if mesh is not None else _indexed(device))

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch import faults, native
-from kube_batch_tpu_torch.ops import nvcc
+from kube_batch_tpu_torch.ops import encode_cache, nvcc
 from kube_batch_tpu_torch.ops.cluster import CTA_WIDTH, ClusterShape, cluster_shape
 from kube_batch_tpu_torch.ops.kernels import SolveState, init_state, solve_allocate_step
 
@@ -567,6 +567,13 @@ class FusedSolver:
     returns a SolveState of CPU tensors, with `paused_at >= 0` when the
     solve stopped at a host-only task. The state comes back in two
     fetches, one integer and one float buffer.
+
+    With ``arena`` (an ops/encode_cache ``TensorArena``) the two static
+    buffers go up through it as ``fused_istatic`` and ``fused_fstatic``:
+    resident across cycles, reused when unchanged and row updated (a row
+    is an element) when little changed. The affinity refresh then packs a
+    new host ``fstatic`` and uploads it through the arena too, so the
+    device buffer and the arena's memo never disagree.
     """
 
     def __init__(
@@ -575,13 +582,24 @@ class FusedSolver:
         enable_drf: bool,
         enable_proportion: bool,
         device: str | torch.device | None = None,
+        arena=None,
     ) -> None:
         self.a = a
         self.enable_drf = enable_drf
         self.enable_proportion = enable_proportion
         self.device = torch.device("cuda" if device is None else device)
+        self.arena = arena
         self._pod_sc = a["pod_sc"]  # identity marker for refresh
-        self.packed = pack(a, enable_drf, enable_proportion).to(self.device)
+        host = pack(a, enable_drf, enable_proportion)
+        if arena is None:
+            self.packed = host.to(self.device)
+        else:
+            self._host_fstatic = host.fstatic
+            self.packed = Packed(
+                host.dims,
+                encode_cache.put(arena, "fused_istatic", host.istatic.numpy(), self.device),
+                encode_cache.put(arena, "fused_fstatic", host.fstatic.numpy(), self.device),
+            )
         if self.device.type == "cuda":
             # the kernel's shared-memory limit and the card's room for its
             # cluster: a snapshot outside them raises here, before any solve
@@ -599,7 +617,15 @@ class FusedSolver:
             # re-fold just the affinity static
             self._pod_sc = self.a["pod_sc"]
             affw = torch.from_numpy(fold_affinity_scores(self.a).ravel())
-            p.views()["affw"].copy_(affw)
+            if self.arena is None:
+                p.views()["affw"].copy_(affw)
+            else:
+                # a new host buffer (the arena's memo is never written),
+                # uploaded through the arena: its changed elements only
+                fstatic = self._host_fstatic.clone()
+                _views(fstatic, p.dims.fstatic())["affw"].copy_(affw)
+                self._host_fstatic = fstatic
+                p.fstatic = encode_cache.put(self.arena, "fused_fstatic", fstatic.numpy(), self.device)
         t0 = time.perf_counter()
         if state is None:
             state = init_state(self.a, self.enable_drf, self.enable_proportion)

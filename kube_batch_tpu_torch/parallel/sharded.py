@@ -9,6 +9,17 @@ The node axis is split into contiguous blocks of equal size, padded up to
 a multiple of the shard count; pad nodes are never candidates. A node's
 global index is its encoded row, so ties break to the same node whatever
 the split.
+
+``ShardedSolver`` and ``sharded_solve_allocate`` are the JAX package's
+GSPMD rung's surface (kube_batch_tpu/parallel/sharded.py). The port has
+no GSPMD: on a mesh, that rung is the twin's loop with the node axis
+sharded, which is what ``ShardedBlockSolver`` runs (kernel B2 on a card,
+its plain version on the CPU), so the surface is a thin layer over it.
+The JAX module caches its jitted programs per (devices, key set, flags)
+in ``_sharded_programs``; the port compiles nothing per snapshot (B2 is
+built once per process), and a solver holds one snapshot's statics, so
+that cache has no counterpart: what a warm cycle can reuse, the static
+blocks, the tensor arena keeps (``arena=``).
 """
 
 from __future__ import annotations
@@ -34,6 +45,21 @@ NODE_AXIS_ARRAYS = frozenset(
 )
 
 AXIS_NAME = "nodes"
+
+# The axis a mesh slab of the tensor arena splits along (ops/encode_cache
+# ``TensorArena``); other names are replicated on every shard. The
+# node-axis arrays carry the node dimension first, pod_sc ([task groups,
+# nodes]) second; the sharded rung's static blocks (``ShardedBlockSolver``)
+# lay the padded node axis last.
+SHARD_AXIS = {
+    **{name: 0 for name in NODE_AXIS_ARRAYS},
+    "pod_sc": 1,
+    "sharded_cnode": 1,
+    "sharded_nalloc": 1,
+    "sharded_nmax": 0,
+    "sharded_nihs": 0,
+    "sharded_nrhs": 0,
+}
 
 
 def make_mesh(n_devices: int | None = None, devices: list | None = None) -> tuple[torch.device, ...]:
@@ -63,3 +89,30 @@ def node_blocks(n_nodes: int, m: int) -> list[tuple[int, int]]:
         raise ValueError(f"node_blocks needs n_nodes >= 1 and m >= 1, got {n_nodes}, {m}")
     size = -(-n_nodes // m)
     return [(k * size, (k + 1) * size) for k in range(m)]
+
+
+class ShardedSolver:
+    """The JAX package's multi-device solver surface: the port's sharded
+    rung, ``ShardedBlockSolver`` on ``mesh`` (one shard per entry), over
+    the encoder's float32 arrays (numpy or CPU tensors). ``solve(None)``
+    starts fresh, ``solve(state)`` resumes after a host step; states come
+    back as CPU tensors. ``arena`` keeps the static blocks resident. The
+    JAX ``axis_name`` has no counterpart (a port mesh has one axis), nor
+    its divisibility error: the rung pads the node axis itself."""
+
+    def __init__(self, arrays: dict, mesh, enable_drf: bool = False, enable_proportion: bool = False, arena=None):
+        from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
+        from kube_batch_tpu_torch.parallel.sharded_block import ShardedBlockSolver
+
+        self.inner = ShardedBlockSolver(arrays_from_numpy(arrays), tuple(mesh), enable_drf, enable_proportion, arena=arena)
+
+    def solve(self, state=None):
+        return self.inner.solve(state)
+
+
+def sharded_solve_allocate(arrays: dict, mesh, enable_drf: bool = False, enable_proportion: bool = False, arena=None):
+    """One ``ShardedSolver(...).solve(None)`` as a ``SolveResult`` (CPU
+    tensors)."""
+    from kube_batch_tpu_torch.ops.kernels import result_of
+
+    return result_of(ShardedSolver(arrays, mesh, enable_drf, enable_proportion, arena).solve(None))

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch.ops import block_step as bs
+from kube_batch_tpu_torch.ops import encode_cache
 from kube_batch_tpu_torch.ops import fused_solve as fs
 from kube_batch_tpu_torch.ops.kernels import KIND_ALLOCATED, KIND_PIPELINED, SolveState, init_state, select_queue_job
 from kube_batch_tpu_torch.parallel.sharded import node_blocks
@@ -104,7 +105,12 @@ class ShardedBlockSolver:
     each, all CUDA or all CPU: the block step launches its CUDA kernel on a
     CUDA shard and runs its plain version on a CPU shard
     (``ops.block_step``'s own dispatch). ``exchange_batch`` is the K of the
-    K-deep batched exchange (1: one exchange per gang iteration).
+    K-deep batched exchange (1: one exchange per gang iteration). With
+    ``arena`` (an ops/encode_cache ``TensorArena``) the shards' static
+    blocks go through it with the mesh's placement: reused when their
+    content equals the last upload's, put whole otherwise (no row delta
+    on a mesh). The affinity block and the node state are the solver's
+    own: the solve writes them.
     """
 
     def __init__(
@@ -114,6 +120,7 @@ class ShardedBlockSolver:
         enable_drf: bool = False,
         enable_proportion: bool = False,
         exchange_batch: int = 1,
+        arena=None,
     ) -> None:
         # a bare "cuda" is the current card: blocks and their per-device
         # tables key on the indexed device the tensors report
@@ -202,14 +209,15 @@ class ShardedBlockSolver:
         for name, key in (("nmax", "node_max_tasks"), ("nihs", "node_idle_has_sc"), ("nrhs", "node_rel_has_sc")):
             vec[name] = np.zeros(self.n_pad, np.int32)
             vec[name][:N] = n[key]
+        statics = {
+            name: encode_cache.put(arena, f"sharded_{name}", x, None, mesh=mesh)
+            for name, x in (("cnode", cnode), ("nalloc", nalloc), *vec.items())
+        }
         self.blocks: list[bs.Block] = []
-        for (lo, hi), dev in zip(self.blocks_idx, mesh):
-            def put(x):
-                return torch.from_numpy(np.ascontiguousarray(x[..., lo:hi])).to(dev)
-
+        for k, ((lo, _), dev) in enumerate(zip(self.blocks_idx, mesh)):
             self.blocks.append(bs.Block(
-                cnode=put(cnode), affw=torch.zeros(GT, self.n_loc, dtype=torch.float32, device=dev),
-                nalloc=put(nalloc), nmax=put(vec["nmax"]), nihs=put(vec["nihs"]), nrhs=put(vec["nrhs"]),
+                **{name: parts[k] for name, parts in statics.items()},
+                affw=torch.zeros(GT, self.n_loc, dtype=torch.float32, device=dev),
                 idle=torch.zeros(R, self.n_loc, dtype=torch.float32, device=dev),
                 rel=torch.zeros(R, self.n_loc, dtype=torch.float32, device=dev),
                 used=torch.zeros(R, self.n_loc, dtype=torch.float32, device=dev),

@@ -228,6 +228,11 @@ def evict_releases_then_deletes(P, store, cache):
     wait_until(lambda: store.get_pod("default", "p1") is None, what="evict delete")
     wait_until(lambda: not cache.nodes["n1"].tasks, what="node cleanup")
     assert resource(cache.nodes["n1"].idle)[0] == 8000.0
+    # the pod's shadow job leaves through the cache's rate-limited job GC,
+    # after the delete: compare the mirrors once it has run, not while it
+    # is in flight (a loaded host could otherwise read one package before
+    # its GC and the other after)
+    wait_until(lambda: not cache.jobs, what="shadow job GC")
 
 
 def terminated_job_gc(P, store, cache):

@@ -63,3 +63,54 @@ def test_chip_smoke_defines_each_top_level_name_once():
         elif isinstance(node, ast.Assign):
             names.update(t.id for t in node.targets if isinstance(t, ast.Name))
     assert [name for name, n in names.items() if n > 1] == []
+
+
+def test_warm_cycles_and_trace_audit_print_the_arena_per_cycle():
+    """``warm_cycles_50k_5k`` (cut) records the tensor arena's counters and
+    bytes per slab each cycle: cycle 1 uploads B1's two statics whole,
+    cycle 2 (nothing changed) reuses both, cycle 3 (a node relabelled, a
+    new gang) uploads them again; ``trace_audit_50k_5k``'s cycle runs under
+    the arena's audit, quiet, and records its summary."""
+    keep = {}
+    rec, _ = chip_smoke.warm_cycles_phase("cpu", cut=100, keep=keep)
+    arena = [c["arena"] for c in rec["fast"]]
+    assert [(a["reuses"], a["row_updates"], a["full_uploads"]) for a in arena[:2]] == [(0, 0, 2), (2, 0, 0)]
+    assert sum(arena[2][k] for k in ("reuses", "row_updates", "full_uploads")) == 2
+    assert all(a["failures"] == 0 for a in arena)
+    assert set(rec["fast"][0]["arena_bytes_by_slab"]) == {"fused_istatic", "fused_fstatic"}
+    assert all("arena" not in c for c in rec["off"])
+    audit, _ = chip_smoke.trace_audit_phase(keep["sched"], "cpu")
+    assert audit["arena"]["uploads"] == 2 and audit["arena"]["failures"] == 0
+
+
+def test_exchange_phase_runs_k1_through_the_surface_and_reuses_its_blocks():
+    """The exchange phase on the CPU (B2's plain version): K = 1 through
+    ShardedSolver and K = 4 each equal the fused rung field for field, and
+    ``sharded_surface`` (sharded_solve_allocate on the same arena) reuses
+    all five static blocks and gives the fused rung's result."""
+    from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
+
+    arrays = chip_smoke.encoded_arrays(models.preempt_mix(300, 16, seed=1))
+    want = FusedSolver(arrays, True, True, device="cpu").solve()
+    recs, launches = chip_smoke.exchange_phase(arrays, want, device="cpu")
+    assert [r["phase"] for r in recs] == [
+        "exchange_preempt_mix_2k_40_seed1_m4_k1", "exchange_preempt_mix_2k_40_seed1_m4_k4", "sharded_surface",
+    ]
+    assert all(r["equal_to_fused"] for r in recs) and launches == 0  # no kernel on the CPU
+    assert recs[0]["surface"] == "ShardedSolver" and recs[1]["batched_iters"] >= 1
+    assert recs[2]["arena"]["reuses"] == 5 and recs[2]["arena"]["full_uploads"] == 0
+    assert set(recs[2]["arena_bytes_by_slab"]) == {f"sharded_{n}" for n in ("cnode", "nalloc", "nmax", "nihs", "nrhs")}
+
+
+def test_class_sessions_record_their_arena_uploads():
+    """A compressed session of ``classes_400k_40k``'s shape (cut) records
+    the class tables' arena uploads by kind and the host time they took:
+    one ``class_<key>`` upload a table and solve, none a segment (the
+    member list goes up as a plain copy)."""
+    from kube_batch_tpu_torch.ops.class_solve import _CA_KEYS
+
+    rec, binds, _ = chip_smoke.class_session(models.uniform_pool(2000, 200, churn=0.01), "cpu", True)
+    assert rec["tier"] == "class_fused" and binds and rec["class"]["segments"] >= 1
+    tables = sum(1 for k in _CA_KEYS if not k.startswith("w_"))
+    assert sum(rec["arena_uploads"].values()) % tables == 0 and rec["arena_uploads"]["full"] >= tables
+    assert rec["arena"]["failures"] == 0 and rec["arena_upload_s"] > 0

@@ -9,6 +9,12 @@ pipeline over two cycles, cache and native loops on and off, gives the
 JAX TPU conf's task states, binds and evicts on every test world. The
 JAX package runs with jax x64 off (the production float32 policy).
 
+The tensor arena (``TensorArena``, the end of this file) is held against
+the JAX arena on seeded sequences of uploads and views: equal counters,
+bank, bytes per slab, watermark and contents after every call; the JAX
+suite's ``test_arena_reuse_and_row_delta`` and
+``test_arena_device_view_passthrough`` run on both arenas.
+
 The cache is process-wide: a fixture invalidates it around each test, so
 xdist workers and test order cannot leak state.
 """
@@ -477,3 +483,149 @@ def test_twin_pipeline_two_cycles_equal_the_tpu_conf(tmp_path, monkeypatch, gen,
     got_off, _ = _torch_two_cycles(getattr(torch_testing, gen)(seed), str(path), monkeypatch)
     assert got_off == want, f"{gen} seed {seed}, cache and native off"
     assert not native.calls
+
+
+# -- tensor arena ------------------------------------------------------------
+
+
+def _arena_pair():
+    from kube_batch_tpu.ops.encode_cache import TensorArena as JaxArena
+
+    return encode_cache.TensorArena("cpu"), JaxArena()
+
+
+def _arena_state(a) -> tuple:
+    return (a.bank, a.reuses, a.row_updates, a.full_uploads, a.rows_uploaded, a.hbm_bytes_by_slab(),
+            a.hbm_watermark_bytes)
+
+
+def test_arena_reuse_and_row_delta():
+    for arena in _arena_pair():
+        host = np.arange(32.0).reshape(8, 4)
+        d1 = arena.upload("node_idle", host)
+        assert arena.full_uploads == 1
+        # identical content, different object -> buffer reuse, no upload
+        d2 = arena.upload("node_idle", host.copy())
+        assert arena.reuses == 1 and d2 is d1
+        # one changed row -> an in-place row update, not a full transfer
+        churn = host.copy()
+        churn[3] = [100.0, 101.0, 102.0, 103.0]
+        d3 = arena.upload("node_idle", churn)
+        assert arena.row_updates == 1 and arena.rows_uploaded == 1
+        np.testing.assert_array_equal(np.asarray(d3), churn)
+        # many changed rows -> full re-upload
+        big = churn * 7.0
+        d4 = arena.upload("node_idle", big)
+        assert arena.full_uploads == 2
+        np.testing.assert_array_equal(np.asarray(d4), big)
+        # shape change -> fresh buffer
+        grown = np.ones((16, 4))
+        d5 = arena.upload("node_idle", grown)
+        assert arena.full_uploads == 3
+        np.testing.assert_array_equal(np.asarray(d5), grown)
+
+
+def test_arena_row_update_keeps_the_buffer():
+    """The port's row update writes the resident buffer in place: the
+    tensor returned is the same object at the same data pointer."""
+    arena = encode_cache.TensorArena("cpu")
+    host = np.arange(40, dtype=np.float32)
+    d1 = arena.upload("fused_fstatic", host)
+    ptr = d1.data_ptr()
+    churn = host.copy()
+    churn[[2, 17]] = -1
+    d2 = arena.upload("fused_fstatic", churn)
+    assert d2 is d1 and d2.data_ptr() == ptr and arena.row_updates == 1 and arena.rows_uploaded == 2
+    np.testing.assert_array_equal(d2.numpy(), churn)
+    assert not np.shares_memory(d2.numpy(), churn)  # the device copy never aliases the host memo
+    # B1's int buffer is never row updated: reused or uploaded whole
+    ints = np.arange(40, dtype=np.int32)
+    i1 = arena.upload("fused_istatic", ints)
+    ints2 = ints.copy()
+    ints2[3] = -1
+    assert arena.upload("fused_istatic", ints2) is not i1 and arena.row_updates == 1 and arena.full_uploads == 3
+
+
+def test_arena_device_view_passthrough():
+    arrays = {
+        "node_idle": np.ones((8, 4)),
+        "compat": np.ones((2, 3), bool),
+        "node_gid": np.zeros(8, np.int32),  # unmanaged: passes through
+    }
+    for arena in _arena_pair():
+        view = arena.device_view(arrays)
+        assert view["node_gid"] is arrays["node_gid"]
+        np.testing.assert_array_equal(np.asarray(view["node_idle"]), arrays["node_idle"])
+        np.testing.assert_array_equal(np.asarray(view["compat"]), arrays["compat"])
+
+
+_ARENA_SLABS = {  # name -> (rows, trailing shape, dtype)
+    "node_idle": (24, (4,), np.float32),
+    "node_alloc": (24, (4,), np.float32),
+    "task_req": (10, (4,), np.float32),
+    "compat": (6, (24,), np.bool_),
+    "class_members": (24, (), np.int32),
+}
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_arena_equals_the_jax_arena_on_seeded_sequences(monkeypatch, seed, pipelined):
+    """Both arenas take the same seeded sequence of uploads and views (the
+    same object again, an equal copy, a few rows changed, most rows
+    changed, a shape change, a dtype change); after every call their
+    counters, bank, bytes per slab, watermark and the returned contents
+    are equal."""
+    from kube_batch_tpu_torch import pipeline
+
+    if pipelined:
+        monkeypatch.setenv(pipeline.ENV, "1")
+    else:
+        monkeypatch.delenv(pipeline.ENV, raising=False)
+    rng = np.random.default_rng(seed)
+    port, ref = _arena_pair()
+    last: dict = {}
+
+    def fresh(name, rows=None, dtype=None):
+        n, tail, dt = _ARENA_SLABS[name]
+        shape = (rows or n,) + tail
+        dt = dtype or dt
+        if dt == np.bool_:
+            return rng.random(shape) < 0.5
+        return rng.integers(0, 50, size=shape).astype(dt)
+
+    def next_host(name):
+        prev = last.get(name)
+        op = rng.integers(0, 6) if prev is not None else 4
+        if op == 0:
+            return prev  # the same object
+        if op == 1:
+            return prev.copy()
+        x = prev.copy() if op in (2, 3) else None
+        if op == 2:  # a few rows
+            rows = rng.choice(x.shape[0], size=max(1, x.shape[0] // 8), replace=False)
+            x[rows] = fresh(name, rows=len(rows), dtype=x.dtype)
+        elif op == 3:  # most rows
+            x = fresh(name, rows=x.shape[0], dtype=x.dtype)
+        elif op == 4:
+            x = fresh(name, rows=int(rng.choice([_ARENA_SLABS[name][0], _ARENA_SLABS[name][0] * 2])))
+        else:
+            x = prev.astype(np.float64) if prev.dtype != np.float64 else prev.astype(np.float32)
+        return x
+
+    for _ in range(40):
+        if rng.random() < 0.3:
+            arrays = {name: next_host(name) for name in ("node_idle", "node_alloc", "task_req", "compat")}
+            last.update(arrays)
+            got, want = port.device_view(arrays), ref.device_view(arrays)
+            pairs = [(got[k], want[k], arrays[k]) for k in arrays]
+        else:
+            name = str(rng.choice(sorted(_ARENA_SLABS)))
+            host = next_host(name)
+            last[name] = host
+            pairs = [(port.upload(name, host), ref.upload(name, host), host)]
+        for g, w, h in pairs:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            np.testing.assert_array_equal(g.numpy(), h)
+        assert _arena_state(port) == _arena_state(ref)
+    assert port.reuses and port.row_updates and port.full_uploads

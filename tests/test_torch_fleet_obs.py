@@ -9,11 +9,11 @@ and the dispatch fence's measured overlap.
 The KBT-R012 SLO-kind registry cases run through the port's own
 analyzer (``kube_batch_tpu_torch.analysis.registry_consistency``).
 
-Left out, each with the queue item it waits for:
-``test_arena_accounts_hbm_bytes_and_watermark``
-(the tensor arena, ROADMAP A4); the six ``test_bench_diff_*`` cases, which
-test the JAX package's ``hack/bench_diff.py`` script, a tool of its own
-bench that no queue item ports.
+``test_arena_accounts_hbm_bytes_and_watermark`` is mirrored at the end,
+the JAX arena's gauges read beside the port's. Left out: the six
+``test_bench_diff_*`` cases, which test the JAX package's
+``hack/bench_diff.py`` script, a tool of its own bench that no queue item
+ports.
 
 Then held against the JAX package: the same samples at the same
 timestamps give cell-for-cell equal wire forms, a port
@@ -591,3 +591,42 @@ def test_fleet_smoke_passes_on_the_cpu():
     bound once, fsck clean, and the killed observatory reads dark."""
     result = fleet.smoke(shards=2, device="cpu")
     assert result["ok"], result
+
+
+# -- arena HBM accounting ----------------------------------------------------
+
+
+def test_arena_accounts_hbm_bytes_and_watermark():
+    """The tensor arena's per-slab bytes and watermark, in its own
+    accounting and in the ``arena_hbm_bytes{slab}`` /
+    ``arena_hbm_watermark_bytes`` gauges, equal the JAX arena's over the
+    same views."""
+    import numpy as np
+
+    from kube_batch_tpu import metrics as jax_metrics
+    from kube_batch_tpu.ops.encode_cache import TensorArena as JaxArena
+
+    from kube_batch_tpu_torch.ops.encode_cache import TensorArena
+
+    arena, ref = TensorArena("cpu"), JaxArena()
+    arrays = {
+        "node_idle": np.ones((8, 4), dtype=np.float32),
+        "task_req": np.ones((3, 4), dtype=np.float32),
+    }
+    for a in (arena, ref):
+        a.device_view(arrays)
+    by_slab = arena.hbm_bytes_by_slab()
+    assert by_slab == ref.hbm_bytes_by_slab()
+    assert by_slab["node_idle"] == 8 * 4 * 4
+    assert by_slab["task_req"] == 3 * 4 * 4
+    total = sum(by_slab.values())
+    assert arena.hbm_watermark_bytes == total
+    assert metrics.arena_hbm_watermark.value() == total == jax_metrics.arena_hbm_watermark.value()
+    assert metrics.arena_hbm_bytes.value({"slab": "node_idle"}) == 8 * 4 * 4
+    assert "kube_batch_tpu_arena_hbm_watermark_bytes " in metrics.render_prometheus_text()
+    # a second identical view reuses the buffers: the watermark is stable
+    arena.device_view(arrays)
+    assert arena.hbm_watermark_bytes == total
+    arena.clear()
+    assert arena.hbm_bytes_by_slab() == {}
+    assert arena.hbm_watermark_bytes == 0

@@ -163,8 +163,10 @@ def test_the_exposition_holds_every_series_under_the_jax_name(tmp_path):
         m.set_admission_lane_backlog("high", 1)
         m.set_admission_lane_rate("high", 10.0)
         m.register_admission_controller_tick("steady")
+        m.set_arena_hbm_bytes("fused_istatic", 1024)
+        m.set_arena_hbm_watermark(2048)
     port, jax = _families(torch_metrics.render_prometheus_text()), _families(jax_metrics.render_prometheus_text())
-    assert len(port) == len(torch_metrics.FAMILIES) == 67
+    assert len(port) == len(torch_metrics.FAMILIES) == len(jax) == 69
     for name in ("journal_records_total", "reconcile_ops_total", "watch_snapshot_age_seconds", "watch_relists_total"):
         assert f"kube_batch_tpu_{name}" in port, name
     for name, (help_text, kind, label_sets) in port.items():

@@ -8,8 +8,9 @@ torch_allocate, backfill`` on ``device: cpu``, both with the size floor
 off, so every cycle's post-solve phase is the one the pipeline defers.
 Placements, bind counts and the write-intent journal's bytes are compared
 exactly; only wall clock may differ. The JAX suite's
-``test_arena_bank_pingpong_matches_hosts`` is not mirrored: the port has
-no ``TensorArena`` yet (ROADMAP A4). The port-only cases at the end: the
+``test_arena_bank_pingpong_matches_hosts`` runs the port's
+``TensorArena`` beside the JAX one on the same views. The port-only cases
+at the end: the
 deferred closure captures only host arrays and makes no CUDA call, and an
 overrun under the pipeline leaves the cache and the store as they were.
 """
@@ -470,3 +471,67 @@ def test_overrun_under_pipeline_leaves_the_cache_byte_identical(tmp_path):
     with x64_enabled(False):
         want = _overrun_run(JAX, tmp_path)
     assert _overrun_run(PORT, tmp_path) == want
+
+
+# -- arena double-buffering ---------------------------------------------------
+
+
+def test_arena_bank_pingpong_matches_hosts(monkeypatch):
+    """Synchronous cycles pin the bank at 0; under ``KBT_PIPELINE`` the
+    banks ping-pong, cycle N+1's upload never touches the buffer cycle N
+    reads, and the re-visited bank row-updates against its own memo. The
+    port's arena and the JAX one agree view for view: bank, counters and
+    contents."""
+    import numpy as np
+
+    from kube_batch_tpu import pipeline as jax_pipeline
+    from kube_batch_tpu.ops.encode_cache import TensorArena as JaxArena
+
+    from kube_batch_tpu_torch import pipeline
+    from kube_batch_tpu_torch.ops.encode_cache import TensorArena
+
+    def counters(a):
+        return a.bank, a.reuses, a.row_updates, a.full_uploads, a.rows_uploaded
+
+    base = np.arange(32, dtype=np.float32).reshape(8, 4)
+    monkeypatch.delenv(pipeline.ENV, raising=False)
+    # synchronous mode: the bank is pinned at 0
+    arena, ref = TensorArena("cpu"), JaxArena()
+    for a in (arena, ref):
+        a.device_view({"node_idle": base})
+        a.device_view({"node_idle": base})
+    assert arena.bank == 0 and arena.reuses >= 1  # same object: outright reuse
+    assert counters(arena) == counters(ref)
+
+    monkeypatch.setenv(pipeline.ENV, "1")
+    assert jax_pipeline.ENV == pipeline.ENV
+    arena, ref = TensorArena("cpu"), JaxArena()
+    def view(arrays):
+        # compared at once: the JAX arena donates the buffer it scatters into
+        v, r = arena.device_view(arrays), ref.device_view(arrays)
+        np.testing.assert_array_equal(v["node_idle"].numpy(), np.asarray(r["node_idle"]))
+        return v
+
+    a1 = {"node_idle": base}
+    v1 = view(a1)
+    b1 = arena.bank
+    a2 = {"node_idle": base.copy()}
+    a2["node_idle"][3] += 1.0
+    v2 = view(a2)
+    assert arena.bank != b1, "pipelined uploads must ping-pong banks"
+    # cycle N+1's upload never touched the bank cycle N still reads
+    np.testing.assert_array_equal(v1["node_idle"].numpy(), a1["node_idle"])
+    np.testing.assert_array_equal(v2["node_idle"].numpy(), a2["node_idle"])
+    # the third cycle returns to the first bank: the row delta runs against
+    # that bank's own (two-cycles-old) memo, in place, and stays exact
+    a3 = {"node_idle": a2["node_idle"].copy()}
+    a3["node_idle"][5] -= 2.0
+    ptr = v1["node_idle"].data_ptr()
+    v3 = view(a3)
+    assert arena.bank == b1
+    assert v3["node_idle"].data_ptr() == ptr
+    np.testing.assert_array_equal(v3["node_idle"].numpy(), a3["node_idle"])
+    assert arena.full_uploads == 2, "one cold upload per bank"
+    assert arena.row_updates == 1, "the re-visit writes rows in place"
+    assert arena.rows_uploaded == 2  # rows 3 and 5 against the bank's memo
+    assert counters(arena) == counters(ref)

@@ -268,8 +268,8 @@ def pretend_card(monkeypatch) -> None:
         return torch.device("cuda"), mesh
 
     class PlainFused(TA.FusedSolver):
-        def __init__(self, a, enable_drf, enable_proportion, device=None):
-            super().__init__(a, enable_drf, enable_proportion, device="cpu")
+        def __init__(self, a, enable_drf, enable_proportion, device=None, arena=None):
+            super().__init__(a, enable_drf, enable_proportion, device="cpu", arena=arena)
 
     monkeypatch.setattr(TA.TorchAllocateAction, "_resolve", on_card)
     monkeypatch.setattr(TA, "FusedSolver", PlainFused)

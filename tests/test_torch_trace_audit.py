@@ -9,8 +9,12 @@ seeded in a loop of a card solve path fires KBT-J001 through the call
 closure, a seeded float64 field fires KBT-P002, a seeded drift fires
 KBT-P005, and a seeded source-hash change forces a kernel rebuild that
 the sentinel counts (a stand-in compiler, since this host has no nvcc).
-P003 and P004 keep their codes and texts; nothing fires them until the
-tensor arena is ported. The rungs run their plain versions here.
+P003 and P004 audit the tensor arena: each fires on a deliberately bad
+arena (one that uploads unchanged slabs whole, one whose row update moves
+the buffer) and stays quiet on the real one, over a warm cycle and over
+seeded uploads; the JAX cases' large-constant, small-constant,
+threshold (here: any size fires), unhonorable-donation and honored-scatter shapes map onto them.
+The rungs run their plain versions here.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from kube_batch_tpu_torch.analysis.trace import (
     state_signature,
 )
 from kube_batch_tpu_torch.analysis.trace.sentinel import CompileBudgetExceeded, CompileSentinel
-from kube_batch_tpu_torch.ops import nvcc
+from kube_batch_tpu_torch.ops import encode_cache, nvcc
 from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
 from kube_batch_tpu_torch.ops.kernels import init_state, solve_allocate_state
 
@@ -224,7 +228,41 @@ def test_p002_deliberate_f64_inputs_exempt():
     assert check_f64(state, "fix", "p", inputs_f64=True) == []
 
 
-# -- KBT-P003 / P004: kept for the tensor arena ------------------------------
+# -- KBT-P003 / P004: the tensor arena ----------------------------------------
+
+
+class _AlwaysWhole(encode_cache.TensorArena):
+    """P003's bad arena: it forgets its memo, so every upload goes up whole."""
+
+    def upload(self, name, host, mesh=None, device=None):
+        self._slots.pop((name, self._bank), None)
+        return super().upload(name, host, mesh=mesh, device=device)
+
+
+class _CopyingRows(encode_cache.TensorArena):
+    """P004's bad arena: a row update that lands in a new buffer."""
+
+    def upload(self, name, host, mesh=None, device=None):
+        before = self.row_updates
+        out = super().upload(name, host, mesh=mesh, device=device)
+        if self.row_updates != before:
+            slot = self._slots[(name, self._bank)]
+            slot.device = out = slot.device.clone()
+        return out
+
+
+def _audited(arena, steps) -> list:
+    with trace.ArenaAudit(arena) as audit:
+        for name, host in steps:
+            arena.upload(name, host)
+    return audit.records
+
+
+def _warm_steps() -> list:
+    host = np.arange(4096, dtype=np.float32)
+    churn = host.copy()
+    churn[7] = -1.0
+    return [("fused_fstatic", host), ("fused_fstatic", host.copy()), ("fused_fstatic", churn)]
 
 
 def test_p003_keeps_its_code_and_explain_text():
@@ -232,9 +270,38 @@ def test_p003_keeps_its_code_and_explain_text():
     assert "re-uploaded" in title and "arena" in body
 
 
+def test_p003_unchanged_slab_uploaded_whole_fires():
+    # the equal copy goes up whole (the first upload has no memo, the churn
+    # changed content)
+    findings = trace.check_arena(_audited(_AlwaysWhole("cpu"), _warm_steps()), "fix")
+    assert codes(findings) == ["KBT-P003"]
+    assert findings[0].symbol == "arena.fused_fstatic.full_upload"
+    assert "16384 B" in findings[0].message
+
+
+def test_p003_changed_slab_uploaded_whole_clean():
+    # a full upload of content that did change (most rows) is not a re-upload
+    host = np.arange(64, dtype=np.float32)
+    records = _audited(encode_cache.TensorArena("cpu"), [("fused_fstatic", host), ("fused_fstatic", host * 3)])
+    assert [r["kind"] for r in records] == ["full", "full"]
+    assert trace.check_arena(records, "fix") == []
+
+
+def test_p003_fires_whatever_the_slab_size():
+    # the JAX audit's threshold is for captured constants; an arena
+    # re-upload of equal content is waste at any size
+    tiny = np.arange(4, dtype=np.float32)
+    records = _audited(_AlwaysWhole("cpu"), [("fused_fstatic", tiny), ("fused_fstatic", tiny.copy())])
+    findings = trace.check_arena(records, "fix")
+    assert codes(findings) == ["KBT-P003"] and "16 B" in findings[0].message
+
+
 def test_p003_nothing_fires_it_yet(live_audit):
-    findings, _ = live_audit
+    """The real arena over the live audit's warm cycle: quiet, and the
+    cycle did reuse the fused rung's statics."""
+    findings, info = live_audit
     assert "KBT-P003" not in codes(findings)
+    assert info["arena"]["by_name"] == {"fused_istatic": "reuse", "fused_fstatic": "reuse"}
 
 
 def test_p003_threshold_explained_on_the_cli():
@@ -246,6 +313,19 @@ def test_p003_threshold_explained_on_the_cli():
 def test_p004_names_the_arena_row_update():
     title, body = CODES["KBT-P004"]
     assert "in place" in title and "index_copy_" in body
+
+
+def test_p004_row_update_into_a_new_buffer_fires():
+    findings = trace.check_arena(_audited(_CopyingRows("cpu"), _warm_steps()), "fix")
+    assert codes(findings) == ["KBT-P004"]
+    assert findings[0].symbol == "arena.fused_fstatic.row_update"
+
+
+def test_p004_row_update_in_place_clean():
+    records = _audited(encode_cache.TensorArena("cpu"), _warm_steps())
+    assert [r["kind"] for r in records] == ["full", "reuse", "row"]
+    assert records[2]["ptr_before"] == records[2]["ptr_after"]
+    assert trace.check_arena(records, "fix") == []
 
 
 def test_p004_nothing_fires_it_yet(live_audit):
