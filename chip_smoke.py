@@ -419,7 +419,25 @@ with code 2 before printing any result.
 runs instead the sharded rung over every visible card, one shard each
 (two or more cards): ``allocate(preempt_mix(50_000, 5_000),
 mesh=make_mesh())`` against the fused rung on cuda:0, and the fused rung
-on the last card against it too.
+on the last card against it too; then the multi-card deployment, the
+twin of ``examples/scheduler-conf-tpu-multichip.yaml``
+(``examples/scheduler-conf-torch-multichip.yaml``, ``mesh: auto``)
+through the whole pipeline, in seven phases (``multichip_phases``), each
+held to a reference on the fused rung on cuda:0 computed in the same run
+and timed beside the same mesh with every shard on cuda:0 (three arms:
+``reference``, ``cards``, ``one_card``): ``multichip_cycle_50k_5k`` (one
+``run_once`` of the twin conf), ``multichip_warm_cycles_50k_5k`` (the
+arena's static blocks on their shard's card, reused on every card in
+cycle 2), ``multichip_pipelined_50k_5k`` (``KBT_PIPELINE``),
+``multichip_explain_50k_1k`` (the records), ``multichip_classes_50k_5k``
+(``KBT_CLASS_COMPRESS``: B3 on cuda:0 alone), ``multichip_ladder``
+(``solve.sharded`` degrades the cycle to the fused rung on cuda:0) and
+``multichip_trace_audit`` (the sync audit's sharded solve: ``m`` record
+reads a placing iteration over ``m`` cards). Every record carries ``m``,
+each card's name and power limit, ``run_once_s``, the sharded rung's
+split, the host record reads per placing iteration and the launches by
+card. ``--rehearse CUT --cards`` runs those seven phases on the CPU on
+``mesh: cpu:4``, the worlds divided by CUT.
 
     python3 chip_smoke.py --pipeline-uncut
 
@@ -531,12 +549,15 @@ def emit(obj: dict) -> None:
     print(f"chip_smoke: {time.perf_counter() - _T0:.2f} s {obj.get('phase', '-')}", file=sys.stderr, flush=True)
 
 
-def card_line() -> str:
+def card_line(every: bool = False) -> str:
+    """The first card's name and power limit as nvidia-smi gives them (with
+    ``every``, each visible card's, joined by "; ")."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0]
+    lines = out.stdout.strip().splitlines()
+    return "; ".join(lines) if every else lines[0]
 
 
 def ptxas_summary(log: str) -> list[dict]:
@@ -961,8 +982,9 @@ def conf_file(mesh: str | None = None, actions: str | None = None, base: str = "
               trace: str | None = None, **args) -> str:
     """examples/<base> (the cycle's conf by default), with ``actions`` in
     place of its pipeline, its ``trace:`` key, and ``mesh`` and
-    torch_allocate's other ``args`` set when given (written beside the
-    kernels' build, inside the checkout)."""
+    torch_allocate's other ``args`` set when given, in place of the base's
+    own where it names them (written beside the kernels' build, inside the
+    checkout)."""
     import re
     import zlib
 
@@ -981,7 +1003,12 @@ def conf_file(mesh: str | None = None, actions: str | None = None, base: str = "
     if actions is not None:
         text = re.sub(r'^actions: ".*"$', f'actions: "{actions}"', text, count=1, flags=re.M)
     if args:
-        text += "actionArguments:\n  torch_allocate:\n" + "".join(f"    {k}: {v}\n" for k, v in args.items())
+        head = "actionArguments:\n  torch_allocate:\n"
+        if head not in text:
+            text += head
+        for k in args:
+            text = re.sub(rf"^    {k}: .*\n", "", text, flags=re.M)
+        text = text.replace(head, head + "".join(f"    {k}: {v}\n" for k, v in args.items()))
     os.makedirs(nvcc.BUILD_DIR, exist_ok=True)
     out = os.path.join(nvcc.BUILD_DIR, f"{base[:-5]}-{zlib.crc32(text.encode()):08x}.yaml")
     with open(out, "w") as f:
@@ -6479,16 +6506,22 @@ def rehearse(argv: list[str]) -> int:
     """``--rehearse CUT``: the pipeline, fast-path, ladder, trace and process
     phases on the CPU, every world's pod and node counts divided by CUT,
     torch_allocate on the kernels' plain versions. A prediction of the
-    host actions' cost, not a measurement of the card."""
+    host actions' cost, not a measurement of the card. ``--rehearse CUT
+    --cards``: the multi-card phases alone, on ``mesh: cpu:4``."""
     try:
-        cut = int(argv[1]) if len(argv) == 2 else 0
+        cut = int(argv[1]) if len(argv) in (2, 3) and argv[2:] in ([], ["--cards"]) else 0
     except ValueError:
         cut = 0
     if cut < 2:
-        print("chip_smoke: usage: chip_smoke.py --rehearse CUT (an integer of 2 or more)", file=sys.stderr)
+        print("chip_smoke: usage: chip_smoke.py --rehearse CUT [--cards] (CUT an integer of 2 or more)",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t0 = time.perf_counter()
+    if argv[2:] == ["--cards"]:
+        failures = multichip_phases(device="cpu", cut=cut)
+        emit({"phase": "total", "s": time.perf_counter() - t0, "cut": cut})
+        return 1 if failures else 0
     emit(native_build())
     failures, _ = pipeline_phases({}, {}, device="cpu", cut=cut)
     fast_failures, _ = fast_path_phases({}, {}, device="cpu", cut=cut)
@@ -6539,9 +6572,540 @@ def ab_warm(other: str) -> int:
     return 1 if failed else 0
 
 
+# -- the multi-card deployment: the twin of the multi-chip conf over cards ----
+
+MULTICHIP_CONF = "scheduler-conf-torch-multichip.yaml"
+MULTICHIP_WORLD = (50_000, 5_000)  # preempt_mix: the cycle, warm, pipelined and class phases
+MULTICHIP_EXPLAIN = (50_000, 1_000)  # explain_50k_1k's world
+MULTICHIP_SESSIONS = 2  # pipelined sessions back to back over a mesh
+REHEARSE_SHARDS = 4  # the CPU rehearsal's mesh: cpu:4
+
+
+class Multichip:
+    """Where the multi-card phases run, by arm:
+
+    - ``cards``: the twin conf's mesh, on the card ``mesh: auto`` as the
+      file says (every visible card, one shard each), on the CPU
+      ``mesh: cpu:4`` with ``device: cpu``;
+    - ``one_card``: the same conf with every shard of the resolved mesh on
+      the first card (``OnFirstCard``), the same shard count;
+    - ``reference``: ``mesh: off`` on cuda:0 (the CPU), the fused rung.
+
+    ``card`` is every card's ``nvidia-smi`` line ("cpu" in a rehearsal)."""
+
+    def __init__(self, device: str = "cuda", cut: int = 1, card: str = "cpu") -> None:
+        import torch
+
+        self.on_card = device != "cpu"
+        self.cut = cut
+        self.card = card
+        n = torch.cuda.device_count() if self.on_card else REHEARSE_SHARDS
+        self.m = 1 << (n.bit_length() - 1)  # torch_allocate clamps auto to a power of two
+        self.ref_device = "cuda:0" if self.on_card else "cpu"
+        self.mesh_args = {} if self.on_card else {"mesh": f"cpu:{REHEARSE_SHARDS}", "device": "cpu"}
+
+    def conf(self, arm: str, actions: str | None = None, **args) -> str:
+        if arm == "reference":
+            return conf_file(base=MULTICHIP_CONF, actions=actions, mesh="off", device=self.ref_device, **args)
+        return conf_file(base=MULTICHIP_CONF, actions=actions, **self.mesh_args, **args)
+
+    def world(self, shape: tuple[int, int]):
+        from kube_batch_tpu_torch import models
+
+        return models.preempt_mix(shape[0] // self.cut, shape[1] // self.cut)
+
+    def reduced(self, shape: tuple[int, int]) -> dict:
+        if self.cut == 1:
+            return {}
+        return {"reduced": {"pods": [shape[0], shape[0] // self.cut], "nodes": [shape[1], shape[1] // self.cut]}}
+
+    def sync(self) -> None:
+        import torch
+
+        if self.on_card:
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+
+    def check(self, name: str, arm: str, rec: dict, tier: str = "sharded") -> None:
+        """The arm's cycle ran where it should: the reference on the fused
+        rung; a mesh arm on ``m`` shards at ``tier``, and on the card with
+        no B1 launch, B2 launched once a placing iteration on each shard's
+        card and one host read of the records a card and placing iteration
+        (the CPU reads none: its records lie on the host)."""
+        if arm == "reference":
+            if rec["tier"] != "fused" or rec["mesh_size"] != 1:
+                raise AssertionError(f"{name} reference: the {rec['tier']!r} rung on a mesh of {rec['mesh_size']}")
+            return
+        if rec["mesh_size"] != self.m or rec["tier"] != tier:
+            raise AssertionError(f"{name} {arm}: the {rec['tier']!r} rung on a mesh of {rec['mesh_size']}, "
+                                 f"expected {tier!r} on {self.m}")
+        if not self.on_card or tier != "sharded":
+            return
+        placing = rec["placing_iterations"]
+        cards = {f"cuda:{i}": placing for i in range(self.m)} if arm == "cards" else {"cuda:0": self.m * placing}
+        reads = placing * (self.m if arm == "cards" else 1)
+        if rec["b1_launches"] or rec["b2_launches_by_card"] != cards or rec["record_reads"] != reads:
+            raise AssertionError(f"{name} {arm}: {rec['b1_launches']} B1 launches, B2 by card "
+                                 f"{rec['b2_launches_by_card']} and {rec['record_reads']} record reads for "
+                                 f"{placing} placing iterations; expected 0, {cards} and {reads}")
+
+
+class OnFirstCard:
+    """While entered, torch_allocate's resolved mesh keeps its size with
+    every shard on its first device: the mesh of one card beside the mesh
+    over cards, from the same conf."""
+
+    def __init__(self, on: bool = True) -> None:
+        self.on = on
+
+    def __enter__(self) -> None:
+        from kube_batch_tpu_torch.actions import torch_allocate as ta
+
+        self.real = ta.TorchAllocateAction._resolve
+        if not self.on:
+            return
+        real = self.real
+
+        def resolve(action, args):
+            device, mesh = real(action, args)
+            return device, None if mesh is None else (mesh[0],) * len(mesh)
+
+        ta.TorchAllocateAction._resolve = resolve
+
+    def __exit__(self, *exc) -> None:
+        from kube_batch_tpu_torch.actions import torch_allocate as ta
+
+        ta.TorchAllocateAction._resolve = self.real
+
+
+def by_card(counter) -> dict:
+    return {f"cuda:{i}": n for i, n in sorted(counter.items()) if n}
+
+
+def mc_scheduler(conf: str, cluster):
+    """A Scheduler over ``FakeCache(cluster)`` with actions of its own (the
+    registry's objects keep state across schedulers: the class table)."""
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    sched = Scheduler(FakeCache(cluster), conf)
+    sched.actions = [type(a)() for a in sched.actions]
+    return sched
+
+
+def mc_cycle(ctx: Multichip, arm: str, sched, read_states: bool = True) -> tuple[dict, dict]:
+    """One ``sched.run_once()`` in ``arm``, every launch counter (by card
+    too) zeroed just before and read just after, and with ``read_states``
+    every task's state read before the session closes (not under
+    ``KBT_PIPELINE``: the deferred dispatch may be writing the session
+    then). Returns the record (wall clock, the action's split, the sharded
+    rung's counts, launches by card) and the outcome (binds, evicts,
+    states)."""
+    import kube_batch_tpu_torch.scheduler as sched_mod
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import class_solve as cs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    states: dict = {}
+    close = sched_mod.close_session
+
+    def close_reading_states(ssn, discard=False):
+        states.update({t.uid: (t.status.name, t.node_name) for j in ssn.jobs.values() for t in j.tasks.values()})
+        close(ssn, discard=discard)
+
+    kernels = (fs.fused_solve, bs.block_step, cs.class_step)
+    ctx.sync()
+    if read_states:
+        sched_mod.close_session = close_reading_states
+    for k in kernels:
+        k.launches = 0
+        k.launches_by_card.clear()
+    try:
+        with OnFirstCard(arm == "one_card"), GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            sched.run_once()
+            ctx.sync()
+            wall_s = time.perf_counter() - t0
+    finally:
+        sched_mod.close_session = close
+    if "aborted" in sched.last_timings:
+        raise AssertionError(f"{arm}: the cycle aborted: {sched.last_timings['aborted']}")
+    act = next(a for a in sched.actions if a.name == "torch_allocate")
+    t, counts = act.last_timings, act.last_counts
+    placing = counts.get("placing_iterations", 0)
+    cache = sched.cache
+    rec = {
+        "arm": arm, "run_once_s": wall_s, "tier": act.last_solver_tier, "mesh_size": act.last_mesh_size,
+        **{k: t.get(k) for k in ("encode_s", "pack_s", "solve_s", "loop_s", "select_s", "exchange_s", "update_s",
+                                 "replay_s", "explain_s")},
+        "placing_iterations": placing, "record_reads": counts.get("record_reads", 0),
+        "record_reads_per_placing_iteration": counts.get("record_reads", 0) / placing if placing else None,
+        "b1_launches": fs.fused_solve.launches, "b2_launches": bs.block_step.launches,
+        "b3_launches": cs.class_step.launches, "b1_launches_by_card": by_card(fs.fused_solve.launches_by_card),
+        "b2_launches_by_card": by_card(bs.block_step.launches_by_card),
+        "b3_launches_by_card": by_card(cs.class_step.launches_by_card),
+        "binds": len(cache.binder.binds), "evicts": len(cache.evictor.evicts),
+        "cycle": {k: v for k, v in sched.last_timings.items() if isinstance(v, (int, float))}, **gc_clock.record(),
+    }
+    return rec, {"binds": dict(cache.binder.binds), "evicts": list(cache.evictor.evicts), "states": states}
+
+
+def mc_equal(name: str, want: dict, got: dict, keys=("binds", "evicts", "states")) -> None:
+    for key in keys:
+        if got[key] != want[key]:
+            if key == "binds":
+                same_binds(name, want[key], got[key])
+            raise AssertionError(f"{name}: the {key} differ from the reference's")
+
+
+def mc_record(ctx: Multichip, name: str, arms: dict, **extra) -> dict:
+    """A phase's record: ``m``, the cards, each arm's record (the mesh over
+    cards under ``cards``, its shards on one card under ``one_card``)."""
+    return {"phase": name, "m": ctx.m, "card": ctx.card, "device": "cuda" if ctx.on_card else "cpu", **arms,
+            **extra}
+
+
+def multichip_cycle_phase(ctx: Multichip, base) -> dict:
+    """``multichip_cycle_50k_5k``: the twin conf (``mesh: auto`` on the
+    card, loaded from its file) through one ``Scheduler.run_once`` on
+    ``preempt_mix(50_000, 5_000)``, the reclaim and preempt walks at
+    ``pipeline_fused_50k_5k``'s depth; binds, evictions and task states
+    equal the same conf's with ``mesh: off`` on cuda:0."""
+    arms, want = {}, None
+    for arm in ("reference", "cards", "one_card"):
+        rec, got = mc_cycle(ctx, arm, mc_scheduler(ctx.conf(arm), session_cluster(base)))
+        ctx.check("multichip_cycle_50k_5k", arm, rec)
+        if want is None:
+            want = got
+        else:
+            mc_equal(f"multichip_cycle_50k_5k {arm}", want, got)
+        arms[arm] = rec
+    pipelined = sum(1 for s, _ in want["states"].values() if s == "PIPELINED")
+    return mc_record(ctx, "multichip_cycle_50k_5k", arms, pipelined=pipelined, equal_to_reference=True,
+                     **ctx.reduced(MULTICHIP_WORLD))
+
+
+def arena_placement(arena) -> dict:
+    """The sharded rung's static slabs in the arena: each shard's device
+    and data pointer, by slab."""
+    out = {}
+    for (name, _bank), slot in arena._slots.items():
+        if name.startswith("sharded_"):
+            out[name] = [(str(t.device), t.data_ptr()) for t in slot.device]
+    return out
+
+
+def multichip_warm_phase(ctx: Multichip) -> dict:
+    """``multichip_warm_cycles_50k_5k``: ``warm_cycles_50k_5k``'s three
+    cycles (cold; nothing changed; 1% of the nodes relabelled and a new
+    gang) of one Scheduler over the twin conf, each arm on a world of its
+    own. The arena's ``sharded_*`` slabs lie on their shard's card; cycle 2
+    reuses every one of them on every card (no upload, the same buffers);
+    the binds and task states equal the reference's cycle by cycle."""
+    from kube_batch_tpu_torch.ops import encode_cache
+
+    arms, want = {}, None
+    for arm in ("reference", "cards", "one_card"):
+        sched = mc_scheduler(ctx.conf(arm), ctx.world(MULTICHIP_WORLD))
+        cluster = sched.cache.cluster
+        encode_cache.get().invalidate_all("chip_smoke")
+        cycles, outcomes, placed = [], [], []
+        for cycle in range(3):
+            if cycle == 2:
+                nodes = cluster.nodes
+                for node_name in sorted(nodes)[: max(int(len(nodes) * CHURN), 1)]:
+                    relabel(nodes[node_name], "churn")
+                add_gang(cluster, "multichip-new-gang", 8)
+            rec, got = mc_cycle(ctx, arm, sched)
+            ctx.check(f"multichip_warm_cycles_50k_5k cycle {cycle + 1}", arm, rec)
+            act = next(a for a in sched.actions if a.name == "torch_allocate")
+            rec["arena"] = {k[len("arena_"):]: v for k, v in act.last_timings.items() if k.startswith("arena_")}
+            if rec["arena"].get("failures"):
+                raise AssertionError(f"{arm} cycle {cycle + 1}: the tensor arena failed: {rec['arena']}")
+            if arm != "reference":
+                placed.append(arena_placement(act._arena))
+                rec["arena_cards"] = {name: sorted({d for d, _ in parts}) for name, parts in placed[-1].items()}
+            cycles.append(rec)
+            outcomes.append(got)
+        if arm != "reference":
+            mesh = [f"cuda:{k if arm == 'cards' else 0}" if ctx.on_card else "cpu" for k in range(ctx.m)]
+            for name, parts in placed[0].items():
+                if [d for d, _ in parts] != mesh:
+                    raise AssertionError(f"{arm}: arena slab {name} on {[d for d, _ in parts]}, expected {mesh}")
+            if len(placed[0]) != 5:
+                raise AssertionError(f"{arm}: {sorted(placed[0])} in the arena, expected the five sharded_* slabs")
+            a2 = cycles[1]["arena"]
+            if a2.get("full_uploads") or a2.get("row_updates") or a2.get("reuses", 0) < 5 or placed[1] != placed[0]:
+                raise AssertionError(f"{arm} cycle 2 (nothing changed) did not reuse every static block: {a2}")
+        if want is None:
+            want = outcomes
+        else:
+            for cycle, (w, g) in enumerate(zip(want, outcomes)):
+                mc_equal(f"multichip_warm_cycles_50k_5k {arm} cycle {cycle + 1}", w, g)
+        arms[arm] = cycles
+    return mc_record(ctx, "multichip_warm_cycles_50k_5k", arms, binds_by_cycle=[len(o["binds"]) for o in want],
+                     equal_cycle_for_cycle=True, **ctx.reduced(MULTICHIP_WORLD))
+
+
+def multichip_pipelined_phase(ctx: Multichip, base) -> dict:
+    """``multichip_pipelined_50k_5k``: ``pipelined_50k_5k``'s sessions
+    (``torch_allocate`` alone, a fresh FakeCache each) with
+    ``KBT_PIPELINE`` on over the mesh, MULTICHIP_SESSIONS back to back (the
+    next session's run joins the last one's deferred dispatch); every
+    session's binds equal the synchronous run's (``mesh: off`` on cuda:0,
+    the pipeline off), each session deferred its dispatch, nothing
+    degraded."""
+    from kube_batch_tpu_torch import pipeline
+
+    saved = os.environ.get(pipeline.ENV)
+    arms, want = {}, None
+    try:
+        for arm in ("reference", "cards", "one_card"):
+            on = arm != "reference"
+            os.environ[pipeline.ENV] = "1" if on else "0"
+            pipeline.reset()
+            runs, scheds = [], []
+            for _ in range(MULTICHIP_SESSIONS if on else 1):
+                sched = mc_scheduler(ctx.conf(arm, actions="torch_allocate"), session_cluster(base))
+                rec, _ = mc_cycle(ctx, arm, sched, read_states=False)
+                ctx.check("multichip_pipelined_50k_5k", arm, rec)
+                runs.append(rec)
+                scheds.append(sched)
+            if not pipeline.fence.wait():
+                raise AssertionError(f"{arm}: the last dispatch did not land: {pipeline.fence.degraded_reason}")
+            for i, (rec, sched) in enumerate(zip(runs, scheds)):
+                act = next(a for a in sched.actions if a.name == "torch_allocate")
+                rec["deferred_replay_s"] = act.last_timings.get("replay_s") if on else None
+                binds = dict(sched.cache.binder.binds)
+                rec["binds"] = len(binds)  # the deferred dispatch has landed: read again
+                if want is None:
+                    want = binds
+                elif binds != want:
+                    same_binds(f"multichip_pipelined_50k_5k {arm} session {i}", want, binds)
+                if on and not (rec["deferred_replay_s"] or 0) > 0:
+                    raise AssertionError(f"{arm} session {i}: no dispatch was deferred")
+            if pipeline.fence.degraded_reason:
+                raise AssertionError(f"{arm}: the pipeline degraded: {pipeline.fence.degraded_reason}")
+            arms[arm] = runs[0] if arm == "reference" else {"runs": runs, "run_once_s": [r["run_once_s"] for r in runs]}
+    finally:
+        if saved is None:
+            os.environ.pop(pipeline.ENV, None)
+        else:
+            os.environ[pipeline.ENV] = saved
+        pipeline.reset()
+    return mc_record(ctx, "multichip_pipelined_50k_5k", arms, sessions=MULTICHIP_SESSIONS, binds=len(want),
+                     binds_equal=True, **ctx.reduced(MULTICHIP_WORLD))
+
+
+def multichip_explain_phase(ctx: Multichip) -> dict:
+    """``multichip_explain_50k_1k``: ``explain_50k_1k``'s world through
+    ``enqueue, torch_allocate`` (the twin conf's tiers) with
+    ``KBT_EXPLAIN`` on, on the sharded rung over the mesh; the published
+    records equal the fused rung's on cuda:0 as canonical JSON, and so do
+    the binds."""
+    from kube_batch_tpu_torch.obs import explain
+
+    cluster = ctx.world(MULTICHIP_EXPLAIN)
+    arms, want = {}, None
+    for arm in ("reference", "cards", "one_card"):
+        with Explaining(True):
+            rec, got = mc_cycle(ctx, arm, mc_scheduler(ctx.conf(arm, actions="enqueue, torch_allocate"),
+                                                       session_cluster(cluster)))
+            records = {r["gang"]: r for r in explain.records.snapshot()}
+        ctx.check("multichip_explain_50k_1k", arm, rec)
+        got["records"] = canon(records)
+        rec["gangs_explained"] = len(records)
+        if rec["gangs_explained"] < 1:
+            raise AssertionError(f"{arm}: no gang was explained")
+        if want is None:
+            want = got
+        else:
+            mc_equal(f"multichip_explain_50k_1k {arm}", want, got, keys=("binds", "states", "records"))
+        arms[arm] = rec
+    return mc_record(ctx, "multichip_explain_50k_1k", arms, records_equal=True, **ctx.reduced(MULTICHIP_EXPLAIN))
+
+
+def multichip_classes_phase(ctx: Multichip, base) -> dict:
+    """``multichip_classes_50k_5k``: ``classes_50k_5k``'s world through
+    ``enqueue, torch_allocate`` with ``KBT_CLASS_COMPRESS`` on over the
+    mesh: the class table on the mesh's first card (tier
+    ``class_sharded``); binds and task states equal B1's uncompressed on
+    cuda:0, and on the card B3 launched on cuda:0 alone, B1 and B2 never.
+    The mesh over cards runs with the last card current for the thread
+    (as ``Scheduler.run(device=...)`` makes it), not the table's."""
+    import contextlib
+
+    import torch
+
+    arms, want = {}, None
+    for arm in ("reference", "cards", "one_card"):
+        current = ctx.m - 1 if ctx.on_card and arm == "cards" else None
+        with Compressing(arm != "reference"), (
+                contextlib.nullcontext() if current is None else torch.cuda.device(current)):
+            sched = mc_scheduler(ctx.conf(arm, actions=CLASS_ACTIONS), session_cluster(base))
+            rec, got = mc_cycle(ctx, arm, sched)
+        act = next(a for a in sched.actions if a.name == "torch_allocate")
+        stats = act.last_class_stats or {}
+        rec.update(current_card=current, b3_kernel_ms=stats.get("kernel_ms"), segments=stats.get("segments"))
+        ctx.check("multichip_classes_50k_5k", arm, rec, tier="class_sharded")
+        if ctx.on_card and arm != "reference" and (
+                rec["b1_launches"] or rec["b2_launches"] or set(rec["b3_launches_by_card"]) != {"cuda:0"}):
+            raise AssertionError(f"{arm}: {rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches, B3 by card "
+                                 f"{rec['b3_launches_by_card']}; expected B3 on cuda:0 alone")
+        if want is None:
+            want = got
+        else:
+            mc_equal(f"multichip_classes_50k_5k {arm}", want, got, keys=("binds", "states"))
+        arms[arm] = rec
+    return mc_record(ctx, "multichip_classes_50k_5k", arms, binds_equal=True, **ctx.reduced(MULTICHIP_WORLD))
+
+
+def multichip_ladder_phase(ctx: Multichip) -> dict:
+    """``multichip_ladder``: ``ladder_drills`` (c) over the mesh. On
+    ``preempt_mix(2000, 40, seed=1)`` the ``solve.sharded`` fault point
+    fires once after the sharded rung ran its segment over the cards; the
+    fused rung resumes on the conf's device (cuda:0) in the same cycle
+    with one B1 launch; the ``sharded`` breaker counts one failure and
+    makes no transition; binds, evictions and task states equal an
+    undisturbed fused cycle's."""
+    from kube_batch_tpu_torch import faults, models
+
+    pods, nodes, seed = DRILL_WORLD
+    process_ladder = faults.solver_ladder
+    arms, want = {}, None
+    try:
+        for arm in ("reference", "cards", "one_card"):
+            faults.registry.reset()
+            ladder = faults.DegradationLadder(("sharded", "fused", "serial"), failure_threshold=3,
+                                              reset_timeout=DRILL_RESET_S, clock=DrillClock())
+            history = []
+            for b in ladder.breakers.values():
+                real = b._transition
+
+                def transition(to, b=b, real=real):
+                    history.append((b.name, b.state, to))
+                    real(to)
+
+                b._transition = transition
+            faults.set_solver_ladder(ladder)
+            if arm != "reference":
+                faults.registry.arm("solve.sharded", count=1)
+            rec, got = mc_cycle(ctx, arm, mc_scheduler(ctx.conf(arm, min_device_pairs=0),
+                                                       models.preempt_mix(pods, nodes, seed=seed)))
+            rec.update(history=history, sharded_failures=ladder.breakers["sharded"].failures)
+            ctx.check("multichip_ladder", "reference", {**rec, "mesh_size": 1})  # every arm ends on the fused rung
+            if arm != "reference":
+                if rec["mesh_size"] != ctx.m or rec["sharded_failures"] != 1 or history:
+                    raise AssertionError(f"{arm}: sharded breaker {rec['sharded_failures']} failures, {history}")
+                if ctx.on_card:
+                    cards = {f"cuda:{k}" for k in range(ctx.m)} if arm == "cards" else {"cuda:0"}
+                    if rec["b1_launches_by_card"] != {"cuda:0": 1} or set(rec["b2_launches_by_card"]) != cards:
+                        raise AssertionError(f"{arm}: B1 by card {rec['b1_launches_by_card']}, B2 by card "
+                                             f"{rec['b2_launches_by_card']}; expected one B1 on cuda:0 after B2 "
+                                             f"on {sorted(cards)}")
+            if want is None:
+                want = got
+            else:
+                mc_equal(f"multichip_ladder {arm}", want, got)
+            arms[arm] = rec
+    finally:
+        faults.registry.reset()
+        faults.set_solver_ladder(process_ladder)
+    return mc_record(ctx, "multichip_ladder", arms, world=f"preempt_mix({pods}, {nodes}, seed={seed})",
+                     equal_to_undisturbed=True)
+
+
+def multichip_trace_phase(ctx: Multichip) -> dict:
+    """``multichip_trace_audit``: the trace audit's sharded solve
+    (``preempt_mix(2000, 40, seed=1)``, as ``analysis.trace`` runs it on
+    one card) over the mesh, under torch's sync debug mode ``"warn"`` with
+    every B2 launch under ``"error"``: the syncs by site, and
+    ``ShardedBlockSolver._exchange`` making ``m`` record reads a placing
+    iteration over ``m`` cards (one on one card, the committed baseline's
+    count). The result equals the fused rung's field for field. The CPU
+    has no sync audit: it runs the solves and counts the reads (none)."""
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.analysis import trace
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver, make_mesh
+    from kube_batch_tpu_torch.solve import solver_arrays
+
+    import torch
+
+    arrays = solver_arrays(models.preempt_mix(*trace.WARM_WORLD, seed=1))[1]
+    a = arrays_from_numpy(arrays)
+    want = fs.FusedSolver(a, True, True, device=ctx.ref_device).solve()
+    first = torch.device(ctx.ref_device)
+    meshes = {"cards": make_mesh(ctx.m) if ctx.on_card else (first,) * ctx.m, "one_card": (first,) * ctx.m}
+    arms = {}
+    for arm, mesh in meshes.items():
+        solver = ShardedBlockSolver(a, mesh, True, True)
+        bs.block_step.launches = 0
+        bs.block_step.launches_by_card.clear()
+        ctx.sync()
+        t0 = time.perf_counter()
+        if ctx.on_card:
+            with trace.guard_calls(bs.BlockStep, "__call__") as guarded, trace.SyncAudit() as audit:
+                got = solver.solve()
+        else:
+            got = solver.solve()
+        ctx.sync()
+        solve_s = time.perf_counter() - t0
+        same_state(f"multichip_trace_audit {arm}", want, got)
+        placing, reads = solver.counts["placing_iterations"], solver.counts["record_reads"]
+        rec = {"arm": arm, "mesh": [str(d) for d in mesh], "s": solve_s, **solver.timings, **solver.counts,
+               "record_reads_per_placing_iteration": reads / placing,
+               "b2_launches_by_card": by_card(bs.block_step.launches_by_card)}
+        if ctx.on_card:
+            exchange = sum(n for (_, _, q), n in audit.sites.items() if q == "ShardedBlockSolver._exchange")
+            expected = placing * (ctx.m if arm == "cards" else 1)
+            rec.update(syncs=audit.total, exchange_syncs=exchange, expected_exchange_syncs=expected,
+                       b2_launches_without_sync=guarded["calls"],
+                       sites={f"{p}:{ln} {q}": n for (p, ln, q), n in sorted(audit.sites.items())})
+            for site, n in rec["sites"].items():
+                print(f"multichip_trace_audit {arm} sync site {site}: {n}", flush=True)
+            if exchange != expected or reads != expected or guarded["calls"] != ctx.m * placing:
+                raise AssertionError(f"{arm}: {exchange} syncs and {reads} reads in _exchange, "
+                                     f"{guarded['calls']} B2 launches; expected {expected}, {expected} and "
+                                     f"{ctx.m * placing}")
+        elif reads:
+            raise AssertionError(f"{arm}: {reads} record reads on the CPU")
+        else:
+            rec["p001"] = "not run: the sync audit needs a card"
+        arms[arm] = rec
+    return mc_record(ctx, "multichip_trace_audit", arms, world=f"preempt_mix{trace.WARM_WORLD}, seed=1",
+                     baseline_max_count=1614, equal_to_fused=True)
+
+
+def multichip_phases(device: str = "cuda", cut: int = 1, card: str = "cpu") -> list[str]:
+    """The multi-card deployment (``--cards``): the twin of
+    ``scheduler-conf-tpu-multichip.yaml`` through the whole pipeline on
+    every visible card, seven phases, each held to a reference computed in
+    this run, each arm timed beside the same mesh with its shards on
+    cuda:0. ``device="cpu"`` with ``cut`` > 1 is the CPU rehearsal
+    (``mesh: cpu:4``). Returns the failures."""
+    ctx = Multichip(device, cut, card)
+    failures: list = []
+    base = ctx.world(MULTICHIP_WORLD)
+
+    for name, fn in (
+        ("multichip_cycle_50k_5k", lambda: multichip_cycle_phase(ctx, base)),
+        ("multichip_warm_cycles_50k_5k", lambda: multichip_warm_phase(ctx)),
+        ("multichip_pipelined_50k_5k", lambda: multichip_pipelined_phase(ctx, base)),
+        ("multichip_explain_50k_1k", lambda: multichip_explain_phase(ctx)),
+        ("multichip_classes_50k_5k", lambda: multichip_classes_phase(ctx, base)),
+        ("multichip_ladder", lambda: multichip_ladder_phase(ctx)),
+        ("multichip_trace_audit", lambda: multichip_trace_phase(ctx)),
+    ):
+        run_phase(failures, name, lambda fn=fn: emit(fn()), drill=name == "multichip_ladder")
+    return failures
+
+
 def distinct_cards(card: str) -> int:
-    """The sharded rung over every visible card, one shard each (see the
-    module docstring)."""
+    """The sharded rung over every visible card, one shard each, then the
+    multi-card deployment's phases (see the module docstring)."""
     import torch
 
     from kube_batch_tpu_torch import models
@@ -6555,7 +7119,10 @@ def distinct_cards(card: str) -> int:
     m = torch.cuda.device_count()
     if m < 2:
         raise AssertionError(f"--cards needs two or more cards, found {m}")
-    nvcc.build(["fused_solve", "block_step"])
+    logs = nvcc.build(["fused_solve", "block_step", "class_step"])
+    emit({"phase": "build", "s": time.perf_counter() - t_start,
+          "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
+    emit(native_build())
     cluster = models.preempt_mix(50_000, 5_000)
     fused = allocate(cluster, device="cuda:0")
     last = torch.device("cuda", m - 1)
@@ -6586,7 +7153,12 @@ def distinct_cards(card: str) -> int:
         "total_s": total_s, **res.timings, "iterations": int(res.state.it), "placing_iterations": placing,
         "launches": launches, "binds": len(res.binds), "equal_to_fused": True, **check_binds(res),
     })
+    del cluster, fused, on_last, res
+    failures = multichip_phases(card=card_line(every=True))
     emit({"phase": "total", "s": time.perf_counter() - t_start})
+    if failures:
+        print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
+        return 1
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": m}})
     return 0
@@ -6696,7 +7268,7 @@ def main(argv: list[str]) -> int:
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--federation | --streaming | --operator | --classes | --uploads | --ab-warm DIR | --rehearse CUT]", file=sys.stderr)
+              "--federation | --streaming | --operator | --classes | --uploads | --ab-warm DIR | --rehearse CUT [--cards]]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.analysis.trace import guard_calls

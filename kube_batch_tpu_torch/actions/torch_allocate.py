@@ -27,7 +27,9 @@ Action arguments (``actionArguments: {torch_allocate: {...}}``):
   type; ``<backend>:<count>`` (``cpu:4``, ``cuda:4``) gives ``count``
   shards round-robin over that backend's visible devices, repeats allowed
   (four shards on one card). Every form is clamped to a power of two, as
-  in the JAX package; a mesh of one is the fused rung;
+  in the JAX package; a mesh of one is the fused rung. A value the JAX
+  package reads as single-chip (``many``, ``-2``, ``tpu:4``) logs a
+  warning and solves on the fused rung, as there;
 - ``exchange_batch``: the sharded rung's K-deep batched exchange (1);
 - ``min_device_pairs``: the size floor (pending tasks x nodes) below
   which the cycle runs serially (256; a mesh request skips it).
@@ -778,24 +780,27 @@ class TorchAllocateAction(Action):
             raise ValueError(f"torch_allocate: min_device_pairs={spec!r} is not an integer") from None
 
     def _resolve(self, args: dict) -> tuple[torch.device, tuple | None]:
-        """The solve's device and mesh (None: the fused rung). Raises
-        ValueError on a bad value and RuntimeError when the device is a
-        card and none is visible."""
+        """The solve's device and mesh (None: the fused rung). A ``mesh``
+        value the JAX package reads as single-chip (a backend other than
+        cpu and cuda, a count that is not an integer or is below 1) logs
+        a warning and resolves no mesh: a bad conf value must not kill the
+        scheduling loop. Raises ValueError on a bad ``device`` or a device
+        of another type than the mesh's backend, and RuntimeError when
+        the device or the mesh is a card and none is visible: no fallback
+        may hide the card."""
         mesh_spec = args.get("mesh", "").strip().lower()
         dev_spec = args.get("device", "").strip().lower()
         backend = None
         count_spec = mesh_spec
         if mesh_spec not in _MESH_OFF and ":" in mesh_spec:
             backend, count_spec = mesh_spec.split(":", 1)
-            if backend not in ("cpu", "cuda"):
-                raise ValueError(f"torch_allocate: mesh backend {backend!r} is not cpu or cuda")
         try:
-            device = torch.device(dev_spec or backend or "cuda")
+            device = torch.device(dev_spec or (backend if backend in ("cpu", "cuda") else None) or "cuda")
         except RuntimeError as e:
             raise ValueError(f"torch_allocate: device={dev_spec!r}: {e}") from None
         if device.type not in ("cpu", "cuda"):
             raise ValueError(f"torch_allocate: device {device} is not cpu or cuda")
-        if backend is not None and device.type != backend:
+        if backend in ("cpu", "cuda") and device.type != backend:
             raise ValueError(f"torch_allocate: device {device} but mesh backend {backend}")
         if device.type == "cuda":
             if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
@@ -806,6 +811,9 @@ class TorchAllocateAction(Action):
             if device.index is not None and device.index >= torch.cuda.device_count():
                 raise RuntimeError(f"torch_allocate: {device} is not a visible CUDA device")
         if mesh_spec in _MESH_OFF:
+            return device, None
+        if backend is not None and backend not in ("cpu", "cuda"):
+            log.warning("mesh backend %r is not cpu or cuda; running single-chip on %s", backend, device)
             return device, None
 
         visible = (
@@ -818,9 +826,11 @@ class TorchAllocateAction(Action):
             try:
                 want = int(count_spec)
             except ValueError:
-                raise ValueError(f"torch_allocate: mesh={mesh_spec!r} is not a device count") from None
+                log.warning("unrecognized mesh spec %r; running single-chip on %s", mesh_spec, device)
+                return device, None
         if want < 1:
-            raise ValueError(f"torch_allocate: mesh={mesh_spec!r} is not a device count")
+            log.warning("mesh=%s is not a device count; running single-chip on %s", mesh_spec, device)
+            return device, None
         # auto / an integer take that many visible devices; backend:count
         # takes count shards round-robin over them
         n = want if backend is not None else min(want, len(visible))

@@ -27,6 +27,7 @@ cluster over the block, one node per thread (``ops/cluster.py``
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from dataclasses import dataclass
 
@@ -259,6 +260,7 @@ class BlockStep:
         if err != 0:
             raise RuntimeError(f"block_step launch failed: {_library.error(err)}")
         block_step.launches += 1
+        block_step.launches_by_card[self._index] += 1
         return self.out
 
 
@@ -273,3 +275,4 @@ def block_step(block: Block, task: Task, out: torch.Tensor | None = None) -> tor
 
 
 block_step.launches = 0
+block_step.launches_by_card = collections.Counter()  # the same launches by card index

@@ -47,6 +47,7 @@ self-check on the card (``--device cpu``: on the CPU).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import logging
@@ -720,6 +721,7 @@ class ClassLaunch:
         if err != 0:
             raise ClassKernelError(f"class_step launch failed: {_library.error(err)}")
         class_step.launches += 1
+        class_step.launches_by_card[self.index] += 1
 
 
 def class_step_inplace(
@@ -755,6 +757,7 @@ def class_step(
 
 
 class_step.launches = 0
+class_step.launches_by_card = collections.Counter()  # the same launches by card index
 
 
 def grow_slots(cs: ClassSolveState, cpad: int) -> ClassSolveState:
@@ -1028,10 +1031,13 @@ class ClassCompressedSolver:
             launch.launch()
             self.launches += 1
             return cs
+        # on the launch's own stream: the thread's current card may be
+        # another (a mesh's table lies on its first card)
+        stream = torch.cuda.current_stream(cs.cmult.device)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+        start.record(stream)
         launch.launch()
-        end.record()
+        end.record(stream)
         try:
             end.synchronize()  # an asynchronous CUDA error surfaces here
         except Exception as e:

@@ -30,6 +30,7 @@ same packed inputs — when they lie on the CPU.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import time
 from dataclasses import dataclass
@@ -554,10 +555,12 @@ def fused_solve(packed: Packed, state: PackedState) -> PackedState:
     if err != 0:
         raise RuntimeError(f"fused_solve launch failed: {_library.error(err)}")
     fused_solve.launches += 1
+    fused_solve.launches_by_card[index] += 1
     return state
 
 
 fused_solve.launches = 0
+fused_solve.launches_by_card = collections.Counter()  # the same launches by card index
 
 
 class FusedSolver:

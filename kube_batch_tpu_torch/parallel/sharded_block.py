@@ -144,8 +144,10 @@ class ShardedBlockSolver:
         self.exchange_batch = int(exchange_batch)
         self.batched_iters = 0  # gang iterations committed from a batched exchange
         self.timings: dict[str, float] = {}  # seconds per phase of the last solve
-        # the last solve's iterations, placing iterations, launches and,
-        # with a batched exchange, the speculated placing iterations
+        # the last solve's iterations, placing iterations, launches, host
+        # reads of a card's records (one per card per exchange; none on the
+        # CPU) and, with a batched exchange, the speculated placing
+        # iterations
         self.counts: dict[str, int] = {}
 
         n = {k: np.asarray(v) for k, v in arrays.items()}
@@ -323,6 +325,7 @@ class ShardedBlockSolver:
                 continue
             if host is not buf:
                 host.copy_(buf)  # waits for this device's launches
+                self.counts["record_reads"] += 1
             rec[ids] = host_np
         return rec
 
@@ -477,7 +480,8 @@ class ShardedBlockSolver:
         self._upload(state)
         t1 = time.perf_counter()
         launches = bs.block_step.launches
-        self.counts = {"placing_iterations": 0, **({"speculated": 0} if self.exchange_batch > 1 else {})}
+        self.counts = {"placing_iterations": 0, "record_reads": 0,
+                       **({"speculated": 0} if self.exchange_batch > 1 else {})}
         it0 = rep.it
         tm = {"select_s": 0.0, "exchange_s": 0.0, "update_s": 0.0}
         if self.exchange_batch > 1:

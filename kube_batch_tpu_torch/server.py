@@ -1758,10 +1758,8 @@ def run(argv: Optional[list[str]] = None) -> None:
             "--lock-file or --lease-url must be set when --leader-elect is enabled"
         )
     pkg_log.set_verbosity(opt.v)
-    logging.basicConfig(
-        level=logging.DEBUG if opt.v >= 4 else logging.INFO,
-        format="%(levelname).1s%(asctime)s %(name)s] %(message)s",
-    )
+    # glog's lines, as the JAX server's (log.py), for every logger
+    logging.basicConfig(level=logging.DEBUG if opt.v >= 4 else logging.INFO, handlers=[pkg_log.glog_handler()])
     # Last-gasp observability: dump the flight-recorder ring on SIGTERM
     # (chains any previously-installed handler).
     obs.install_signal_dump()

@@ -26,6 +26,10 @@ import torch
 import kube_batch_tpu.apis.types as jax_apis
 import kube_batch_tpu.testing as jax_testing
 from kube_batch_tpu import models as jax_models
+from kube_batch_tpu.conf import parse_scheduler_conf as jax_parse
+from kube_batch_tpu.framework import close_session as jax_close
+from kube_batch_tpu.framework import get_action as jax_get_action
+from kube_batch_tpu.framework import open_session as jax_open
 from kube_batch_tpu.testing import x64_enabled
 
 import kube_batch_tpu_torch.actions.torch_allocate as TA
@@ -588,16 +592,53 @@ def test_cuda_without_a_card_raises(monkeypatch, args):
 
 @pytest.mark.parametrize("args, match", [
     ({"device": "cpu", "mesh": "cuda:4"}, "mesh backend"),
-    ({"device": "cpu", "mesh": "tpu:4"}, "not cpu or cuda"),
-    ({"device": "cpu", "mesh": "many"}, "not a device count"),
+    ({"device": "meta"}, "not cpu or cuda"),
     ({"device": "cpu", "min_device_pairs": "x"}, "not an integer"),
     ({"device": "cpu", "mesh": "cpu:4", "exchange_batch": "x"}, "not an integer"),
 ])
 def test_bad_arguments_raise(args, match):
+    """A bad ``device``, a device of another type than the mesh's backend
+    and a non-integer ``min_device_pairs`` or ``exchange_batch`` raise. A
+    bad ``mesh`` value does not (the next test): the JAX package reads it
+    as single-chip."""
     cache = torch_testing.FakeCache(make("gang_atomic", TORCH))
     ssn = torch_open(cache, torch_parse(DEFAULT_TIERS_YAML).tiers, {"torch_allocate": args})
     with pytest.raises(ValueError, match=match):
         TA.TorchAllocateAction().execute(ssn)
+
+
+@pytest.mark.parametrize("mesh", ["many", "0x", "-2", "tpu:4", "cpu:many", "cpu:-2", "cpu:0"])
+def test_bad_mesh_values_run_single_chip_as_in_the_jax_package(caplog, mesh):
+    """``xla_allocate`` logs a warning for a ``mesh:`` value it cannot
+    read and runs the cycle single-chip (a bad conf value must not kill
+    the scheduling loop); the port does the same on the conf's device: the
+    same binds on one world, ``last_mesh_size == 1`` on both."""
+    with x64_enabled(False):
+        cache = jax_testing.FakeCache(make("multi_queue", JAX))
+        ssn = jax_open(cache, jax_parse(DEFAULT_TIERS_YAML).tiers, {"xla_allocate": {"mesh": mesh}})
+        jax_action = jax_get_action("xla_allocate")
+        jax_action.execute(ssn)
+        jax_close(ssn)
+    want = dict(cache.binder.binds)
+    with caplog.at_level("WARNING", logger="kube_batch_tpu_torch"):
+        _, binds, act, _ = torch_run("multi_queue", "default", {**CPU, "mesh": mesh})
+    assert binds == want and binds
+    assert act.last_mesh_size == jax_action.last_mesh_size == 1
+    assert act.last_solver_tier == "fused" and act.last_device == torch.device("cpu")
+    assert any("single-chip" in r.getMessage() for r in caplog.records if r.name.startswith("kube_batch_tpu_torch"))
+
+
+@pytest.mark.parametrize("mesh", ["cuda:many", "cuda:-2", "auto", "many"])
+def test_a_cuda_mesh_or_device_without_a_card_still_raises(monkeypatch, mesh):
+    """No fallback may hide the card: with none visible, a ``cuda`` mesh
+    (whatever its count) and a bad count on the default ``cuda`` device
+    raise before any warning route."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cache = torch_testing.FakeCache(make("gang_atomic", TORCH))
+    ssn = torch_open(cache, torch_parse(DEFAULT_TIERS_YAML).tiers, {"torch_allocate": {"mesh": mesh}})
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        TA.TorchAllocateAction().execute(ssn)
+    assert cache.binder.binds == {}
 
 
 def test_mesh_forms_resolve():

@@ -114,3 +114,34 @@ def test_class_sessions_record_their_arena_uploads():
     tables = sum(1 for k in _CA_KEYS if not k.startswith("w_"))
     assert sum(rec["arena_uploads"].values()) % tables == 0 and rec["arena_uploads"]["full"] >= tables
     assert rec["arena"]["failures"] == 0 and rec["arena_upload_s"] > 0
+
+
+MULTICHIP_PHASES = ["multichip_cycle_50k_5k", "multichip_warm_cycles_50k_5k", "multichip_pipelined_50k_5k",
+                    "multichip_explain_50k_1k", "multichip_classes_50k_5k", "multichip_ladder",
+                    "multichip_trace_audit"]
+
+
+def test_cards_phases_rehearse_on_a_cpu_mesh(capsys):
+    """``chip_smoke.py --rehearse CUT --cards``: the multi-card phases of
+    ``--cards`` on ``mesh: cpu:4`` (the kernels' plain versions), each
+    equal to its reference on the fused rung and every mesh arm on four
+    shards of the sharded rung (the class phase's on its class layer)."""
+    import json
+
+    assert chip_smoke.main(["--rehearse", "100", "--cards"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    by_phase = {r["phase"]: r for r in recs}
+    assert [r["phase"] for r in recs] == MULTICHIP_PHASES + ["total"]
+    cycle = by_phase["multichip_cycle_50k_5k"]
+    assert cycle["m"] == 4 and cycle["equal_to_reference"] and cycle["reduced"]["pods"] == [50_000, 500]
+    for arm in ("cards", "one_card"):
+        assert cycle[arm]["tier"] == "sharded" and cycle[arm]["mesh_size"] == 4
+        assert cycle[arm]["placing_iterations"] > 0 and cycle[arm]["record_reads"] == 0  # no card: no read
+        assert by_phase["multichip_classes_50k_5k"][arm]["tier"] == "class_sharded"
+        assert by_phase["multichip_ladder"][arm]["tier"] == "fused"
+        assert by_phase["multichip_ladder"][arm]["sharded_failures"] == 1
+        assert [c["arena"]["reuses"] for c in by_phase["multichip_warm_cycles_50k_5k"][arm]][1] >= 5
+        assert by_phase["multichip_trace_audit"][arm]["p001"].startswith("not run")
+    assert cycle["reference"]["tier"] == "fused"
+    assert by_phase["multichip_explain_50k_1k"]["records_equal"]
+    assert by_phase["multichip_pipelined_50k_5k"]["binds_equal"]
