@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the three kernels from their sources, one nvcc each, at once:
+2. builds the four kernels from their sources, one nvcc each, at once:
    csrc/fused_solve.cu (B1, the whole solve), csrc/block_step.cu (B2,
-   one shard's block step) and csrc/class_step.cu (B3, one
-   class-compressed segment), and prints each entry function's registers,
+   one shard's block step), csrc/class_step.cu (B3, one
+   class-compressed segment) and csrc/mesh_solve.cu (B4, the mesh rung's
+   whole gang loop, one launch a card, B1's loop from
+   csrc/solve_loop.cuh), with the probes csrc/class_floor.cu and
+   csrc/mesh_floor.cu, and prints each entry function's registers,
    spills and static shared memory from ptxas;
    then runs the card tests (the ``cuda``-marked tests of ``CARD_TESTS``,
    pytest in a subprocess): bit-equality at the cluster's slice bounds,
@@ -40,12 +43,21 @@
      pipeline onto releasing capacity);
    - the sharded rung, ``allocate(..., mesh=...)``, on 50k x 5k with one
      shard and with four shards on cuda:0, and on 50k x 1k with four;
-     each must launch B2 once per shard per placing iteration and give
-     the fused rung's binds, pipelined tasks and SolveState, integers
-     exactly and floats as values;
+     each must launch B4 once (one card) and B2 never, and give the fused
+     rung's binds, pipelined tasks and SolveState, integers exactly and
+     floats as values;
+   - ``mesh_solve_vs_plain``: on ``preempt_mix(2000, 40, seed=1)`` and on
+     ``preempt_mix(50_000, 5_000)``, each on four shards of cuda:0, B4,
+     the host loop with B2 on the card (``impl="host_loop"``, which no
+     conf reaches) and B1 give the same SolveState field for field; at
+     2k x 40 B4 also equals its plain version on the CPU (the same
+     grouping of the shards into one card) bit for bit, and is timed
+     (CUDA events around its launch; ``ms``) beside it; at 50k x 5k, from
+     a prefix of the jobs, B4 equals its plain version on four CPU cards;
    and checks every result's binds (no node past its idle or releasing
    capacity + eps, every bound job at its gang minimum);
-6. runs the per-iteration exchange and the K-deep batched exchange
+6. runs the per-iteration exchange (B4 since it landed) and the K-deep
+   batched exchange (the host loop over B2)
    (``preempt_mix(2000, 40, seed=1)``, four shards, K = 1 and K = 4),
    each timed and held against the fused rung; K = 1 through the JAX
    GSPMD rung's surface (``parallel.sharded.ShardedSolver``) with a tensor
@@ -57,8 +69,8 @@
    - ``scheduler_fused``: ``preempt_mix(50_000, 5_000)`` on the fused
      rung, one B1 launch, binds equal to ``allocate``'s (step 5);
    - ``scheduler_sharded``: ``preempt_mix(50_000, 1_000)`` with
-     ``mesh: cuda:4`` (four shards on the one card), as many B2 launches
-     as ``allocate`` made on that mesh, binds equal to the fused rung's;
+     ``mesh: cuda:4`` (four shards on the one card), one B4 launch and no
+     B2, binds equal to the fused rung's;
    - ``scheduler_affinity``: ``preempt_mix(10_000, 1_000)`` with 36 pods
      carrying required pod (anti-)affinity terms, on both rungs: host
      steps (each a pause, a serial step of the task, a resume), the same
@@ -277,7 +289,7 @@
      ``preempt_mix(50_000, 5_000)`` through ``Scheduler.run_once`` with
      examples/scheduler-conf-torch.yaml's tiers and ``torch_allocate``
      alone (a later action joins the deferred dispatch before it runs),
-     on the fused rung, one warm and 5 measured sessions back to back
+     on the fused rung, one warm and 3 measured sessions back to back
      (each a fresh FakeCache over the same world, all built and the
      garbage collected before the column) without ``KBT_PIPELINE``, then
      as many with ``KBT_PIPELINE=1`` (the post-solve replay and dispatch
@@ -384,7 +396,7 @@
      port ``file:line`` and counted, each site printed, and the phase fails
      on a site the port's ``analysis/trace-baseline.toml`` does not name;
      then B1 alone on the cycle's snapshot (upload done, up to the fetch)
-     under ``"error"``. B2's launches in ``allocate_mesh_*`` (step 5) and
+     under ``"error"``. B4's launches in ``allocate_mesh_*`` (step 5) and
      B3's comparison launch (step 15) run under ``"error"`` too;
    - ``signature_drift``: KBT-P002 (no float64 field) and KBT-P005 (field
      names, shapes and dtypes) on the ``SolveState``s that ``allocate``
@@ -405,7 +417,11 @@ float32 operations over the float32 rate, with the operations counted from
 the node-axis work these inputs need) and, for B1, the time per iteration
 of every world it times and a latency bound (``latency_bound_ms``: the
 world's dependent iterations times the kernel's time per iteration on a
-128-node world, measured in the same run); B3's ``latency_bound_ms`` is
+128-node world, measured in the same run); B4's ``latency_bound_ms`` is
+its iterations times B1's time per iteration on that world timed as B4
+is (``raw_ms``: CUDA events around the library's launch alone) plus its
+placing iterations times the exchange's latency between cards (0 on one
+card; ``--cards`` measures it with csrc/mesh_floor.cu); B3's ``latency_bound_ms`` is
 the latency probe's time on config 7's segment (``class_step_vs_plain``),
 measured in the same run, beside its ``device_ms``, ``wrapper_ms``, the
 profiler's device time, its registers and spills (``ptxas``) and its
@@ -418,25 +434,32 @@ with code 2 before printing any result.
 
 runs instead the sharded rung over every visible card, one shard each
 (two or more cards): ``allocate(preempt_mix(50_000, 5_000),
-mesh=make_mesh())`` against the fused rung on cuda:0, and the fused rung
-on the last card against it too; then the multi-card deployment, the
+mesh=make_mesh())`` (B4, one launch a card) against the fused rung on
+cuda:0, and the fused rung on the last card against it too, and B4 over
+the cards from a prefix of the jobs against its plain version on as many
+CPU cards; then
+``mesh_floor`` (csrc/mesh_floor.cu: a stamped record passed through peer
+memory between two and between all the cards, the exchange's latency a
+placing iteration, B4's bound); then the multi-card deployment, the
 twin of ``examples/scheduler-conf-tpu-multichip.yaml``
 (``examples/scheduler-conf-torch-multichip.yaml``, ``mesh: auto``)
 through the whole pipeline, in seven phases (``multichip_phases``), each
 held to a reference on the fused rung on cuda:0 computed in the same run
 and timed beside the same mesh with every shard on cuda:0 (three arms:
 ``reference``, ``cards``, ``one_card``): ``multichip_cycle_50k_5k`` (one
-``run_once`` of the twin conf), ``multichip_warm_cycles_50k_5k`` (the
-arena's static blocks on their shard's card, reused on every card in
+``run_once`` of the twin conf, with a fourth arm ``host_loop``: the same
+mesh over the cards on the host loop over B2, B4's plain version at full
+width), ``multichip_warm_cycles_50k_5k`` (the
+arena's static slabs, one row a card, reused on every card in
 cycle 2), ``multichip_pipelined_50k_5k`` (``KBT_PIPELINE``),
 ``multichip_explain_50k_1k`` (the records), ``multichip_classes_50k_5k``
 (``KBT_CLASS_COMPRESS``: B3 on cuda:0 alone), ``multichip_ladder``
 (``solve.sharded`` degrades the cycle to the fused rung on cuda:0) and
-``multichip_trace_audit`` (the sync audit's sharded solve: ``m`` record
-reads a placing iteration over ``m`` cards). Every record carries ``m``,
+``multichip_trace_audit`` (the sync audit's sharded solve: no sync a
+placing iteration, one barrier a card). Every record carries ``m``,
 each card's name and power limit, ``run_once_s``, the sharded rung's
-split, the host record reads per placing iteration and the launches by
-card. ``--rehearse CUT --cards`` runs those seven phases on the CPU on
+split, the host record reads per placing iteration (none on B4), the
+launches by card and B4's device time by card. ``--rehearse CUT --cards`` runs those seven phases on the CPU on
 ``mesh: cpu:4``, the worlds divided by CUT.
 
     python3 chip_smoke.py --pipeline-uncut
@@ -492,6 +515,7 @@ predict the card run's.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -518,7 +542,8 @@ FIT_OPS_PER_DIM = 4
 SCORE_OPS_PER_NODE = 29
 B2_TIMED_CALLS = 200  # block-step launches per timing
 CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py", "tests/test_torch_cycle_card.py",
-              "tests/test_torch_explain.py", "tests/test_torch_class_step.py", "tests/test_torch_arena.py"]
+              "tests/test_torch_explain.py", "tests/test_torch_class_step.py", "tests/test_torch_arena.py",
+              "tests/test_torch_mesh_solve.py"]
 AFFINITY_PODS = 36  # pods of scheduler_affinity's world with required pod (anti-)affinity
 # size_floor's preempt_mix(pods, nodes) worlds: 100 to 102,400 pending x nodes
 FLOOR_WORLDS = ((25, 4), (50, 8), (100, 16), (200, 32), (400, 64), (800, 128))
@@ -605,10 +630,13 @@ def encoded_arrays(cluster):
     return arrays_from_numpy(solver_arrays(cluster)[1])
 
 
-def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1, state=None) -> dict:
+def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1, state=None, raw_runs: int = 0) -> dict:
     """Run the kernel (card) and the plain version (CPU) on the same packed
     inputs, from ``state`` (default: the entry state); raise on any
-    difference. Returns the comparison record."""
+    difference. With ``raw_runs``, also time that many launches as B4 is
+    timed (``b1_raw_times``: CUDA events around the library's launch
+    alone), each result equal to the wrapper's; their median after the
+    first is ``raw_ms``. Returns the comparison record."""
     import torch
 
     from kube_batch_tpu_torch.ops import fused_solve as fs
@@ -659,6 +687,13 @@ def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1, state=None) -> dict
     t_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP32_OPS_PER_S * 1e3
     ms = times[-1] if timed_runs == 1 else statistics.median(times[1:])
+    raw = {}
+    if raw_runs:
+        raw_times, raw_state = b1_raw_times(dev, init, raw_runs)
+        if not (torch.equal(raw_state.istate.cpu(), got_i) and torch.equal(raw_state.fstate.cpu(), got_f)):
+            raise AssertionError(f"{name}: the raw launch differs from the wrapper's")
+        raw_ms = statistics.median(raw_times[1:]) if raw_runs > 1 else raw_times[0]
+        raw = {"raw_ms": raw_ms, "raw_runs_ms": raw_times, "raw_ms_per_iteration": raw_ms / max(int(scal[0]), 1)}
     return {
         "world": name,
         "T": d.T, "N": d.N, "J": d.J, "Q": d.Q, "C": d.C, "R": d.R,
@@ -672,8 +707,57 @@ def kernel_vs_plain(name: str, a: dict, timed_runs: int = 1, state=None) -> dict
         "bytes": bytes_moved, "ops": ops, **work,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "match": True,
+        "match": True, **raw,
     }
+
+
+def b1_raw_times(packed, init, runs: int) -> tuple[list[float], object]:
+    """B1 timed as MeshSolve times B4: CUDA events on cuda:0's current
+    stream around the library's launch alone, none of the wrapper's checks
+    and argument building inside them; each run from ``init`` (CPU), a
+    synchronise after each. Comparison launches: no counter moves. Returns
+    the times (ms) and the last state."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+
+    lib = fs._library.load()
+    geo, args = fs._launch_args(packed.dims)
+    for name, view in packed.views().items():
+        setattr(args, name, view.data_ptr())
+    stream = torch.cuda.current_stream(0)
+    times, st = [], None
+    for _ in range(runs):
+        st = fs.PackedState(packed.dims, init.istate.cuda(), init.fstate.cuda())
+        for name, view in st.views().items():
+            setattr(args, name, view.data_ptr())
+        scratch = None
+        if not geo.rep_in_smem:
+            scratch = torch.empty(geo.shape.k * geo.rep_words, dtype=torch.int32, device="cuda:0")
+            args.scratch = scratch.data_ptr()
+        fs._check_occupancy(0, args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        err = lib.kbt_fused_solve(ctypes.byref(args), 0, stream.cuda_stream)
+        end.record(stream)
+        if err != 0:
+            raise AssertionError(f"B1's raw launch failed: {fs._library.error(err)}")
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        del scratch
+    return times, st
+
+
+def jobs_prefix(a: dict):
+    """The entry state with only the first sixteenth of the job rows
+    active: a prefix of a full-width solve's work, for the comparisons
+    whose plain run would take minutes of host CPU on the whole solve."""
+    from kube_batch_tpu_torch.ops.kernels import init_state
+
+    prefix = init_state(a, True, True)
+    prefix = prefix._replace(job_active=prefix.job_active.clone())
+    prefix.job_active[prefix.job_active.shape[0] // 16 :] = False
+    return prefix
 
 
 def check_binds(res) -> dict:
@@ -847,8 +931,9 @@ def b2_comparisons(arrays_5k, arrays_1k, arrays_ml) -> list[dict]:
     half = entry._replace(job_active=entry.job_active.clone())
     half.job_active[half.job_active.shape[0] // 2 :] = False
     mid = FusedSolver(arrays_5k, True, True, device=cuda).solve(half)
-    one = ShardedBlockSolver(arrays_5k, [cuda], True, True)
-    four = ShardedBlockSolver(arrays_5k, [cuda] * 4, True, True)
+    # the host loop keeps B2's blocks (B4, the default route, has none)
+    one = ShardedBlockSolver(arrays_5k, [cuda], True, True, impl="host_loop")
+    four = ShardedBlockSolver(arrays_5k, [cuda] * 4, True, True, impl="host_loop")
     for label, state in (("entry", entry), ("mid", mid)):
         one._upload(state)
         four._upload(state)
@@ -858,7 +943,7 @@ def b2_comparisons(arrays_5k, arrays_1k, arrays_ml) -> list[dict]:
             for k, blk in enumerate(four.blocks):
                 recs.append(block_vs_plain(f"preempt_mix_50k_5k_{label}_class{c}_shard{k}of4", blk, task,
                                            timed=timed and k == 0))
-    four_1k = ShardedBlockSolver(arrays_1k, [cuda] * 4, True, True)
+    four_1k = ShardedBlockSolver(arrays_1k, [cuda] * 4, True, True, impl="host_loop")
     four_1k._upload(init_state(arrays_1k, True, True))
     for k, blk in enumerate(four_1k.blocks):
         recs.append(block_vs_plain(f"preempt_mix_50k_1k_entry_class0_shard{k}of4", blk, four_1k._tasks[0],
@@ -874,7 +959,7 @@ def b2_comparisons(arrays_5k, arrays_1k, arrays_ml) -> list[dict]:
     recs.append(rec)
     # scalar resources (GPU/TPU dims, has_sc) and host-port collisions: half
     # the nodes hold port bit 0 or 1, and each task asks for bit 0
-    ml = ShardedBlockSolver(arrays_ml, [cuda], True, True)
+    ml = ShardedBlockSolver(arrays_ml, [cuda], True, True, impl="host_loop")
     ml._upload(init_state(arrays_ml, True, True))
     rng = np.random.default_rng(0)
     ml.blocks[0].nports.copy_(torch.from_numpy(rng.integers(0, 3, ml.n_loc).astype(np.int32)))
@@ -893,14 +978,16 @@ def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict]
     ``preempt_mix(2000, 40, seed=1)`` and four shards of the card, each
     timed and held field for field against ``want``, the fused rung's
     SolveState. K = 1 runs through the JAX package's GSPMD surface
-    (``ShardedSolver``) with a tensor arena, K = 4 through
-    ``ShardedBlockSolver``; then ``sharded_solve_allocate`` on the same
-    arena must reuse all five static blocks and give the fused rung's
-    SolveResult. Returns the records and the surface's B2 launches (K = 1
-    and ``sharded_solve_allocate``), counted from zero."""
+    (``ShardedSolver``) with a tensor arena, on kernel B4; K = 4 through
+    ``ShardedBlockSolver``, on the host loop over B2; then
+    ``sharded_solve_allocate`` on the same arena must reuse B4's three
+    static slabs and give the fused rung's SolveResult. Returns the
+    records and the surface's B4 launches (K = 1 and
+    ``sharded_solve_allocate``), counted from zero."""
     import torch
 
     from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
     from kube_batch_tpu_torch.ops.encode_cache import TensorArena
     from kube_batch_tpu_torch.ops.kernels import result_of
     from kube_batch_tpu_torch.parallel import ShardedBlockSolver
@@ -909,10 +996,10 @@ def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict]
     dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
     mesh = [dev] * 4
     arena = TensorArena(dev)
-    saved = bs.block_step.launches
+    saved = bs.block_step.launches, ms.mesh_solve.launches
     recs, surface = [], 0
     for k in (1, 4):
-        bs.block_step.launches = 0
+        bs.block_step.launches = ms.mesh_solve.launches = 0
         if k == 1:
             solver = ShardedSolver(arrays, mesh, True, True, arena=arena).inner
         else:
@@ -922,29 +1009,140 @@ def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict]
         solve_s = time.perf_counter() - t0
         if k > 1 and solver.batched_iters < 1:
             raise AssertionError("the batched exchange committed no iteration from a batch")
-        surface += bs.block_step.launches if k == 1 else 0
+        b2, b4 = bs.block_step.launches, ms.mesh_solve.launches
+        if device == "cuda" and (b2, b4) != ((0, 1) if k == 1 else (solver.counts["launches"], 0)):
+            raise AssertionError(f"K={k}: {b2} B2 and {b4} B4 launches, on the {solver.impl}")
+        surface += b4 if k == 1 else 0
         recs.append({"phase": f"exchange_preempt_mix_2k_40_seed1_m4_k{k}", "s": solve_s,
-                     "surface": "ShardedSolver" if k == 1 else "ShardedBlockSolver",
-                     "batched_iters": solver.batched_iters, **solver.counts, "equal_to_fused": True})
+                     "surface": "ShardedSolver" if k == 1 else "ShardedBlockSolver", "impl": solver.impl,
+                     "batched_iters": solver.batched_iters, **solver.counts, "b2_launches": b2, "b4_launches": b4,
+                     "equal_to_fused": True})
     before = arena.counters()
-    bs.block_step.launches = 0
+    ms.mesh_solve.launches = 0
     t0 = time.perf_counter()
     res = sharded_solve_allocate(arrays, mesh, True, True, arena=arena)
     solve_s = time.perf_counter() - t0
-    surface += bs.block_step.launches
-    bs.block_step.launches = saved
+    surface += ms.mesh_solve.launches
+    bs.block_step.launches, ms.mesh_solve.launches = saved
     reused = {k: v - before[k] for k, v in arena.counters().items()}
-    if reused["reuses"] != 5 or reused["full_uploads"]:
-        raise AssertionError(f"sharded_solve_allocate did not reuse the five static blocks: {reused}")
+    if reused["reuses"] != 3 or reused["full_uploads"]:
+        raise AssertionError(f"sharded_solve_allocate did not reuse B4's three static slabs: {reused}")
     for field, x in zip(res._fields, res):
         if not torch.equal(x, getattr(result_of(want), field)):
             raise AssertionError(f"sharded_solve_allocate: {field} differs from the fused rung's")
     if device == "cuda" and surface < 1:
-        raise AssertionError("the sharded surface launched B2 no time")
+        raise AssertionError("the sharded surface launched B4 no time")
     recs.append({"phase": "sharded_surface", "world": "preempt_mix_2k_40_seed1", "m": 4, "s": solve_s,
                  "arena": reused, "launches": surface, "equal_to_fused": True,
                  "arena_bytes_by_slab": arena.hbm_bytes_by_slab()})
     return recs, surface
+
+
+def b4_bound(solver, ops: int, iterations: int, placing: int, floor_ms_per_iter: float,
+             exchange_us: float = 0.0) -> dict:
+    """B4's bounds on one solve: the roofline (each card's statics and gidx
+    read once, its state read and written once, over the HBM rate; the
+    node-axis operations B1's plain run counted on the same world, over the
+    float32 rate) and the latency bound (the dependent iterations times
+    B1's time per iteration on a 128-node world, timed as B4 is, around
+    the launch alone, plus the placing iterations times the exchange's
+    latency between cards, 0 on one card)."""
+    words = sum(c.packed.istatic.numel() + c.packed.fstatic.numel() + c.gidx.numel()
+                + 2 * (c.state.istate.numel() + c.state.fstate.numel()) for c in solver._mesh.cards)
+    t_bytes = 4 * words / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    return {"bytes": 4 * words, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "latency_bound_ms": iterations * floor_ms_per_iter + placing * exchange_us * 1e-3}
+
+
+def mesh_solve_vs_plain(small: dict, big: dict, floor: dict) -> dict:
+    """``mesh_solve_vs_plain``: kernel B4 on four shards of cuda:0 (one
+    card, one launch) against the host loop with B2 on the card
+    (``impl="host_loop"``) and B1, field for field, on ``small``
+    (``preempt_mix(2000, 40, seed=1)``) and on ``big`` (``preempt_mix(50_000,
+    5_000)``); on ``small`` also against its plain version on the CPU (the
+    same grouping: four shards on one card) bit for bit, timed (B4 alone
+    with CUDA events around its launch, ``ms``, the second of two solves;
+    the plain run on the host clock); on ``big`` from ``jobs_prefix``'s
+    state, against its plain version on four CPU cards (one a shard, as
+    over four cards; the whole solve's plain run takes minutes). ``floor``
+    is B1's record on ``small``: its raw time per iteration and its
+    node-axis operations. Returns the record; its launches are B4's of the
+    two compared solves."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import block_step as bs
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver
+
+    cuda0 = torch.device("cuda", 0)
+    mesh = [cuda0] * 4
+    rec = {"phase": "mesh_solve_vs_plain", "m": 4, "cards": 1}
+    for label, a in (("preempt_mix_2k_40_seed1", small), ("preempt_mix_50k_5k", big)):
+        b1 = fs.FusedSolver(a, True, True, device=cuda0).solve()
+        torch.cuda.synchronize()
+        b4, runs = None, []
+        for _ in range(2):
+            launches = ms.mesh_solve.launches
+            solver = ShardedBlockSolver(a, mesh, True, True)
+            t0 = time.perf_counter()
+            b4 = solver.solve()
+            runs.append({"s": time.perf_counter() - t0, "device_ms": solver._mesh.device_ms[0],
+                         "launches": ms.mesh_solve.launches - launches})
+        b2 = bs.block_step.launches
+        host = ShardedBlockSolver(a, mesh, True, True, impl="host_loop")
+        t0 = time.perf_counter()
+        hl = host.solve()
+        host_s = time.perf_counter() - t0
+        b2 = bs.block_step.launches - b2
+        same_state(f"{label}: B4 against B1", b1, b4)
+        same_state(f"{label}: the host loop against B1", b1, hl)
+        placing = solver.counts["placing_iterations"]
+        if [r["launches"] for r in runs] != [1, 1] or b2 != 4 * placing:
+            raise AssertionError(f"{label}: B4 launches {runs}, B2 {b2}; expected one a solve and 4 x {placing}")
+        r = {"iterations": int(b4.it), "placing_iterations": placing, "runs": runs, "ms": runs[-1]["device_ms"],
+             "ms_per_iteration": runs[-1]["device_ms"] / int(b4.it),
+             "k": fs.solve_geometry(solver._mesh.cards[0].packed.dims).shape.k,
+             "host_loop_s": host_s, "host_loop": host.timings, "b2_launches": b2, "equal_to_b1": True,
+             "host_loop_equal_to_b1": True}
+        if label == "preempt_mix_2k_40_seed1":
+            t0 = time.perf_counter()
+            plain = ms.MeshSolve(a, ["cpu"] * 4, True, True, cards=[0, 0, 0, 0]).solve()
+            r["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            same_state(f"{label}: B4 against its plain version", plain, b4)
+            r["max_abs_err"] = max(float((getattr(b4, f) - getattr(plain, f)).abs().max())
+                                   for f in ("idle", "rel", "used", "job_alloc", "q_alloc"))
+            r.update(b4_bound(solver, floor["ops"], r["iterations"], placing, floor["raw_ms_per_iteration"]))
+        else:
+            r["jobs_prefix"] = b4_vs_plain_prefix(a, mesh, [0, 1, 2, 3])
+        rec[label] = r
+    return rec
+
+
+def b4_vs_plain_prefix(a: dict, mesh: list, cards: list[int]) -> dict:
+    """B4 on ``mesh`` from ``jobs_prefix``'s state against its plain
+    version on CPU cards grouped by ``cards``, field for field; the plain
+    run's time on the host clock. Comparison launches."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver
+
+    prefix = jobs_prefix(a)
+    solver = ShardedBlockSolver(a, mesh, True, True)
+    got = solver.solve(prefix)
+    t0 = time.perf_counter()
+    plain = ms.MeshSolve(a, ["cpu"] * len(cards), True, True, cards=cards).solve(prefix)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same_state(f"B4 on {len(set(map(str, mesh)))} card(s) against its plain version on {len(set(cards))} CPU cards, "
+               "jobs prefix", plain, got)
+    return {"jobs_active": int(prefix.job_active.sum()), "iterations": int(got.it),
+            "placing_iterations": solver.counts["placing_iterations"], "device_ms": solver._mesh.device_ms,
+            "plain_ms": plain_ms, "plain_cards": len(set(cards)), "equal_to_plain": True,
+            "max_abs_err": max(float((getattr(got, f) - getattr(plain, f)).abs().max())
+                               for f in ("idle", "rel", "used", "job_alloc", "q_alloc"))}
 
 
 def same_state(name: str, want, got) -> None:
@@ -1085,6 +1283,7 @@ def scheduler_cycle(phase: str, cluster, mesh: str | None, tier: str) -> tuple[d
 
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
     from kube_batch_tpu_torch.scheduler import Scheduler
     from kube_batch_tpu_torch.testing import FakeCache
 
@@ -1092,11 +1291,12 @@ def scheduler_cycle(phase: str, cluster, mesh: str | None, tier: str) -> tuple[d
     sched = Scheduler(cache, conf_file(mesh))
     torch.cuda.synchronize()
     fs.fused_solve.launches = bs.block_step.launches = 0
+    b4 = ms.mesh_solve.launches
     t0 = time.perf_counter()
     sched.run_once()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    b1, b2 = fs.fused_solve.launches, bs.block_step.launches
+    b1, b2, b4 = fs.fused_solve.launches, bs.block_step.launches, ms.mesh_solve.launches - b4
     act = sched.actions[0]
     if act.name != "torch_allocate" or act.last_solver_tier != tier:
         raise AssertionError(f"{phase}: solved by {act.name} on the {act.last_solver_tier!r} rung, not {tier!r}")
@@ -1105,8 +1305,8 @@ def scheduler_cycle(phase: str, cluster, mesh: str | None, tier: str) -> tuple[d
     rec = {
         "phase": phase, "mesh": mesh or "off", "tier": act.last_solver_tier, "run_once_s": wall_s,
         "cycle": dict(sched.last_timings), "torch_allocate": dict(act.last_timings),
-        "b1_launches": b1, "b2_launches": b2, **({"counts": act.last_counts} if act.last_counts else {}),
-        "binds": len(cache.binder.binds),
+        "b1_launches": b1, "b2_launches": b2, "b4_launches": b4,
+        **({"counts": act.last_counts} if act.last_counts else {}), "binds": len(cache.binder.binds),
     }
     return rec, cache, act
 
@@ -1123,8 +1323,9 @@ def cycle_phases(clusters: dict, results: dict, mesh_launches: dict) -> tuple[li
     def fused():
         rec, cache, _ = scheduler_cycle("scheduler_fused", clusters["preempt_mix_50k_5k"], None, "fused")
         launches["scheduler_fused"] = (rec["b1_launches"], rec["b2_launches"])
-        if (rec["b1_launches"], rec["b2_launches"]) != (1, 0):
-            raise AssertionError(f"{rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches; expected 1 and 0")
+        if (rec["b1_launches"], rec["b2_launches"], rec["b4_launches"]) != (1, 0, 0):
+            raise AssertionError(f"{rec['b1_launches']} B1, {rec['b2_launches']} B2 and {rec['b4_launches']} B4 "
+                                 "launches; expected 1, 0 and 0")
         if cache.binder.binds != results["preempt_mix_50k_5k"].binds:
             raise AssertionError("the cycle's binds differ from allocate()'s on the fused rung")
         emit({**rec, "equal_to_allocate": True})
@@ -1133,8 +1334,10 @@ def cycle_phases(clusters: dict, results: dict, mesh_launches: dict) -> tuple[li
         rec, cache, _ = scheduler_cycle("scheduler_sharded", clusters["preempt_mix_50k_1k"], "cuda:4", "sharded")
         launches["scheduler_sharded"] = (rec["b1_launches"], rec["b2_launches"])
         want = mesh_launches[("preempt_mix_50k_1k", 4)]
-        if (rec["b1_launches"], rec["b2_launches"]) != (0, want):
-            raise AssertionError(f"{rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches; expected 0 and {want}")
+        got = (rec["b1_launches"], rec["b2_launches"], rec["b4_launches"])
+        if got != (0, 0, want) or rec["torch_allocate"].get("sharded_impl") != "mesh_kernel":
+            raise AssertionError(f"{got} B1, B2 and B4 launches on {rec['torch_allocate'].get('sharded_impl')}; "
+                                 f"expected (0, 0, {want}) on the mesh kernel")
         if cache.binder.binds != results["preempt_mix_50k_1k"].binds:
             raise AssertionError("the cycle's binds differ from the fused rung's")
         emit({**rec, "equal_to_fused": True})
@@ -1150,8 +1353,9 @@ def cycle_phases(clusters: dict, results: dict, mesh_launches: dict) -> tuple[li
                 raise AssertionError("no host step: no affinity task reached the head of its job")
             if tier == "fused" and rec["b1_launches"] != steps + 1:
                 raise AssertionError(f"{rec['b1_launches']} B1 launches for {steps} host steps")
-            if tier == "sharded" and rec["b2_launches"] != 4 * act.last_counts["placing_iterations"]:
-                raise AssertionError(f"{rec['b2_launches']} B2 launches for {act.last_counts} on four shards")
+            if tier == "sharded" and (rec["b2_launches"], rec["b4_launches"]) != (0, steps + 1):
+                raise AssertionError(f"{rec['b2_launches']} B2 and {rec['b4_launches']} B4 launches for {steps} "
+                                     "host steps on four shards of one card; expected 0 and one a segment")
             ends[label] = (steps, dict(cache.binder.binds), act.last_state)
             emit({**rec, "host_steps": steps, "affinity_pods": AFFINITY_PODS})
         return go
@@ -1775,6 +1979,9 @@ def trace_audit_phase(sched, device: str = "cuda") -> tuple[dict, tuple[int, int
     if bl.errors or kept:
         raise AssertionError("sync sites with no trace-baseline entry or past its max_count:\n" + "\n".join(
             f.render() for f in [*bl.errors, *kept]))
+    if audit["b4_launches_without_sync"] != 1 or audit["b2_launches_without_sync"]:
+        raise AssertionError(f"the audited sharded solve made {audit['b4_launches_without_sync']} B4 launch groups "
+                             f"and {audit['b2_launches_without_sync']} B2 launches; expected 1 and 0")
     return {**rec, **audit, "baselined_sites": len(suppressed)}, launches
 
 
@@ -1900,12 +2107,24 @@ def degradations() -> dict:
     }
 
 
+# kernel B4's launches by phase (``run_phase`` and the inline main paths):
+# its wrapper counts where it launches, and a phase's count is the
+# difference across it, so no phase's own zeroing of other counters moves it
+B4_PATHS: dict[str, int] = {}
+_PHASE_DEPTH = [0]
+
+
 def run_phase(failures: list, name: str, fn, drill: bool = False) -> None:
     """Run one phase whatever the others did; a raise is a failure of the
     run, recorded in ``failures``. Outside the drills (which inject their
     faults and check their own degradations), a degradation during the
-    phase is a failure too."""
+    phase is a failure too. B4's launches during the outermost phase go to
+    ``B4_PATHS`` under its name."""
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+
     before = degradations()
+    b4 = ms.mesh_solve.launches
+    _PHASE_DEPTH[0] += 1
     try:
         fn()
         grew = {k: v - before[k] for k, v in degradations().items() if v != before[k]}
@@ -1914,6 +2133,10 @@ def run_phase(failures: list, name: str, fn, drill: bool = False) -> None:
     except Exception as e:  # noqa: BLE001 - every phase runs; the script fails at the end
         failures.append(f"{name}: {type(e).__name__}: {e}")
         print(f"chip_smoke: {name} failed: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+    finally:
+        _PHASE_DEPTH[0] -= 1
+        if _PHASE_DEPTH[0] == 0 and ms.mesh_solve.launches > b4:
+            B4_PATHS[name] = B4_PATHS.get(name, 0) + ms.mesh_solve.launches - b4
 
 
 def degradation_failures() -> list[str]:
@@ -1973,11 +2196,14 @@ def drill_cycle(sched, cluster, device: str) -> dict:
         states.update({t.uid: (t.status.name, t.node_name) for j in ssn.jobs.values() for t in j.tasks.values()})
         close(ssn, discard=discard)
 
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     before = degradations()
     sync()
     sched_mod.close_session = close_reading_states
     fs.fused_solve.launches = bs.block_step.launches = 0
+    b4 = ms.mesh_solve.launches
     try:
         t0 = time.perf_counter()
         sched.run_once()
@@ -1985,11 +2211,11 @@ def drill_cycle(sched, cluster, device: str) -> dict:
         wall_s = time.perf_counter() - t0
     finally:
         sched_mod.close_session = close
-    b1, b2 = fs.fused_solve.launches, bs.block_step.launches
+    b1, b2, b4 = fs.fused_solve.launches, bs.block_step.launches, ms.mesh_solve.launches - b4
     alloc = next(a for a in sched.actions if a.name == "torch_allocate")
     return {
         "run_once_s": wall_s, "tier": alloc.last_solver_tier, "reason": alloc.last_timings.get("serial_reason"),
-        "aborted": sched.last_timings.get("aborted"), "b1_launches": b1, "b2_launches": b2,
+        "aborted": sched.last_timings.get("aborted"), "b1_launches": b1, "b2_launches": b2, "b4_launches": b4,
         "degradations": {k: v - before[k] for k, v in degradations().items() if v != before[k]},
         "binds": dict(sched.cache.binder.binds), "evicts": list(sched.cache.evictor.evicts), "states": states,
     }
@@ -2009,7 +2235,7 @@ def ladder_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
         serial (``breaker_open``) with no launch; after the backoff the
         probe cycle launches B1 once and closes it: closed -> open ->
         half_open -> closed;
-    (c) ``mesh: <device>:4`` with ``solve.sharded`` once: B2 launches, then
+    (c) ``mesh: <device>:4`` with ``solve.sharded`` once: B4 launches, then
         the fused rung resumes in the same cycle with one B1 launch;
     (d) ``solve.nan``: serial (``nonfinite``), no launch;
     (e) ``cycle.overrun``: an aborted cycle with no bind and no evict,
@@ -2110,9 +2336,10 @@ def ladder_drills(device: str = "cuda") -> tuple[dict, tuple[int, int]]:
         faults.registry.arm("solve.sharded", count=1)
         got = cycle("c", Scheduler(None, mesh_conf), "fused", b1=1, b2=None)
         same_as_clean("c", got)
-        if on_card and got["b2_launches"] < 1:
-            raise AssertionError("(c): the sharded rung launched no block step before it failed")
-        rec["c"] = {"history": history, "b2_launches": got["b2_launches"], "b1_launches": got["b1_launches"]}
+        if on_card and (got["b4_launches"] < 1 or got["b2_launches"]):
+            raise AssertionError(f"(c): the sharded rung launched B4 {got['b4_launches']} and B2 "
+                                 f"{got['b2_launches']} times before it failed; expected B4 and no B2")
+        rec["c"] = {"history": history, "b4_launches": got["b4_launches"], "b1_launches": got["b1_launches"]}
         if ladder.breakers["sharded"].failures != 1 or history:
             raise AssertionError(f"(c): sharded breaker {ladder.breakers['sharded'].failures} failures, {history}")
 
@@ -2236,7 +2463,7 @@ def exposition_values(text: str) -> dict:
 
 TRACED_SPANS = ("cycle", "snapshot", "encode", "solve", "gang.assign", "commit")
 SPAN_COST_SPANS = 10_000  # spans timed for the instrumentation's own cost
-WARM_ROUNDS = 2  # rounds of traced, untraced, untraced, traced warm cycles
+WARM_ROUNDS = 1  # rounds of traced, untraced, untraced, traced warm cycles (cut from 4, then 2, for the clock)
 
 
 def traced_cycles_phase(device: str = "cuda", cut: int = 1) -> tuple[dict, tuple[int, int]]:
@@ -4337,7 +4564,7 @@ actionArguments:
     device: {device}
 streaming: {streaming}
 """
-PIPE_SESSIONS = 5  # measured sessions a column of pipelined_50k_5k, after one warm session each
+PIPE_SESSIONS = 3  # measured sessions a column of pipelined_50k_5k, after one warm session each (bench.py's 5, cut for the clock)
 STREAM_DRILL_NODES = 6  # the drills' store: nodes of 16 cpu, gangs of 1-cpu pods
 
 
@@ -6628,10 +6855,13 @@ class Multichip:
 
     def check(self, name: str, arm: str, rec: dict, tier: str = "sharded") -> None:
         """The arm's cycle ran where it should: the reference on the fused
-        rung; a mesh arm on ``m`` shards at ``tier``, and on the card with
-        no B1 launch, B2 launched once a placing iteration on each shard's
-        card and one host read of the records a card and placing iteration
-        (the CPU reads none: its records lie on the host)."""
+        rung; a mesh arm on ``m`` shards at ``tier``, on the sharded rung by
+        B4 (``cards``, ``one_card``) or by the host loop (``host_loop``),
+        and on the card with no B1 launch and: B4 once a solve segment on
+        each of the mesh's cards, no B2 and no host read; or, on the host
+        loop, B2 once a placing iteration on each shard's card and one host
+        read of the records a card and placing iteration (the CPU reads
+        none: its records lie on the host)."""
         if arm == "reference":
             if rec["tier"] != "fused" or rec["mesh_size"] != 1:
                 raise AssertionError(f"{name} reference: the {rec['tier']!r} rung on a mesh of {rec['mesh_size']}")
@@ -6639,15 +6869,29 @@ class Multichip:
         if rec["mesh_size"] != self.m or rec["tier"] != tier:
             raise AssertionError(f"{name} {arm}: the {rec['tier']!r} rung on a mesh of {rec['mesh_size']}, "
                                  f"expected {tier!r} on {self.m}")
-        if not self.on_card or tier != "sharded":
+        if tier != "sharded":
+            return
+        impl = "host_loop" if arm == "host_loop" else "mesh_kernel"
+        if rec["sharded_impl"] != impl:
+            raise AssertionError(f"{name} {arm}: the sharded rung ran {rec['sharded_impl']!r}, expected {impl!r}")
+        if not self.on_card:
             return
         placing = rec["placing_iterations"]
-        cards = {f"cuda:{i}": placing for i in range(self.m)} if arm == "cards" else {"cuda:0": self.m * placing}
-        reads = placing * (self.m if arm == "cards" else 1)
-        if rec["b1_launches"] or rec["b2_launches_by_card"] != cards or rec["record_reads"] != reads:
-            raise AssertionError(f"{name} {arm}: {rec['b1_launches']} B1 launches, B2 by card "
-                                 f"{rec['b2_launches_by_card']} and {rec['record_reads']} record reads for "
-                                 f"{placing} placing iterations; expected 0, {cards} and {reads}")
+        if arm == "host_loop":
+            cards = {f"cuda:{i}": placing for i in range(self.m)}
+            reads = placing * self.m
+            if rec["b1_launches"] or rec["b2_launches_by_card"] != cards or rec["record_reads"] != reads:
+                raise AssertionError(f"{name} {arm}: {rec['b1_launches']} B1 launches, B2 by card "
+                                     f"{rec['b2_launches_by_card']} and {rec['record_reads']} record reads for "
+                                     f"{placing} placing iterations; expected 0, {cards} and {reads}")
+            return
+        segments = 1 + rec["host_steps"]
+        cards = {f"cuda:{i}": segments for i in range(self.m)} if arm == "cards" else {"cuda:0": segments}
+        if (rec["b1_launches"] or rec["b2_launches"] or rec["b4_launches_by_card"] != cards
+                or rec["record_reads"]):
+            raise AssertionError(f"{name} {arm}: {rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches, B4 "
+                                 f"by card {rec['b4_launches_by_card']} and {rec['record_reads']} record reads; "
+                                 f"expected 0, 0, {cards} and 0")
 
 
 class OnFirstCard:
@@ -6678,8 +6922,40 @@ class OnFirstCard:
         ta.TorchAllocateAction._resolve = self.real
 
 
+class HostLoop:
+    """While entered, torch_allocate's sharded rung runs the host loop over
+    B2 with K = 1 (``ShardedBlockSolver(..., impl="host_loop")``, which no
+    conf reaches): B4's plain version at full width, on the cards."""
+
+    def __init__(self, on: bool = True) -> None:
+        self.on = on
+
+    def __enter__(self) -> None:
+        from kube_batch_tpu_torch.actions import torch_allocate as ta
+
+        self.real = ta.ShardedBlockSolver
+        if not self.on:
+            return
+
+        class Forced(self.real):
+            def __init__(self, *args, **kwargs) -> None:
+                super().__init__(*args, **{**kwargs, "impl": "host_loop"})
+
+        ta.ShardedBlockSolver = Forced
+
+    def __exit__(self, *exc) -> None:
+        from kube_batch_tpu_torch.actions import torch_allocate as ta
+
+        ta.ShardedBlockSolver = self.real
+
+
 def by_card(counter) -> dict:
     return {f"cuda:{i}": n for i, n in sorted(counter.items()) if n}
+
+
+def card_delta(after, before) -> dict:
+    """A by-card counter's growth across a region, keyed as ``by_card``."""
+    return by_card({i: n - before.get(i, 0) for i, n in after.items()})
 
 
 def mc_scheduler(conf: str, cluster):
@@ -6701,10 +6977,13 @@ def mc_cycle(ctx: Multichip, arm: str, sched, read_states: bool = True) -> tuple
     then). Returns the record (wall clock, the action's split, the sharded
     rung's counts, launches by card) and the outcome (binds, evicts,
     states)."""
+    import collections
+
     import kube_batch_tpu_torch.scheduler as sched_mod
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import class_solve as cs
     from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
 
     states: dict = {}
     close = sched_mod.close_session
@@ -6720,8 +6999,10 @@ def mc_cycle(ctx: Multichip, arm: str, sched, read_states: bool = True) -> tuple
     for k in kernels:
         k.launches = 0
         k.launches_by_card.clear()
+    b4 = ms.mesh_solve  # counted by difference: run_phase reads its total
+    b4_before = (b4.launches, collections.Counter(b4.launches_by_card), collections.Counter(b4.device_ms_by_card))
     try:
-        with OnFirstCard(arm == "one_card"), GcClock() as gc_clock:
+        with OnFirstCard(arm == "one_card"), HostLoop(arm == "host_loop"), GcClock() as gc_clock:
             t0 = time.perf_counter()
             sched.run_once()
             ctx.sync()
@@ -6744,6 +7025,9 @@ def mc_cycle(ctx: Multichip, arm: str, sched, read_states: bool = True) -> tuple
         "b3_launches": cs.class_step.launches, "b1_launches_by_card": by_card(fs.fused_solve.launches_by_card),
         "b2_launches_by_card": by_card(bs.block_step.launches_by_card),
         "b3_launches_by_card": by_card(cs.class_step.launches_by_card),
+        "b4_launches": b4.launches - b4_before[0], "b4_launches_by_card": card_delta(b4.launches_by_card, b4_before[1]),
+        "b4_device_ms_by_card": card_delta(b4.device_ms_by_card, b4_before[2]),
+        "sharded_impl": t.get("sharded_impl"), "host_steps": t.get("host_steps", 0),
         "binds": len(cache.binder.binds), "evicts": len(cache.evictor.evicts),
         "cycle": {k: v for k, v in sched.last_timings.items() if isinstance(v, (int, float))}, **gc_clock.record(),
     }
@@ -6770,9 +7054,11 @@ def multichip_cycle_phase(ctx: Multichip, base) -> dict:
     card, loaded from its file) through one ``Scheduler.run_once`` on
     ``preempt_mix(50_000, 5_000)``, the reclaim and preempt walks at
     ``pipeline_fused_50k_5k``'s depth; binds, evictions and task states
-    equal the same conf's with ``mesh: off`` on cuda:0."""
+    equal the same conf's with ``mesh: off`` on cuda:0, on every arm: B4
+    over the cards, B4 on one card, and the host loop over B2 over the
+    cards (B4's plain version at full width)."""
     arms, want = {}, None
-    for arm in ("reference", "cards", "one_card"):
+    for arm in ("reference", "cards", "one_card", "host_loop"):
         rec, got = mc_cycle(ctx, arm, mc_scheduler(ctx.conf(arm), session_cluster(base)))
         ctx.check("multichip_cycle_50k_5k", arm, rec)
         if want is None:
@@ -6786,11 +7072,12 @@ def multichip_cycle_phase(ctx: Multichip, base) -> dict:
 
 
 def arena_placement(arena) -> dict:
-    """The sharded rung's static slabs in the arena: each shard's device
-    and data pointer, by slab."""
+    """The sharded rung's static slabs in the arena (B4's ``mesh_*``, one
+    row a card; the host loop's ``sharded_*``, one part a shard): each
+    part's device and data pointer, by slab."""
     out = {}
     for (name, _bank), slot in arena._slots.items():
-        if name.startswith("sharded_"):
+        if name.startswith(("sharded_", "mesh_")):
             out[name] = [(str(t.device), t.data_ptr()) for t in slot.device]
     return out
 
@@ -6799,9 +7086,10 @@ def multichip_warm_phase(ctx: Multichip) -> dict:
     """``multichip_warm_cycles_50k_5k``: ``warm_cycles_50k_5k``'s three
     cycles (cold; nothing changed; 1% of the nodes relabelled and a new
     gang) of one Scheduler over the twin conf, each arm on a world of its
-    own. The arena's ``sharded_*`` slabs lie on their shard's card; cycle 2
-    reuses every one of them on every card (no upload, the same buffers);
-    the binds and task states equal the reference's cycle by cycle."""
+    own. B4's three ``mesh_*`` slabs lie one row on each of the mesh's
+    cards; cycle 2 reuses every one of them on every card (no upload, the
+    same buffers); the binds and task states equal the reference's cycle by
+    cycle."""
     from kube_batch_tpu_torch.ops import encode_cache
 
     arms, want = {}, None
@@ -6828,14 +7116,15 @@ def multichip_warm_phase(ctx: Multichip) -> dict:
             cycles.append(rec)
             outcomes.append(got)
         if arm != "reference":
-            mesh = [f"cuda:{k if arm == 'cards' else 0}" if ctx.on_card else "cpu" for k in range(ctx.m)]
+            cards = [f"cuda:{k}" for k in range(ctx.m)] if ctx.on_card and arm == "cards" else [
+                "cuda:0" if ctx.on_card else "cpu"]
             for name, parts in placed[0].items():
-                if [d for d, _ in parts] != mesh:
-                    raise AssertionError(f"{arm}: arena slab {name} on {[d for d, _ in parts]}, expected {mesh}")
-            if len(placed[0]) != 5:
-                raise AssertionError(f"{arm}: {sorted(placed[0])} in the arena, expected the five sharded_* slabs")
+                if [d for d, _ in parts] != cards:
+                    raise AssertionError(f"{arm}: arena slab {name} on {[d for d, _ in parts]}, expected {cards}")
+            if sorted(placed[0]) != ["mesh_fstatic", "mesh_gidx", "mesh_istatic"]:
+                raise AssertionError(f"{arm}: {sorted(placed[0])} in the arena, expected B4's three mesh_* slabs")
             a2 = cycles[1]["arena"]
-            if a2.get("full_uploads") or a2.get("row_updates") or a2.get("reuses", 0) < 5 or placed[1] != placed[0]:
+            if a2.get("full_uploads") or a2.get("row_updates") or a2.get("reuses", 0) < 3 or placed[1] != placed[0]:
                 raise AssertionError(f"{arm} cycle 2 (nothing changed) did not reuse every static block: {a2}")
         if want is None:
             want = outcomes
@@ -6948,10 +7237,10 @@ def multichip_classes_phase(ctx: Multichip, base) -> dict:
         stats = act.last_class_stats or {}
         rec.update(current_card=current, b3_kernel_ms=stats.get("kernel_ms"), segments=stats.get("segments"))
         ctx.check("multichip_classes_50k_5k", arm, rec, tier="class_sharded")
-        if ctx.on_card and arm != "reference" and (
-                rec["b1_launches"] or rec["b2_launches"] or set(rec["b3_launches_by_card"]) != {"cuda:0"}):
-            raise AssertionError(f"{arm}: {rec['b1_launches']} B1 and {rec['b2_launches']} B2 launches, B3 by card "
-                                 f"{rec['b3_launches_by_card']}; expected B3 on cuda:0 alone")
+        if ctx.on_card and arm != "reference" and (rec["b1_launches"] or rec["b2_launches"] or rec["b4_launches"]
+                                                   or set(rec["b3_launches_by_card"]) != {"cuda:0"}):
+            raise AssertionError(f"{arm}: {rec['b1_launches']} B1, {rec['b2_launches']} B2 and {rec['b4_launches']} "
+                                 f"B4 launches, B3 by card {rec['b3_launches_by_card']}; expected B3 on cuda:0 alone")
         if want is None:
             want = got
         else:
@@ -6999,9 +7288,9 @@ def multichip_ladder_phase(ctx: Multichip) -> dict:
                     raise AssertionError(f"{arm}: sharded breaker {rec['sharded_failures']} failures, {history}")
                 if ctx.on_card:
                     cards = {f"cuda:{k}" for k in range(ctx.m)} if arm == "cards" else {"cuda:0"}
-                    if rec["b1_launches_by_card"] != {"cuda:0": 1} or set(rec["b2_launches_by_card"]) != cards:
-                        raise AssertionError(f"{arm}: B1 by card {rec['b1_launches_by_card']}, B2 by card "
-                                             f"{rec['b2_launches_by_card']}; expected one B1 on cuda:0 after B2 "
+                    if rec["b1_launches_by_card"] != {"cuda:0": 1} or set(rec["b4_launches_by_card"]) != cards:
+                        raise AssertionError(f"{arm}: B1 by card {rec['b1_launches_by_card']}, B4 by card "
+                                             f"{rec['b4_launches_by_card']}; expected one B1 on cuda:0 after B4 "
                                              f"on {sorted(cards)}")
             if want is None:
                 want = got
@@ -7018,16 +7307,17 @@ def multichip_ladder_phase(ctx: Multichip) -> dict:
 def multichip_trace_phase(ctx: Multichip) -> dict:
     """``multichip_trace_audit``: the trace audit's sharded solve
     (``preempt_mix(2000, 40, seed=1)``, as ``analysis.trace`` runs it on
-    one card) over the mesh, under torch's sync debug mode ``"warn"`` with
-    every B2 launch under ``"error"``: the syncs by site, and
-    ``ShardedBlockSolver._exchange`` making ``m`` record reads a placing
-    iteration over ``m`` cards (one on one card, the committed baseline's
-    count). The result equals the fused rung's field for field. The CPU
+    one card) over the mesh, on kernel B4, under torch's sync debug mode
+    ``"warn"`` with every B4 launch group under ``"error"``: the syncs by
+    site, none a placing iteration (the exchange runs inside the launches)
+    and one barrier a card in ``MeshSolve.solve``; no host read of any
+    record. The result equals the fused rung's field for field. The CPU
     has no sync audit: it runs the solves and counts the reads (none)."""
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.analysis import trace
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
     from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
     from kube_batch_tpu_torch.parallel import ShardedBlockSolver, make_mesh
     from kube_batch_tpu_torch.solve import solver_arrays
@@ -7043,11 +7333,11 @@ def multichip_trace_phase(ctx: Multichip) -> dict:
     for arm, mesh in meshes.items():
         solver = ShardedBlockSolver(a, mesh, True, True)
         bs.block_step.launches = 0
-        bs.block_step.launches_by_card.clear()
+        b4 = ms.mesh_solve.launches
         ctx.sync()
         t0 = time.perf_counter()
         if ctx.on_card:
-            with trace.guard_calls(bs.BlockStep, "__call__") as guarded, trace.SyncAudit() as audit:
+            with trace.guard_calls(ms, "_launch_cards") as guarded, trace.SyncAudit() as audit:
                 got = solver.solve()
         else:
             got = solver.solve()
@@ -7055,28 +7345,32 @@ def multichip_trace_phase(ctx: Multichip) -> dict:
         solve_s = time.perf_counter() - t0
         same_state(f"multichip_trace_audit {arm}", want, got)
         placing, reads = solver.counts["placing_iterations"], solver.counts["record_reads"]
+        cards = len(set(mesh)) if ctx.on_card else 1
         rec = {"arm": arm, "mesh": [str(d) for d in mesh], "s": solve_s, **solver.timings, **solver.counts,
-               "record_reads_per_placing_iteration": reads / placing,
-               "b2_launches_by_card": by_card(bs.block_step.launches_by_card)}
+               "record_reads_per_placing_iteration": reads / placing, "b2_launches": bs.block_step.launches,
+               "b4_launches": ms.mesh_solve.launches - b4, "b4_device_ms_by_card": solver._mesh.device_ms}
         if ctx.on_card:
             exchange = sum(n for (_, _, q), n in audit.sites.items() if q == "ShardedBlockSolver._exchange")
-            expected = placing * (ctx.m if arm == "cards" else 1)
-            rec.update(syncs=audit.total, exchange_syncs=exchange, expected_exchange_syncs=expected,
-                       b2_launches_without_sync=guarded["calls"],
+            barrier = sum(n for (_, _, q), n in audit.sites.items() if q == "MeshSolve.solve")
+            rec.update(syncs=audit.total, exchange_syncs=exchange, mesh_solve_syncs=barrier,
+                       b4_launch_groups_without_sync=guarded["calls"],
                        sites={f"{p}:{ln} {q}": n for (p, ln, q), n in sorted(audit.sites.items())})
             for site, n in rec["sites"].items():
                 print(f"multichip_trace_audit {arm} sync site {site}: {n}", flush=True)
-            if exchange != expected or reads != expected or guarded["calls"] != ctx.m * placing:
-                raise AssertionError(f"{arm}: {exchange} syncs and {reads} reads in _exchange, "
-                                     f"{guarded['calls']} B2 launches; expected {expected}, {expected} and "
-                                     f"{ctx.m * placing}")
+            if (exchange or reads or rec["b2_launches"] or guarded["calls"] != 1 or rec["b4_launches"] != cards
+                    or barrier > cards or audit.total >= placing):
+                raise AssertionError(f"{arm}: {exchange} syncs and {reads} reads in _exchange, {barrier} in "
+                                     f"MeshSolve.solve, {audit.total} in all for {placing} placing iterations, "
+                                     f"{rec['b2_launches']} B2 launches and {rec['b4_launches']} B4 launches in "
+                                     f"{guarded['calls']} groups; expected 0, 0, at most {cards}, a handful, 0 and "
+                                     f"{cards} in 1")
         elif reads:
             raise AssertionError(f"{arm}: {reads} record reads on the CPU")
         else:
             rec["p001"] = "not run: the sync audit needs a card"
         arms[arm] = rec
     return mc_record(ctx, "multichip_trace_audit", arms, world=f"preempt_mix{trace.WARM_WORLD}, seed=1",
-                     baseline_max_count=1614, equal_to_fused=True)
+                     equal_to_fused=True)
 
 
 def multichip_phases(device: str = "cuda", cut: int = 1, card: str = "cpu") -> list[str]:
@@ -7103,6 +7397,65 @@ def multichip_phases(device: str = "cuda", cut: int = 1, card: str = "cpu") -> l
     return failures
 
 
+MESH_FLOOR_ITERATIONS = 20_000  # exchanges a mesh_floor run passes between the cards
+
+
+def mesh_floor_probe(cards: int, runs: int = 2) -> dict:
+    """``mesh_floor``: csrc/mesh_floor.cu on the first ``cards`` cards, each
+    run MESH_FLOOR_ITERATIONS exchanges of B4's stamped records through
+    peer memory (one CTA of 512 threads a card, launched on every card
+    before any is waited on; CUDA events around each card's launch on its
+    stream). Returns the microseconds an exchange, per card and run; the
+    last run's slowest card is the exchange's latency a placing
+    iteration."""
+    import ctypes
+
+    import torch
+
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+    from kube_batch_tpu_torch.ops import nvcc
+
+    class MeshFloorArgs(ctypes.Structure):
+        """Mirror of `struct MeshFloorArgs` in csrc/mesh_floor.cu."""
+
+        _fields_ = [("m", ctypes.c_int), ("card", ctypes.c_int), ("iterations", ctypes.c_int),
+                    ("timeout_ms", ctypes.c_int), ("epoch", ctypes.c_uint), ("pad", ctypes.c_uint),
+                    ("xbuf", ctypes.c_void_p * ms.MAX_CARDS), ("out", ctypes.c_void_p)]
+
+    nvcc.build(["mesh_floor"])
+    lib = ctypes.CDLL(nvcc.library_path("mesh_floor"))
+    lib.kbt_mesh_floor.argtypes = [ctypes.POINTER(MeshFloorArgs), ctypes.c_int, ctypes.c_void_p]
+    devs = list(range(cards))
+    ms.enable_peer_access([torch.device("cuda", i) for i in devs])
+    bufs = [torch.zeros(ms.XBUF_WORDS, dtype=torch.int32, device=f"cuda:{i}") for i in devs]
+    outs = [torch.zeros(2, dtype=torch.int32, device=f"cuda:{i}") for i in devs]
+    for i in devs:
+        torch.cuda.synchronize(i)
+    table = (ctypes.c_void_p * ms.MAX_CARDS)(*[b.data_ptr() for b in bufs])
+    us = []
+    for run in range(runs):
+        events = []
+        for i in devs:
+            args = MeshFloorArgs(m=cards, card=i, iterations=MESH_FLOOR_ITERATIONS, timeout_ms=ms.TIMEOUT_MS,
+                                 epoch=run * (MESH_FLOOR_ITERATIONS + 1), pad=0, xbuf=table, out=outs[i].data_ptr())
+            stream = torch.cuda.current_stream(i)
+            with torch.cuda.device(i):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                if lib.kbt_mesh_floor(ctypes.byref(args), i, stream.cuda_stream) != 0:
+                    raise AssertionError(f"mesh_floor: the launch on cuda:{i} failed")
+                end.record(stream)
+            events.append((start, end))
+        for i in devs:
+            torch.cuda.synchronize(i)
+        done = [int(o[0]) for o in outs]
+        if done != [MESH_FLOOR_ITERATIONS] * cards or len({int(o[1]) for o in outs}) != 1:
+            raise AssertionError(f"mesh_floor: cards finished {done} exchanges with winners {outs}")
+        us.append([s.elapsed_time(e) * 1e3 / MESH_FLOOR_ITERATIONS for s, e in events])
+    return {"phase": "mesh_floor", "cards": cards, "iterations": MESH_FLOOR_ITERATIONS, "us_per_exchange": us,
+            "exchange_us": max(us[-1])}
+
+
 def distinct_cards(card: str) -> int:
     """The sharded rung over every visible card, one shard each, then the
     multi-card deployment's phases (see the module docstring)."""
@@ -7111,6 +7464,7 @@ def distinct_cards(card: str) -> int:
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
     from kube_batch_tpu_torch.ops import nvcc
     from kube_batch_tpu_torch.parallel import make_mesh
     from kube_batch_tpu_torch.solve import allocate
@@ -7119,7 +7473,7 @@ def distinct_cards(card: str) -> int:
     m = torch.cuda.device_count()
     if m < 2:
         raise AssertionError(f"--cards needs two or more cards, found {m}")
-    logs = nvcc.build(["fused_solve", "block_step", "class_step"])
+    logs = nvcc.build(["fused_solve", "block_step", "class_step", "mesh_solve", "mesh_floor"])
     emit({"phase": "build", "s": time.perf_counter() - t_start,
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
     emit(native_build())
@@ -7135,25 +7489,46 @@ def distinct_cards(card: str) -> int:
         raise AssertionError(f"make_mesh() gave {mesh}, not {m} distinct cards")
     torch.cuda.set_device(0)
     torch.cuda.synchronize()
-    fs.fused_solve.launches = bs.block_step.launches = 0
+    fs.fused_solve.launches = bs.block_step.launches = ms.mesh_solve.launches = 0
+    ms.mesh_solve.launches_by_card.clear()
+    ms.mesh_solve.device_ms_by_card.clear()
     t0 = time.perf_counter()
     res = allocate(cluster, mesh=mesh)
     for d in mesh:
         torch.cuda.synchronize(d)
     total_s = time.perf_counter() - t0
-    launches, stray = bs.block_step.launches, fs.fused_solve.launches
+    launches, stray = ms.mesh_solve.launches, (fs.fused_solve.launches, bs.block_step.launches)
     placing = int((res.state.ptr.numpy() - res.encoded.arrays["job_start"]).sum())
-    if stray or launches != placing * m:
-        raise AssertionError(f"{launches} block-step and {stray} fused launches; expected {placing} x {m} and 0")
+    by = by_card(ms.mesh_solve.launches_by_card)
+    if stray != (0, 0) or by != {f"cuda:{i}": 1 for i in range(m)}:
+        raise AssertionError(f"B4 by card {by}, B1 and B2 {stray}; expected one B4 launch a card and no other")
     if (res.binds, res.pipelined) != (fused.binds, fused.pipelined):
         raise AssertionError("the sharded rung over distinct cards differs from the fused rung's binds")
     same_state(f"mesh over {m} cards", fused.state, res.state)
+    device_ms = by_card(ms.mesh_solve.device_ms_by_card)
+    # B4 over the cards against its plain version on as many CPU cards, at
+    # full width over a prefix of the work (comparison launches)
+    prefix = b4_vs_plain_prefix(encoded_arrays(cluster), list(mesh), list(range(m)))
+    del cluster, fused, on_last
+    # B4's bound over the cards: B1's time per iteration on a 128-node world
+    # and the exchange's latency from the probe, both measured here
+    floor = kernel_vs_plain("preempt_mix_2k_40_seed1", encoded_arrays(models.preempt_mix(2000, 40, seed=1)),
+                            timed_runs=4, raw_runs=4)
+    probes = [mesh_floor_probe(n) for n in sorted({2, m})]
+    for rec in probes:
+        emit(rec)
+    exchange_us = probes[-1]["exchange_us"]
+    iterations = int(res.state.it)
+    latency_ms = iterations * floor["raw_ms_per_iteration"] + placing * exchange_us * 1e-3
     emit({
         "phase": f"allocate_mesh_preempt_mix_50k_5k_{m}cards", "mesh": [str(d) for d in mesh],
-        "total_s": total_s, **res.timings, "iterations": int(res.state.it), "placing_iterations": placing,
-        "launches": launches, "binds": len(res.binds), "equal_to_fused": True, **check_binds(res),
+        "total_s": total_s, **res.timings, "iterations": iterations, "placing_iterations": placing,
+        "b4_launches": launches, "b4_launches_by_card": by, "b4_device_ms_by_card": device_ms,
+        "floor_ms_per_iteration": floor["raw_ms_per_iteration"], "exchange_us": exchange_us,
+        "latency_bound_ms": latency_ms, "share_of_latency_bound": latency_ms / max(device_ms.values()),
+        "binds": len(res.binds), "equal_to_fused": True, "jobs_prefix": prefix, **check_binds(res),
     })
-    del cluster, fused, on_last, res
+    del res
     failures = multichip_phases(card=card_line(every=True))
     emit({"phase": "total", "s": time.perf_counter() - t_start})
     if failures:
@@ -7275,6 +7650,7 @@ def main(argv: list[str]) -> int:
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import class_solve as cs
     from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
     from kube_batch_tpu_torch.ops import nvcc
     from kube_batch_tpu_torch.ops.kernels import init_state
     from kube_batch_tpu_torch.parallel import make_mesh
@@ -7298,10 +7674,11 @@ def main(argv: list[str]) -> int:
 
     native_thread = threading.Thread(target=build_native)
     native_thread.start()  # g++ beside the nvcc processes
-    logs = nvcc.build(["fused_solve", "block_step", "class_step", "class_floor"])
+    logs = nvcc.build(["fused_solve", "block_step", "class_step", "class_floor", "mesh_solve", "mesh_floor"])
     fs._library.load()
     bs._library.load()
     cs._library.load()
+    ms._library.load()
     native_thread.join()
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
@@ -7322,7 +7699,7 @@ def main(argv: list[str]) -> int:
     # the per-iteration floor: a world whose node axis fits one node per
     # thread, so an iteration is the barriers and the dependent loads alone
     floor = kernel_vs_plain("preempt_mix_2k_40_seed1", encoded_arrays(models.preempt_mix(2000, 40, seed=1)),
-                            timed_runs=4)
+                            timed_runs=4, raw_runs=4)
     floor_ms_per_iter = floor["ms_per_iteration"]
     emit({"phase": "kernel_vs_plain", **floor})
 
@@ -7343,9 +7720,7 @@ def main(argv: list[str]) -> int:
     # B1 at the headline's full width, over a prefix of its work: only the
     # first sixteenth of the job rows active (the whole solve's plain run
     # takes minutes of host CPU)
-    prefix = init_state(arrays["preempt_mix_50k_5k"], True, True)
-    prefix = prefix._replace(job_active=prefix.job_active.clone())
-    prefix.job_active[prefix.job_active.shape[0] // 16 :] = False
+    prefix = jobs_prefix(arrays["preempt_mix_50k_5k"])
     emit({"phase": "kernel_vs_plain", "jobs_active": int(prefix.job_active.sum()),
           **kernel_vs_plain("preempt_mix_50k_5k_jobs_prefix", arrays["preempt_mix_50k_5k"], state=prefix)})
 
@@ -7403,36 +7778,37 @@ def main(argv: list[str]) -> int:
              "smem_bytes": geo_5k.smem_bytes}
     emit({"phase": "fused_solve_50k_5k", "runs_ms": b1_ms_5k, **b1_5k})
 
-    # -- the sharded rung's main path ----------------------------------------
+    # -- the sharded rung's main path: kernel B4 ------------------------------
     cuda0 = torch.device("cuda", 0)
-    b2_launches = 0
     mesh_launches = {}
     for name, m in (("preempt_mix_50k_5k", 1), ("preempt_mix_50k_5k", 4), ("preempt_mix_50k_1k", 4)):
         torch.cuda.synchronize()
-        fs.fused_solve.launches = bs.block_step.launches = 0
+        fs.fused_solve.launches = bs.block_step.launches = ms.mesh_solve.launches = 0
+        ms.mesh_solve.device_ms_by_card.clear()
         t0 = time.perf_counter()
-        with guard_calls(bs.BlockStep, "__call__") as guarded:  # each B2 launch under "error"
+        with guard_calls(ms, "_launch_cards") as guarded:  # each B4 launch group under "error"
             res = allocate(clusters[name], device="cuda", mesh=make_mesh(devices=[cuda0] * m))
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches, stray = bs.block_step.launches, fs.fused_solve.launches
+        launches, stray = ms.mesh_solve.launches, (fs.fused_solve.launches, bs.block_step.launches)
         if guarded["calls"] != launches:
-            raise AssertionError(f"{name} m={m}: {guarded['calls']} guarded B2 calls for {launches} launches")
+            raise AssertionError(f"{name} m={m}: {guarded['calls']} guarded B4 launch groups for {launches} launches")
         DRIFT[f"sharded@{m}_{name}"] = (res.state, arrays[name])
         placing = int((res.state.ptr - arrays[name]["job_start"]).sum())
-        if stray:
-            raise AssertionError(f"the sharded rung launched the fused solve {stray} times")
-        if launches < 1 or launches != placing * m:
-            raise AssertionError(f"{name} m={m}: {launches} block-step launches, expected {placing} x {m}")
+        if stray != (0, 0):
+            raise AssertionError(f"the sharded rung launched B1 and B2 {stray} times")
+        if launches != 1:
+            raise AssertionError(f"{name} m={m}: {launches} B4 launches, expected one (one card, one segment)")
         fused = results[name]
         if (res.binds, res.pipelined) != (fused.binds, fused.pipelined):
             raise AssertionError(f"{name} m={m}: binds or pipelined tasks differ from the fused rung's")
         same_state(f"{name} m={m}", fused.state, res.state)
-        b2_launches += launches
         mesh_launches[(name, m)] = launches
+        B4_PATHS[f"allocate_mesh_{name}_m{m}"] = launches
         emit({
             "phase": f"allocate_mesh_{name}_m{m}", "total_s": total_s, **res.timings,
-            "iterations": int(res.state.it), "placing_iterations": placing, "launches": launches,
+            "iterations": int(res.state.it), "placing_iterations": placing, "b4_launches": launches,
+            "b4_device_ms_by_card": by_card(ms.mesh_solve.device_ms_by_card),
             "launches_without_sync": guarded["calls"], "binds": len(res.binds), "pipelined": len(res.pipelined),
             "equal_to_fused": True, **check_binds(res),
         })
@@ -7444,6 +7820,14 @@ def main(argv: list[str]) -> int:
     exchange_recs, surface_launches = exchange_phase(small, want)
     for rec in exchange_recs:
         emit(rec)
+    b2_launches = exchange_recs[1]["b2_launches"]  # the K-deep batched exchange, the host loop's main path
+    B4_PATHS["sharded_surface"] = surface_launches
+
+    # -- B4 against the host loop over B2, B1 and its plain version ----------
+    saved = ms.mesh_solve.launches, bs.block_step.launches
+    b4 = mesh_solve_vs_plain(small, arrays["preempt_mix_50k_5k"], floor)
+    ms.mesh_solve.launches, bs.block_step.launches = saved  # comparison launches are not the main path's
+    emit(b4)
 
     # -- the scheduling cycle: session, plugins, torch_allocate, replay ----
     failures, cycle_launches = cycle_phases(clusters, results, mesh_launches)
@@ -7495,8 +7879,12 @@ def main(argv: list[str]) -> int:
     b3_head = b3[0]
     b3_ptxas = {r["function"]: r for r in ptxas_summary(logs.get("class_step", ""))}
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
-    b2_by_path = {"allocate_mesh": b2_launches, "sharded_surface": surface_launches,
-                  **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
+    b2_by_path = {"exchange_k4": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
+    b4_head = b4["preempt_mix_2k_40_seed1"]
+    b4_5k = b4["preempt_mix_50k_5k"]
+    if sum(B4_PATHS.get(f"allocate_mesh_preempt_mix_{w}_m{m}", 0) for w, m in (("50k_5k", 1), ("50k_5k", 4),
+                                                                              ("50k_1k", 4))) != 3:
+        raise AssertionError(f"the sharded main path launched B4 {B4_PATHS}")
 
     for rec in b2_timed.values():  # B2's device time, with the profiler, last
         time_b2_kernel(rec)
@@ -7586,6 +7974,33 @@ def main(argv: list[str]) -> int:
                     "overflow")}
                 for r in b3
             ],
+        },
+        {
+            "name": "mesh_solve",
+            "route": "cuda",
+            "source": "kube_batch_tpu_torch/csrc/mesh_solve.cu",
+            "replaces": "kube_batch_tpu/parallel/sharded_pallas.py:267",
+            "launches": sum(B4_PATHS.values()),
+            "launches_by_path": dict(B4_PATHS),
+            "max_abs_err": b4_head["max_abs_err"],
+            "ms": b4_head["ms"],
+            "plain_ms": b4_head["plain_ms"],
+            "bound_ms": b4_head["bound_ms"],
+            "bound_by": b4_head["bound_by"],
+            "library_ms": None,
+            "world": "preempt_mix_2k_40_seed1, four shards on cuda:0 (one card, one launch), entry state",
+            "k": b4_head["k"],
+            "ms_per_iteration": b4_head["ms_per_iteration"],
+            "latency_bound_ms": b4_head["latency_bound_ms"],
+            "latency_bound_by": "iterations x B1's time per iteration on the same 128-node world, CUDA events "
+                                "around its launch alone as B4's (one card: no exchange; --cards adds "
+                                "csrc/mesh_floor.cu's exchange latency)",
+            "plain_jobs_prefix_preempt_mix_50k_5k": b4_5k["jobs_prefix"],
+            "ms_preempt_mix_50k_5k": b4_5k["ms"],
+            "ms_per_iteration_preempt_mix_50k_5k": b4_5k["ms_per_iteration"],
+            "k_preempt_mix_50k_5k": b4_5k["k"],
+            "host_loop_s_preempt_mix_50k_5k": b4_5k["host_loop_s"],
+            "ptxas": ptxas_summary(logs.get("mesh_solve", "")),
         },
     ]})
     emit({"phase": "total", "s": time.perf_counter() - t_start})

@@ -7,9 +7,15 @@ device rungs —
 
 - **fused**: the whole solve in one launch of kernel B1
   (``ops/fused_solve.FusedSolver``, ``csrc/fused_solve.cu``);
-- **sharded**: with a mesh, the node-sharded blocked solve, kernel B2 once
-  per shard per placing iteration (``parallel/sharded_block.py``,
-  ``csrc/block_step.cu``) —
+- **sharded**: with a mesh, the node-sharded solve
+  (``parallel/sharded_block.ShardedBlockSolver``) in one of two
+  implementations, chosen by the conf's ``exchange_batch`` alone, never as
+  a fallback: with 1 (the default) kernel B4, the whole gang loop in one
+  launch a card with the winner exchanged between cards inside the kernel
+  (``ops/mesh_solve.py``, ``csrc/mesh_solve.cu``; its plain version on a
+  CPU mesh); with K > 1 the host loop's K-deep batched exchange, kernel B2
+  once per shard per speculated placing iteration (``csrc/block_step.cu``)
+  —
 
 then **bulk-replays** the assignments into the session: the same state
 mutations `ssn.allocate`/`ssn.pipeline` would make (status index moves,
@@ -30,7 +36,8 @@ Action arguments (``actionArguments: {torch_allocate: {...}}``):
   in the JAX package; a mesh of one is the fused rung. A value the JAX
   package reads as single-chip (``many``, ``-2``, ``tpu:4``) logs a
   warning and solves on the fused rung, as there;
-- ``exchange_batch``: the sharded rung's K-deep batched exchange (1);
+- ``exchange_batch``: the sharded rung's K-deep batched exchange (1: no
+  batching, kernel B4; K > 1: the host loop);
 - ``min_device_pairs``: the size floor (pending tasks x nodes) below
   which the cycle runs serially (256; a mesh request skips it).
 
@@ -248,7 +255,9 @@ class _FusedRungFailed(RuntimeError):
 
 class _Rungs:
     """The cycle's device rungs under the solver ladder: the sharded rung
-    (kernel B2) when a mesh is resolved and its breaker allows, else or
+    (kernel B4, or the host loop over B2 with ``exchange_batch`` > 1; its
+    implementation in ``impl``) when a mesh is resolved and its breaker
+    allows, else or
     after its failure the fused rung (kernel B1). Both speak ``SolveState``,
     so the fused rung resumes a failed sharded segment from the segment's
     own input state.
@@ -295,6 +304,7 @@ class _Rungs:
         self.split: dict[str, float] = {}
         self.pack_s = 0.0  # a rung's pack when it is built after the rungs' own construction
         self.sharded = None
+        self.impl = None  # the sharded rung's implementation, once it has solved a segment
         self.fused = None
         self.mesh = mesh
         self.exchange_batch = 1
@@ -331,8 +341,8 @@ class _Rungs:
                 raise
             except Exception:
                 log.exception(
-                    "the sharded rung (kernel B2) cannot take this snapshot on %d shards; using the fused rung",
-                    len(mesh),
+                    "the sharded rung (%s) cannot take this snapshot on %d shards; using the fused rung",
+                    "kernel B4" if self.exchange_batch == 1 else "the host loop over kernel B2", len(mesh),
                 )
                 faults.solver_ladder.record_failure("sharded")
         if self.sharded is None:
@@ -399,7 +409,7 @@ class _Rungs:
             except KernelBuildError:
                 raise
             except Exception:
-                log.exception("the sharded rung (kernel B2) failed; the fused rung resumes the segment")
+                log.exception("the sharded rung (%s) failed; the fused rung resumes the segment", self.sharded.impl)
                 ladder.record_failure("sharded")
                 self.sharded = None
                 t0 = time.perf_counter()
@@ -407,6 +417,7 @@ class _Rungs:
                 self.pack_s += time.perf_counter() - t0
             else:
                 ladder.record_success("sharded")
+                self.impl = self.sharded.impl
                 gained = self.sharded.batched_iters - before
                 if gained:
                     self.action.last_batched_iters += gained
@@ -636,6 +647,8 @@ class TorchAllocateAction(Action):
             self._route_serial(ssn, "serial_degraded_s", "solve_failed")
             return
         timings["pack_s"] += rungs.pack_s
+        if rungs.impl is not None:
+            timings["sharded_impl"] = rungs.impl  # mesh_kernel (B4) or host_loop (B2)
         timings.update(solve_s=time.perf_counter() - t0, **rungs.split, host_step_s=t_host, host_steps=host_steps)
         if arena is not None:
             arena._account_hbm()

@@ -58,6 +58,7 @@ _FuncDef = Union[ast.FunctionDef, ast.AsyncFunctionDef]
 ENTRY_POINTS: dict[str, tuple[str, ...]] = {
     "kube_batch_tpu_torch/ops/fused_solve.py": ("FusedSolver.solve", "fused_solve"),
     "kube_batch_tpu_torch/parallel/sharded_block.py": ("ShardedBlockSolver.solve",),
+    "kube_batch_tpu_torch/ops/mesh_solve.py": ("MeshSolve.solve", "mesh_solve"),
     "kube_batch_tpu_torch/ops/class_solve.py": ("class_step", "ClassCompressedSolver"),
     "kube_batch_tpu_torch/ops/block_step.py": ("block_step",),
     "kube_batch_tpu_torch/ops/explain.py": ("explain_batch",),

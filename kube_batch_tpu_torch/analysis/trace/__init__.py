@@ -600,7 +600,8 @@ def audit_card_path(run_cycle, arrays: dict) -> tuple[dict[tuple[str, int, str],
     1. ``run_cycle()`` (a warm scheduling cycle) once under a
        :class:`SyncAudit`;
     2. the sharded rung's solve on ``arrays`` (``MESH_AUDIT`` shards on
-       the current card) under another, each B2 launch under ``"error"``;
+       the current card: kernel B4, one launch) under another, each B4 and
+       B2 launch under ``"error"``;
     3. B1 alone on ``arrays`` under ``"error"``: upload done, the launch,
        then the fetch.
 
@@ -608,13 +609,15 @@ def audit_card_path(run_cycle, arrays: dict) -> tuple[dict[tuple[str, int, str],
     qualname): count}``, what :func:`check_syncs` and
     :func:`apply_trace_baseline` take), and a record with ``sites``,
     ``total`` (the cycle's), ``sharded_total``, ``cycle_b1`` and
-    ``cycle_b2`` (the cycle's launches) and ``b2_launches_without_sync``.
+    ``cycle_b2`` (the cycle's launches), ``b2_launches_without_sync`` and
+    ``b4_launches_without_sync`` (the sharded solve's launch groups).
     The checks' own launches are not counted: the kernels' launch counters
     are put back to their values after the cycle."""
     import torch
 
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
     from kube_batch_tpu_torch.ops.carry import arrays_from_numpy
     from kube_batch_tpu_torch.ops.kernels import init_state
     from kube_batch_tpu_torch.parallel.sharded_block import ShardedBlockSolver
@@ -624,8 +627,11 @@ def audit_card_path(run_cycle, arrays: dict) -> tuple[dict[tuple[str, int, str],
     counts = fs.fused_solve.launches, bs.block_step.launches
     a = arrays_from_numpy(arrays)
     card = torch.device("cuda", torch.cuda.current_device())
-    with guard_calls(bs.BlockStep, "__call__") as guarded:  # each B2 launch under "error"
+    b4 = ms.mesh_solve.launches
+    # each B2 launch and each B4 launch group under "error"
+    with guard_calls(bs.BlockStep, "__call__") as guarded, guard_calls(ms, "_launch_cards") as guarded4:
         sharded = warm_cycle_audit(ShardedBlockSolver(a, [card] * MESH_AUDIT, True, True).solve)
+    ms.mesh_solve.launches = b4
     packed = fs.pack(a, True, True).to(card)
     host = fs.pack_state(packed.dims, init_state(a, True, True), a["job_queue"])
     state = fs.PackedState(packed.dims, host.istate.to(card), host.fstate.to(card))
@@ -642,6 +648,7 @@ def audit_card_path(run_cycle, arrays: dict) -> tuple[dict[tuple[str, int, str],
         "total": cycle.total, "sharded_total": sharded.total,
         "cycle_b1": counts[0] - b1, "cycle_b2": counts[1] - b2,
         "b1_launch_without_sync": True, "b2_launches_without_sync": guarded["calls"],
+        "b4_launches_without_sync": guarded4["calls"],
     }
     return sites, record
 
@@ -657,12 +664,14 @@ def _warm_cycle_p001() -> tuple[dict[tuple[str, int, str], int], dict, list[Find
     from kube_batch_tpu_torch.analysis.trace.sentinel import CompileSentinel
     from kube_batch_tpu_torch.ops import block_step as bs
     from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
     from kube_batch_tpu_torch.solve import solver_arrays
 
     cluster = models.preempt_mix(*WARM_WORLD, seed=1)
     arrays = solver_arrays(cluster)[1]
     fs._library.load()  # the builds, before the sentinel's region
     bs._library.load()
+    ms._library.load()
     audited: dict = {}
     with _warm_scheduler(cluster, "cuda") as (sched, action):
         def cycle() -> None:

@@ -13,11 +13,12 @@ the split.
 ``ShardedSolver`` and ``sharded_solve_allocate`` are the JAX package's
 GSPMD rung's surface (kube_batch_tpu/parallel/sharded.py). The port has
 no GSPMD: on a mesh, that rung is the twin's loop with the node axis
-sharded, which is what ``ShardedBlockSolver`` runs (kernel B2 on a card,
-its plain version on the CPU), so the surface is a thin layer over it.
-The JAX module caches its jitted programs per (devices, key set, flags)
-in ``_sharded_programs``; the port compiles nothing per snapshot (B2 is
-built once per process), and a solver holds one snapshot's statics, so
+sharded, which is what ``ShardedBlockSolver`` runs (kernel B4 on the
+cards, its plain version on the CPU), so the surface is a thin layer over
+it. The JAX module caches its jitted programs per (devices, key set,
+flags) in ``_sharded_programs``; the port compiles nothing per snapshot
+(its kernels are built once per process), and a solver holds one
+snapshot's statics, so
 that cache has no counterpart: what a warm cycle can reuse, the static
 blocks, the tensor arena keeps (``arena=``).
 """
@@ -59,6 +60,11 @@ SHARD_AXIS = {
     "sharded_nmax": 0,
     "sharded_nihs": 0,
     "sharded_nrhs": 0,
+    # kernel B4's per-card statics (ops/mesh_solve ``MeshSolve``): one row a
+    # card, over a mesh of the cards
+    "mesh_istatic": 0,
+    "mesh_fstatic": 0,
+    "mesh_gidx": 0,
 }
 
 

@@ -1,11 +1,23 @@
-"""The node-sharded blocked allocate solve: the block step (kernel B2) on
-each shard's node block, one exchange of the shards' records per gang
-iteration.
+"""The node-sharded allocate solve, in two implementations chosen by
+``exchange_batch`` alone (never as a fallback of one for the other):
 
-The counterpart of the reference's ``ShardedPallasSolver``
-(kube_batch_tpu/parallel/sharded_pallas.py). Each shard of the mesh keeps
-its node block (statics and node state) on its own device. Every gang
-iteration
+- ``exchange_batch = 1`` (the default, ``impl = "mesh_kernel"``): kernel
+  B4 (``ops/mesh_solve.py``, ``csrc/mesh_solve.cu``), the counterpart of
+  the reference's SPMD program (kube_batch_tpu/parallel/sharded_pallas.py
+  ``_blocked_programs``, its per-shard body ``local``). The whole gang
+  loop runs in one launch a card over the node blocks of every shard of
+  the mesh on that card, selection and bookkeeping replicated on every
+  card, the (score, row, fits-idle) records exchanged between cards
+  through peer memory inside the kernel once a placing iteration; on a
+  CPU mesh its plain version runs, over cards grouped by device.
+- ``exchange_batch = K > 1`` (``impl = "host_loop"``): the loop on the
+  host, the reference's K-deep batched exchange, with the block step
+  (kernel B2) on each shard's block. ``impl="host_loop"`` also runs it at
+  K = 1, which no conf asks for (the card's smoke compares B4 with it).
+
+The host loop turns the reference's program inside out. Each shard of the
+mesh keeps its node block (statics and node state) on its own device.
+Every gang iteration
 
 1. runs queue and job selection and the task pop, replicated, on the host
    (``ops.kernels.select_queue_job``, shared with the twin);
@@ -19,26 +31,21 @@ iteration
    ports) on the owning shard's device only, and the task/job/queue
    bookkeeping of the reference's ``commit()`` on the host.
 
-The replicated half of the state lives on the host, not on the mesh's
-first device: every iteration's control flow (is a job current, does the
-task pause, did any node fit) is a host decision anyway, and the winner
-has to be read back to make it, so the small job and queue vectors are
-cheapest where the decisions are made. Every node-axis tensor and every
-block-step launch stays on its shard's device.
+The replicated half of its state lives on the host, where its decisions
+are made; every node-axis tensor and every block-step launch stays on its
+shard's device. With K > 1 each shard speculates up to K gang iterations
+on a throwaway copy of the state, assuming its own candidate wins every
+round, and records each placing iteration's result with the task fields
+that determine it; the records of all shards are then gathered at once
+and a replay re-runs the true bookkeeping, taking each shard's candidate
+from its record at a per-shard depth pointer that advances when that
+shard wins (or on a global abandon). A record is used only while its task
+fields equal the true task's; the first mismatch ends the replay, and the
+next round re-speculates from the true state. Replay iteration 0 always
+commits, so the result is the per-iteration exchange's, iteration for
+iteration.
 
-``exchange_batch = K > 1`` runs the reference's K-deep batched exchange:
-each shard speculates up to K gang iterations on a throwaway copy of the
-state, assuming its own candidate wins every round, and records each
-placing iteration's result with the task fields that determine it; the
-records of all shards are then gathered at once and a replay re-runs the
-true bookkeeping, taking each shard's candidate from its record at a
-per-shard depth pointer that advances when that shard wins (or on a global
-abandon). A record is used only while its task fields equal the true
-task's; the first mismatch ends the replay, and the next round
-re-speculates from the true state. Replay iteration 0 always commits, so
-the result is the per-iteration exchange's, iteration for iteration.
-
-Speaks the twin's ``SolveState`` protocol: ``solve(state)`` takes and
+Both speak the twin's ``SolveState`` protocol: ``solve(state)`` takes and
 returns CPU tensors, pauses at a host-only task (``paused_at``), and
 re-folds the affinity scores when the caller replaced ``a["pod_sc"]``.
 """
@@ -53,6 +60,7 @@ import torch
 from kube_batch_tpu_torch.ops import block_step as bs
 from kube_batch_tpu_torch.ops import encode_cache
 from kube_batch_tpu_torch.ops import fused_solve as fs
+from kube_batch_tpu_torch.ops import mesh_solve as ms
 from kube_batch_tpu_torch.ops.kernels import KIND_ALLOCATED, KIND_PIPELINED, SolveState, init_state, select_queue_job
 from kube_batch_tpu_torch.parallel.sharded import node_blocks
 
@@ -63,6 +71,10 @@ _REP_FIELDS = (
     "job_active", "q_dropped", "job_alloc", "q_alloc", "q_alloc_has_sc",
 )
 _NODE_STATE = ("idle", "rel", "used", "ntasks", "nports")
+
+# The two implementations of the rung (``ShardedBlockSolver.impl``).
+MESH_KERNEL = "mesh_kernel"  # kernel B4, one launch a card (its plain version on a CPU mesh)
+HOST_LOOP = "host_loop"  # the gang loop on the host, kernel B2 a shard and placing iteration
 
 
 class _Rep:
@@ -97,20 +109,23 @@ class _Pop:
 
 
 class ShardedBlockSolver:
-    """One blocked sharded solve, per snapshot: fold the node statics
-    once per shard onto its device, then solve / resume.
+    """One sharded solve, per snapshot: pack the node statics once onto
+    the mesh, then solve / resume.
 
     ``arrays`` are the encoder's arrays as CPU tensors (float32 only),
     ``mesh`` a sequence of devices (``parallel.make_mesh``), one shard
-    each, all CUDA or all CPU: the block step launches its CUDA kernel on a
-    CUDA shard and runs its plain version on a CPU shard
-    (``ops.block_step``'s own dispatch). ``exchange_batch`` is the K of the
-    K-deep batched exchange (1: one exchange per gang iteration). With
-    ``arena`` (an ops/encode_cache ``TensorArena``) the shards' static
-    blocks go through it with the mesh's placement: reused when their
-    content equals the last upload's, put whole otherwise (no row delta
-    on a mesh). The affinity block and the node state are the solver's
-    own: the solve writes them.
+    each, all CUDA or all CPU: a CUDA mesh launches the kernels, a CPU mesh
+    runs their plain versions. ``exchange_batch`` is the K of the K-deep
+    batched exchange: 1 runs kernel B4 (``impl = "mesh_kernel"``,
+    ``ops/mesh_solve.MeshSolve``; a CUDA mesh over several cards without
+    peer access between them raises), K > 1 the host loop over B2
+    (``impl = "host_loop"``; ``impl="host_loop"`` asks for it at K = 1).
+    With ``arena`` (an ops/encode_cache ``TensorArena``) the statics go
+    through it with the mesh's placement (B4's ``mesh_*`` slabs, one row a
+    card; the host loop's ``sharded_*`` blocks, one part a shard): reused
+    when their content equals the last upload's, put whole otherwise. The
+    affinity statics and the node state are the solver's own: the solve
+    writes them.
     """
 
     def __init__(
@@ -121,6 +136,7 @@ class ShardedBlockSolver:
         enable_proportion: bool = False,
         exchange_batch: int = 1,
         arena=None,
+        impl: str | None = None,
     ) -> None:
         # a bare "cuda" is the current card: blocks and their per-device
         # tables key on the indexed device the tensors report
@@ -137,6 +153,13 @@ class ShardedBlockSolver:
             raise ValueError(f"exchange_batch must be >= 1, got {exchange_batch}")
         if arrays["task_req"].dtype != torch.float32:
             raise ValueError("the blocked sharded solve is float32-only; encode with dtype=float32")
+        if impl is None:
+            impl = MESH_KERNEL if int(exchange_batch) == 1 else HOST_LOOP
+        if impl not in (MESH_KERNEL, HOST_LOOP):
+            raise ValueError(f"impl is {MESH_KERNEL!r} or {HOST_LOOP!r}, not {impl!r}")
+        if impl == MESH_KERNEL and int(exchange_batch) != 1:
+            raise ValueError(f"the mesh kernel exchanges every iteration; exchange_batch={exchange_batch} runs the host loop")
+        self.impl = impl
         self.a = arrays
         self.mesh = mesh
         self.enable_drf = enable_drf
@@ -159,6 +182,10 @@ class ShardedBlockSolver:
         self.n_loc = self.blocks_idx[0][1]
         self.n_pad = self.n_loc * m  # the sentinel: global padded node count
         self.N, self.T = N, T
+        if impl == MESH_KERNEL:
+            # kernel B4 (its plain version on a CPU mesh): one launch a card
+            self._mesh = ms.MeshSolve(arrays, mesh, enable_drf, enable_proportion, arena=arena)
+            return
         self.P = n["task_ports"].shape[1]
         J, Q = n["job_min"].shape[0], n["queue_rank"].shape[0]
         self.max_iter = T + J + Q + 1 + int(n["task_host_only"].sum())
@@ -469,6 +496,10 @@ class ShardedBlockSolver:
             tm["update_s"] += time.perf_counter() - t1
 
     def solve(self, state: SolveState | None = None) -> SolveState:
+        if self.impl == MESH_KERNEL:
+            out = self._mesh.solve(state)
+            self.counts, self.timings = self._mesh.counts, self._mesh.timings
+            return out
         if self.a["pod_sc"] is not self._pod_sc:
             # live InterPodAffinity scores were refreshed between segments:
             # re-fold just the affinity static

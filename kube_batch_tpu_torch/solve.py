@@ -45,7 +45,8 @@ class AllocateResult:
     # seconds per phase: encode_s, pack_s (pack + static upload), solve_s,
     # dispatch_s, and the solver's own split of solve_s (FusedSolver:
     # state_upload_s, fused_solve_s, fetch_s; ShardedBlockSolver:
-    # state_upload_s, loop_s = select_s + exchange_s + update_s, fetch_s)
+    # state_upload_s, loop_s, fetch_s, and on its host loop loop_s =
+    # select_s + exchange_s + update_s)
     timings: dict[str, float] = field(default_factory=dict)
 
 
@@ -107,9 +108,9 @@ def allocate(
     tests pass "cpu", which runs the kernel's plain version.
 
     ``mesh`` (``parallel.make_mesh``) runs the solve node-sharded over its
-    devices with ``ShardedBlockSolver``: the block-step kernel on a CUDA
-    mesh, its plain version on a CPU mesh. ``device``, when given, must
-    then be of the mesh's device type.
+    devices with ``ShardedBlockSolver``: kernel B4 (one launch a card) on
+    a CUDA mesh, its plain version on a CPU mesh. ``device``, when given,
+    must then be of the mesh's device type.
 
     Raises NotImplementedError when a host-only task (pod affinity or
     volumes) reaches the head of its job: stepping such a task on the host

@@ -84,10 +84,11 @@ def test_warm_cycles_and_trace_audit_print_the_arena_per_cycle():
 
 
 def test_exchange_phase_runs_k1_through_the_surface_and_reuses_its_blocks():
-    """The exchange phase on the CPU (B2's plain version): K = 1 through
-    ShardedSolver and K = 4 each equal the fused rung field for field, and
-    ``sharded_surface`` (sharded_solve_allocate on the same arena) reuses
-    all five static blocks and gives the fused rung's result."""
+    """The exchange phase on the CPU (the kernels' plain versions): K = 1
+    through ShardedSolver (B4's plain version) and K = 4 (the host loop)
+    each equal the fused rung field for field, and ``sharded_surface``
+    (sharded_solve_allocate on the same arena) reuses B4's three static
+    slabs and gives the fused rung's result."""
     from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
 
     arrays = chip_smoke.encoded_arrays(models.preempt_mix(300, 16, seed=1))
@@ -98,8 +99,9 @@ def test_exchange_phase_runs_k1_through_the_surface_and_reuses_its_blocks():
     ]
     assert all(r["equal_to_fused"] for r in recs) and launches == 0  # no kernel on the CPU
     assert recs[0]["surface"] == "ShardedSolver" and recs[1]["batched_iters"] >= 1
-    assert recs[2]["arena"]["reuses"] == 5 and recs[2]["arena"]["full_uploads"] == 0
-    assert set(recs[2]["arena_bytes_by_slab"]) == {f"sharded_{n}" for n in ("cnode", "nalloc", "nmax", "nihs", "nrhs")}
+    assert (recs[0]["impl"], recs[1]["impl"]) == ("mesh_kernel", "host_loop")
+    assert recs[2]["arena"]["reuses"] == 3 and recs[2]["arena"]["full_uploads"] == 0
+    assert set(recs[2]["arena_bytes_by_slab"]) == {f"mesh_{n}" for n in ("istatic", "fstatic", "gidx")}
 
 
 def test_class_sessions_record_their_arena_uploads():
@@ -125,7 +127,8 @@ def test_cards_phases_rehearse_on_a_cpu_mesh(capsys):
     """``chip_smoke.py --rehearse CUT --cards``: the multi-card phases of
     ``--cards`` on ``mesh: cpu:4`` (the kernels' plain versions), each
     equal to its reference on the fused rung and every mesh arm on four
-    shards of the sharded rung (the class phase's on its class layer)."""
+    shards of the sharded rung (the class phase's on its class layer): B4's
+    plain version, and in the cycle phase the host loop too."""
     import json
 
     assert chip_smoke.main(["--rehearse", "100", "--cards"]) == 0
@@ -140,8 +143,10 @@ def test_cards_phases_rehearse_on_a_cpu_mesh(capsys):
         assert by_phase["multichip_classes_50k_5k"][arm]["tier"] == "class_sharded"
         assert by_phase["multichip_ladder"][arm]["tier"] == "fused"
         assert by_phase["multichip_ladder"][arm]["sharded_failures"] == 1
-        assert [c["arena"]["reuses"] for c in by_phase["multichip_warm_cycles_50k_5k"][arm]][1] >= 5
+        assert cycle[arm]["sharded_impl"] == "mesh_kernel"
+        assert [c["arena"]["reuses"] for c in by_phase["multichip_warm_cycles_50k_5k"][arm]][1] >= 3
         assert by_phase["multichip_trace_audit"][arm]["p001"].startswith("not run")
     assert cycle["reference"]["tier"] == "fused"
+    assert cycle["host_loop"]["sharded_impl"] == "host_loop" and cycle["host_loop"]["placing_iterations"] > 0
     assert by_phase["multichip_explain_50k_1k"]["records_equal"]
     assert by_phase["multichip_pipelined_50k_5k"]["binds_equal"]

@@ -16,6 +16,7 @@ import pytest
 
 from kube_batch_tpu_torch.ops import block_step as bs
 from kube_batch_tpu_torch.ops import fused_solve as fs
+from kube_batch_tpu_torch.ops import mesh_solve as ms
 from kube_batch_tpu_torch.ops import nvcc
 from kube_batch_tpu_torch.ops.cluster import CTA_WIDTH, MAX_CLUSTER, cluster_shape
 
@@ -102,13 +103,23 @@ def test_replicated_layout_matches_the_kernels(J, Q, C, R):
     """``_rep_words`` sizes each CTA's replicated region; the kernel lays
     it out in ``rep_layout`` (and traps on a launch whose sizes disagree).
     The sum of the source's strides must equal it."""
-    with open(f"{nvcc.CSRC_DIR}/fused_solve.cu") as f:
-        text = f.read()
+    text = _source("fused_solve.cu")
     body = re.search(r"Rep rep_layout\(.*?\{(.*?)\n\}", text, re.S).group(1)
     strides = re.findall(r"\b[wf] \+= ([^;]+);", body)
     assert len(strides) == 22  # one per array of the Rep struct
     env = {"J": J, "Q": Q, "C": C, "R": R, "R8": fs.R8}
     assert sum(eval(e, {}, env) for e in strides) == fs._rep_words(J, Q, C, R)
+
+
+def _source(name: str) -> str:
+    """A CUDA source with the csrc headers it includes appended: what the
+    compiler sees of its structs (B1's and B4's shared loop lives in
+    solve_loop.cuh)."""
+    with open(f"{nvcc.CSRC_DIR}/{name}") as f:
+        text = f.read()
+    for header in re.findall(r'#include "([^"]+)"', text):
+        text += "\n" + _source(header)
+    return text
 
 
 def test_empty_axis_counts_as_one_node():
@@ -136,9 +147,10 @@ def _struct_fields(source: str, name: str) -> list[str]:
         ("fused_solve.cu", "SolveArgs", fs._Args),
         ("block_step.cu", "BlockArgs", bs._Args),
         ("block_step.cu", "TaskFields", bs.Task),
+        ("mesh_solve.cu", "MeshArgs", ms._Args),
+        ("mesh_solve.cu", "SolveArgs", fs._Args),
     ],
 )
 def test_argument_structs_mirror_the_cuda_sources(source, struct, mirror):
-    with open(f"{nvcc.CSRC_DIR}/{source}") as f:
-        text = f.read()
+    text = _source(source)
     assert _struct_fields(text, struct) == [name for name, _ in mirror._fields_]

@@ -27,6 +27,7 @@ from kube_batch_tpu_torch.conf import parse_scheduler_conf
 from kube_batch_tpu_torch.framework import close_session, open_session
 from kube_batch_tpu_torch.ops import block_step as bs
 from kube_batch_tpu_torch.ops import fused_solve as fs
+from kube_batch_tpu_torch.ops import mesh_solve as ms
 from kube_batch_tpu_torch.ops.kernels import SolveState
 from kube_batch_tpu_torch.testing import (
     FakeCache,
@@ -97,7 +98,7 @@ def test_card_cycle_equals_cpu_cycle(world, mesh):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     cpu = run(world, {"device": "cpu", "mesh": f"cpu:{mesh}" if mesh != "off" else "off"})
-    fs.fused_solve.launches = bs.block_step.launches = 0
+    fs.fused_solve.launches = bs.block_step.launches = ms.mesh_solve.launches = 0
     card = run(world, {"device": "cuda", "mesh": f"cuda:{mesh}" if mesh != "off" else "off"})
     torch.cuda.synchronize()
     (cs, cb, ca), (gs, gb, ga) = cpu, card
@@ -109,12 +110,15 @@ def test_card_cycle_equals_cpu_cycle(world, mesh):
         a, b = getattr(ca.last_state, f), getattr(ga.last_state, f)
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f
     segments = 1 + ga.last_timings["host_steps"]
+    launches = (fs.fused_solve.launches, bs.block_step.launches, ms.mesh_solve.launches)
     if mesh == "off":
-        assert (fs.fused_solve.launches, bs.block_step.launches) == (segments, 0)
+        assert launches == (segments, 0, 0)
     else:
+        # kernel B4: the four shards lie on one card, one launch a segment
         placing = ga.last_counts["placing_iterations"]
         assert placing == ca.last_counts["placing_iterations"] > 0
-        assert (fs.fused_solve.launches, bs.block_step.launches) == (0, 4 * placing) == (0, ga.last_counts["launches"])
+        assert launches == (0, 0, segments) and ga.last_counts["launches"] == segments
+        assert ga.last_timings["sharded_impl"] == ca.last_timings["sharded_impl"] == "mesh_kernel"
 
 
 @pytest.mark.cuda
@@ -125,8 +129,9 @@ def test_card_drill_equals_cpu_drill(monkeypatch, world, drill):
     the CPU, each under a fresh ladder: ``solve.fused`` fails the fused
     rung's segment after B1 ran it and the cycle finishes serially;
     ``solve.sharded`` fails the sharded rung's first segment after it ran
-    (B2 launched where the segment placed a task) and the fused rung
-    resumes it in the same cycle (B1 once per remaining segment). Binds and task states equal the CPU's."""
+    (B4 launched once, on the one card of the four shards) and the fused
+    rung resumes it in the same cycle (B1 once per remaining segment).
+    Binds and task states equal the CPU's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from kube_batch_tpu_torch import faults
@@ -138,25 +143,26 @@ def test_card_drill_equals_cpu_drill(monkeypatch, world, drill):
             monkeypatch.setattr(faults, "solver_ladder", ladder)
             faults.registry.reset()
             faults.registry.arm(drill, count=1)
-            fs.fused_solve.launches = bs.block_step.launches = 0
+            fs.fused_solve.launches = bs.block_step.launches = ms.mesh_solve.launches = 0
             mesh = f"{device}:4" if drill == "solve.sharded" else "off"
             state, binds, act = run(world, {"device": device, "mesh": mesh})
             if device == "cuda":
                 torch.cuda.synchronize()
-            outs.append((state, binds, act, (fs.fused_solve.launches, bs.block_step.launches), ladder))
+            outs.append((state, binds, act, (fs.fused_solve.launches, bs.block_step.launches + ms.mesh_solve.launches,
+                                             bs.block_step.launches), ladder))
     finally:
         faults.registry.reset()
-    (cs, cb, ca, _, cl), (gs, gb, ga, (b1, b2), gl) = outs
+    (cs, cb, ca, _, cl), (gs, gb, ga, (b1, b4, b2), gl) = outs
     assert (gs, gb) == (cs, cb) and gb
     if drill == "solve.fused":
         assert ga.last_solver_tier == ca.last_solver_tier == "serial"
         assert ga.last_timings["serial_reason"] == "solve_failed"
-        assert (b1, b2) == (1, 0) and gl.breakers["fused"].failures == cl.breakers["fused"].failures == 1
+        assert (b1, b4) == (1, 0) and gl.breakers["fused"].failures == cl.breakers["fused"].failures == 1
     else:
         assert ga.last_solver_tier == ca.last_solver_tier == "fused"
-        # pod_affinity's first segment pauses before its first placing
-        # iteration: the sharded rung failed it without a launch
-        assert (b2 > 0) == (world != "pod_affinity") and b1 == 1 + ga.last_timings["host_steps"]
+        # B4 launches once for the sharded rung's first segment, even where
+        # it pauses before its first placing iteration (pod_affinity)
+        assert (b4, b2) == (1, 0) and b1 == 1 + ga.last_timings["host_steps"]
         assert gl.breakers["sharded"].failures == cl.breakers["sharded"].failures == 1
 
 

@@ -216,17 +216,26 @@ def test_allocate_on_a_mesh_matches_fused_and_serial(world, m):
     res = allocate(build_world(torch_models, world), mesh=make_mesh(devices=["cpu"] * m))
     assert (res.binds, res.pipelined) == (fused.binds, fused.pipelined) == serial
     assert res.binds
-    for key in ("encode_s", "pack_s", "solve_s", "dispatch_s", "loop_s", "exchange_s"):
+    # the mesh kernel's exchange runs inside its launch, so the solve's own
+    # split is the state's upload, the loop and the fetch
+    for key in ("encode_s", "pack_s", "solve_s", "dispatch_s", "state_upload_s", "loop_s", "fetch_s"):
         assert key in res.timings
 
 
 def test_kernel_impl_never_runs_on_cpu():
     """The mesh's device type alone decides: a CPU mesh runs the plain
-    block step and never the kernel, a mixed mesh or any other device type
-    raises, and a cuda device asked of the entry point never meets a CPU
-    mesh."""
+    versions (B4's and, for the host loop, the block step's) and never a
+    kernel, a mixed mesh or any other device type raises, and a cuda
+    device asked of the entry point never meets a CPU mesh."""
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+
     a = carry.arrays_from_numpy(reference("synthetic_120_24")[0])
+    launches = ms.mesh_solve.launches
     solver = ShardedBlockSolver(a, ["cpu"] * 2, True, True)
+    solver.solve()
+    assert solver.impl == "mesh_kernel" and ms.mesh_solve.launches == launches
+    assert all(c.xbuf is None and c.device.type == "cpu" for c in solver._mesh.cards)
+    solver = ShardedBlockSolver(a, ["cpu"] * 2, True, True, impl="host_loop")
     assert all(step._args is None for step in solver._steps)
     for mesh in (["cpu", "cuda:0"], ["meta"]):
         with pytest.raises(ValueError, match="all cuda or all cpu"):
