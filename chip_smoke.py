@@ -56,13 +56,18 @@
      a prefix of the jobs, B4 equals its plain version on four CPU cards;
    and checks every result's binds (no node past its idle or releasing
    capacity + eps, every bound job at its gang minimum);
-6. runs the per-iteration exchange (B4 since it landed) and the K-deep
-   batched exchange (the host loop over B2)
-   (``preempt_mix(2000, 40, seed=1)``, four shards, K = 1 and K = 4),
-   each timed and held against the fused rung; K = 1 through the JAX
-   GSPMD rung's surface (``parallel.sharded.ShardedSolver``) with a tensor
-   arena, then ``sharded_solve_allocate`` on that arena (``sharded_surface``:
-   the five static blocks reused, the fused rung's result);
+6. runs the per-iteration exchange and the K-deep batched exchange, both
+   on B4 (``preempt_mix(2000, 40, seed=1)``, four shards of cuda:0, K = 1
+   and K = 4), each timed and held against the fused rung, K = 4 also
+   against B4's plain version at K = 4; K = 1 through the JAX GSPMD rung's
+   surface (``parallel.sharded.ShardedSolver``) with a tensor arena, then
+   ``sharded_solve_allocate`` on that arena (``sharded_surface``: the
+   static blocks reused, the fused rung's result); the host loop over B2
+   at K = 4 (``host_loop_k4``, reached by ``impl="host_loop"`` only: B2's
+   path); and ``b4_by_k``: B4 at K = 1, 2, 4 and 8 on the four shards of
+   one card and over four cards of one solve on cuda:0 (a stream each:
+   the batched exchange's rounds between cards), each held to the fused
+   rung, with its device time, rounds and speculated iterations;
 7. drives the scheduling cycle, ``Scheduler(FakeCache(world),
    conf).run_once()`` with ``examples/scheduler-conf-torch.yaml``, the
    counters zeroed just before each cycle and read just after:
@@ -543,7 +548,7 @@ SCORE_OPS_PER_NODE = 29
 B2_TIMED_CALLS = 200  # block-step launches per timing
 CARD_TESTS = ["tests/test_torch_kernel.py", "tests/test_torch_block_step.py", "tests/test_torch_cycle_card.py",
               "tests/test_torch_explain.py", "tests/test_torch_class_step.py", "tests/test_torch_arena.py",
-              "tests/test_torch_mesh_solve.py"]
+              "tests/test_torch_mesh_solve.py", "tests/test_torch_mesh_batched.py"]
 AFFINITY_PODS = 36  # pods of scheduler_affinity's world with required pod (anti-)affinity
 # size_floor's preempt_mix(pods, nodes) worlds: 100 to 102,400 pending x nodes
 FLOOR_WORLDS = ((25, 4), (50, 8), (100, 16), (200, 32), (400, 64), (800, 128))
@@ -748,15 +753,15 @@ def b1_raw_times(packed, init, runs: int) -> tuple[list[float], object]:
     return times, st
 
 
-def jobs_prefix(a: dict):
-    """The entry state with only the first sixteenth of the job rows
+def jobs_prefix(a: dict, divisor: int = 16):
+    """The entry state with only the first ``1 / divisor`` of the job rows
     active: a prefix of a full-width solve's work, for the comparisons
     whose plain run would take minutes of host CPU on the whole solve."""
     from kube_batch_tpu_torch.ops.kernels import init_state
 
     prefix = init_state(a, True, True)
     prefix = prefix._replace(job_active=prefix.job_active.clone())
-    prefix.job_active[prefix.job_active.shape[0] // 16 :] = False
+    prefix.job_active[prefix.job_active.shape[0] // divisor :] = False
     return prefix
 
 
@@ -973,17 +978,28 @@ def b2_comparisons(arrays_5k, arrays_1k, arrays_ml) -> list[dict]:
     return recs
 
 
-def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict], int]:
+EXCHANGE_KS = (1, 2, 4, 8)  # the batched exchange's depths timed beside K = 1
+
+
+def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict], int, int]:
     """The per-iteration and the K-deep batched exchange (step 6) on
-    ``preempt_mix(2000, 40, seed=1)`` and four shards of the card, each
-    timed and held field for field against ``want``, the fused rung's
-    SolveState. K = 1 runs through the JAX package's GSPMD surface
-    (``ShardedSolver``) with a tensor arena, on kernel B4; K = 4 through
-    ``ShardedBlockSolver``, on the host loop over B2; then
-    ``sharded_solve_allocate`` on the same arena must reuse B4's three
-    static slabs and give the fused rung's SolveResult. Returns the
-    records and the surface's B4 launches (K = 1 and
-    ``sharded_solve_allocate``), counted from zero."""
+    ``preempt_mix(2000, 40, seed=1)`` and four shards of the card, each held
+    field for field against ``want``, the fused rung's SolveState. K = 1
+    runs through the JAX package's GSPMD surface (``ShardedSolver``) with a
+    tensor arena, on kernel B4; K = 4 (``exchange_k4``) through
+    ``ShardedBlockSolver``, on B4 too (one card: its K = 1 loop, every
+    placing iteration batched), also against B4's plain version at K = 4
+    and B4 at K = 1; the host loop at K = 4 (``impl="host_loop"``, B2 once a
+    shard and speculated placing iteration) as the comparison it stays.
+    ``b4_by_k``: B4's device time on the same mesh at every K of
+    EXCHANGE_KS, and over four cards of one solve on the card (one stream
+    each: the batched exchange's rounds between cards, through the card's
+    own memory), with the rounds and the speculated and committed placing
+    iterations. Then ``sharded_solve_allocate`` on the same arena must
+    reuse B4's three static slabs and give the fused rung's SolveResult.
+    Returns the records, the main path's B4 launches (K = 1 through the
+    surface, ``exchange_k4`` and ``sharded_solve_allocate``) and the host
+    loop's B2 launches, each counted from zero."""
     import torch
 
     from kube_batch_tpu_torch.ops import block_step as bs
@@ -993,7 +1009,8 @@ def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict]
     from kube_batch_tpu_torch.parallel import ShardedBlockSolver
     from kube_batch_tpu_torch.parallel.sharded import ShardedSolver, sharded_solve_allocate
 
-    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    on_card = device == "cuda"
+    dev = torch.device(device, 0) if on_card else torch.device(device)
     mesh = [dev] * 4
     arena = TensorArena(dev)
     saved = bs.block_step.launches, ms.mesh_solve.launches
@@ -1005,24 +1022,43 @@ def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict]
         else:
             solver = ShardedBlockSolver(arrays, mesh, True, True, exchange_batch=k)
         t0 = time.perf_counter()
-        same_state(f"preempt_mix_2k_40_seed1 m=4 K={k}", want, solver.solve())
+        got = solver.solve()
         solve_s = time.perf_counter() - t0
-        if k > 1 and solver.batched_iters < 1:
-            raise AssertionError("the batched exchange committed no iteration from a batch")
+        same_state(f"preempt_mix_2k_40_seed1 m=4 K={k}", want, got)
         b2, b4 = bs.block_step.launches, ms.mesh_solve.launches
-        if device == "cuda" and (b2, b4) != ((0, 1) if k == 1 else (solver.counts["launches"], 0)):
+        if solver.impl != "mesh_kernel" or (on_card and (b2, b4) != (0, 1)):
             raise AssertionError(f"K={k}: {b2} B2 and {b4} B4 launches, on the {solver.impl}")
-        surface += b4 if k == 1 else 0
-        recs.append({"phase": f"exchange_preempt_mix_2k_40_seed1_m4_k{k}", "s": solve_s,
-                     "surface": "ShardedSolver" if k == 1 else "ShardedBlockSolver", "impl": solver.impl,
-                     "batched_iters": solver.batched_iters, **solver.counts, "b2_launches": b2, "b4_launches": b4,
-                     "equal_to_fused": True})
+        if k > 1 and solver.batched_iters != solver.counts["placing_iterations"]:
+            raise AssertionError(f"K={k} on one card: {solver.batched_iters} batched iterations of "
+                                 f"{solver.counts['placing_iterations']} placing")
+        surface += b4
+        rec = {"phase": f"exchange_preempt_mix_2k_40_seed1_m4_k{k}", "s": solve_s,
+               "surface": "ShardedSolver" if k == 1 else "ShardedBlockSolver", "impl": solver.impl,
+               "batched_iters": solver.batched_iters, **solver.counts, "b2_launches": b2, "b4_launches": b4,
+               "device_ms": solver._mesh.device_ms.get(0), "equal_to_fused": True}
+        if k > 1:
+            ms.mesh_solve.launches = 0
+            plain = ms.MeshSolve(arrays, ["cpu"] * 4, True, True, cards=[0, 0, 0, 0], exchange_batch=k).solve()
+            same_state(f"B4 at K={k} against its plain version", plain, got)
+            rec.update(equal_to_plain=True, equal_to_k1=True)  # want is the K = 1 solve's state too
+        recs.append(rec)
+    # the host loop at K = 4: its own path, reached by name only
+    bs.block_step.launches = ms.mesh_solve.launches = 0
+    host = ShardedBlockSolver(arrays, mesh, True, True, exchange_batch=4, impl="host_loop")
+    t0 = time.perf_counter()
+    same_state("the host loop at K=4", want, host.solve())
+    host_b2 = bs.block_step.launches
+    recs.append({"phase": "host_loop_k4", "s": time.perf_counter() - t0, "impl": host.impl,
+                 "batched_iters": host.batched_iters, **host.counts, "b2_launches": host_b2,
+                 "b4_launches": ms.mesh_solve.launches, "equal_to_fused": True})
+    recs.append(b4_by_k(arrays, want, dev))
     before = arena.counters()
     ms.mesh_solve.launches = 0
     t0 = time.perf_counter()
     res = sharded_solve_allocate(arrays, mesh, True, True, arena=arena)
     solve_s = time.perf_counter() - t0
-    surface += ms.mesh_solve.launches
+    surface_launches = ms.mesh_solve.launches
+    surface += surface_launches
     bs.block_step.launches, ms.mesh_solve.launches = saved
     reused = {k: v - before[k] for k, v in arena.counters().items()}
     if reused["reuses"] != 3 or reused["full_uploads"]:
@@ -1030,12 +1066,83 @@ def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict]
     for field, x in zip(res._fields, res):
         if not torch.equal(x, getattr(result_of(want), field)):
             raise AssertionError(f"sharded_solve_allocate: {field} differs from the fused rung's")
-    if device == "cuda" and surface < 1:
-        raise AssertionError("the sharded surface launched B4 no time")
+    if on_card and surface < 3:
+        raise AssertionError(f"the sharded surface and exchange_k4 launched B4 {surface} times, expected 3")
     recs.append({"phase": "sharded_surface", "world": "preempt_mix_2k_40_seed1", "m": 4, "s": solve_s,
-                 "arena": reused, "launches": surface, "equal_to_fused": True,
+                 "arena": reused, "launches": surface_launches, "equal_to_fused": True,
                  "arena_bytes_by_slab": arena.hbm_bytes_by_slab()})
-    return recs, surface
+    return recs, surface, host_b2
+
+
+def b4_cards_on_one_device(arrays: dict, dev, k: int, m: int = 4, timeout_ms: int | None = None) -> tuple:
+    """One B4 solve over ``m`` cards (a card a shard) that all lie on
+    ``dev``: the cards of a CPU ``MeshSolve``, copied to the card with an
+    exchange buffer and the class keys each and launched on a stream each
+    (CUDA events around each launch), or on the CPU its plain version.
+    Returns the full-width SolveState, each card's kernel time (ms; none on
+    the CPU), the rounds and each card's speculated placing iterations."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+
+    cpu = ms.MeshSolve(arrays, ["cpu"] * m, True, True, cards=list(range(m)), exchange_batch=k)
+    full = cpu._load(None)
+    cards, times = cpu.cards, []
+    if dev.type == "cuda":
+        cards = [
+            ms.Card(c.packed.to(dev), c.gidx.to(dev), fs.PackedState(c.state.dims, c.state.istate.to(dev),
+                                                                    c.state.fstate.to(dev)),
+                    torch.zeros(ms.XBUF_WORDS, dtype=torch.int32, device=dev), c.ckey.to(dev))
+            for c in cpu.cards
+        ]
+        lib, prepared, index = ms._prepare(cards, 0, timeout_ms=timeout_ms or ms.TIMEOUT_MS, exchange_batch=k)
+        prepared = [(args, scratch, torch.cuda.Stream(device=dev)) for args, scratch, _ in prepared]
+        torch.cuda.synchronize()
+        ms._launch_cards(lib, prepared, index, times)
+        torch.cuda.synchronize()
+    else:
+        ms.mesh_solve(cards, exchange_batch=k)
+    states = [fs.PackedState(c.state.dims, c.state.istate.cpu(), c.state.fstate.cpu()) for c in cards]
+    for st, rows in zip(states, cpu._rows):
+        ms.put_nodes(full.istate, st.istate, cpu.dims.istate(), st.dims.istate(), rows)
+        ms.put_nodes(full.fstate, st.fstate, cpu.dims.fstate(), st.dims.fstate(), rows)
+    ms._replicated_into(full, states[0])
+    if any(int(st.istate[5]) for st in states):
+        raise AssertionError(f"B4 over {m} cards on {dev} at K={k}: abort words {[int(st.istate[5]) for st in states]}")
+    return (fs._state_of(full), [s.elapsed_time(e) for _, s, e in times], int(states[0].istate[6]),
+            [int(st.istate[7]) for st in states])
+
+
+def b4_by_k(arrays: dict, want, dev) -> dict:
+    """``b4_by_k``: B4 at every K of EXCHANGE_KS on four shards of ``dev``
+    (one card: one launch of its K = 1 loop) and over four cards of one
+    solve on ``dev`` (the batched exchange between them), each held to
+    ``want``; device times from CUDA events (the second of two solves on
+    one card; the slowest card over cards). Comparison launches."""
+    import torch
+
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver
+
+    saved = ms.mesh_solve.launches
+    one_card, cards = {}, {}
+    for k in EXCHANGE_KS:
+        for _ in range(2):
+            solver = ShardedBlockSolver(arrays, [dev] * 4, True, True, exchange_batch=k)
+            same_state(f"B4 on one card at K={k}", want, solver.solve())
+        one_card[k] = {"ms": solver._mesh.device_ms.get(0), "exchange_rounds": solver.counts["exchange_rounds"],
+                       "placing_iterations": solver.counts["placing_iterations"],
+                       "batched_iters": solver.batched_iters}
+        state, times, rounds, speculated = b4_cards_on_one_device(arrays, dev, k)
+        same_state(f"B4 over four cards on one device at K={k}", want, state)
+        placing = int((state.ptr - arrays["job_start"]).sum())
+        cards[k] = {"ms": max(times) if times else None, "ms_by_card": times, "exchange_rounds": rounds,
+                    "speculated_by_card": speculated, "placing_iterations": placing,
+                    "batched_iters": placing if k > 1 else 0, "iterations": int(state.it)}
+    ms.mesh_solve.launches = saved
+    return {"phase": "b4_by_k", "world": "preempt_mix_2k_40_seed1", "device": str(dev), "one_card_m4": one_card,
+            "four_cards_on_one_device": cards, "equal_to_fused": True}
 
 
 def b4_bound(solver, ops: int, iterations: int, placing: int, floor_ms_per_iter: float,
@@ -1121,25 +1228,32 @@ def mesh_solve_vs_plain(small: dict, big: dict, floor: dict) -> dict:
     return rec
 
 
-def b4_vs_plain_prefix(a: dict, mesh: list, cards: list[int]) -> dict:
-    """B4 on ``mesh`` from ``jobs_prefix``'s state against its plain
-    version on CPU cards grouped by ``cards``, field for field; the plain
-    run's time on the host clock. Comparison launches."""
+def b4_vs_plain_prefix(a: dict, mesh: list, cards: list[int], exchange_batch: int = 1, divisor: int = 16) -> dict:
+    """B4 at K = ``exchange_batch`` on ``mesh`` from ``jobs_prefix``'s state
+    against its plain version on CPU cards grouped by ``cards``, field for
+    field (with K > 1 also against B4 at K = 1 from the same state); the
+    plain run's time on the host clock. Comparison launches."""
     import torch
 
     from kube_batch_tpu_torch.ops import mesh_solve as ms
     from kube_batch_tpu_torch.parallel import ShardedBlockSolver
 
-    prefix = jobs_prefix(a)
-    solver = ShardedBlockSolver(a, mesh, True, True)
+    prefix = jobs_prefix(a, divisor)
+    solver = ShardedBlockSolver(a, mesh, True, True, exchange_batch=exchange_batch)
     got = solver.solve(prefix)
+    if exchange_batch > 1:
+        same_state(f"B4 at K={exchange_batch} against K=1, jobs prefix",
+                   ShardedBlockSolver(a, mesh, True, True).solve(prefix), got)
     t0 = time.perf_counter()
-    plain = ms.MeshSolve(a, ["cpu"] * len(cards), True, True, cards=cards).solve(prefix)
+    plain = ms.MeshSolve(a, ["cpu"] * len(cards), True, True, cards=cards,
+                         exchange_batch=exchange_batch).solve(prefix)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    same_state(f"B4 on {len(set(map(str, mesh)))} card(s) against its plain version on {len(set(cards))} CPU cards, "
-               "jobs prefix", plain, got)
-    return {"jobs_active": int(prefix.job_active.sum()), "iterations": int(got.it),
-            "placing_iterations": solver.counts["placing_iterations"], "device_ms": solver._mesh.device_ms,
+    same_state(f"B4 at K={exchange_batch} on {len(set(map(str, mesh)))} card(s) against its plain version on "
+               f"{len(set(cards))} CPU cards, jobs prefix", plain, got)
+    return {"k": exchange_batch, "jobs_active": int(prefix.job_active.sum()), "iterations": int(got.it),
+            "placing_iterations": solver.counts["placing_iterations"],
+            "exchange_rounds": solver.counts["exchange_rounds"], "speculated": solver.counts.get("speculated", 0),
+            "device_ms": solver._mesh.device_ms,
             "plain_ms": plain_ms, "plain_cards": len(set(cards)), "equal_to_plain": True,
             "max_abs_err": max(float((getattr(got, f) - getattr(plain, f)).abs().max())
                                for f in ("idle", "rel", "used", "job_alloc", "q_alloc"))}
@@ -7027,7 +7141,9 @@ def mc_cycle(ctx: Multichip, arm: str, sched, read_states: bool = True) -> tuple
         "b3_launches_by_card": by_card(cs.class_step.launches_by_card),
         "b4_launches": b4.launches - b4_before[0], "b4_launches_by_card": card_delta(b4.launches_by_card, b4_before[1]),
         "b4_device_ms_by_card": card_delta(b4.device_ms_by_card, b4_before[2]),
-        "sharded_impl": t.get("sharded_impl"), "host_steps": t.get("host_steps", 0),
+        "sharded_impl": t.get("sharded_impl"), "exchange_batch": t.get("exchange_batch"),
+        "exchange_rounds": counts.get("exchange_rounds", 0), "speculated": counts.get("speculated", 0),
+        "host_steps": t.get("host_steps", 0),
         "binds": len(cache.binder.binds), "evicts": len(cache.evictor.evicts),
         "cycle": {k: v for k, v in sched.last_timings.items() if isinstance(v, (int, float))}, **gc_clock.record(),
     }
@@ -7140,10 +7256,11 @@ def multichip_pipelined_phase(ctx: Multichip, base) -> dict:
     """``multichip_pipelined_50k_5k``: ``pipelined_50k_5k``'s sessions
     (``torch_allocate`` alone, a fresh FakeCache each) with
     ``KBT_PIPELINE`` on over the mesh, MULTICHIP_SESSIONS back to back (the
-    next session's run joins the last one's deferred dispatch); every
-    session's binds equal the synchronous run's (``mesh: off`` on cuda:0,
-    the pipeline off), each session deferred its dispatch, nothing
-    degraded."""
+    next session's run joins the last one's deferred dispatch), the sharded
+    rung at K = 4 from the K rule (the conf names no ``exchange_batch``, as
+    the JAX deployment runs under ``KBT_PIPELINE``); every session's binds
+    equal the synchronous run's (``mesh: off`` on cuda:0, the pipeline
+    off), each session deferred its dispatch, nothing degraded."""
     from kube_batch_tpu_torch import pipeline
 
     saved = os.environ.get(pipeline.ENV)
@@ -7158,6 +7275,8 @@ def multichip_pipelined_phase(ctx: Multichip, base) -> dict:
                 sched = mc_scheduler(ctx.conf(arm, actions="torch_allocate"), session_cluster(base))
                 rec, _ = mc_cycle(ctx, arm, sched, read_states=False)
                 ctx.check("multichip_pipelined_50k_5k", arm, rec)
+                if on and rec["exchange_batch"] != BATCHED_K:  # the K rule under KBT_PIPELINE
+                    raise AssertionError(f"{arm}: the sharded rung ran K={rec['exchange_batch']}, expected {BATCHED_K}")
                 runs.append(rec)
                 scheds.append(sched)
             if not pipeline.fence.wait():
@@ -7400,14 +7519,15 @@ def multichip_phases(device: str = "cuda", cut: int = 1, card: str = "cpu") -> l
 MESH_FLOOR_ITERATIONS = 20_000  # exchanges a mesh_floor run passes between the cards
 
 
-def mesh_floor_probe(cards: int, runs: int = 2) -> dict:
+def mesh_floor_probe(cards: int, runs: int = 2, k: int = 0) -> dict:
     """``mesh_floor``: csrc/mesh_floor.cu on the first ``cards`` cards, each
     run MESH_FLOOR_ITERATIONS exchanges of B4's stamped records through
     peer memory (one CTA of 512 threads a card, launched on every card
     before any is waited on; CUDA events around each card's launch on its
-    stream). Returns the microseconds an exchange, per card and run; the
-    last run's slowest card is the exchange's latency a placing
-    iteration."""
+    stream); with ``k`` > 0 rounds of the batched exchange, ``k`` records a
+    card. Returns the microseconds an exchange or round, per card and run;
+    the last run's slowest card is the exchange's latency a placing
+    iteration (a round's at ``k``)."""
     import ctypes
 
     import torch
@@ -7419,7 +7539,7 @@ def mesh_floor_probe(cards: int, runs: int = 2) -> dict:
         """Mirror of `struct MeshFloorArgs` in csrc/mesh_floor.cu."""
 
         _fields_ = [("m", ctypes.c_int), ("card", ctypes.c_int), ("iterations", ctypes.c_int),
-                    ("timeout_ms", ctypes.c_int), ("epoch", ctypes.c_uint), ("pad", ctypes.c_uint),
+                    ("timeout_ms", ctypes.c_int), ("epoch", ctypes.c_uint), ("K", ctypes.c_int),
                     ("xbuf", ctypes.c_void_p * ms.MAX_CARDS), ("out", ctypes.c_void_p)]
 
     nvcc.build(["mesh_floor"])
@@ -7437,7 +7557,7 @@ def mesh_floor_probe(cards: int, runs: int = 2) -> dict:
         events = []
         for i in devs:
             args = MeshFloorArgs(m=cards, card=i, iterations=MESH_FLOOR_ITERATIONS, timeout_ms=ms.TIMEOUT_MS,
-                                 epoch=run * (MESH_FLOOR_ITERATIONS + 1), pad=0, xbuf=table, out=outs[i].data_ptr())
+                                 epoch=run * (MESH_FLOOR_ITERATIONS + 1), K=k, xbuf=table, out=outs[i].data_ptr())
             stream = torch.cuda.current_stream(i)
             with torch.cuda.device(i):
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -7452,8 +7572,39 @@ def mesh_floor_probe(cards: int, runs: int = 2) -> dict:
         if done != [MESH_FLOOR_ITERATIONS] * cards or len({int(o[1]) for o in outs}) != 1:
             raise AssertionError(f"mesh_floor: cards finished {done} exchanges with winners {outs}")
         us.append([s.elapsed_time(e) * 1e3 / MESH_FLOOR_ITERATIONS for s, e in events])
-    return {"phase": "mesh_floor", "cards": cards, "iterations": MESH_FLOOR_ITERATIONS, "us_per_exchange": us,
-            "exchange_us": max(us[-1])}
+    return {"phase": "mesh_floor", "cards": cards, "k": k, "iterations": MESH_FLOOR_ITERATIONS,
+            "us_per_exchange": us, "exchange_us": max(us[-1])}
+
+
+BATCHED_K = 4  # the K of B4's batched exchange over the cards (the K rule's default)
+BATCHED_PREFIX = 64  # its plain comparison's jobs prefix (a quarter of K = 1's: speculation sweeps more)
+
+
+def b4_batched_over_cards(a: dict, mesh: list, k: int) -> dict:
+    """B4 over the cards of ``mesh`` from the entry state at K = 1 and at
+    K = ``k`` in turns (1, k, k, 1), each K = ``k`` solve field for field
+    the K = 1 solve's: each card's kernel time (CUDA events) at both, and
+    at ``k`` the rounds and the speculated and committed placing
+    iterations. Comparison launches."""
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver
+
+    out = {"k": k, "runs": []}
+    want = None
+    for kk in (1, k, k, 1):
+        solver = ShardedBlockSolver(a, mesh, True, True, exchange_batch=kk)
+        got = solver.solve()
+        if want is None:
+            want = got
+        else:
+            same_state(f"B4 at K={kk} over {len(set(map(str, mesh)))} cards against K=1", want, got)
+        out["runs"].append({"k": kk, **{f"cuda:{i}": ms for i, ms in sorted(solver._mesh.device_ms.items())}})
+        if kk == k:
+            counts, speculated, batched = dict(solver.counts), solver._mesh.speculated_by_card, solver.batched_iters
+    out.update(device_ms_by_card={c: v for c, v in out["runs"][2].items() if c != "k"},
+               k1_device_ms_by_card={c: v for c, v in out["runs"][3].items() if c != "k"},
+               **counts, speculated_by_card=speculated, batched_iters=batched,
+               equal_to_k1=True)
+    return out
 
 
 def distinct_cards(card: str) -> int:
@@ -7508,18 +7659,30 @@ def distinct_cards(card: str) -> int:
     device_ms = by_card(ms.mesh_solve.device_ms_by_card)
     # B4 over the cards against its plain version on as many CPU cards, at
     # full width over a prefix of the work (comparison launches)
-    prefix = b4_vs_plain_prefix(encoded_arrays(cluster), list(mesh), list(range(m)))
-    del cluster, fused, on_last
+    encoded = encoded_arrays(cluster)
+    prefix = b4_vs_plain_prefix(encoded, list(mesh), list(range(m)))
+    # B4 at K = 4 over the cards, the whole solve against K = 1's, then
+    # from a shorter prefix against its plain version and K = 1
+    # (comparison launches)
+    batched = b4_batched_over_cards(encoded, list(mesh), BATCHED_K)
+    batched["jobs_prefix"] = b4_vs_plain_prefix(encoded, list(mesh), list(range(m)), exchange_batch=BATCHED_K,
+                                                divisor=BATCHED_PREFIX)
+    del cluster, fused, on_last, encoded
     # B4's bound over the cards: B1's time per iteration on a 128-node world
     # and the exchange's latency from the probe, both measured here
     floor = kernel_vs_plain("preempt_mix_2k_40_seed1", encoded_arrays(models.preempt_mix(2000, 40, seed=1)),
                             timed_runs=4, raw_runs=4)
-    probes = [mesh_floor_probe(n) for n in sorted({2, m})]
+    probes = [mesh_floor_probe(n) for n in sorted({2, m})] + [mesh_floor_probe(m, k=BATCHED_K)]
     for rec in probes:
         emit(rec)
-    exchange_us = probes[-1]["exchange_us"]
+    exchange_us = probes[-2]["exchange_us"]
     iterations = int(res.state.it)
     latency_ms = iterations * floor["raw_ms_per_iteration"] + placing * exchange_us * 1e-3
+    batched["round_us"] = probes[-1]["exchange_us"]
+    batched["latency_bound_ms"] = (batched["iterations"] * floor["raw_ms_per_iteration"]
+                                   + batched["exchange_rounds"] * batched["round_us"] * 1e-3)
+    batched["share_of_latency_bound"] = batched["latency_bound_ms"] / max(batched["device_ms_by_card"].values())
+    emit({"phase": f"b4_k{BATCHED_K}_preempt_mix_50k_5k_{m}cards", **batched})
     emit({
         "phase": f"allocate_mesh_preempt_mix_50k_5k_{m}cards", "mesh": [str(d) for d in mesh],
         "total_s": total_s, **res.timings, "iterations": iterations, "placing_iterations": placing,
@@ -7817,11 +7980,11 @@ def main(argv: list[str]) -> int:
     # -- K = 1 through the JAX GSPMD rung's surface -------------------------
     small = encoded_arrays(models.preempt_mix(2000, 40, seed=1))
     want = fs.FusedSolver(small, True, True, device=cuda0).solve()
-    exchange_recs, surface_launches = exchange_phase(small, want)
+    exchange_recs, surface_launches, b2_launches = exchange_phase(small, want)
     for rec in exchange_recs:
         emit(rec)
-    b2_launches = exchange_recs[1]["b2_launches"]  # the K-deep batched exchange, the host loop's main path
-    B4_PATHS["sharded_surface"] = surface_launches
+    b4_k = next(r for r in exchange_recs if r["phase"] == "b4_by_k")
+    B4_PATHS["sharded_surface_and_exchange_k4"] = surface_launches  # b2_launches: the host loop's own path
 
     # -- B4 against the host loop over B2, B1 and its plain version ----------
     saved = ms.mesh_solve.launches, bs.block_step.launches
@@ -7879,7 +8042,7 @@ def main(argv: list[str]) -> int:
     b3_head = b3[0]
     b3_ptxas = {r["function"]: r for r in ptxas_summary(logs.get("class_step", ""))}
     b1_by_path = {"allocate_fused": b1_launches, **{k: v[0] for k, v in cycle_launches.items() if v[0]}}
-    b2_by_path = {"exchange_k4": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
+    b2_by_path = {"host_loop_k4": b2_launches, **{k: v[1] for k, v in cycle_launches.items() if v[1]}}
     b4_head = b4["preempt_mix_2k_40_seed1"]
     b4_5k = b4["preempt_mix_50k_5k"]
     if sum(B4_PATHS.get(f"allocate_mesh_preempt_mix_{w}_m{m}", 0) for w, m in (("50k_5k", 1), ("50k_5k", 4),
@@ -8000,6 +8163,8 @@ def main(argv: list[str]) -> int:
             "ms_per_iteration_preempt_mix_50k_5k": b4_5k["ms_per_iteration"],
             "k_preempt_mix_50k_5k": b4_5k["k"],
             "host_loop_s_preempt_mix_50k_5k": b4_5k["host_loop_s"],
+            "by_k_one_card_m4": b4_k["one_card_m4"],
+            "by_k_four_cards_on_one_device": b4_k["four_cards_on_one_device"],
             "ptxas": ptxas_summary(logs.get("mesh_solve", "")),
         },
     ]})

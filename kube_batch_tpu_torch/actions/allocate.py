@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import logging
 
-from kube_batch_tpu_torch import obs
+from kube_batch_tpu_torch import log as pkg_log, obs
 from kube_batch_tpu_torch.api.job_info import TaskInfo
 from kube_batch_tpu_torch.api.node_info import NodeInfo
 from kube_batch_tpu_torch.api.types import TaskStatus
@@ -103,7 +103,7 @@ class AllocateAction(Action):
 
                 candidates = predicate_nodes(task, all_nodes, predicate_fn)
                 if not candidates:
-                    log.debug(
+                    pkg_log.V(3).infof(
                         "no node fits task <%s/%s>; job <%s> leaves the cycle",
                         task.namespace, task.name, job.name,
                     )
@@ -115,7 +115,7 @@ class AllocateAction(Action):
                 node = select_best_node(node_scores)
 
                 if task.init_resreq.less_equal(node.idle):
-                    log.debug(
+                    pkg_log.V(3).infof(
                         "binding task <%s/%s> to node <%s>",
                         task.namespace, task.name, node.name,
                     )
@@ -135,7 +135,7 @@ class AllocateAction(Action):
                     delta.fit_delta(task.init_resreq)
                     job.nodes_fit_delta[node.name] = delta
                     if task.init_resreq.less_equal(node.releasing):
-                        log.debug(
+                        pkg_log.V(3).infof(
                             "pipelining task <%s/%s> onto releasing node <%s>",
                             task.namespace, task.name, node.name,
                         )

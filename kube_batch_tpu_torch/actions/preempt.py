@@ -16,7 +16,7 @@ from __future__ import annotations
 import logging
 from typing import Callable, Optional
 
-from kube_batch_tpu_torch import metrics
+from kube_batch_tpu_torch import log as pkg_log, metrics
 from kube_batch_tpu_torch.api.job_info import JobInfo, TaskInfo
 from kube_batch_tpu_torch.api.node_info import NodeInfo
 from kube_batch_tpu_torch.api.resource_info import Resource
@@ -88,7 +88,7 @@ def _preempt(
         preempted = Resource.empty()
         while not victims_queue.empty():
             preemptee = victims_queue.pop()
-            log.debug(
+            pkg_log.V(3).infof(
                 "evicting task <%s/%s> for preemptor <%s/%s>",
                 preemptee.namespace, preemptee.name,
                 preemptor.namespace, preemptor.name,
@@ -101,7 +101,7 @@ def _preempt(
         metrics.register_preemption_attempts()
 
         if preemptor.init_resreq.less_equal(preempted):
-            log.debug(
+            pkg_log.V(3).infof(
                 "preempted <%s> on node <%s> for task <%s/%s>",
                 preempted, node.name, preemptor.namespace, preemptor.name,
             )

@@ -8,14 +8,12 @@ device rungs —
 - **fused**: the whole solve in one launch of kernel B1
   (``ops/fused_solve.FusedSolver``, ``csrc/fused_solve.cu``);
 - **sharded**: with a mesh, the node-sharded solve
-  (``parallel/sharded_block.ShardedBlockSolver``) in one of two
-  implementations, chosen by the conf's ``exchange_batch`` alone, never as
-  a fallback: with 1 (the default) kernel B4, the whole gang loop in one
-  launch a card with the winner exchanged between cards inside the kernel
-  (``ops/mesh_solve.py``, ``csrc/mesh_solve.cu``; its plain version on a
-  CPU mesh); with K > 1 the host loop's K-deep batched exchange, kernel B2
-  once per shard per speculated placing iteration (``csrc/block_step.cu``)
-  —
+  (``parallel/sharded_block.ShardedBlockSolver``) on kernel B4, the whole
+  gang loop in one launch a card with the winner exchanged between cards
+  inside the kernel (``ops/mesh_solve.py``, ``csrc/mesh_solve.cu``; its
+  plain version on a CPU mesh): once a placing iteration at K = 1, once a
+  round of K speculated placing iterations at K > 1 (the K-deep batched
+  exchange) —
 
 then **bulk-replays** the assignments into the session: the same state
 mutations `ssn.allocate`/`ssn.pipeline` would make (status index moves,
@@ -36,8 +34,12 @@ Action arguments (``actionArguments: {torch_allocate: {...}}``):
   in the JAX package; a mesh of one is the fused rung. A value the JAX
   package reads as single-chip (``many``, ``-2``, ``tpu:4``) logs a
   warning and solves on the fused rung, as there;
-- ``exchange_batch``: the sharded rung's K-deep batched exchange (1: no
-  batching, kernel B4; K > 1: the host loop);
+- ``exchange_batch``: K of the sharded rung's K-deep batched exchange,
+  1 to 64 (1: no batching). When the conf names none, K follows the JAX
+  package's rule: 1 unless ``KBT_PIPELINE`` is on, then
+  ``KBT_EXCHANGE_BATCH`` (4 when unset, clamped to 1..64, 4 with an error
+  logged when it is not an integer; ``parallel/sharded_block.
+  default_exchange_batch``);
 - ``min_device_pairs``: the size floor (pending tasks x nodes) below
   which the cycle runs serially (256; a mesh request skips it).
 
@@ -184,6 +186,7 @@ from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
 from kube_batch_tpu_torch.ops.kernels import KIND_ALLOCATED, KIND_PIPELINED, SolveState
 from kube_batch_tpu_torch.ops.nvcc import KernelBuildError
 from kube_batch_tpu_torch.parallel import ShardedBlockSolver, make_mesh
+from kube_batch_tpu_torch.parallel.sharded_block import default_exchange_batch
 from kube_batch_tpu_torch.plugins.nodeorder import (
     BALANCED_RESOURCE_WEIGHT,
     LEAST_REQUESTED_WEIGHT,
@@ -255,9 +258,8 @@ class _FusedRungFailed(RuntimeError):
 
 class _Rungs:
     """The cycle's device rungs under the solver ladder: the sharded rung
-    (kernel B4, or the host loop over B2 with ``exchange_batch`` > 1; its
-    implementation in ``impl``) when a mesh is resolved and its breaker
-    allows, else or
+    (kernel B4 at the cycle's K; its implementation in ``impl``) when a
+    mesh is resolved and its breaker allows, else or
     after its failure the fused rung (kernel B1). Both speak ``SolveState``,
     so the fused rung resumes a failed sharded segment from the segment's
     own input state.
@@ -309,11 +311,16 @@ class _Rungs:
         self.mesh = mesh
         self.exchange_batch = 1
         if mesh is not None:
-            spec = args.get("exchange_batch", "").strip() or "1"
-            try:
-                self.exchange_batch = int(spec)
-            except ValueError:
-                raise ValueError(f"torch_allocate: exchange_batch={spec!r} is not an integer") from None
+            spec = args.get("exchange_batch", "").strip()
+            if not spec:
+                self.exchange_batch = default_exchange_batch()  # KBT_PIPELINE / KBT_EXCHANGE_BATCH
+            else:
+                try:
+                    self.exchange_batch = int(spec)
+                except ValueError:
+                    raise ValueError(f"torch_allocate: exchange_batch={spec!r} is not an integer") from None
+                if not 1 <= self.exchange_batch <= 64:
+                    raise ValueError(f"torch_allocate: exchange_batch={spec!r} is outside 1..64")
         self.class_fn = None
         if class_solve.enabled():
             # the class-compressed layer over the rungs (ops/class_solve):
@@ -341,8 +348,8 @@ class _Rungs:
                 raise
             except Exception:
                 log.exception(
-                    "the sharded rung (%s) cannot take this snapshot on %d shards; using the fused rung",
-                    "kernel B4" if self.exchange_batch == 1 else "the host loop over kernel B2", len(mesh),
+                    "the sharded rung (kernel B4, K = %d) cannot take this snapshot on %d shards; using the fused rung",
+                    self.exchange_batch, len(mesh),
                 )
                 faults.solver_ladder.record_failure("sharded")
         if self.sharded is None:
@@ -649,6 +656,7 @@ class TorchAllocateAction(Action):
         timings["pack_s"] += rungs.pack_s
         if rungs.impl is not None:
             timings["sharded_impl"] = rungs.impl  # mesh_kernel (B4) or host_loop (B2)
+            timings["exchange_batch"] = rungs.exchange_batch  # K of the batched exchange
         timings.update(solve_s=time.perf_counter() - t0, **rungs.split, host_step_s=t_host, host_steps=host_steps)
         if arena is not None:
             arena._account_hbm()

@@ -39,6 +39,7 @@ import time
 
 import numpy as np
 
+from kube_batch_tpu_torch import log as pkg_log
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.apis.types import PodGroupPhase
 from kube_batch_tpu_torch.framework.interface import Action
@@ -67,7 +68,7 @@ class TorchBackfillAction(Action):
 
         self.last_timings = {}
         if not scan_supported(ssn):
-            log.debug("conf outside scan envelope; running serial backfill")
+            pkg_log.V(3).infof("conf outside scan envelope; running serial backfill")
             self._route_serial(ssn, "envelope")
             return
         t0 = time.perf_counter()
@@ -111,7 +112,7 @@ class TorchBackfillAction(Action):
         if len(all_ports) > 63:
             # int64 bitmask exhausted — same convention as VectorScan:
             # correctness first, scan another day
-            log.debug(">63 distinct host ports; running serial backfill")
+            pkg_log.V(3).infof(">63 distinct host ports; running serial backfill")
             self._route_serial(ssn, "ports>63")
             return
         port_bit = {p: np.int64(1) << i for i, p in enumerate(all_ports)}
@@ -192,7 +193,7 @@ class TorchBackfillAction(Action):
                 placed += 1
         self.last_timings = {"scan_s": time.perf_counter() - t0, "placed": placed}
         if placed:
-            log.debug("backfilled %d BestEffort tasks", placed)
+            pkg_log.V(3).infof("backfilled %d BestEffort tasks", placed)
 
     @staticmethod
     def _serial_step(ssn: Session, task, nodes):

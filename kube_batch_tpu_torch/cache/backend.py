@@ -45,7 +45,7 @@ import urllib.parse
 import urllib.request
 from typing import Any, Optional
 
-from kube_batch_tpu_torch import faults, metrics, obs
+from kube_batch_tpu_torch import faults, log as pkg_log, metrics, obs
 from kube_batch_tpu_torch.apis import wire
 from kube_batch_tpu_torch.cache.store import (
     KINDS,
@@ -487,7 +487,7 @@ class LoopbackBackend:
             # is skipped whole — no partial event batch — so the mirror
             # simply ages and the staleness guard / backstop full cycle
             # own the degradation, exactly as for a real partition
-            log.debug("stream.pump: injected watch-pump drop")
+            pkg_log.V(3).infof("stream.pump: injected watch-pump drop")
             self._stop.wait(0.02)  # keep an armed drill from spinning hot
             return 0
         with self._lock:
@@ -582,7 +582,7 @@ class LoopbackBackend:
                     # advances cursors between list re-seeds
                     self._cursor[kind] = int(payload["resourceVersion"])  # noqa: KBT-T003
         except BackendPartitioned as e:
-            log.debug("backend pump skipped: %s", e)
+            pkg_log.V(3).infof("backend pump skipped: %s", e)
             return dispatched
         with self._lock:
             self._last_pump_ok = time.monotonic()
@@ -620,7 +620,7 @@ class LoopbackBackend:
                 with self._lock:
                     self._cursor[kind] = rv  # noqa: KBT-T003 (absolute server rv)
         except BackendPartitioned as e:
-            log.debug("backend pump skipped: %s", e)
+            pkg_log.V(3).infof("backend pump skipped: %s", e)
             return dispatched
         with self._lock:
             self._last_pump_ok = time.monotonic()

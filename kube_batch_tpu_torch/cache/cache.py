@@ -81,7 +81,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
-from kube_batch_tpu_torch import faults, metrics, obs
+from kube_batch_tpu_torch import faults, log as pkg_log, metrics, obs
 from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
 from kube_batch_tpu_torch.api.job_info import JobInfo, TaskInfo, job_key, pod_key
 from kube_batch_tpu_torch.api.node_info import NodeInfo
@@ -204,13 +204,13 @@ class StoreEvictor:
         self._store = store
 
     def evict(self, pod: Pod) -> None:
-        log.debug("Evicting pod %s/%s", pod.namespace, pod.name)
+        pkg_log.V(3).infof("Evicting pod %s/%s", pod.namespace, pod.name)
         self._store.delete_pod(pod.namespace, pod.name)
 
     def evict_versioned(self, pod: Pod, snapshot_version: int) -> None:
         """Optimistic evict: rejected with StaleWrite when the pod's node
         took a placement write the snapshot never saw."""
-        log.debug(
+        pkg_log.V(3).infof(
             "Evicting pod %s/%s (snapshot v%d)",
             pod.namespace, pod.name, snapshot_version,
         )
@@ -710,7 +710,7 @@ class SchedulerCache:
     def _get_or_create_job(self, ti: TaskInfo) -> Optional[JobInfo]:
         if not ti.job:
             if ti.pod.scheduler_name != self.scheduler_name:
-                log.debug(
+                pkg_log.V(4).infof(
                     "Pod %s/%s not scheduled by %s, skip shadow PodGroup",
                     ti.namespace, ti.name, self.scheduler_name,
                 )
@@ -809,7 +809,7 @@ class SchedulerCache:
             pod = self.store.get_pod(old_task.namespace, old_task.name)
             if pod is None:
                 self._delete_task(old_task)
-                log.debug(
+                pkg_log.V(3).infof(
                     "Pod %s/%s was deleted, removed from cache",
                     old_task.namespace, old_task.name,
                 )
@@ -826,7 +826,7 @@ class SchedulerCache:
                 log.error("Failed to add pod %s/%s to cache: %s", pod.namespace, pod.name, e)
                 return
         _notify_encode_cache(PODS, pod.metadata.uid, obj=pod)
-        log.debug("Added pod <%s/%s> to cache", pod.namespace, pod.name)
+        pkg_log.V(3).infof("Added pod <%s/%s> to cache", pod.namespace, pod.name)
 
     def update_pod(self, old: Pod, new: Pod) -> None:
         with self._mutex:
@@ -837,7 +837,7 @@ class SchedulerCache:
                 log.error("Failed to update pod %s/%s in cache: %s", new.namespace, new.name, e)
                 return
         _notify_encode_cache(PODS, new.metadata.uid, obj=new, old=old)
-        log.debug("Updated pod <%s/%s> in cache", new.namespace, new.name)
+        pkg_log.V(3).infof("Updated pod <%s/%s> in cache", new.namespace, new.name)
 
     def delete_pod(self, pod: Pod) -> None:
         with self._mutex:
@@ -847,7 +847,7 @@ class SchedulerCache:
                 log.error("Failed to delete pod %s/%s from cache: %s", pod.namespace, pod.name, e)
                 return
         _notify_encode_cache(PODS, pod.metadata.uid, old=pod)
-        log.debug("Deleted pod <%s/%s> from cache", pod.namespace, pod.name)
+        pkg_log.V(3).infof("Deleted pod <%s/%s> from cache", pod.namespace, pod.name)
 
     # -- node handlers (reference event_handlers.go:262-370) ---------------
 
@@ -905,7 +905,7 @@ class SchedulerCache:
         _notify_encode_cache(
             POD_GROUPS, f"{pg.metadata.namespace}/{pg.name}", obj=pg
         )
-        log.debug("Added PodGroup <%s/%s> to cache", pg.metadata.namespace, pg.name)
+        pkg_log.V(4).infof("Added PodGroup <%s/%s> to cache", pg.metadata.namespace, pg.name)
 
     def update_pod_group(self, old: PodGroup, new: PodGroup) -> None:
         with self._mutex:
@@ -1505,7 +1505,7 @@ class SchedulerCache:
             self._err_tasks.done(task)
 
     def _delete_job(self, job: JobInfo) -> None:
-        log.debug("Try to delete job <%s>", job.uid)
+        pkg_log.V(3).infof("Try to delete job <%s>", job.uid)
         self._deleted_jobs.add_rate_limited(job)
 
     def _process_cleanup_job(self) -> None:
@@ -1517,7 +1517,7 @@ class SchedulerCache:
                 if job_terminated(job):
                     self.jobs.pop(job.uid, None)
                     self._deleted_jobs.forget(job)
-                    log.debug("Job <%s> deleted from cache", job.uid)
+                    pkg_log.V(3).infof("Job <%s> deleted from cache", job.uid)
                 else:
                     self._deleted_jobs.add_rate_limited(job)
         finally:
@@ -1540,10 +1540,10 @@ class SchedulerCache:
                 snapshot.queues[name] = q.clone()
             for uid, job in self.jobs.items():
                 if job.pod_group is None and job.pdb is None:
-                    log.debug("Job <%s> has no scheduling spec, ignored", uid)
+                    pkg_log.V(4).infof("Job <%s> has no scheduling spec, ignored", uid)
                     continue
                 if job.queue not in snapshot.queues:
-                    log.debug(
+                    pkg_log.V(3).infof(
                         "Queue <%s> of job <%s/%s> does not exist, ignored",
                         job.queue, job.namespace, job.name,
                     )
@@ -1554,7 +1554,7 @@ class SchedulerCache:
                     if pc is not None:
                         job.priority = pc.value
                 snapshot.jobs[uid] = job.clone()
-            log.debug(
+            pkg_log.V(3).infof(
                 "Snapshot: %d jobs, %d queues, %d nodes",
                 len(snapshot.jobs), len(snapshot.queues), len(snapshot.nodes),
             )

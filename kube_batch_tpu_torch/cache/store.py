@@ -26,6 +26,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+from kube_batch_tpu_torch import log as pkg_log
 from kube_batch_tpu_torch.utils.locking import assume_locked
 from kube_batch_tpu_torch.apis.types import (
     Lease,
@@ -280,7 +281,7 @@ class ClusterStore:
             self._bump_locked()
             self._account_locked(kind, None, obj)
             self._events.append(("add", list(ks.handlers), None, obj))
-        log.debug("store: created %s %s", kind, key)
+        pkg_log.V(4).infof("store: created %s %s", kind, key)
         self._drain()
         return obj
 
@@ -295,7 +296,7 @@ class ClusterStore:
             self._bump_locked()
             self._account_locked(kind, old, obj)
             self._events.append(("update", list(ks.handlers), old, obj))
-        log.debug("store: updated %s %s", kind, key)
+        pkg_log.V(4).infof("store: updated %s %s", kind, key)
         self._drain()
         return obj
 
@@ -308,7 +309,7 @@ class ClusterStore:
             self._bump_locked()
             self._account_locked(kind, obj, None)
             self._events.append(("delete", list(ks.handlers), obj, None))
-        log.debug("store: deleted %s %s", kind, key)
+        pkg_log.V(4).infof("store: deleted %s %s", kind, key)
         self._drain()
         return obj
 
@@ -389,7 +390,7 @@ class ClusterStore:
                 self._account_locked(PODS, old, new)
                 self._events.append(("update", list(ks.handlers), old, new))
                 applied.append(new)
-        log.debug(
+        pkg_log.V(4).infof(
             "store: conditionally bound %d pod(s) at snapshot v%d",
             len(applied), snapshot_version,
         )
@@ -427,7 +428,7 @@ class ClusterStore:
             self._bump_locked()
             self._account_locked(PODS, old, new)
             self._events.append(("update", list(ks.handlers), old, new))
-        log.debug(
+        pkg_log.V(4).infof(
             "store: conditionally unbound %s at snapshot v%d", key, snapshot_version
         )
         self._drain()
@@ -463,7 +464,7 @@ class ClusterStore:
             self._bump_locked()
             self._account_locked(PODS, old, None)
             self._events.append(("delete", list(ks.handlers), old, None))
-        log.debug(
+        pkg_log.V(4).infof(
             "store: conditionally evicted %s at snapshot v%d", key, snapshot_version
         )
         self._drain()

@@ -14,6 +14,12 @@
 // B4's buffer layout and stamp protocol, with its own epoch; the caller
 // enables peer access between the cards first (ops/mesh_solve.py
 // enable_peer_access).
+//
+// With K > 0 it times one round of B4's K-deep batched exchange instead:
+// thread c < m writes K 16-byte records and the count into this card's
+// slot on card c, fences and stamps; every warp polls its own buffer's
+// stamps; lane c reads card c's count and its K records, one after
+// another, as a replay that consumes every record would.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -24,14 +30,18 @@
 #define NT 512
 #define MAX_CARDS 8
 #define REC 4
+#define BATCH_MAX 64                     // as csrc/mesh_solve.cu
+#define SLOT (REC + BATCH_MAX * REC)     // one card's records of a round
+#define BATCH_OFF (2 * MAX_CARDS * REC)  // the rounds' slots
 
 extern "C" {
 
 // Mirror of chip_smoke.py's MeshFloorArgs (same order).
 struct MeshFloorArgs {
   int m, card, iterations, timeout_ms;
-  unsigned epoch, pad;
-  int* xbuf[MAX_CARDS];  // each card's buffer: [2][MAX_CARDS][REC] words
+  unsigned epoch;
+  int K;                 // 0: B4's exchange at K = 1; 1..BATCH_MAX: a round of K records
+  int* xbuf[MAX_CARDS];  // each card's exchange buffer (ops/mesh_solve.py XBUF_WORDS words)
   int* out;              // [2]: exchanges completed, the sum of the winners' rows
 };
 
@@ -61,6 +71,48 @@ __global__ void __launch_bounds__(NT, 1) mesh_floor_kernel(const MeshFloorArgs a
     // as B4's cluster arg-max, a barrier before the card's record is
     // known; every warp leaves together once any ran past the bound
     if (__syncthreads_or(late)) break;
+    if (a.K > 0) {  // one round of K-deep records
+      if (threadIdx.x < a.m) {
+        int* s = a.xbuf[threadIdx.x] + BATCH_OFF + (par * MAX_CARDS + a.card) * SLOT;
+        for (int d = 0; d < a.K; ++d)
+          *reinterpret_cast<int4*>(s + REC + d * REC) =
+              make_int4(__float_as_int((float)((n * 7 + d + a.card) % 11)), a.card * 1000 + (n + d) % 1000, 0, d);
+        s[1] = a.K;
+        __threadfence_system();
+        asm volatile("st.relaxed.sys.global.s32 [%0], %1;\n" ::"l"(s), "r"((int)stamp) : "memory");
+      }
+      const int* slot = mine + BATCH_OFF + (par * MAX_CARDS + lane) * SLOT;
+      unsigned long long t0 = 0;
+      for (unsigned spins = 1;; ++spins) {
+        const unsigned s = lane < a.m ? floor_ld_acquire(slot) : stamp;
+        if (__all_sync(full, s == stamp)) break;
+        if ((spins & 255u) == 0) {
+          unsigned long long now;
+          asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+          if (t0 == 0) {
+            t0 = now;
+          } else if (now - t0 > 1000000ull * (unsigned long long)a.timeout_ms) {
+            late = true;
+            break;
+          }
+        }
+      }
+      if (late) continue;
+      const int nrec = lane < a.m ? floor_ld_relaxed(slot + 1) : 0;
+      for (int d = 0; d < a.K; ++d) {
+        Best rec = {-INFINITY, NONE, 0, 0};
+        if (d < nrec) {
+          const int* r = slot + REC + d * REC;
+          rec.idx = floor_ld_relaxed(r + 1);
+          rec.score = __int_as_float(floor_ld_relaxed(r));
+          rec.fits = floor_ld_relaxed(r + 2);
+          sum += floor_ld_relaxed(r + 3);  // the key, read as a replay reads it
+        }
+        sum += warp_max_best(rec).idx;
+      }
+      done = n + 1;
+      continue;
+    }
     if (threadIdx.x == 0) {
       const int off = (par * MAX_CARDS + a.card) * REC;
       for (int c = 0; c < a.m; ++c) {

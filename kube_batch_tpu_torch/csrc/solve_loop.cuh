@@ -6,9 +6,11 @@
 // The two kernels differ only in the exchange after the cluster arg-max:
 // B1's cluster holds every node, so its best is the winner; B4 runs one
 // cluster per card over that card's nodes and exchanges the cards'
-// records through peer memory. Keeping the loop here keeps them from
+// records through peer memory, once a placing iteration (solve_loop) or
+// once a round of K speculated iterations (mesh_solve.cu's batched loop,
+// built from the same parts below). Keeping the loop here keeps them from
 // drifting: B4 must equal B1 bit for bit, over any grouping of the nodes
-// into cards.
+// into cards and at any K.
 //
 // Numerics: as node_sweep.cuh (-fmad=false, round-to-nearest intrinsics,
 // __fdiv_rn).
@@ -175,38 +177,266 @@ struct Won {
   int idx, local, fits;
 };
 
-// The whole gang loop over one launch's node axis, every CTA of the
-// cluster running it. `x` is the exchange between launches: after each
-// placing iteration's cluster arg-max, x.exchange(best, &won) turns this
-// cluster's best into the winner over every launch of the solve (B1's
-// OneCard: its own best; B4's MeshExchange: every card's, through peer
-// memory) and returns false when the solve must end (a peer never
-// answered). Only the launch with x.primary() records the placements and
-// writes the replicated state back; x.finish(a, rank) writes the
-// exchange's own words at exit. Nothing in the loop depends on the
-// cluster's size k or on a CTA's rank except which nodes it sweeps and
-// which CTA writes back, so launches of different k replicate the same
-// decisions bit for bit.
-//
-// kRepInSmem: the replicated state lies in shared memory (a.rep_in_smem),
-// so its accesses compile to shared-memory loads and stores rather than
-// generic ones.
-template <bool kRepInSmem, class Exchange>
-__device__ __forceinline__ void solve_loop(const SolveArgs& a, Exchange& x) {
-  __shared__ Key key_scratch[2][NWARPS];
-  __shared__ Best best_scratch[2][32];
-  __shared__ Best slots[2][MAX_CLUSTER];
-  extern __shared__ __align__(16) int smem[];
+// The loop is built from four parts, the reference's closures (the JAX mesh
+// program's prefix, block step and commit): select_job, pop_task, sweep and
+// commit. solve_loop runs them in order with one exchange a placing
+// iteration (B1, and B4 at K = 1); mesh_solve.cu's K-deep batched loop runs
+// the same parts speculated on a saved state and replayed from the cards'
+// records, so every kernel shares one selection and one commit.
 
+// One CTA's slice of the launch's node axis in shared memory: nodes
+// [lo, lo + n) of the axis, its [R, S] rows.
+struct Slice {
+  float *idle, *rel, *used;
+  int *ntasks, *nports;
+  int lo, n, S;
+};
+
+// The loop's scalars, the same in every thread: it, step, the current job,
+// the active jobs, the paused task, and the current job's next task and
+// ready count (mirrors of its rep.jptr and rep.jready entries).
+struct Scalars {
+  int it, step, cur, n_active, paused, tptr, ready;
+};
+
+// The loop's static shared memory: the arg-min and arg-max scratch, their
+// phase counters, and a task's class loaded an iteration ahead.
+struct LoopShared {
+  Key key_scratch[2][NWARPS];
+  Best best_scratch[2][32];
+  Best slots[2][MAX_CLUSTER];
+};
+
+struct Phases {
+  unsigned best, key;
+  int pf_t, pf_cls;  // a task and its class, loaded an iteration ahead
+};
+
+// What pop_task found: the task, its class, whether the job's tasks are
+// exhausted (drop), whether the task is host-only (pause), and whether it
+// is placed (proc).
+struct Pop {
+  int t, cls;
+  bool drop, pause, proc;
+};
+
+__device__ __forceinline__ bool loop_cond(const SolveArgs& a, const Scalars& L) {
+  return (L.cur >= 0 || L.n_active > 0) && L.it < a.max_iter && L.paused < 0;
+}
+
+// Queue and job selection, when no job is current.
+__device__ __forceinline__ void select_job(const SolveArgs& a, const Rep& rep, Scalars& L, LoopShared& sh,
+                                           Phases& ph) {
+  if (L.cur >= 0) return;
+  const int tid = threadIdx.x, J = a.J, Q = a.Q, R = a.R;
+  __syncthreads();  // the updates of earlier iterations are visible
+  // -- queue: lex arg-min of (proportion share, rank) over live queues,
+  // by every warp on its own (lanes stride over the queues): no barrier
+  Key kq = {0, 0, 0.0f, NONE};
+  for (int q = tid & 31; q < Q; q += 32) {
+    if (rep.qcount[q] <= 0 || rep.qdropped[q] != 0) continue;
+    Key k = {0, 0, 0.0f, q};
+    if (a.proportion) {
+      float s = -INFINITY;
+      for (int r = 0; r < R; ++r)
+        if (rep.qdim[r * Q + q] != 0) s = fmaxf(s, share_of(rep.qalloc[r * Q + q], rep.qdes[r * Q + q]));
+      k.share = fmaxf(s, 0.0f);
+    }
+    if (key_less(k, kq)) kq = k;
+  }
+  kq = warp_min_key(kq);
+  const bool q_any = kq.idx != NONE;
+  const int qsel = q_any ? kq.idx : 0;
+
+  // -- overused gate: deserved <= allocated with the Go nil-scalar-map
+  // branch (proportion.go:188-199), same verdict in every thread
+  bool overused = false;
+  if (a.proportion && q_any) {
+    overused = true;
+    const bool has_sc = rep.qahs[qsel] != 0;
+    for (int r = 0; r < R; ++r) {
+      if (rep.qdim[r * Q + qsel] == 0) continue;
+      const float d = rep.qdes[r * Q + qsel], al = rep.qalloc[r * Q + qsel];
+      bool ok = (d < al) || (fabsf(__fsub_rn(al, d)) < a.eps[r]);
+      if (r >= 2) ok = ok && has_sc;
+      overused = overused && ok;
+    }
+  }
+
+  if (q_any && overused) {
+    // the overused queue retires all its jobs for the cycle
+    for (int j = tid; j < J; j += NT)
+      if (rep.jqueue[j] == qsel) rep.jactive[j] = 0;
+    L.n_active -= rep.qcount[qsel];
+    __syncthreads();  // every thread has read qcount[qsel]
+    if (tid == 0) {
+      rep.qdropped[qsel] = 1;
+      rep.qcount[qsel] = 0;
+    }
+  } else if (q_any) {
+    // -- job: lex arg-min of (-priority, gang-ready, drf share, rank)
+    Key kj = {0, 0, 0.0f, NONE};
+#pragma unroll 4
+    for (int j = tid; j < J; j += NT) {
+      if (rep.jactive[j] == 0 || rep.jqueue[j] != qsel) continue;
+      Key k = {-rep.jprio[j], rep.jready[j] >= rep.jmin[j] ? 1 : 0, 0.0f, j};
+      if (a.drf) k.share = rep.jshare[j];
+      if (key_less(k, kj)) kj = k;
+    }
+    kj = block_min_key(kj, sh.key_scratch, ph.key++);
+    if (kj.idx != NONE) {
+      L.cur = kj.idx;
+      L.tptr = rep.jptr[L.cur];
+      L.ready = rep.jready[L.cur];
+    }
+  }
+}
+
+// Pop the current job's next pending task (every thread, O(1)).
+__device__ __forceinline__ Pop pop_task(const SolveArgs& a, const Rep& rep, const Scalars& L, Phases& ph) {
+  int t = 0;
+  bool t_any = false;
+  if (L.cur >= 0) {
+    t = L.tptr;
+    t_any = t < rep.jend[L.cur];
+  }
+  t = min(t, a.T - 1);
+  const int cls = t == ph.pf_t ? ph.pf_cls : __ldg(a.tcls + t);
+  ph.pf_t = min(t + 1, a.T - 1);  // the job's next task: its class load overlaps this iteration
+  ph.pf_cls = __ldg(a.tcls + ph.pf_t);
+  const bool pause = t_any && rep.cho[cls] != 0;
+  return Pop{t, cls, L.cur >= 0 && !t_any, pause, t_any && !pause};
+}
+
+// The popped task's view: its class's rows, flags and ports.
+__device__ __forceinline__ void load_task(TaskView& task, const Rep& rep, int cls, const float* eps) {
+#pragma unroll
+  for (int r = 0; r < R8; ++r) {
+    task.req[r] = rep.creq[cls * R8 + r];
+    task.res[r] = rep.cres[cls * R8 + r];
+    task.eps[r] = eps[r];
+  }
+  task.has_sc = rep.chs[cls] != 0;
+  task.tports = rep.cpt[cls];
+}
+
+// Feasibility + score over the CTA's slice, then the cluster arg-max: this
+// launch's best node for the task (index on the launch's node axis).
+__device__ __forceinline__ Best sweep(const SolveArgs& a, const Rep& rep, const Slice& sl, const TaskView& task,
+                                      int cls, LoopShared& sh, Phases& ph) {
+  const int N = a.N, lo = sl.lo;
+  const int gid = rep.cgid[cls];
+  const NodeAxis nodes = {N,         sl.S,      a.cnode + (size_t)gid * N + lo,
+                          a.nmax + lo, a.nihs + lo, a.nrhs + lo,
+                          sl.ntasks, sl.nports, a.affw + (size_t)gid * N + lo,
+                          a.nalloc + lo, sl.idle, sl.rel,
+                          sl.used};
+  return cluster_max_best(thread_best(nodes, sl.n, lo, task), sh.best_scratch, sh.slots, ph.best++);
+}
+
+// Words of one entry of a speculation's node undo log (mesh_solve.cu): the
+// node's slice index, pod count and port mask, then its idle, releasing and
+// used rows (R8 each).
+#define UNDO_WORDS (3 + 3 * R8)
+
+// The state update of one iteration: the winner's owner thread updates its
+// node, three lanes the replicated vectors, every thread the scalars.
+// `place`: this thread records the placement (CTA 0 of the primary launch,
+// outside speculation). `undo`, when not null, is where the node's owner
+// thread saves the node's old values before it changes them.
+__device__ __forceinline__ void commit(const SolveArgs& a, const Rep& rep, const Slice& sl, Scalars& L, const Pop& p,
+                                       const TaskView& task, const Won& won, bool place, int* undo) {
+  const int tid = threadIdx.x, R = a.R, J = a.J, Q = a.Q, S = sl.S;
+  const int cur = L.cur;
+  const bool assign = p.proc && won.idx != NONE;
+  const bool abandon = p.proc && won.idx == NONE;  // serial `break`
+  const bool fits_idle = assign && won.fits != 0;
+  if (assign) {
+    const int nb = won.idx, ln = won.local - sl.lo;
+    if (won.local != NONE && ln >= 0 && ln < sl.n && ln % NT == tid) {  // this thread swept the winner
+      if (undo != nullptr) {
+        undo[0] = ln;
+        undo[1] = sl.ntasks[ln];
+        undo[2] = sl.nports[ln];
+        float* u = reinterpret_cast<float*>(undo + 3);
+#pragma unroll
+        for (int r = 0; r < R8; ++r) {
+          if (r >= R) break;
+          u[r] = sl.idle[r * S + ln];
+          u[R8 + r] = sl.rel[r * S + ln];
+          u[2 * R8 + r] = sl.used[r * S + ln];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R8; ++r) {
+        if (r >= R) break;
+        if (fits_idle)
+          sl.idle[r * S + ln] = __fsub_rn(sl.idle[r * S + ln], task.res[r]);
+        else  // the predicate guarantees a fit on releasing
+          sl.rel[r * S + ln] = __fsub_rn(sl.rel[r * S + ln], task.res[r]);
+        sl.used[r * S + ln] = __fadd_rn(sl.used[r * S + ln], task.res[r]);
+      }
+      sl.ntasks[ln] += 1;
+      sl.nports[ln] |= task.tports;
+    }
+    // the replicated vectors, by one lane in each of three warps (they
+    // touch disjoint arrays, so their chains of loads run side by side)
+    if (tid == 0 && place) {
+      a.tnode[p.t] = nb;
+      a.tkind[p.t] = fits_idle ? 1 : 2;
+      a.tpos[p.t] = L.step;
+    }
+    if (tid == 32 && a.drf) {
+#pragma unroll
+      for (int r = 0; r < R8; ++r)
+        if (r < R) rep.jalloc[r * J + cur] = __fadd_rn(rep.jalloc[r * J + cur], task.res[r]);
+      rep.jshare[cur] = drf_share(a, rep.jalloc, cur);
+    }
+    if (tid == 64 && a.proportion) {
+      const int qc = rep.jqueue[cur];
+#pragma unroll
+      for (int r = 0; r < R8; ++r)
+        if (r < R) rep.qalloc[r * Q + qc] = __fadd_rn(rep.qalloc[r * Q + qc], task.res[r]);
+      if (rep.crhs[p.cls] != 0) rep.qahs[qc] = 1;
+    }
+  }
+  if (fits_idle) L.ready += 1;
+  if (p.proc) {
+    L.tptr += 1;
+    if (tid == 0) {
+      rep.jptr[cur] = L.tptr;
+      rep.jready[cur] = L.ready;
+    }
+  }
+  int cur_next = cur;
+  if (p.drop || abandon) {
+    if (tid == 0) {
+      rep.jactive[cur] = 0;
+      rep.qcount[rep.jqueue[cur]] -= 1;
+    }
+    L.n_active -= 1;
+    cur_next = -1;
+  } else if (p.proc && L.ready >= rep.jmin[cur]) {
+    cur_next = -1;  // gang barrier: the job re-queues
+  }
+  L.it += 1;
+  L.step += assign ? 1 : 0;
+  L.cur = cur_next;
+  L.paused = p.pause ? p.t : -1;
+}
+
+// The start of a solve: the CTA's node slice into shared memory, its copy
+// of the replicated state, the loop's scalars; returns the scalars, with
+// the slice and the region in *sl and *rep. Ends with a cluster barrier
+// (every CTA has started; DSMEM may be written).
+template <bool kRepInSmem>
+__device__ __forceinline__ Scalars solve_begin(const SolveArgs& a, Slice* sl, Rep* rep) {
+  extern __shared__ __align__(16) int smem[];
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, rank = (int)cluster.block_rank();
-  const int T = a.T, N = a.N, J = a.J, Q = a.Q, C = a.C, R = a.R, S = a.S;
+  const int N = a.N, J = a.J, Q = a.Q, C = a.C, R = a.R, S = a.S;
   const int lo = rank * S, n_loc = max(0, min(S, N - lo));
-  const float w_least = a.wts[0], w_bal = a.wts[1];
-  float eps[R8];  // the per-dim tolerances, in registers for the whole solve
-#pragma unroll
-  for (int r = 0; r < R8; ++r) eps[r] = r < R ? a.eps[r] : 0.0f;
 
   // -- the CTA's node slice, in shared memory ---------------------------
   float* s_idle = reinterpret_cast<float*>(smem);
@@ -221,235 +451,67 @@ __device__ __forceinline__ void solve_loop(const SolveArgs& a, Exchange& x) {
   }
   copy_words(s_ntasks, a.ntasks + lo, n_loc);
   copy_words(s_nports, a.nports + lo, n_loc);
+  *sl = Slice{s_idle, s_rel, s_used, s_ntasks, s_nports, lo, n_loc, S};
 
   // -- the CTA's copy of the replicated state ---------------------------
   int* rep_base = kRepInSmem ? s_nports + S : a.scratch + (size_t)rank * a.rep_words;
-  const Rep rep = rep_layout(rep_base, J, Q, C, R);
+  const Rep p = rep_layout(rep_base, J, Q, C, R);
   // the layout's extent against the sizes the launch was given
   // (solve_geometry): a mismatch would overrun shared memory or the
   // scratch slice, so it stops the kernel instead
-  if (rep.end - rep_base != a.rep_words ||
+  if (p.end - rep_base != a.rep_words ||
       (s_nports + S - smem) + (kRepInSmem ? a.rep_words : 0) != a.smem_bytes / 4)
     __trap();
-  copy_words(rep.jptr, a.jptr, J);
-  copy_words(rep.jready, a.jready, J);
-  copy_words(rep.jactive, a.jactive, J);
-  copy_words(rep.jend, a.jend, J);
-  copy_words(rep.jmin, a.jmin, J);
-  copy_words(rep.jprio, a.jprio, J);
-  copy_words(rep.jqueue, a.jqueue, J);
-  copy_words(rep.qdropped, a.qdropped, Q);
-  copy_words(rep.qcount, a.qcount, Q);
-  copy_words(rep.qahs, a.qahs, Q);
-  copy_words(rep.qdim, a.qdim, R * Q);
-  copy_words(rep.cgid, a.cgid, C);
-  copy_words(rep.chs, a.chs, C);
-  copy_words(rep.crhs, a.crhs, C);
-  copy_words(rep.cho, a.cho, C);
-  copy_words(rep.cpt, a.cpt, C);
-  copy_words(rep.jalloc, a.jalloc, R * J);
+  copy_words(p.jptr, a.jptr, J);
+  copy_words(p.jready, a.jready, J);
+  copy_words(p.jactive, a.jactive, J);
+  copy_words(p.jend, a.jend, J);
+  copy_words(p.jmin, a.jmin, J);
+  copy_words(p.jprio, a.jprio, J);
+  copy_words(p.jqueue, a.jqueue, J);
+  copy_words(p.qdropped, a.qdropped, Q);
+  copy_words(p.qcount, a.qcount, Q);
+  copy_words(p.qahs, a.qahs, Q);
+  copy_words(p.qdim, a.qdim, R * Q);
+  copy_words(p.cgid, a.cgid, C);
+  copy_words(p.chs, a.chs, C);
+  copy_words(p.crhs, a.crhs, C);
+  copy_words(p.cho, a.cho, C);
+  copy_words(p.cpt, a.cpt, C);
+  copy_words(p.jalloc, a.jalloc, R * J);
   if (a.drf)
-    for (int j = tid; j < J; j += NT) rep.jshare[j] = drf_share(a, a.jalloc, j);
-  copy_words(rep.qalloc, a.qalloc, R * Q);
-  copy_words(rep.qdes, a.qdes, R * Q);
+    for (int j = tid; j < J; j += NT) p.jshare[j] = drf_share(a, a.jalloc, j);
+  copy_words(p.qalloc, a.qalloc, R * Q);
+  copy_words(p.qdes, a.qdes, R * Q);
   for (int i = tid; i < C * R8; i += NT) {
     const int c = i / R8, r = i % R8;
-    rep.creq[i] = r < R ? a.creq[r * C + c] : 0.0f;
-    rep.cres[i] = r < R ? a.cres[r * C + c] : 0.0f;
+    p.creq[i] = r < R ? a.creq[r * C + c] : 0.0f;
+    p.cres[i] = r < R ? a.cres[r * C + c] : 0.0f;
   }
+  *rep = p;
 
   // the loop's scalars, in every thread's registers
-  int it = a.scal[0], step = a.scal[1], cur = a.scal[2], n_active = a.scal[4], paused = -1;
+  Scalars L = {a.scal[0], a.scal[1], a.scal[2], a.scal[4], -1, 0, 0};
   cluster.sync();  // copies visible; every CTA has started (DSMEM may be written)
-  int tptr = cur >= 0 ? rep.jptr[cur] : 0, ready = cur >= 0 ? rep.jready[cur] : 0;
-  unsigned best_phase = 0, key_phase = 0;
-  int pf_t = -1, pf_cls = 0;  // a task and its class, loaded an iteration ahead
+  L.tptr = L.cur >= 0 ? p.jptr[L.cur] : 0;
+  L.ready = L.cur >= 0 ? p.jready[L.cur] : 0;
+  return L;
+}
 
-  while ((cur >= 0 || n_active > 0) && it < a.max_iter && paused < 0) {
-    if (cur < 0) {
-      __syncthreads();  // the updates of earlier iterations are visible
-      // -- queue: lex arg-min of (proportion share, rank) over live queues,
-      // by every warp on its own (lanes stride over the queues): no barrier
-      Key kq = {0, 0, 0.0f, NONE};
-      for (int q = tid & 31; q < Q; q += 32) {
-        if (rep.qcount[q] <= 0 || rep.qdropped[q] != 0) continue;
-        Key k = {0, 0, 0.0f, q};
-        if (a.proportion) {
-          float s = -INFINITY;
-          for (int r = 0; r < R; ++r)
-            if (rep.qdim[r * Q + q] != 0) s = fmaxf(s, share_of(rep.qalloc[r * Q + q], rep.qdes[r * Q + q]));
-          k.share = fmaxf(s, 0.0f);
-        }
-        if (key_less(k, kq)) kq = k;
-      }
-      kq = warp_min_key(kq);
-      const bool q_any = kq.idx != NONE;
-      const int qsel = q_any ? kq.idx : 0;
-
-      // -- overused gate: deserved <= allocated with the Go nil-scalar-map
-      // branch (proportion.go:188-199), same verdict in every thread
-      bool overused = false;
-      if (a.proportion && q_any) {
-        overused = true;
-        const bool has_sc = rep.qahs[qsel] != 0;
-        for (int r = 0; r < R; ++r) {
-          if (rep.qdim[r * Q + qsel] == 0) continue;
-          const float d = rep.qdes[r * Q + qsel], al = rep.qalloc[r * Q + qsel];
-          bool ok = (d < al) || (fabsf(__fsub_rn(al, d)) < a.eps[r]);
-          if (r >= 2) ok = ok && has_sc;
-          overused = overused && ok;
-        }
-      }
-
-      if (q_any && overused) {
-        // the overused queue retires all its jobs for the cycle
-        for (int j = tid; j < J; j += NT)
-          if (rep.jqueue[j] == qsel) rep.jactive[j] = 0;
-        n_active -= rep.qcount[qsel];
-        __syncthreads();  // every thread has read qcount[qsel]
-        if (tid == 0) {
-          rep.qdropped[qsel] = 1;
-          rep.qcount[qsel] = 0;
-        }
-      } else if (q_any) {
-        // -- job: lex arg-min of (-priority, gang-ready, drf share, rank)
-        Key kj = {0, 0, 0.0f, NONE};
-#pragma unroll 4
-        for (int j = tid; j < J; j += NT) {
-          if (rep.jactive[j] == 0 || rep.jqueue[j] != qsel) continue;
-          Key k = {-rep.jprio[j], rep.jready[j] >= rep.jmin[j] ? 1 : 0, 0.0f, j};
-          if (a.drf) k.share = rep.jshare[j];
-          if (key_less(k, kj)) kj = k;
-        }
-        kj = block_min_key(kj, key_scratch, key_phase++);
-        if (kj.idx != NONE) {
-          cur = kj.idx;
-          tptr = rep.jptr[cur];
-          ready = rep.jready[cur];
-        }
-      }
-    }
-
-    // -- pop the current job's next pending task (every thread, O(1)) ----
-    int t = 0;
-    bool t_any = false;
-    if (cur >= 0) {
-      t = tptr;
-      t_any = t < rep.jend[cur];
-    }
-    t = min(t, T - 1);
-    const bool drop = cur >= 0 && !t_any;
-    const int cls = t == pf_t ? pf_cls : __ldg(a.tcls + t);
-    pf_t = min(t + 1, T - 1);  // the job's next task: its class load overlaps this iteration
-    pf_cls = __ldg(a.tcls + pf_t);
-    const bool pause = t_any && rep.cho[cls] != 0;
-    const bool proc = t_any && !pause;
-
-    Best best = {-INFINITY, NONE, 0, 0};
-    Won won = {NONE, NONE, 0};
-    TaskView task;
-    task.R = R;
-    task.has_sc = false;
-    task.tports = 0;
-    task.w_least = w_least;
-    task.w_bal = w_bal;
-    if (proc) {
-#pragma unroll
-      for (int r = 0; r < R8; ++r) {
-        task.req[r] = rep.creq[cls * R8 + r];
-        task.res[r] = rep.cres[cls * R8 + r];
-        task.eps[r] = eps[r];
-      }
-      task.has_sc = rep.chs[cls] != 0;
-      task.tports = rep.cpt[cls];
-      const int gid = rep.cgid[cls];
-      // -- feasibility + score over the slice, cluster arg-max -----------
-      const NodeAxis nodes = {N,        S,         a.cnode + (size_t)gid * N + lo,
-                              a.nmax + lo, a.nihs + lo, a.nrhs + lo,
-                              s_ntasks, s_nports, a.affw + (size_t)gid * N + lo,
-                              a.nalloc + lo, s_idle, s_rel,
-                              s_used};
-      best = cluster_max_best(thread_best(nodes, n_loc, lo, task), best_scratch, slots, best_phase++);
-      // the winner over every card (B1: this cluster's); false: a peer's
-      // record never came, the launch ends with its error word set
-      if (!x.exchange(best, &won)) break;
-    }
-
-    // -- state update: the winner's owner thread, three lanes, registers --
-    const bool assign = proc && won.idx != NONE;
-    const bool abandon = proc && won.idx == NONE;  // serial `break`
-    const bool fits_idle = assign && won.fits != 0;
-    if (assign) {
-      const int nb = won.idx, ln = won.local - lo;
-      if (won.local != NONE && ln >= 0 && ln < n_loc && ln % NT == tid) {  // this thread swept the winner
-#pragma unroll
-        for (int r = 0; r < R8; ++r) {
-          if (r >= R) break;
-          if (fits_idle)
-            s_idle[r * S + ln] = __fsub_rn(s_idle[r * S + ln], task.res[r]);
-          else  // the predicate guarantees a fit on releasing
-            s_rel[r * S + ln] = __fsub_rn(s_rel[r * S + ln], task.res[r]);
-          s_used[r * S + ln] = __fadd_rn(s_used[r * S + ln], task.res[r]);
-        }
-        s_ntasks[ln] += 1;
-        s_nports[ln] |= task.tports;
-      }
-      // the replicated vectors, by one lane in each of three warps (they
-      // touch disjoint arrays, so their chains of loads run side by side)
-      if (tid == 0 && rank == 0 && x.primary()) {
-        a.tnode[t] = nb;
-        a.tkind[t] = fits_idle ? 1 : 2;
-        a.tpos[t] = step;
-      }
-      if (tid == 32 && a.drf) {
-#pragma unroll
-        for (int r = 0; r < R8; ++r)
-          if (r < R) rep.jalloc[r * J + cur] = __fadd_rn(rep.jalloc[r * J + cur], task.res[r]);
-        rep.jshare[cur] = drf_share(a, rep.jalloc, cur);
-      }
-      if (tid == 64 && a.proportion) {
-        const int qc = rep.jqueue[cur];
-#pragma unroll
-        for (int r = 0; r < R8; ++r)
-          if (r < R) rep.qalloc[r * Q + qc] = __fadd_rn(rep.qalloc[r * Q + qc], task.res[r]);
-        if (rep.crhs[cls] != 0) rep.qahs[qc] = 1;
-      }
-    }
-    if (fits_idle) ready += 1;
-    if (proc) {
-      tptr += 1;
-      if (tid == 0) {
-        rep.jptr[cur] = tptr;
-        rep.jready[cur] = ready;
-      }
-    }
-    int cur_next = cur;
-    if (drop || abandon) {
-      if (tid == 0) {
-        rep.jactive[cur] = 0;
-        rep.qcount[rep.jqueue[cur]] -= 1;
-      }
-      n_active -= 1;
-      cur_next = -1;
-    } else if (proc && ready >= rep.jmin[cur]) {
-      cur_next = -1;  // gang barrier: the job re-queues
-    }
-    it += 1;
-    step += assign ? 1 : 0;
-    cur = cur_next;
-    paused = pause ? t : -1;
-  }
-
-  // -- write the state back: each CTA its node slice, CTA 0 the rest ----
+// The end of a solve: each CTA writes its node slice back, CTA 0 of the
+// primary launch the replicated state and the scalars.
+__device__ __forceinline__ void solve_end(const SolveArgs& a, const Slice& sl, const Rep& rep, const Scalars& L,
+                                          int rank, bool primary) {
+  const int tid = threadIdx.x, N = a.N, J = a.J, Q = a.Q, R = a.R, S = sl.S, lo = sl.lo;
   __syncthreads();
   for (int r = 0; r < R; ++r) {
-    copy_words(a.idle + r * N + lo, s_idle + r * S, n_loc);
-    copy_words(a.rel + r * N + lo, s_rel + r * S, n_loc);
-    copy_words(a.used + r * N + lo, s_used + r * S, n_loc);
+    copy_words(a.idle + r * N + lo, sl.idle + r * S, sl.n);
+    copy_words(a.rel + r * N + lo, sl.rel + r * S, sl.n);
+    copy_words(a.used + r * N + lo, sl.used + r * S, sl.n);
   }
-  copy_words(a.ntasks + lo, s_ntasks, n_loc);
-  copy_words(a.nports + lo, s_nports, n_loc);
-  if (rank == 0 && x.primary()) {
+  copy_words(a.ntasks + lo, sl.ntasks, sl.n);
+  copy_words(a.nports + lo, sl.nports, sl.n);
+  if (rank == 0 && primary) {
     copy_words(a.jptr, rep.jptr, J);
     copy_words(a.jready, rep.jready, J);
     copy_words(a.jactive, rep.jactive, J);
@@ -459,12 +521,65 @@ __device__ __forceinline__ void solve_loop(const SolveArgs& a, Exchange& x) {
     copy_words(a.jalloc, rep.jalloc, R * J);
     copy_words(a.qalloc, rep.qalloc, R * Q);
     if (tid == 0) {
-      a.scal[0] = it;
-      a.scal[1] = step;
-      a.scal[2] = cur;
-      a.scal[3] = paused;
-      a.scal[4] = n_active;
+      a.scal[0] = L.it;
+      a.scal[1] = L.step;
+      a.scal[2] = L.cur;
+      a.scal[3] = L.paused;
+      a.scal[4] = L.n_active;
     }
   }
+}
+
+// The whole gang loop over one launch's node axis, every CTA of the
+// cluster running it, one exchange a placing iteration. `x` is the
+// exchange between launches: after each placing iteration's cluster
+// arg-max, x.exchange(best, &won) turns this cluster's best into the
+// winner over every launch of the solve (B1's OneCard: its own best; B4's
+// MeshExchange: every card's, through peer memory) and returns false when
+// the solve must end (a peer never answered). Only the launch with
+// x.primary() records the placements and writes the replicated state back;
+// x.finish(a, rank) writes the exchange's own words at exit. Nothing in the
+// loop depends on the cluster's size k or on a CTA's rank except which
+// nodes it sweeps and which CTA writes back, so launches of different k
+// replicate the same decisions bit for bit.
+//
+// kRepInSmem: the replicated state lies in shared memory (a.rep_in_smem),
+// so its accesses compile to shared-memory loads and stores rather than
+// generic ones.
+template <bool kRepInSmem, class Exchange>
+__device__ __forceinline__ void solve_loop(const SolveArgs& a, Exchange& x) {
+  __shared__ LoopShared sh;
+  namespace cg = cooperative_groups;
+  const int rank = (int)cg::this_cluster().block_rank();
+  float eps[R8];  // the per-dim tolerances, in registers for the whole solve
+#pragma unroll
+  for (int r = 0; r < R8; ++r) eps[r] = r < a.R ? a.eps[r] : 0.0f;
+  Slice sl;
+  Rep rep;
+  Scalars L = solve_begin<kRepInSmem>(a, &sl, &rep);
+  Phases ph = {0, 0, -1, 0};
+  const bool place = rank == 0 && x.primary();
+  const float w_least = a.wts[0], w_bal = a.wts[1];
+
+  while (loop_cond(a, L)) {
+    select_job(a, rep, L, sh, ph);
+    const Pop p = pop_task(a, rep, L, ph);
+    Won won = {NONE, NONE, 0};
+    TaskView task;
+    task.R = a.R;
+    task.has_sc = false;
+    task.tports = 0;
+    task.w_least = w_least;
+    task.w_bal = w_bal;
+    if (p.proc) {
+      load_task(task, rep, p.cls, eps);
+      const Best best = sweep(a, rep, sl, task, p.cls, sh, ph);
+      // the winner over every card (B1: this cluster's); false: a peer's
+      // record never came, the launch ends with its error word set
+      if (!x.exchange(best, &won)) break;
+    }
+    commit(a, rep, sl, L, p, task, won, place, nullptr);
+  }
+  solve_end(a, sl, rep, L, rank, x.primary());
   x.finish(a, rank);
 }

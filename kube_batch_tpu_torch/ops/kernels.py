@@ -251,6 +251,146 @@ def node_scores(
     return least, balanced
 
 
+class GangLoop:
+    """The parts of one gang iteration over the twin's arrays:
+    ``select`` (queue and job selection, only when no job is current),
+    ``pop`` (the current job's next pending task), ``sweep`` (feasibility,
+    score and the best node over the node axis, or over a subset of it)
+    and ``commit`` (everything once the winner is known). They are the JAX
+    mesh program's ``prefix``, block step and ``commit``:
+    ``solve_allocate_step`` runs them in order, and the mesh solve's plain
+    version of the K-deep batched exchange (ops/mesh_solve.py) runs them
+    speculated on a throwaway state and replayed from records, so the two
+    share every line of bookkeeping.
+
+    The state ``s`` is a SolveState whose tensors the parts update in
+    place; the loop scalars (it, step, cur, paused) are the caller's.
+    ``work``, when given, accumulates ``sweep``'s node-axis work (see
+    ``solve_allocate_step``)."""
+
+    def __init__(self, a: dict, enable_drf: bool, enable_proportion: bool, work: dict | None = None) -> None:
+        self.a = a
+        self.enable_drf, self.enable_proportion = enable_drf, enable_proportion
+        self.work = work
+        self.T = a["task_req"].shape[0]
+        self.node_ok = a["node_ok"] & a["node_valid"]
+        self.node_gid = a["node_gid"].long()
+        fdtype = a["task_req"].dtype
+        self.w_least = torch.tensor(float(a["w_least"]), dtype=fdtype)
+        self.w_balanced = torch.tensor(float(a["w_balanced"]), dtype=fdtype)
+        self.w_aff = torch.tensor(float(a["w_aff"]), dtype=fdtype)
+        self.w_podaff = torch.tensor(float(a["w_podaff"]), dtype=fdtype)
+        self.max_iter = self.T + a["job_min"].shape[0] + a["queue_rank"].shape[0] + 1 + int(a["task_host_only"].sum())
+
+    def select(self, s: SolveState, cur: int) -> int:
+        """The current job: ``cur`` when one is current, else the selected
+        one (-1 when none). Dropping an overused queue retires all its jobs
+        for this cycle (shares only grow during allocate: overused is
+        final)."""
+        if cur >= 0:
+            return cur
+        qsel, q_any, overused, jsel, j_any = select_queue_job(self.a, s, self.enable_drf, self.enable_proportion)
+        if q_any and overused:
+            s.job_active.logical_and_(self.a["job_queue"] != qsel)
+            s.q_dropped[qsel] = True
+        return jsel if (q_any and not overused and j_any) else -1
+
+    def pop(self, s: SolveState, cur: int) -> tuple[int, bool, bool, bool]:
+        """(t, drop, pause, proc): the current job's next pending task (O(1)
+        pointer), whether the job's tasks are exhausted (it leaves the
+        heap), whether the task is host-only, and whether it is placed."""
+        t = int(s.ptr[max(cur, 0)])
+        t_any = cur >= 0 and t < int(self.a["job_end"][cur])
+        t = min(t, self.T - 1)
+        pause = t_any and bool(self.a["task_host_only"][t])
+        return t, cur >= 0 and not t_any, pause, t_any and not pause
+
+    def sweep(self, s: SolveState, t: int, rows: torch.Tensor | None = None) -> tuple[bool, int, bool, float]:
+        """(any candidate, best node, its fits-idle bit, its score) for task
+        ``t``: the highest score, the lowest node on ties, over every node
+        or over the nodes where ``rows`` (bool [N]) is set. The score is
+        -inf and the node 0 when there is no candidate."""
+        a = self.a
+        node_gid = self.node_gid
+        # -- feasibility over the node axis (HOT LOOP #1) -------------------
+        req = a["task_req"][t]
+        eps = a["eps"]
+        fits_idle = _le_eps(req, s.idle, eps)
+        fits_rel = _le_eps(req, s.rel, eps)
+        if bool(a["task_has_sc"][t]):
+            fits_idle = fits_idle & a["node_idle_has_sc"]
+            fits_rel = fits_rel & a["node_rel_has_sc"]
+        gid = int(a["task_gid"][t])
+        static_ok = self.node_ok & a["compat"][gid][node_gid]
+        room = s.ntasks < a["node_max_tasks"]
+        port_ok = ~(a["task_ports"][t][None, :] & s.nports).any(dim=1)
+        cand = static_ok & room & port_ok & (fits_idle | fits_rel)
+        if rows is not None:
+            cand = cand & rows
+        if self.work is not None:
+            w = self.work
+            w["fit_nodes"] = w.get("fit_nodes", 0) + int((static_ok & room & port_ok).sum())
+            w["scored_nodes"] = w.get("scored_nodes", 0) + int(cand.sum())
+
+        # -- score (HOT LOOP #2) + deterministic best node ------------------
+        least, balanced = node_scores(s.used, a["node_alloc"], a["task_res"][t])
+        score = (
+            least.to(self.w_least.dtype) * self.w_least
+            + balanced.to(self.w_least.dtype) * self.w_balanced
+            + a["aff_sc"][gid][node_gid] * self.w_aff
+            + a["pod_sc"][gid] * self.w_podaff
+        )
+        masked = torch.where(cand, score, torch.full_like(score, float("-inf")))
+        if not bool(cand.any()):
+            return False, 0, False, float("-inf")
+        nb = int(masked.argmax())
+        return True, nb, bool(fits_idle[nb]), float(masked[nb])
+
+    def commit(self, s: SolveState, cur: int, t: int, drop: bool, pause: bool, proc: bool, any_cand: bool,
+               nb: int, fits_idle: bool, step: int) -> tuple[int, int, bool]:
+        """Apply one iteration's outcome: the assignment of ``t`` to ``nb``
+        (allocate when it fits idle, else pipeline onto releasing;
+        node_info.go:108-136) with the drf and proportion event bookkeeping
+        (drf.go:135-154, proportion.go:202-223: allocated grows on allocate
+        AND pipeline), the job's pointer, then the gang barrier and the job
+        lifecycle (allocate.go:117-119,182-185). Returns (the next current
+        job, paused_at, whether a task was placed)."""
+        a = self.a
+        assign = proc and any_cand
+        abandon = proc and not any_cand  # serial `break` without re-push
+        if assign:
+            res = a["task_res"][t]
+            if fits_idle:
+                s.idle[nb] -= res
+                s.ready_cnt[cur] += 1
+            else:  # the predicate guarantees fits_rel
+                s.rel[nb] -= res
+            s.used[nb] += res
+            s.ntasks[nb] += 1
+            s.nports[nb] |= a["task_ports"][t]
+            s.assigned_node[t] = nb
+            s.assigned_kind[t] = KIND_ALLOCATED if fits_idle else KIND_PIPELINED
+            s.assign_pos[t] = step
+            if self.enable_drf:
+                s.job_alloc[cur] += res
+            if self.enable_proportion:
+                qcur = int(a["job_queue"][cur])
+                s.q_alloc[qcur] += res
+                if bool(a["task_res_has_sc"][t]):
+                    s.q_alloc_has_sc[qcur] = True
+        if proc:
+            s.ptr[cur] += 1
+        if drop or abandon:
+            s.job_active[cur] = False
+            cur = -1
+        elif proc and int(s.ready_cnt[cur]) >= int(a["job_min"][cur]):
+            cur = -1  # gang barrier: the job re-queues
+        return cur, t if pause else -1, assign
+
+    def cond(self, s: SolveState, cur: int, it: int, paused: int) -> bool:
+        return (cur >= 0 or bool(s.job_active.any())) and it < self.max_iter and paused < 0
+
+
 def solve_allocate_step(
     a: dict,
     state: SolveState | None = None,
@@ -272,137 +412,26 @@ def solve_allocate_step(
     ``scored_nodes`` (feasible nodes that had to be scored), summed over
     the popped tasks.
     """
-    T = a["task_req"].shape[0]
-    J = a["job_min"].shape[0]
-    Q = a["queue_rank"].shape[0]
-
-    task_req = a["task_req"]
-    task_res = a["task_res"]
-    task_gid = a["task_gid"]
-    task_has_sc = a["task_has_sc"]
-    task_res_has_sc = a["task_res_has_sc"]
-    task_ports = a["task_ports"]
-    task_host_only = a["task_host_only"]
-    node_alloc = a["node_alloc"]
-    node_ok = a["node_ok"] & a["node_valid"]
-    node_max_tasks = a["node_max_tasks"]
-    node_idle_has_sc = a["node_idle_has_sc"]
-    node_rel_has_sc = a["node_rel_has_sc"]
-    node_gid = a["node_gid"].long()
-    compat = a["compat"]
-    aff_sc = a["aff_sc"]
-    pod_sc = a["pod_sc"]  # [GT, N] InterPodAffinity (zeros when inactive)
-    job_end = a["job_end"]
-    job_min = a["job_min"]
-    job_queue = a["job_queue"]
-    eps = a["eps"]
-    fdtype = task_req.dtype
-    w_least = torch.tensor(float(a["w_least"]), dtype=fdtype)
-    w_balanced = torch.tensor(float(a["w_balanced"]), dtype=fdtype)
-    w_aff = torch.tensor(float(a["w_aff"]), dtype=fdtype)
-    w_podaff = torch.tensor(float(a["w_podaff"]), dtype=fdtype)
-
-    max_iter = T + J + Q + 1 + int(task_host_only.sum())
-
+    g = GangLoop(a, enable_drf, enable_proportion, work)
     if state is None:
         state = init_state(a, enable_drf=enable_drf, enable_proportion=enable_proportion)
     s = SolveState(*(x.clone() for x in state))
     it, step, cur = int(s.it), int(s.step), int(s.cur)
     paused = -1
-    job_active = s.job_active
-
-    while (cur >= 0 or bool(job_active.any())) and it < max_iter and paused < 0:
-        # -- queue + job selection (only when no job is current) -----------
-        if cur < 0:
-            qsel, q_any, overused, jsel, j_any = select_queue_job(
-                a, s, enable_drf, enable_proportion
-            )
-            if q_any and overused:
-                # Dropping an overused queue retires all its jobs for this
-                # cycle (shares only grow during allocate: overused is final).
-                job_active &= job_queue != qsel
-                s.q_dropped[qsel] = True
-            cur = jsel if (q_any and not overused and j_any) else -1
-
-        # -- pop the current job's next pending task (O(1) pointer) --------
-        t = int(s.ptr[max(cur, 0)])
-        t_any = cur >= 0 and t < int(job_end[cur])
-        t = min(t, T - 1)
-        drop = cur >= 0 and not t_any  # tasks exhausted -> job leaves the heap
-        pause = t_any and bool(task_host_only[t])
-        proc = t_any and not pause
-        assign = abandon = False
-
+    while g.cond(s, cur, it, paused):
+        cur = g.select(s, cur)
+        t, drop, pause, proc = g.pop(s, cur)
+        any_cand, nb, fits_idle = False, 0, False
         if proc:
-            # -- feasibility over the node axis (HOT LOOP #1) ---------------
-            req = task_req[t]
-            has_sc = bool(task_has_sc[t])
-            fits_idle = _le_eps(req, s.idle, eps)
-            fits_rel = _le_eps(req, s.rel, eps)
-            if has_sc:
-                fits_idle = fits_idle & node_idle_has_sc
-                fits_rel = fits_rel & node_rel_has_sc
-            gid = int(task_gid[t])
-            static_ok = node_ok & compat[gid][node_gid]
-            room = s.ntasks < node_max_tasks
-            port_ok = ~(task_ports[t][None, :] & s.nports).any(dim=1)
-            cand = static_ok & room & port_ok & (fits_idle | fits_rel)
-            if work is not None:
-                work["fit_nodes"] = work.get("fit_nodes", 0) + int((static_ok & room & port_ok).sum())
-                work["scored_nodes"] = work.get("scored_nodes", 0) + int(cand.sum())
-
-            # -- score (HOT LOOP #2) + deterministic best node --------------
-            res = task_res[t]
-            least, balanced = node_scores(s.used, node_alloc, res)
-            score = (
-                least.to(fdtype) * w_least
-                + balanced.to(fdtype) * w_balanced
-                + aff_sc[gid][node_gid] * w_aff
-                + pod_sc[gid] * w_podaff
-            )
-            masked = torch.where(cand, score, torch.full_like(score, float("-inf")))
-            assign = bool(cand.any())
-            abandon = not assign  # serial `break` without re-push
-            if assign:
-                nb = int(masked.argmax())
-                do_alloc = bool(fits_idle[nb])
-                # -- apply the assignment (node_info.go:108-136) ------------
-                if do_alloc:
-                    s.idle[nb] -= res
-                    s.ready_cnt[cur] += 1
-                else:  # the predicate guarantees fits_rel
-                    s.rel[nb] -= res
-                s.used[nb] += res
-                s.ntasks[nb] += 1
-                s.nports[nb] |= task_ports[t]
-                s.assigned_node[t] = nb
-                s.assigned_kind[t] = KIND_ALLOCATED if do_alloc else KIND_PIPELINED
-                s.assign_pos[t] = step
-                # -- drf / proportion session-event bookkeeping (drf.go:135-154,
-                # proportion.go:202-223: allocated grows on allocate AND pipeline)
-                if enable_drf:
-                    s.job_alloc[cur] += res
-                if enable_proportion:
-                    qcur = int(job_queue[cur])
-                    s.q_alloc[qcur] += res
-                    if bool(task_res_has_sc[t]):
-                        s.q_alloc_has_sc[qcur] = True
-            s.ptr[cur] += 1
-
-        # -- gang barrier / job lifecycle (allocate.go:117-119,182-185) -----
-        if drop or abandon:
-            job_active[cur] = False
-            cur = -1
-        elif proc and int(s.ready_cnt[cur]) >= int(job_min[cur]):
-            cur = -1
-        paused = t if pause else -1
+            any_cand, nb, fits_idle, _ = g.sweep(s, t)
+        cur, paused, assign = g.commit(s, cur, t, drop, pause, proc, any_cand, nb, fits_idle, step)
         it += 1
         step += int(assign)
+    return s._replace(it=_scalar(it), step=_scalar(step), cur=_scalar(cur), paused_at=_scalar(paused))
 
-    def scalar(v: int) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.int32)
 
-    return s._replace(it=scalar(it), step=scalar(step), cur=scalar(cur), paused_at=scalar(paused))
+def _scalar(v: int) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.int32)
 
 
 def result_of(state: SolveState) -> SolveResult:

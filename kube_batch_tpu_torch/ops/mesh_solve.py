@@ -21,14 +21,26 @@ its own nodes' state, and card 0 (the primary card, which holds shard 0)
 the replicated state. ``scal[5]`` is the card's abort word (0 when every
 peer answered), ``scal[6]`` the launch's placing iterations.
 
+With ``exchange_batch = K > 1`` over two or more cards the launches run
+the JAX program's K-deep batched exchange instead (sharded_pallas.py
+:495-621), the card the unit of speculation: each card speculates up to K
+placing iterations with its own best winning and writes a record of each
+(score, row, local index and fits-idle bit, the task class's key,
+``class_keys``) into every card's buffer; one exchange a round; then every
+card replays the true iterations from the records (csrc/mesh_solve.cu's
+header). ``scal[6]`` is then the rounds and ``scal[7]`` the card's
+speculated placing iterations. One card exchanges nothing and runs its
+K = 1 loop at any K.
+
 ``mesh_solve(cards, ...)`` launches B4 on every card when the buffers lie
 on CUDA devices and runs ``mesh_solve_plain`` when they lie on the CPU:
 B1's plain version over the cards' nodes gathered at their rows, since
-the winner over any grouping is the single-card arg-max over rows.
-``MeshSolve`` runs each solve behind ``ShardedBlockSolver`` on a
-mesh with ``exchange_batch = 1``: it speaks the twin's ``SolveState``
-protocol (pause at a host-only task, resume, re-fold the affinity scores
-when the caller replaced ``a["pod_sc"]``).
+the winner over any grouping is the single-card arg-max over rows, or at
+K > 1 the batched exchange over the same gathered buffers
+(``_batched_plain``). ``MeshSolve`` runs each solve behind
+``ShardedBlockSolver`` on a mesh, at every K: it speaks the twin's
+``SolveState`` protocol (pause at a host-only task, resume, re-fold the
+affinity scores when the caller replaced ``a["pod_sc"]``).
 """
 
 from __future__ import annotations
@@ -47,12 +59,17 @@ import torch
 from kube_batch_tpu_torch.ops import encode_cache, nvcc
 from kube_batch_tpu_torch.ops import fused_solve as fs
 from kube_batch_tpu_torch.ops.cluster import CTA_WIDTH
-from kube_batch_tpu_torch.ops.kernels import SolveState, init_state
+from kube_batch_tpu_torch.ops.kernels import GangLoop, SolveState, init_state
 from kube_batch_tpu_torch.parallel.sharded import node_blocks
 
 MAX_CARDS = 8  # csrc/mesh_solve.cu MAX_CARDS: the most cards one host joins all to all
 REC = 4  # int32 words of one exchange record
-XBUF_WORDS = 2 * MAX_CARDS * REC + REC  # both parities' records, the abort word and pad
+BATCH_MAX = 64  # the deepest batched exchange (csrc/mesh_solve.cu BATCH_MAX; the K rule's clamp)
+SLOT = REC + BATCH_MAX * REC  # one card's records of a round: a header, then BATCH_MAX records
+# K = 1's records for both parities, the rounds' slots for both parities,
+# then the abort word and pad (the last REC words)
+XBUF_WORDS = 2 * MAX_CARDS * REC + 2 * MAX_CARDS * SLOT + REC
+UNDO_WORDS = 3 + 3 * fs.R8  # csrc/solve_loop.cuh UNDO_WORDS: one node's old values
 TIMEOUT_MS = 5_000  # a poll's bound: a live peer answers in microseconds
 
 # The packed fields that run over the node axis, [X, N] with X rows: the
@@ -153,29 +170,127 @@ def put_nodes(full: torch.Tensor, card: torch.Tensor, spec_full, spec_card, rows
 class Card:
     """One card's launch of a mesh solve: B1's packed statics and state
     over the card's own nodes, ``gidx`` (int32 [N], each node's row,
-    ascending) and, on a CUDA card of a solve over several cards, its
-    exchange buffer (int32 [XBUF_WORDS], zeroed once)."""
+    ascending), on a CUDA card of a solve over several cards its exchange
+    buffer (int32 [XBUF_WORDS], zeroed once) and, for the batched exchange
+    on the cards, ``ckey`` (``class_keys``, int32 [C], on the card)."""
 
     packed: fs.Packed
     gidx: torch.Tensor
     state: fs.PackedState
     xbuf: torch.Tensor | None = None
+    ckey: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
         return self.state.istate.device
 
 
-def mesh_solve_plain(cards: Sequence[Card]) -> None:
+def class_keys(packed: fs.Packed) -> torch.Tensor:
+    """int32 [C]: each task class's key in the batched exchange's records,
+    equal for classes whose sweep fields are equal (group, scalar flag,
+    host ports, request and resource rows: the JAX program's validity test,
+    sharded_pallas.py:560-567, compares exactly these). Classes differing
+    only in fields no sweep reads (the resource scalar flag, host-only)
+    share a key."""
+    d, v = packed.dims, packed.views()
+    C, R = d.C, d.R
+    fields = np.concatenate([
+        np.stack([v["cgid"].numpy(), v["chs"].numpy(), v["cpt"].numpy()], axis=1).astype(np.float64),
+        v["creq"].view(R, C).T.numpy().astype(np.float64) + 0.0,  # -0.0 and 0.0 are one value
+        v["cres"].view(R, C).T.numpy().astype(np.float64) + 0.0,
+    ], axis=1)
+    _, inv = np.unique(fields, axis=0, return_inverse=True)
+    return torch.from_numpy(inv.reshape(-1).astype(np.int32))
+
+
+def _batched_plain(packed: fs.Packed, state: fs.PackedState, rows: list[torch.Tensor], K: int) -> tuple[int, list]:
+    """The JAX program's K-deep batched exchange (sharded_pallas.py
+    :495-621) over full-width buffers, a card (``rows``) the unit of
+    speculation: each card speculates up to K placing iterations on a copy
+    of the state with its own best always winning and records (score, row,
+    fits-idle, key) for each; the replay then runs the true iterations from
+    the records at each card's depth pointer, while every card has a record
+    left whose key is the task's, and stops before the first that has not
+    (the next round speculates it again). Updates ``state`` in place;
+    returns the rounds and each card's speculated placing iterations."""
+    d = packed.dims
+    g = GangLoop(fs._twin_arrays(packed), d.drf, d.proportion)
+    s = fs._state_of(state)
+    masks = []
+    for r in rows:
+        mask = torch.zeros(d.N, dtype=torch.bool)
+        mask[r] = True
+        masks.append(mask)
+    key = class_keys(packed)[packed.views()["tcls"].long()].tolist()
+    it, step, cur, paused = int(s.it), int(s.step), int(s.cur), int(s.paused_at)
+    rounds, speculated = 0, [0] * len(rows)
+    while g.cond(s, cur, it, paused):
+        recs = []
+        for c, mask in enumerate(masks):
+            sc = type(s)(*(x.clone() for x in s))
+            c_it, c_step, c_cur, c_paused, rc = it, step, cur, paused, []
+            while len(rc) < K and g.cond(sc, c_cur, c_it, c_paused):
+                c_cur = g.select(sc, c_cur)
+                t, drop, pause, proc = g.pop(sc, c_cur)
+                any_cand, nb, fits = False, 0, False
+                if proc:
+                    any_cand, nb, fits, score = g.sweep(sc, t, mask)
+                    rc.append((score, nb if any_cand else None, fits, key[t]))
+                c_cur, c_paused, assign = g.commit(sc, c_cur, t, drop, pause, proc, any_cand, nb, fits, c_step)
+                c_it += 1
+                c_step += int(assign)
+            recs.append(rc)
+            speculated[c] += len(rc)
+        rounds += 1
+        depth, it0 = [0] * len(rows), it
+        while g.cond(s, cur, it, paused):
+            cur0 = cur
+            cur = g.select(s, cur)  # a placing iteration's selection changes no state
+            t, drop, pause, proc = g.pop(s, cur)
+            any_cand, nb, fits = False, 0, False
+            if proc:
+                if not all(p < len(rc) and rc[p][3] == key[t] for p, rc in zip(depth, recs)):
+                    cur = cur0
+                    break
+                now = [rc[p] for p, rc in zip(depth, recs)]
+                top = max(r[0] for r in now)
+                any_cand = top > float("-inf")
+                if any_cand:
+                    nb = min(r[1] for r in now if r[0] == top)
+                    win = next(c for c, r in enumerate(now) if r[1] == nb)
+                    fits = now[win][2]
+                    depth[win] += 1
+                else:  # a global abandon: every card's record was -inf
+                    depth = [p + 1 for p in depth]
+            cur, paused, assign = g.commit(s, cur, t, drop, pause, proc, any_cand, nb, fits, step)
+            it += 1
+            step += int(assign)
+        if it == it0:
+            raise RuntimeError("the batched exchange's replay committed no iteration")
+    s = s._replace(it=torch.tensor(it, dtype=torch.int32), step=torch.tensor(step, dtype=torch.int32),
+                   cur=torch.tensor(cur, dtype=torch.int32), paused_at=torch.tensor(paused, dtype=torch.int32))
+    out = fs.pack_state(d, s, packed.views()["jqueue"])
+    out.views()["scal"][3] = paused
+    state.istate.copy_(out.istate)
+    state.fstate.copy_(out.fstate)
+    return rounds, speculated
+
+
+def mesh_solve_plain(cards: Sequence[Card], exchange_batch: int = 1) -> None:
     """Plain version of the kernel, over the same per-card buffers and
-    updating them in place as the kernel does: B1's plain version
-    (``fused_solve_plain``) over the cards' nodes gathered at their rows.
-    The cards hold every real node of the mesh once, and the kernel's
-    winner over cards (highest score, then lowest row, the fits-idle bit
-    from the owner) is the single-card arg-max over rows, so one loop is
-    the reference for every grouping. At exit every card holds its nodes'
-    state, ``scal[5]`` 0 and ``scal[6]`` the placing iterations; card 0
-    the replicated state."""
+    updating them in place as the kernel does. At K = 1, or on one card:
+    B1's plain version (``fused_solve_plain``) over the cards' nodes
+    gathered at their rows. The cards hold every real node of the mesh
+    once, and the kernel's winner over cards (highest score, then lowest
+    row, the fits-idle bit from the owner) is the single-card arg-max over
+    rows, so one loop is the reference for every grouping. At K =
+    ``exchange_batch`` > 1 over two or more cards: the JAX program's
+    batched exchange with the card as the unit of speculation
+    (``_batched_plain``), whose result is the same. At exit every card
+    holds its nodes' state, ``scal[5]`` 0, ``scal[6]`` the placing
+    iterations (K = 1, or one card) or the rounds, and ``scal[7]`` its
+    speculated placing iterations (0 at K = 1, or on one card); card 0 the
+    replicated state."""
     p = cards[0]
     rows = [c.gidx.long() for c in cards]
     n = sum(r.numel() for r in rows)
@@ -194,12 +309,15 @@ def mesh_solve_plain(cards: Sequence[Card]) -> None:
             put_nodes(f, buf, spec, card_spec, rows[i])
     packed, state = fs.Packed(d, full[0], full[1]), fs.PackedState(d, full[2], full[3])
     jptr = state.views()["jptr"].clone()
-    fs.fused_solve_plain(packed, state)
-    placing = int((state.views()["jptr"] - jptr).sum())
+    if exchange_batch > 1 and len(cards) > 1:
+        rounds, speculated = _batched_plain(packed, state, rows, exchange_batch)
+    else:
+        fs.fused_solve_plain(packed, state)
+        rounds, speculated = int((state.views()["jptr"] - jptr).sum()), [0] * len(cards)
     for i, (c, r) in enumerate(zip(cards, rows)):
         take_nodes(state.istate, d.istate(), c.state.dims.istate(), r, out=c.state.istate, replicated=i == 0)
         take_nodes(state.fstate, d.fstate(), c.state.dims.fstate(), r, out=c.state.fstate, replicated=i == 0)
-        c.state.views()["scal"][5:7] = torch.tensor([0, placing], dtype=torch.int32)
+        c.state.views()["scal"][5:8] = torch.tensor([0, rounds, speculated[i]], dtype=torch.int32)
 
 
 # -- the CUDA kernel: build, bind, launch ------------------------------------
@@ -211,7 +329,16 @@ class _Args(ctypes.Structure):
     _fields_ = [
         ("s", fs._Args), ("gidx", ctypes.c_void_p), ("xbuf", ctypes.c_void_p * MAX_CARDS),
         ("card", ctypes.c_int), ("m", ctypes.c_int), ("timeout_ms", ctypes.c_int), ("epoch", ctypes.c_uint),
+        ("K", ctypes.c_int), ("spec_words", ctypes.c_int), ("ckey", ctypes.c_void_p), ("spec", ctypes.c_void_p),
     ]
+
+
+def spec_words(dims: fs.Dims, exchange_batch: int) -> int:
+    """Words of one CTA's slice of the batched exchange's ``spec`` buffer
+    (csrc/mesh_solve.cu save_region and the undo log): the replicated
+    runs a speculation writes, J (4 + R) + Q (3 + R), then K entries of
+    UNDO_WORDS."""
+    return dims.J * (4 + dims.R) + dims.Q * (3 + dims.R) + exchange_batch * UNDO_WORDS
 
 
 def _bind(lib) -> None:
@@ -224,7 +351,7 @@ def _bind(lib) -> None:
 
 
 _library = nvcc.Library("mesh_solve", _bind)
-_fits_card: set[tuple[int, int, int]] = set()  # (device, k, shared bytes) checked
+_fits_card: set[tuple[int, int, int, bool]] = set()  # (device, k, shared bytes, batched) checked
 _peers: set[tuple[int, int]] = set()  # (device, peer) with access enabled
 # one solve's launches on its cards go out together: two solves launching
 # interleaved over the same cards' streams could each wait on the other
@@ -259,7 +386,7 @@ def enable_peer_access(devices: Sequence[torch.device]) -> None:
 
 
 def _check_occupancy(index: int, args: _Args) -> None:
-    key = (index, args.s.k, args.s.smem_bytes)
+    key = (index, args.s.k, args.s.smem_bytes, args.K > 1 and args.m > 1)
     if key in _fits_card:
         return
     n = ctypes.c_int(0)
@@ -294,7 +421,7 @@ def _check(cards: Sequence[Card]) -> str:
     return kinds.pop()
 
 
-def mesh_solve(cards: Sequence[Card], epoch: int = 0, timers: list | None = None) -> None:
+def mesh_solve(cards: Sequence[Card], epoch: int = 0, timers: list | None = None, exchange_batch: int = 1) -> None:
     """Run one solve over the cards, updating each card's state in place.
     CUDA buffers launch the kernel once per card, each on its card's current
     stream with that card current, all of them before any is waited on
@@ -302,26 +429,34 @@ def mesh_solve(cards: Sequence[Card], epoch: int = 0, timers: list | None = None
     solve's stamp base, the same for every card, which the caller advances
     past ``max_iter`` before reusing the buffers. With ``timers``, a pair of
     CUDA events around each card's launch, on its stream, is appended to
-    it. CPU buffers run the plain version. Any other device raises."""
+    it. ``exchange_batch`` is the K of the batched exchange (1 to
+    BATCH_MAX). CPU buffers run the plain version. Any other device
+    raises."""
     kind = _check(cards)
+    if not 1 <= int(exchange_batch) <= BATCH_MAX:
+        raise ValueError(f"exchange_batch must be 1 to {BATCH_MAX}, got {exchange_batch}")
     if kind == "cpu":
-        mesh_solve_plain(cards)
+        mesh_solve_plain(cards, int(exchange_batch))
         return
     if kind != "cuda":
         raise ValueError(f"mesh_solve runs on cuda or cpu, not {kind}")
-    lib, prepared, index = _prepare(cards, epoch)
+    lib, prepared, index = _prepare(cards, epoch, exchange_batch=int(exchange_batch))
     if len(set(index)) != len(cards):
         raise ValueError(f"one launch per card: the cards lie on {index}")
     _launch_cards(lib, prepared, index, timers)
 
 
-def _prepare(cards: Sequence[Card], epoch: int, timeout_ms: int = TIMEOUT_MS) -> tuple:
+def _prepare(cards: Sequence[Card], epoch: int, timeout_ms: int = TIMEOUT_MS, exchange_batch: int = 1) -> tuple:
     """Each CUDA card's launch arguments, scratch and stream, and the
     cards' device indices; ``timeout_ms`` bounds each poll."""
     m = len(cards)
     index = [torch.cuda.current_device() if c.device.index is None else c.device.index for c in cards]
     if m > 1 and any(c.xbuf is None or c.xbuf.numel() != XBUF_WORDS or c.xbuf.dtype != torch.int32 for c in cards):
         raise ValueError(f"a solve over {m} cards needs each card's int32 [{XBUF_WORDS}] exchange buffer")
+    batched = exchange_batch > 1 and m > 1
+    if batched and any(c.ckey is None or c.ckey.dtype != torch.int32 or c.ckey.device != c.device
+                       or c.ckey.numel() != c.packed.dims.C for c in cards):
+        raise ValueError("the batched exchange needs each card's class keys (class_keys) on the card")
     lib = _library.load()
     xbuf = (ctypes.c_void_p * MAX_CARDS)(*[c.xbuf.data_ptr() if c.xbuf is not None else 0 for c in cards])
     prepared = []
@@ -329,14 +464,18 @@ def _prepare(cards: Sequence[Card], epoch: int, timeout_ms: int = TIMEOUT_MS) ->
         geo, sargs = fs._launch_args(c.packed.dims)
         for name, view in {**c.packed.views(), **c.state.views()}.items():
             setattr(sargs, name, view.data_ptr())
-        scratch = None
+        # freed on return: handed out again only to work queued on this
+        # card's stream after the kernel
+        scratch = []
         if not geo.rep_in_smem:
-            # freed on return: handed out again only to work queued on this
-            # card's stream after the kernel
-            scratch = torch.empty(geo.shape.k * geo.rep_words, dtype=torch.int32, device=c.device)
-            sargs.scratch = scratch.data_ptr()
+            scratch.append(torch.empty(geo.shape.k * geo.rep_words, dtype=torch.int32, device=c.device))
+            sargs.scratch = scratch[-1].data_ptr()
         args = _Args(s=sargs, gidx=c.gidx.data_ptr(), xbuf=xbuf, card=i, m=m, timeout_ms=int(timeout_ms),
-                     epoch=int(epoch) & 0xFFFFFFFF)
+                     epoch=int(epoch) & 0xFFFFFFFF, K=int(exchange_batch))
+        if batched:
+            args.spec_words = spec_words(c.packed.dims, exchange_batch)
+            scratch.append(torch.empty(geo.shape.k * args.spec_words, dtype=torch.int32, device=c.device))
+            args.spec, args.ckey = scratch[-1].data_ptr(), c.ckey.data_ptr()
         _check_occupancy(index[i], args)
         prepared.append((args, scratch, torch.cuda.current_stream(index[i])))
     return lib, prepared, index
@@ -387,6 +526,10 @@ class MeshSolve:
     through it as the mesh slabs ``mesh_istatic``, ``mesh_fstatic`` and
     ``mesh_gidx`` (one row a card, the cards' placement): reused when
     their content equals the last upload's, put whole otherwise.
+    ``exchange_batch`` is the K of the batched exchange (1 to BATCH_MAX):
+    K > 1 over two or more cards runs the K-deep batched exchange, on one
+    card the K = 1 loop, whose placing iterations all count as batched, as
+    the JAX program's do (``batched_iters``, accumulated over solves).
 
     A solve packs the state once at full width, hands each card its slice,
     launches every card and waits on each once; the state comes back in
@@ -394,7 +537,11 @@ class MeshSolve:
     bound raises, and the solver refuses later solves."""
 
     def __init__(self, a: dict, mesh, enable_drf: bool, enable_proportion: bool, arena=None,
-                 cards: Sequence[int] | None = None, can_access=None) -> None:
+                 cards: Sequence[int] | None = None, can_access=None, exchange_batch: int = 1) -> None:
+        if not 1 <= int(exchange_batch) <= BATCH_MAX:
+            raise ValueError(f"exchange_batch must be 1 to {BATCH_MAX}, got {exchange_batch}")
+        self.exchange_batch = int(exchange_batch)
+        self.batched_iters = 0  # placing iterations committed by a batched exchange (K > 1)
         self.a = a
         self.enable_drf, self.enable_proportion = enable_drf, enable_proportion
         n_nodes = a["node_idle"].shape[0]
@@ -410,6 +557,7 @@ class MeshSolve:
         self.timings: dict[str, float] = {}
         self.counts: dict[str, int] = {}
         self.device_ms: dict[int, float] = {}  # the last solve's kernel time (CUDA events) by card index
+        self.speculated_by_card: list[int] = []  # the last batched solve's speculated placing iterations
         self.broken: str | None = None
         self._epoch = 0
         host = fs.pack(a, enable_drf, enable_proportion)
@@ -423,6 +571,8 @@ class MeshSolve:
         gidx = [r.astype(np.int32) for r in self.plan.rows]
         self._istatic = self._put("istatic", istatic)
         self._gidx = self._put("gidx", gidx)
+        ckey = class_keys(host)
+        self._ckey = [ckey.to(d) for d in devices]
         self._pod_sc = None
         self._fstatic = None
         self._refold_affinity(host.fstatic)
@@ -437,7 +587,8 @@ class MeshSolve:
             state = host_state if not self.on_card else fs.PackedState(
                 d, torch.zeros(ni, dtype=torch.int32, device=dev), torch.zeros(nf, dtype=torch.float32, device=dev))
             xbuf = torch.zeros(XBUF_WORDS, dtype=torch.int32, device=dev) if self.on_card and len(devices) > 1 else None
-            self.cards.append(Card(fs.Packed(d, self._istatic[i], self._fstatic[i]), self._gidx[i], state, xbuf))
+            self.cards.append(Card(fs.Packed(d, self._istatic[i], self._fstatic[i]), self._gidx[i], state, xbuf,
+                                   self._ckey[i]))
         if self.on_card:
             if len(devices) > 1:
                 enable_peer_access(devices)
@@ -445,7 +596,7 @@ class MeshSolve:
                 # each card's cluster (solve_geometry at its node count) and
                 # the card's room for it, before any solve
                 try:
-                    args = _Args(s=fs._launch_args(c.packed.dims)[1])
+                    args = _Args(s=fs._launch_args(c.packed.dims)[1], m=len(devices), K=self.exchange_batch)
                 except ValueError as e:
                     raise ValueError(f"{c.device}: {e}") from e
                 _check_occupancy(c.device.index, args)
@@ -498,11 +649,12 @@ class MeshSolve:
         t0 = time.perf_counter()
         full = self._load(state)
         it0 = int(full.istate[0])
+        jptr0 = full.views()["jptr"].clone()
         t1 = time.perf_counter()
         timers = [] if self.on_card else None
         launches = mesh_solve.launches
         try:
-            mesh_solve(self.cards, self._epoch, timers)
+            mesh_solve(self.cards, self._epoch, timers, self.exchange_batch)
         except Exception as e:
             self.broken = f"{type(e).__name__}: {e}"
             raise
@@ -519,6 +671,9 @@ class MeshSolve:
                 mesh_solve.device_ms_by_card[i] += ms
         t2 = time.perf_counter()
         aborted = {str(c.device): int(h.istate[5]) for c, h in zip(self.cards, self._host_states) if int(h.istate[5])}
+        if any(v < 0 for v in aborted.values()):
+            self.broken = f"a round of the batched exchange committed no iteration: {aborted}"
+            raise RuntimeError(f"mesh_solve: {self.broken}")
         if aborted:
             self.broken = f"a card waited past {TIMEOUT_MS} ms for a peer's record: {aborted} (exchange number)"
             raise RuntimeError(f"mesh_solve: {self.broken}")
@@ -527,10 +682,20 @@ class MeshSolve:
             put_nodes(full.fstate, host.fstate, self.dims.fstate(), host.dims.fstate(), rows)
         _replicated_into(full, self._host_states[0])
         out = fs._state_of(full)
+        placing = int((full.views()["jptr"] - jptr0).sum())
+        m = len(self.cards)
+        batched = self.exchange_batch > 1 and m > 1
         self.counts = {
-            "iterations": int(out.it) - it0, "placing_iterations": int(self._host_states[0].istate[6]),
-            "launches": mesh_solve.launches - launches, "cards": len(self.cards), "record_reads": 0,
+            "iterations": int(out.it) - it0, "placing_iterations": placing,
+            "launches": mesh_solve.launches - launches, "cards": m, "record_reads": 0,
+            # exchanges between cards: one a placing iteration at K = 1, one
+            # a round of the batched exchange; none on one card
+            "exchange_rounds": int(self._host_states[0].istate[6]) if batched else (placing if m > 1 else 0),
         }
+        if self.exchange_batch > 1:
+            self.batched_iters += placing
+            self.speculated_by_card = [int(h.istate[7]) if batched else placing for h in self._host_states]
+            self.counts["speculated"] = sum(self.speculated_by_card)
         self.timings = {"state_upload_s": t1 - t0, "loop_s": t2 - t1, "fetch_s": time.perf_counter() - t2}
         return out
 

@@ -1,19 +1,21 @@
-"""The node-sharded allocate solve, in two implementations chosen by
-``exchange_batch`` alone (never as a fallback of one for the other):
+"""The node-sharded allocate solve, in two implementations (never a
+fallback of one for the other):
 
-- ``exchange_batch = 1`` (the default, ``impl = "mesh_kernel"``): kernel
-  B4 (``ops/mesh_solve.py``, ``csrc/mesh_solve.cu``), the counterpart of
-  the reference's SPMD program (kube_batch_tpu/parallel/sharded_pallas.py
-  ``_blocked_programs``, its per-shard body ``local``). The whole gang
-  loop runs in one launch a card over the node blocks of every shard of
-  the mesh on that card, selection and bookkeeping replicated on every
-  card, the (score, row, fits-idle) records exchanged between cards
-  through peer memory inside the kernel once a placing iteration; on a
-  CPU mesh its plain version runs, over cards grouped by device.
-- ``exchange_batch = K > 1`` (``impl = "host_loop"``): the loop on the
-  host, the reference's K-deep batched exchange, with the block step
-  (kernel B2) on each shard's block. ``impl="host_loop"`` also runs it at
-  K = 1, which no conf asks for (the card's smoke compares B4 with it).
+- ``impl = "mesh_kernel"`` (the default, at every ``exchange_batch``):
+  kernel B4 (``ops/mesh_solve.py``, ``csrc/mesh_solve.cu``), the
+  counterpart of the reference's SPMD program
+  (kube_batch_tpu/parallel/sharded_pallas.py ``_blocked_programs``, its
+  per-shard body ``local``). The whole gang loop runs in one launch a card
+  over the node blocks of every shard of the mesh on that card, selection
+  and bookkeeping replicated on every card, the (score, row, fits-idle)
+  records exchanged between cards through peer memory inside the kernel
+  once a placing iteration (K = 1) or once a round of K speculated
+  placing iterations (the K-deep batched exchange, K > 1); on a CPU mesh
+  its plain version runs, over cards grouped by device.
+- ``impl = "host_loop"``, asked for by name only (no conf reaches it; the
+  tests and the card's smoke compare B4 with it): the loop on the host,
+  at K = 1 or the reference's K-deep batched exchange, with the block step
+  (kernel B2) on each shard's block.
 
 The host loop turns the reference's program inside out. Each shard of the
 mesh keeps its node block (statics and node state) on its own device.
@@ -52,6 +54,7 @@ re-folds the affinity scores when the caller replaced ``a["pod_sc"]``.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -75,6 +78,27 @@ _NODE_STATE = ("idle", "rel", "used", "ntasks", "nports")
 # The two implementations of the rung (``ShardedBlockSolver.impl``).
 MESH_KERNEL = "mesh_kernel"  # kernel B4, one launch a card (its plain version on a CPU mesh)
 HOST_LOOP = "host_loop"  # the gang loop on the host, kernel B2 a shard and placing iteration
+
+
+def default_exchange_batch() -> int:
+    """K of the K-deep batched exchange when the conf names none: the JAX
+    package's rule (sharded_pallas.py ``_default_exchange_batch``).
+    Batching only pays when the dispatch it amortizes is overlapped work,
+    so K > 1 requires the pipelined-cycles gate (``KBT_PIPELINE``); without
+    it K is 1. Under the gate K is ``KBT_EXCHANGE_BATCH``, 4 when unset or
+    empty, clamped to 1..64; a value that is not an integer logs an error
+    and gives 4."""
+    from kube_batch_tpu_torch import log, pipeline
+
+    if not pipeline.env_on():
+        return 1
+    raw = os.environ.get("KBT_EXCHANGE_BATCH", "").strip()
+    try:
+        k = int(raw) if raw else 4
+    except ValueError:
+        log.errorf("bad KBT_EXCHANGE_BATCH=%r; using 4", raw)
+        k = 4
+    return max(1, min(k, 64))
 
 
 class _Rep:
@@ -116,10 +140,10 @@ class ShardedBlockSolver:
     ``mesh`` a sequence of devices (``parallel.make_mesh``), one shard
     each, all CUDA or all CPU: a CUDA mesh launches the kernels, a CPU mesh
     runs their plain versions. ``exchange_batch`` is the K of the K-deep
-    batched exchange: 1 runs kernel B4 (``impl = "mesh_kernel"``,
-    ``ops/mesh_solve.MeshSolve``; a CUDA mesh over several cards without
-    peer access between them raises), K > 1 the host loop over B2
-    (``impl = "host_loop"``; ``impl="host_loop"`` asks for it at K = 1).
+    batched exchange (1: none). Kernel B4 runs every K (``impl =
+    "mesh_kernel"``, ``ops/mesh_solve.MeshSolve``; a CUDA mesh over several
+    cards without peer access between them raises); ``impl="host_loop"``
+    asks for the host loop over B2 instead.
     With ``arena`` (an ops/encode_cache ``TensorArena``) the statics go
     through it with the mesh's placement (B4's ``mesh_*`` slabs, one row a
     card; the host loop's ``sharded_*`` blocks, one part a shard): reused
@@ -153,24 +177,22 @@ class ShardedBlockSolver:
             raise ValueError(f"exchange_batch must be >= 1, got {exchange_batch}")
         if arrays["task_req"].dtype != torch.float32:
             raise ValueError("the blocked sharded solve is float32-only; encode with dtype=float32")
-        if impl is None:
-            impl = MESH_KERNEL if int(exchange_batch) == 1 else HOST_LOOP
+        impl = MESH_KERNEL if impl is None else impl
         if impl not in (MESH_KERNEL, HOST_LOOP):
             raise ValueError(f"impl is {MESH_KERNEL!r} or {HOST_LOOP!r}, not {impl!r}")
-        if impl == MESH_KERNEL and int(exchange_batch) != 1:
-            raise ValueError(f"the mesh kernel exchanges every iteration; exchange_batch={exchange_batch} runs the host loop")
         self.impl = impl
         self.a = arrays
         self.mesh = mesh
         self.enable_drf = enable_drf
         self.enable_proportion = enable_proportion
         self.exchange_batch = int(exchange_batch)
-        self.batched_iters = 0  # gang iterations committed from a batched exchange
+        self._batched_iters = 0  # the host loop's gang iterations committed from a batched exchange
         self.timings: dict[str, float] = {}  # seconds per phase of the last solve
         # the last solve's iterations, placing iterations, launches, host
         # reads of a card's records (one per card per exchange; none on the
-        # CPU) and, with a batched exchange, the speculated placing
-        # iterations
+        # CPU), exchanges between shards or cards (one a placing iteration,
+        # or one a round of the batched exchange) and, with a batched
+        # exchange, the speculated placing iterations
         self.counts: dict[str, int] = {}
 
         n = {k: np.asarray(v) for k, v in arrays.items()}
@@ -184,7 +206,8 @@ class ShardedBlockSolver:
         self.N, self.T = N, T
         if impl == MESH_KERNEL:
             # kernel B4 (its plain version on a CPU mesh): one launch a card
-            self._mesh = ms.MeshSolve(arrays, mesh, enable_drf, enable_proportion, arena=arena)
+            self._mesh = ms.MeshSolve(arrays, mesh, enable_drf, enable_proportion, arena=arena,
+                                      exchange_batch=self.exchange_batch)
             return
         self.P = n["task_ports"].shape[1]
         J, Q = n["job_min"].shape[0], n["queue_rank"].shape[0]
@@ -279,6 +302,12 @@ class ShardedBlockSolver:
                 for b in self.blocks
             ]
             self._spec_steps = [bs.BlockStep(b, out) for b, out in zip(self._spec_blocks, outs)]
+
+    @property
+    def batched_iters(self) -> int:
+        """Gang iterations committed from a batched exchange, accumulated
+        over solves (0 at K = 1)."""
+        return self._mesh.batched_iters if self.impl == MESH_KERNEL else self._batched_iters
 
     # -- statics and state in and out ---------------------------------------
 
@@ -428,6 +457,7 @@ class ShardedBlockSolver:
                 rec = self._exchange(self._steps, shards, self._tasks[self._tcls[p.t]])
                 any_cand, nb, fits = self._winner(rec[:, 0].view(np.float32), rec[:, 1], rec[:, 2], sent)
                 self.counts["placing_iterations"] += 1
+                self.counts["exchange_rounds"] += 1
             t2 = time.perf_counter()
             self._commit(rep, p, any_cand, nb, fits, self.blocks)
             tm["select_s"] += t1 - t0
@@ -466,6 +496,7 @@ class ShardedBlockSolver:
         while self._cond(rep):
             t0 = time.perf_counter()
             recs = [self._speculate(rep, k) for k in range(m)]
+            self.counts["exchange_rounds"] += 1
             t1 = time.perf_counter()
             d = [0] * m
             committed, it_before = 0, rep.it
@@ -491,7 +522,7 @@ class ShardedBlockSolver:
                 self._commit(rep, p, any_cand, nb, fits, self.blocks)
             if rep.it == it_before:
                 raise RuntimeError("batched exchange: the replay committed no iteration")
-            self.batched_iters += committed
+            self._batched_iters += committed
             tm["exchange_s"] += t1 - t0
             tm["update_s"] += time.perf_counter() - t1
 
@@ -511,7 +542,7 @@ class ShardedBlockSolver:
         self._upload(state)
         t1 = time.perf_counter()
         launches = bs.block_step.launches
-        self.counts = {"placing_iterations": 0, "record_reads": 0,
+        self.counts = {"placing_iterations": 0, "record_reads": 0, "exchange_rounds": 0,
                        **({"speculated": 0} if self.exchange_batch > 1 else {})}
         it0 = rep.it
         tm = {"select_s": 0.0, "exchange_s": 0.0, "update_s": 0.0}

@@ -44,7 +44,7 @@ import threading
 from dataclasses import dataclass
 from typing import Optional
 
-from kube_batch_tpu_torch import faults, metrics
+from kube_batch_tpu_torch import faults, log as pkg_log, metrics
 from kube_batch_tpu_torch.utils.locking import assume_locked
 
 log = logging.getLogger(__name__)
@@ -220,7 +220,7 @@ class WriteIntentJournal:
             self._fh = open(self.path, "a", encoding="utf-8")  # noqa: SIM115
             self._confirmed_since_compact = 0
             outstanding = len(self._outstanding)
-        log.debug("journal %s compacted (%d outstanding)", self.path, outstanding)
+        pkg_log.V(3).infof("journal %s compacted (%d outstanding)", self.path, outstanding)
 
     def close(self) -> None:
         with self._lock:

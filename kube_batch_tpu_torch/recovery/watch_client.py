@@ -37,7 +37,7 @@ import urllib.error
 import urllib.request
 from typing import Optional
 
-from kube_batch_tpu_torch import metrics
+from kube_batch_tpu_torch import log as pkg_log, metrics
 
 log = logging.getLogger(__name__)
 
@@ -186,7 +186,7 @@ class ResilientWatcher:
                 # jittered exponential backoff: 0.5-1.5x the nominal
                 # delay so restarting fleets fan out
                 delay = backoff * (0.5 + self._rng.random())
-                log.debug(
+                pkg_log.V(3).infof(
                     "watch %s: %s; reconnecting in %.2fs", kind, e, delay
                 )
                 backoff = min(backoff * 2.0, self.max_backoff)

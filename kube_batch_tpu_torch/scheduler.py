@@ -109,7 +109,7 @@ from typing import Optional
 
 import kube_batch_tpu_torch.actions  # noqa: F401  (registers the action pipeline)
 import kube_batch_tpu_torch.plugins  # noqa: F401  (registers the plugin builders)
-from kube_batch_tpu_torch import faults, metrics, obs, pipeline
+from kube_batch_tpu_torch import faults, log as pkg_log, metrics, obs, pipeline
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.conf import load_scheduler_conf, parse_scheduler_conf, read_scheduler_conf
 from kube_batch_tpu_torch.faults import _env_float, mutation_detector
@@ -370,7 +370,7 @@ class Scheduler:
             return False
         if not st.valid:
             metrics.register_micro_cycle("stale")
-            log.debug("micro-cycle skipped: resident table invalid (%s)", st.reason)
+            pkg_log.V(4).infof("micro-cycle skipped: resident table invalid (%s)", st.reason)
             return False
         if work.stale:
             st.invalidate(work.stale_reason)
@@ -487,6 +487,7 @@ class Scheduler:
 
     def run_once(self) -> None:
         """One scheduling cycle (reference scheduler.go:88-102)."""
+        pkg_log.V(4).infof("Start scheduling ...")
         cycle_start = time.perf_counter()
         self._load_conf()  # before the span: a conf push may flip tracing
         timings: dict[str, float | str] = {"conf_s": time.perf_counter() - cycle_start}
@@ -591,6 +592,7 @@ class Scheduler:
                     timings["close_s"] = time.perf_counter() - t0
                     metrics.update_e2e_duration(time.perf_counter() - cycle_start)
                     metrics.schedule_attempts.inc()
+                    pkg_log.V(4).infof("End scheduling ...")
                     timings["run_once_s"] = time.perf_counter() - cycle_start
             if aborted is not None:
                 timings["aborted"] = str(aborted)
@@ -629,6 +631,7 @@ class Scheduler:
                 metrics.schedule_attempts.inc()
                 if detector is not None:
                     detector.verify()  # raises CacheMutationError on violation
+                pkg_log.V(4).infof("End scheduling ...")
             except Exception as e:  # noqa: BLE001 - must not kill the pool thread
                 log.error("pipelined cycle tail failed: %s", e, exc_info=True)
                 pipeline.fence.degrade(f"cycle tail raised {type(e).__name__}: {e}")

@@ -702,7 +702,7 @@ def _make_handler(server: "SchedulerServer"):
             disable_nagle_algorithm = True
 
         def log_message(self, fmt, *args):  # route http.server chatter to V(4)
-            log.debug("http: " + fmt, *args)
+            pkg_log.V(4).infof("http: " + fmt, *args)
 
         def _reply(self, code: int, body: str, ctype: str = "application/json",
                    headers: Optional[dict] = None) -> None:

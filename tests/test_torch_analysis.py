@@ -1207,9 +1207,11 @@ def test_runbook_env_table_is_exactly_what_the_port_reads():
     assert reads == documented
     # the JAX knobs the port takes as arguments are named in prose, not rows
     text = open(os.path.join(REPO, registry_consistency.RUNBOOK), encoding="utf-8").read()
-    for knob in ("KBT_PALLAS", "KBT_MESH", "KBT_NATIVE", "KBT_ENCODE_CACHE", "KBT_EXCHANGE_BATCH",
+    for knob in ("KBT_PALLAS", "KBT_MESH", "KBT_NATIVE", "KBT_ENCODE_CACHE",
                  "KBT_MIN_DEVICE_PAIRS", "KBT_VMEM_BUDGET", "KBT_JAX_CACHE"):
         assert knob in text and knob not in documented
+    # the one JAX knob the port reads (the rule for K): a row of its own
+    assert "KBT_EXCHANGE_BATCH" in reads and "KBT_EXCHANGE_BATCH" in documented
 
 
 def test_committed_baseline_mirrors_the_jax_shapes_and_names_each_sync():
@@ -1353,7 +1355,7 @@ def test_a2_fixture_differs_only_where_the_torch_scope_says():
 JAX_ONLY = {
     ("KBT-R005", f"env:{k}") for k in (
         "KBT_PALLAS", "KBT_PALLAS_DEBUG", "KBT_MESH", "KBT_MESH_PALLAS", "KBT_NATIVE", "KBT_ENCODE_CACHE",
-        "KBT_MIN_DEVICE_PAIRS", "KBT_VMEM_BUDGET", "KBT_JAX_CACHE", "KBT_EXCHANGE_BATCH",
+        "KBT_MIN_DEVICE_PAIRS", "KBT_VMEM_BUDGET", "KBT_JAX_CACHE",
     )
 } | {("KBT-R002", "point:native.prepass"), ("KBT-R002", "point:native.dispatch")}
 PORT_ONLY_CODES = {"KBT-J001", "KBT-J002", "KBT-J003"}  # the torch scope's findings

@@ -85,23 +85,30 @@ def test_warm_cycles_and_trace_audit_print_the_arena_per_cycle():
 
 def test_exchange_phase_runs_k1_through_the_surface_and_reuses_its_blocks():
     """The exchange phase on the CPU (the kernels' plain versions): K = 1
-    through ShardedSolver (B4's plain version) and K = 4 (the host loop)
-    each equal the fused rung field for field, and ``sharded_surface``
-    (sharded_solve_allocate on the same arena) reuses B4's three static
-    slabs and gives the fused rung's result."""
+    through ShardedSolver and K = 4 through ShardedBlockSolver (both B4's
+    plain version), the host loop at K = 4, and B4 at every K over one card
+    and over four cards each equal the fused rung field for field, and
+    ``sharded_surface`` (sharded_solve_allocate on the same arena) reuses
+    B4's three static slabs and gives the fused rung's result."""
     from kube_batch_tpu_torch.ops.fused_solve import FusedSolver
 
     arrays = chip_smoke.encoded_arrays(models.preempt_mix(300, 16, seed=1))
     want = FusedSolver(arrays, True, True, device="cpu").solve()
-    recs, launches = chip_smoke.exchange_phase(arrays, want, device="cpu")
+    recs, launches, b2 = chip_smoke.exchange_phase(arrays, want, device="cpu")
     assert [r["phase"] for r in recs] == [
-        "exchange_preempt_mix_2k_40_seed1_m4_k1", "exchange_preempt_mix_2k_40_seed1_m4_k4", "sharded_surface",
+        "exchange_preempt_mix_2k_40_seed1_m4_k1", "exchange_preempt_mix_2k_40_seed1_m4_k4", "host_loop_k4",
+        "b4_by_k", "sharded_surface",
     ]
-    assert all(r["equal_to_fused"] for r in recs) and launches == 0  # no kernel on the CPU
+    assert all(r["equal_to_fused"] for r in recs) and launches == b2 == 0  # no kernel on the CPU
     assert recs[0]["surface"] == "ShardedSolver" and recs[1]["batched_iters"] >= 1
-    assert (recs[0]["impl"], recs[1]["impl"]) == ("mesh_kernel", "host_loop")
-    assert recs[2]["arena"]["reuses"] == 3 and recs[2]["arena"]["full_uploads"] == 0
-    assert set(recs[2]["arena_bytes_by_slab"]) == {f"mesh_{n}" for n in ("istatic", "fstatic", "gidx")}
+    assert recs[1]["equal_to_plain"] and recs[2]["batched_iters"] == recs[1]["batched_iters"]
+    assert (recs[0]["impl"], recs[1]["impl"], recs[2]["impl"]) == ("mesh_kernel", "mesh_kernel", "host_loop")
+    by_k = recs[3]["four_cards_on_one_device"]
+    assert sorted(by_k) == list(chip_smoke.EXCHANGE_KS) and by_k[1]["exchange_rounds"] == by_k[1]["placing_iterations"]
+    assert all(0 < by_k[k]["exchange_rounds"] <= by_k[k]["batched_iters"] for k in chip_smoke.EXCHANGE_KS[1:])
+    assert all(r["exchange_rounds"] == 0 for r in recs[3]["one_card_m4"].values())
+    assert recs[4]["arena"]["reuses"] == 3 and recs[4]["arena"]["full_uploads"] == 0
+    assert set(recs[4]["arena_bytes_by_slab"]) == {f"mesh_{n}" for n in ("istatic", "fstatic", "gidx")}
 
 
 def test_class_sessions_record_their_arena_uploads():

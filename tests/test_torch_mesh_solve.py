@@ -17,9 +17,9 @@ field must equal exactly
 - the JAX single-chip solve (the twin ``solve_allocate_state``).
 
 Then the pause and resume at pod-affinity host tasks through
-``torch_allocate`` on a CPU mesh, the routing rules (K = 1 runs B4, K > 1
-the host loop; the device decides kernel or plain; a CUDA mesh with no
-card raises), the card plan, the peer-access check (refused, never
+``torch_allocate`` on a CPU mesh, the routing rules (B4 runs every K, the
+host loop only by name; the device decides kernel or plain; a CUDA mesh
+with no card raises), the card plan, the peer-access check (refused, never
 switched) and a card that waited past the poll bound (the solve raises
 and the solver refuses later solves). The cases marked ``cuda`` run the
 kernel and skip without a GPU, among them the bound itself: one card of
@@ -243,14 +243,14 @@ def _small():
 
 
 @pytest.mark.parametrize("k,impl,want", [
-    (1, None, "mesh_kernel"), (2, None, "host_loop"), (4, None, "host_loop"),
-    (1, "host_loop", "host_loop"), (1, "mesh_kernel", "mesh_kernel"),
-    (2, "mesh_kernel", ValueError), (1, "nccl", ValueError),
+    (1, None, "mesh_kernel"), (2, None, "mesh_kernel"), (4, None, "mesh_kernel"),
+    (1, "host_loop", "host_loop"), (4, "host_loop", "host_loop"), (1, "mesh_kernel", "mesh_kernel"),
+    (2, "mesh_kernel", "mesh_kernel"), (1, "nccl", ValueError), (65, None, ValueError),
 ])
 def test_exchange_batch_alone_picks_the_implementation(k, impl, want):
-    """K = 1 runs B4 (its plain version on the CPU), K > 1 the host loop's
-    batched exchange; the host loop at K = 1 is only asked for by name
-    (``impl``, which no conf reaches), and B4 takes no K > 1."""
+    """B4 runs every K (its plain version on the CPU; K = 1 to 64); the
+    host loop, at any K, is only asked for by name (``impl``, which no conf
+    reaches)."""
     if want is ValueError:
         with pytest.raises(ValueError):
             ShardedBlockSolver(_small(), ["cpu"] * 2, True, True, exchange_batch=k, impl=impl)
@@ -261,9 +261,10 @@ def test_exchange_batch_alone_picks_the_implementation(k, impl, want):
                         f"K={k} {impl}")
     if want == "host_loop":
         assert len(solver.blocks) == 2 and solver.counts["placing_iterations"] > 0
+    assert (solver.batched_iters > 0) == (k > 1)
 
 
-@pytest.mark.parametrize("k,want", [("1", "mesh_kernel"), ("2", "host_loop")])
+@pytest.mark.parametrize("k,want", [("1", "mesh_kernel"), ("2", "mesh_kernel")])
 def test_torch_allocate_records_the_sharded_implementation(k, want):
     """``last_timings["sharded_impl"]`` names what the sharded rung ran."""
     import kube_batch_tpu_torch.testing as tt
@@ -333,8 +334,8 @@ def test_a_card_that_waited_past_the_bound_fails_the_solve_and_the_solver(monkey
     state is no longer one solve's)."""
     real = ms.mesh_solve_plain
 
-    def gave_up(cards):
-        real(cards)
+    def gave_up(cards, exchange_batch=1):
+        real(cards, exchange_batch)
         cards[card].state.views()["scal"][5] = 3
 
     solver = ms.MeshSolve(_small(), ["cpu"] * 2, True, True, cards=[0, 1])

@@ -34,9 +34,9 @@ The JAX cases and their counterparts here:
 
 Port-only cases at the end: a node bucket the mesh does not divide (the
 JAX surface raises; the port's rung pads), the static blocks reused
-through the tensor arena, and K of the batched exchange taken from the
-conf alone: the port reads no ``KBT_EXCHANGE_BATCH`` (ROADMAP.md §C,
-"Deliberate deviations").
+through the tensor arena, and K of the batched exchange: the conf's
+``exchange_batch`` where it names one, else the JAX package's rule
+(``KBT_PIPELINE`` and ``KBT_EXCHANGE_BATCH``).
 """
 
 from __future__ import annotations
@@ -319,10 +319,11 @@ def test_sharded_solver_resumes_and_reuses_its_static_blocks_through_the_arena()
     (True, "x"),
 ])
 def test_the_environment_leaves_k_to_the_conf(monkeypatch, pipelined, raw):
-    """The port reads no ``KBT_EXCHANGE_BATCH``: with or without the
-    pipeline gate, whatever the variable holds, a mesh cycle builds its
-    sharded rung with K = 1, and with the conf's ``exchange_batch: 2``
-    with K = 2."""
+    """A conf that names ``exchange_batch: 2`` keeps K = 2 whatever the
+    environment holds; a conf that names none takes K from the JAX
+    package's rule: 1 without the pipeline gate, else
+    ``KBT_EXCHANGE_BATCH`` (4 when empty or not an integer, clamped to
+    1..64)."""
     import kube_batch_tpu_torch.actions.torch_allocate as TA
 
     seen = []
@@ -347,4 +348,5 @@ def test_the_environment_leaves_k_to_the_conf(monkeypatch, pipelined, raw):
             assert action.last_solver_tier == "sharded" and cache.binder.binds
     finally:
         pipeline.reset()
-    assert seen == [1, 2]
+    rule = {"": 4, "8": 8, "0": 1, "-3": 1, "100": 64, "64": 64, "x": 4}[raw] if pipelined else 1
+    assert seen == [rule, 2]

@@ -13,9 +13,12 @@ must equal
 
 every ``SolveState`` field: integers exactly, floats as values (a zero
 may carry either sign). The reference's own blocked solver
-(``ShardedPallasSolver``) does not run under the installed JAX, so it is
-held through what it is pinned to: these solves and, in
-tests/test_torch_block_step.py, its block step.
+(``ShardedPallasSolver``) runs under the installed JAX only with a
+test-side rename of one ``shard_map`` keyword (its ``check_rep`` is this
+JAX's ``check_vma``): tests/test_torch_mesh_batched.py holds the port's
+K-deep batched exchange against it that way. Here it is held through what
+it is pinned to: these solves and, in tests/test_torch_block_step.py, its
+block step.
 """
 
 import functools
