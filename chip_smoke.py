@@ -53,7 +53,12 @@
      2k x 40 B4 also equals its plain version on the CPU (the same
      grouping of the shards into one card) bit for bit, and is timed
      (CUDA events around its launch; ``ms``) beside it; at 50k x 5k, from
-     a prefix of the jobs, B4 equals its plain version on four CPU cards;
+     a prefix of the jobs, B4 equals its plain version on four CPU cards,
+     and the K = 4 batched exchange over four cards of one solve on
+     cuda:0 gives the round's split (``b4_split``: the kernel's timed
+     instantiation, each part of every round on %globaltimer; the rounds
+     and speculated iterations per committed one; the chain's floor and
+     the bound against B1's floor and the round probe on one device);
    and checks every result's binds (no node past its idle or releasing
    capacity + eps, every bound job at its gang minimum);
 6. runs the per-iteration exchange and the K-deep batched exchange, both
@@ -67,7 +72,8 @@
    path); and ``b4_by_k``: B4 at K = 1, 2, 4 and 8 on the four shards of
    one card and over four cards of one solve on cuda:0 (a stream each:
    the batched exchange's rounds between cards), each held to the fused
-   rung, with its device time, rounds and speculated iterations;
+   rung, with its device time, rounds and speculated iterations, and at
+   K = 2, 4 and 8 the round's split (``b4_split``);
 7. drives the scheduling cycle, ``Scheduler(FakeCache(world),
    conf).run_once()`` with ``examples/scheduler-conf-torch.yaml``, the
    counters zeroed just before each cycle and read just after:
@@ -445,7 +451,11 @@ the cards from a prefix of the jobs against its plain version on as many
 CPU cards; then
 ``mesh_floor`` (csrc/mesh_floor.cu: a stamped record passed through peer
 memory between two and between all the cards, the exchange's latency a
-placing iteration, B4's bound); then the multi-card deployment, the
+placing iteration, B4's bound, and a round of K = 4 records); B4 at K = 1
+and K = 4 in turns over the cards at 50k x 5k with the round's split
+(``b4_k4_preempt_mix_50k_5k_<m>cards``) and on config 7
+(``multichip_b4_by_k_400k_40k``: ``uniform_pool(400_000, 40_000)``, K = 1
+and 4 against B1 on cuda:0, with the split); then the multi-card deployment, the
 twin of ``examples/scheduler-conf-tpu-multichip.yaml``
 (``examples/scheduler-conf-torch-multichip.yaml``, ``mesh: auto``)
 through the whole pipeline, in seven phases (``multichip_phases``), each
@@ -497,6 +507,19 @@ runs only the kernels' build and the class-compressed solve's four phases
 runs only ``upload_probe``: the host time of one upload to the card by
 route (a plain copy, pinned staging, the tensor arena's miss and reuse) at
 the class rung's shapes, with the card idle and with it busy.
+
+    python3 chip_smoke.py --b4 [--cards]
+
+runs only kernel B4's phases (``b4_only``): on one card its card tests,
+``b4_by_k`` with its splits, B1 and B4 at 50k x 5k, and the round's split
+at 50k x 5k and on config 7 over four cards of one solve on cuda:0; with
+``--cards`` B4 over the cards at 50k x 5k and on config 7.
+
+    python3 chip_smoke.py --ab-b4 DIR
+
+times B4 at K = 4 over every card at 50k x 5k in the checkout at DIR (the
+parent, unpacked with ``git archive``) against this one, DIR, this, this,
+DIR, a process each (``ab_b4``).
 
     python3 chip_smoke.py --ab-warm DIR
 
@@ -981,7 +1004,7 @@ def b2_comparisons(arrays_5k, arrays_1k, arrays_ml) -> list[dict]:
 EXCHANGE_KS = (1, 2, 4, 8)  # the batched exchange's depths timed beside K = 1
 
 
-def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict], int, int]:
+def exchange_phase(arrays: dict, want, device: str = "cuda", floor: dict | None = None) -> tuple[list[dict], int, int]:
     """The per-iteration and the K-deep batched exchange (step 6) on
     ``preempt_mix(2000, 40, seed=1)`` and four shards of the card, each held
     field for field against ``want``, the fused rung's SolveState. K = 1
@@ -1051,7 +1074,7 @@ def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict]
     recs.append({"phase": "host_loop_k4", "s": time.perf_counter() - t0, "impl": host.impl,
                  "batched_iters": host.batched_iters, **host.counts, "b2_launches": host_b2,
                  "b4_launches": ms.mesh_solve.launches, "equal_to_fused": True})
-    recs.append(b4_by_k(arrays, want, dev))
+    recs.append(b4_by_k(arrays, want, dev, floor))
     before = arena.counters()
     ms.mesh_solve.launches = 0
     t0 = time.perf_counter()
@@ -1074,33 +1097,47 @@ def exchange_phase(arrays: dict, want, device: str = "cuda") -> tuple[list[dict]
     return recs, surface, host_b2
 
 
-def b4_cards_on_one_device(arrays: dict, dev, k: int, m: int = 4, timeout_ms: int | None = None) -> tuple:
-    """One B4 solve over ``m`` cards (a card a shard) that all lie on
-    ``dev``: the cards of a CPU ``MeshSolve``, copied to the card with an
-    exchange buffer and the class keys each and launched on a stream each
-    (CUDA events around each launch), or on the CPU its plain version.
+def b4_cards(arrays: dict, devs: list, k: int, timed: bool = False) -> tuple:
+    """One B4 solve over ``len(devs)`` cards (a card a shard), card i on
+    ``devs[i]`` (repeats allowed: several cards of one solve on one
+    device): the cards of a CPU ``MeshSolve`` copied to their devices, an
+    exchange buffer and the class keys each, a stream each (CUDA events
+    around each launch); with ``timed`` the batched exchange's timed
+    instantiation (``ms.launch_timed``). On the CPU the plain version.
     Returns the full-width SolveState, each card's kernel time (ms; none on
-    the CPU), the rounds and each card's speculated placing iterations."""
+    the CPU), the rounds, each card's speculated placing iterations and,
+    timed, each card's split (``ms.SPLIT_PARTS`` in ns, then the rounds)."""
     import torch
 
     from kube_batch_tpu_torch.ops import fused_solve as fs
     from kube_batch_tpu_torch.ops import mesh_solve as ms
 
+    devs = [torch.device(d) for d in devs]
+    m = len(devs)
     cpu = ms.MeshSolve(arrays, ["cpu"] * m, True, True, cards=list(range(m)), exchange_batch=k)
     full = cpu._load(None)
-    cards, times = cpu.cards, []
-    if dev.type == "cuda":
+    cards, times, splits = cpu.cards, [], None
+    if devs[0].type == "cuda":
+        distinct = list(dict.fromkeys(devs))
+        if len(distinct) > 1:
+            ms.enable_peer_access(distinct)
         cards = [
-            ms.Card(c.packed.to(dev), c.gidx.to(dev), fs.PackedState(c.state.dims, c.state.istate.to(dev),
-                                                                    c.state.fstate.to(dev)),
-                    torch.zeros(ms.XBUF_WORDS, dtype=torch.int32, device=dev), c.ckey.to(dev))
-            for c in cpu.cards
+            ms.Card(c.packed.to(d), c.gidx.to(d), fs.PackedState(c.state.dims, c.state.istate.to(d),
+                                                                c.state.fstate.to(d)),
+                    torch.zeros(ms.XBUF_WORDS, dtype=torch.int32, device=d), c.ckey.to(d))
+            for c, d in zip(cpu.cards, devs)
         ]
-        lib, prepared, index = ms._prepare(cards, 0, timeout_ms=timeout_ms or ms.TIMEOUT_MS, exchange_batch=k)
-        prepared = [(args, scratch, torch.cuda.Stream(device=dev)) for args, scratch, _ in prepared]
-        torch.cuda.synchronize()
-        ms._launch_cards(lib, prepared, index, times)
-        torch.cuda.synchronize()
+        lib, prepared, index = ms._prepare(cards, 0, exchange_batch=k)
+        prepared = [(args, scratch, torch.cuda.Stream(device=d)) for (args, scratch, _), d in zip(prepared, devs)]
+        for d in distinct:
+            torch.cuda.synchronize(d)
+        if timed:
+            splits = ms.launch_timed(lib, prepared, index, times)
+        else:
+            ms._launch_cards(lib, prepared, index, times)
+        for d in distinct:
+            torch.cuda.synchronize(d)
+        splits = None if splits is None else [x.cpu().tolist() for x in splits]
     else:
         ms.mesh_solve(cards, exchange_batch=k)
     states = [fs.PackedState(c.state.dims, c.state.istate.cpu(), c.state.fstate.cpu()) for c in cards]
@@ -1109,17 +1146,65 @@ def b4_cards_on_one_device(arrays: dict, dev, k: int, m: int = 4, timeout_ms: in
         ms.put_nodes(full.fstate, st.fstate, cpu.dims.fstate(), st.dims.fstate(), rows)
     ms._replicated_into(full, states[0])
     if any(int(st.istate[5]) for st in states):
-        raise AssertionError(f"B4 over {m} cards on {dev} at K={k}: abort words {[int(st.istate[5]) for st in states]}")
+        raise AssertionError(f"B4 over {m} cards on {devs} at K={k}: abort words "
+                             f"{[int(st.istate[5]) for st in states]}")
     return (fs._state_of(full), [s.elapsed_time(e) for _, s, e in times], int(states[0].istate[6]),
-            [int(st.istate[7]) for st in states])
+            [int(st.istate[7]) for st in states], splits)
 
 
-def b4_by_k(arrays: dict, want, dev) -> dict:
+def b4_split(arrays: dict, devs: list, k: int, want, floor_ms_per_iter: float | None = None,
+             round_us: float | None = None) -> dict:
+    """The round's split: one solve of B4's timed instantiation at K = ``k``
+    over the cards on ``devs`` (``b4_cards``), held to ``want`` field for
+    field. Thread 0 of CTA 0 of each card stamps each part of every round
+    on %globaltimer (ms.SPLIT_PARTS); the record gives each part's total
+    (ms) and its time a round (µs) on every card, the kernel's time (CUDA
+    events), the rounds and the rounds and speculated placing iterations
+    per committed one. With B1's raw time an iteration (``floor_ms_per_iter``)
+    and the round probe (``round_us``): the chain's own floor (the card's
+    speculated placing iterations x the floor + rounds x the probe) and the
+    existing bound (iterations x the floor + rounds x the probe). A
+    comparison launch: no wrapper count moves."""
+    from kube_batch_tpu_torch.ops import mesh_solve as ms
+
+    state, times, rounds, speculated, splits = b4_cards(arrays, devs, k, timed=True)
+    same_state(f"B4's timed instantiation at K={k} over {len(devs)} cards on {sorted(set(map(str, devs)))}",
+               want, state)
+    committed = int((state.ptr - arrays["job_start"]).sum())
+    iterations = int(state.it)
+    by_card = []
+    for c, sp in enumerate(splits):
+        ns, timed_rounds = sp[:-1], sp[-1]
+        if timed_rounds != rounds:
+            raise AssertionError(f"card {c} stamped {timed_rounds} rounds of {rounds}")
+        by_card.append({
+            "ms": {p: v * 1e-6 for p, v in zip(ms.SPLIT_PARTS, ns)},
+            "us_per_round": {p: v * 1e-3 / max(rounds, 1) for p, v in zip(ms.SPLIT_PARTS, ns)},
+            "stamped_ms": sum(ns) * 1e-6, "kernel_ms": times[c] if times else None,
+        })
+    rec = {"k": k, "cards": len(devs), "devices": [str(d) for d in devs], "rounds": rounds,
+           "iterations": iterations, "committed": committed, "speculated_by_card": speculated,
+           "rounds_per_committed": rounds / max(committed, 1),
+           "speculated_per_committed": max(speculated) / max(committed, 1),
+           "committed_per_round": committed / max(rounds, 1),
+           "kernel_ms_by_card": times, "split_by_card": by_card, "equal_to_want": True}
+    if floor_ms_per_iter is not None and round_us is not None:
+        rec.update(floor_ms_per_iteration=floor_ms_per_iter, round_us=round_us,
+                   chain_floor_ms=max(speculated) * floor_ms_per_iter + rounds * round_us * 1e-3,
+                   bound_ms=iterations * floor_ms_per_iter + rounds * round_us * 1e-3)
+        rec["share_of_bound"] = rec["bound_ms"] / max(times)
+    return rec
+
+
+def b4_by_k(arrays: dict, want, dev, floor: dict | None = None) -> dict:
     """``b4_by_k``: B4 at every K of EXCHANGE_KS on four shards of ``dev``
     (one card: one launch of its K = 1 loop) and over four cards of one
     solve on ``dev`` (the batched exchange between them), each held to
     ``want``; device times from CUDA events (the second of two solves on
-    one card; the slowest card over cards). Comparison launches."""
+    one card; the slowest card over cards). At K > 1 over the four cards
+    also the round's split (``b4_split``; with ``floor``, B1's record on
+    the same world, its derived readings against the round probe on one
+    device). Comparison launches."""
     import torch
 
     from kube_batch_tpu_torch.ops import mesh_solve as ms
@@ -1134,12 +1219,18 @@ def b4_by_k(arrays: dict, want, dev) -> dict:
         one_card[k] = {"ms": solver._mesh.device_ms.get(0), "exchange_rounds": solver.counts["exchange_rounds"],
                        "placing_iterations": solver.counts["placing_iterations"],
                        "batched_iters": solver.batched_iters}
-        state, times, rounds, speculated = b4_cards_on_one_device(arrays, dev, k)
+        state, times, rounds, speculated, _ = b4_cards(arrays, [dev] * 4, k)
         same_state(f"B4 over four cards on one device at K={k}", want, state)
         placing = int((state.ptr - arrays["job_start"]).sum())
         cards[k] = {"ms": max(times) if times else None, "ms_by_card": times, "exchange_rounds": rounds,
                     "speculated_by_card": speculated, "placing_iterations": placing,
-                    "batched_iters": placing if k > 1 else 0, "iterations": int(state.it)}
+                    "batched_iters": placing if k > 1 else 0, "iterations": int(state.it),
+                    "rounds_per_committed": rounds / max(placing, 1)}
+        if k > 1 and dev.type == "cuda":
+            probe = mesh_floor_probe(4, k=k, on_one_device=True)
+            cards[k]["split"] = b4_split(arrays, [dev] * 4, k, want,
+                                         floor["raw_ms_per_iteration"] if floor else None, probe["exchange_us"])
+            cards[k]["round_probe"] = probe
     ms.mesh_solve.launches = saved
     return {"phase": "b4_by_k", "world": "preempt_mix_2k_40_seed1", "device": str(dev), "one_card_m4": one_card,
             "four_cards_on_one_device": cards, "equal_to_fused": True}
@@ -1176,7 +1267,9 @@ def mesh_solve_vs_plain(small: dict, big: dict, floor: dict) -> dict:
     over four cards; the whole solve's plain run takes minutes). ``floor``
     is B1's record on ``small``: its raw time per iteration and its
     node-axis operations. Returns the record; its launches are B4's of the
-    two compared solves."""
+    two compared solves. On ``big`` also the K-deep batched exchange's
+    round split (``b4_split``) at BATCHED_K over four cards of one solve on
+    cuda:0, held to B1."""
     import torch
 
     from kube_batch_tpu_torch.ops import block_step as bs
@@ -1224,6 +1317,12 @@ def mesh_solve_vs_plain(small: dict, big: dict, floor: dict) -> dict:
             r.update(b4_bound(solver, floor["ops"], r["iterations"], placing, floor["raw_ms_per_iteration"]))
         else:
             r["jobs_prefix"] = b4_vs_plain_prefix(a, mesh, [0, 1, 2, 3])
+            # the batched exchange's round split at full width: four cards
+            # of one solve on cuda:0, a stream each (comparison launches)
+            probe = mesh_floor_probe(4, k=BATCHED_K, on_one_device=True)
+            r["split_k4_four_cards_on_one_device"] = b4_split(a, [cuda0] * 4, BATCHED_K, b1,
+                                                               floor["raw_ms_per_iteration"], probe["exchange_us"])
+            r["round_probe_on_one_device"] = probe
         rec[label] = r
     return rec
 
@@ -6913,6 +7012,70 @@ def ab_warm(other: str) -> int:
     return 1 if failed else 0
 
 
+AB_B4_CODE = """
+import json, sys, time
+sys.path.insert(0, '.')
+import torch
+from kube_batch_tpu_torch.parallel import ShardedBlockSolver, make_mesh
+arrays = torch.load(sys.argv[1])
+mesh = list(make_mesh())
+torch.cuda.set_device(0)
+runs = []
+for k in (4, 4):
+    solver = ShardedBlockSolver(arrays, mesh, True, True, exchange_batch=k)
+    t0 = time.perf_counter()
+    state = solver.solve()
+    runs.append({'k': k, 's': time.perf_counter() - t0, 'device_ms_by_card': solver._mesh.device_ms,
+                 'exchange_rounds': solver.counts['exchange_rounds'],
+                 'placing_iterations': solver.counts['placing_iterations'],
+                 'assigned_node_sum': int(state.assigned_node.long().sum())})
+print('AB_B4 ' + json.dumps(runs))
+"""
+
+
+def ab_b4(other: str) -> int:
+    """``--ab-b4 DIR``: B4 at K = BATCHED_K over every visible card on
+    ``preempt_mix(50_000, 5_000)``, the checkout at DIR (the parent
+    commit, unpacked with ``git archive``) against this one, in the order
+    DIR, this, this, DIR, each in a process of its own (its kernels built
+    from its own sources), two solves a process, each card's kernel time
+    (CUDA events); the world is encoded once here and loaded by each
+    process. One record a run; the runs' placements must agree."""
+    import tempfile
+
+    import torch
+
+    from kube_batch_tpu_torch import models
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    if torch.cuda.device_count() < 2:
+        raise AssertionError("--ab-b4 needs two or more cards")
+    path = os.path.join(tempfile.gettempdir(), f"kbt_ab_b4_{os.getpid()}.pt")
+    torch.save(encoded_arrays(models.preempt_mix(50_000, 5_000)), path)
+    failed, sums = 0, set()
+    try:
+        for run, tree in enumerate((other, here, here, other)):
+            out = subprocess.run([sys.executable, "-c", AB_B4_CODE, path], cwd=tree, capture_output=True, text=True,
+                                 timeout=900)
+            line = next((x for x in out.stdout.splitlines() if x.startswith("AB_B4 ")), None)
+            if out.returncode != 0 or line is None:
+                failed += 1
+                print(f"chip_smoke: ab_b4 run {run} in {tree} exited {out.returncode}: {out.stderr[-2000:]}",
+                      file=sys.stderr)
+                continue
+            runs = json.loads(line[len("AB_B4 "):])
+            sums.update(r["assigned_node_sum"] for r in runs)
+            emit({"phase": "ab_b4", "run": run, "tree": "this" if tree == here else "other",
+                  "world": "preempt_mix_50k_5k", "k": BATCHED_K, "runs": runs})
+    finally:
+        os.remove(path)
+    if len(sums) > 1:
+        print(f"chip_smoke: ab_b4: the trees' placements differ ({sorted(sums)})", file=sys.stderr)
+        failed += 1
+    return 1 if failed else 0
+
+
 # -- the multi-card deployment: the twin of the multi-chip conf over cards ----
 
 MULTICHIP_CONF = "scheduler-conf-torch-multichip.yaml"
@@ -7519,15 +7682,17 @@ def multichip_phases(device: str = "cuda", cut: int = 1, card: str = "cpu") -> l
 MESH_FLOOR_ITERATIONS = 20_000  # exchanges a mesh_floor run passes between the cards
 
 
-def mesh_floor_probe(cards: int, runs: int = 2, k: int = 0) -> dict:
+def mesh_floor_probe(cards: int, runs: int = 2, k: int = 0, on_one_device: bool = False) -> dict:
     """``mesh_floor``: csrc/mesh_floor.cu on the first ``cards`` cards, each
     run MESH_FLOOR_ITERATIONS exchanges of B4's stamped records through
     peer memory (one CTA of 512 threads a card, launched on every card
     before any is waited on; CUDA events around each card's launch on its
     stream); with ``k`` > 0 rounds of the batched exchange, ``k`` records a
-    card. Returns the microseconds an exchange or round, per card and run;
-    the last run's slowest card is the exchange's latency a placing
-    iteration (a round's at ``k``)."""
+    card; ``on_one_device``: the ``cards`` cards all on cuda:0, a stream
+    each, as ``b4_cards`` lays out four cards of one solve. Returns the
+    microseconds an exchange or round, per card and run; the last run's
+    slowest card is the exchange's latency a placing iteration (a round's
+    at ``k``)."""
     import ctypes
 
     import torch
@@ -7545,20 +7710,22 @@ def mesh_floor_probe(cards: int, runs: int = 2, k: int = 0) -> dict:
     nvcc.build(["mesh_floor"])
     lib = ctypes.CDLL(nvcc.library_path("mesh_floor"))
     lib.kbt_mesh_floor.argtypes = [ctypes.POINTER(MeshFloorArgs), ctypes.c_int, ctypes.c_void_p]
-    devs = list(range(cards))
-    ms.enable_peer_access([torch.device("cuda", i) for i in devs])
+    devs = [0] * cards if on_one_device else list(range(cards))
+    if not on_one_device:
+        ms.enable_peer_access([torch.device("cuda", i) for i in devs])
     bufs = [torch.zeros(ms.XBUF_WORDS, dtype=torch.int32, device=f"cuda:{i}") for i in devs]
     outs = [torch.zeros(2, dtype=torch.int32, device=f"cuda:{i}") for i in devs]
-    for i in devs:
+    streams = [torch.cuda.Stream(device=i) if on_one_device else torch.cuda.current_stream(i) for i in devs]
+    for i in set(devs):
         torch.cuda.synchronize(i)
     table = (ctypes.c_void_p * ms.MAX_CARDS)(*[b.data_ptr() for b in bufs])
     us = []
     for run in range(runs):
         events = []
-        for i in devs:
-            args = MeshFloorArgs(m=cards, card=i, iterations=MESH_FLOOR_ITERATIONS, timeout_ms=ms.TIMEOUT_MS,
-                                 epoch=run * (MESH_FLOOR_ITERATIONS + 1), K=k, xbuf=table, out=outs[i].data_ptr())
-            stream = torch.cuda.current_stream(i)
+        for c, i in enumerate(devs):
+            args = MeshFloorArgs(m=cards, card=c, iterations=MESH_FLOOR_ITERATIONS, timeout_ms=ms.TIMEOUT_MS,
+                                 epoch=run * (MESH_FLOOR_ITERATIONS + 1), K=k, xbuf=table, out=outs[c].data_ptr())
+            stream = streams[c]
             with torch.cuda.device(i):
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record(stream)
@@ -7566,13 +7733,14 @@ def mesh_floor_probe(cards: int, runs: int = 2, k: int = 0) -> dict:
                     raise AssertionError(f"mesh_floor: the launch on cuda:{i} failed")
                 end.record(stream)
             events.append((start, end))
-        for i in devs:
+        for i in set(devs):
             torch.cuda.synchronize(i)
         done = [int(o[0]) for o in outs]
         if done != [MESH_FLOOR_ITERATIONS] * cards or len({int(o[1]) for o in outs}) != 1:
             raise AssertionError(f"mesh_floor: cards finished {done} exchanges with winners {outs}")
         us.append([s.elapsed_time(e) * 1e3 / MESH_FLOOR_ITERATIONS for s, e in events])
-    return {"phase": "mesh_floor", "cards": cards, "k": k, "iterations": MESH_FLOOR_ITERATIONS,
+    return {"phase": "mesh_floor", "cards": cards, "k": k, "on_one_device": on_one_device,
+            "iterations": MESH_FLOOR_ITERATIONS,
             "us_per_exchange": us, "exchange_us": max(us[-1])}
 
 
@@ -7605,6 +7773,167 @@ def b4_batched_over_cards(a: dict, mesh: list, k: int) -> dict:
                **counts, speculated_by_card=speculated, batched_iters=batched,
                equal_to_k1=True)
     return out
+
+
+def b4_floor_and_probes(m: int) -> tuple[dict, list[dict]]:
+    """B1's record on ``preempt_mix(2000, 40, seed=1)`` (its raw time an
+    iteration, B4's floor) and the exchange probes over the first 2 and
+    ``m`` cards, then a round at BATCHED_K over ``m`` (each emitted)."""
+    from kube_batch_tpu_torch import models
+
+    floor = kernel_vs_plain("preempt_mix_2k_40_seed1", encoded_arrays(models.preempt_mix(2000, 40, seed=1)),
+                            timed_runs=4, raw_runs=4)
+    probes = [mesh_floor_probe(n) for n in sorted({2, m})] + [mesh_floor_probe(m, k=BATCHED_K)]
+    for rec in probes:
+        emit(rec)
+    return floor, probes
+
+
+def b4_batched_phase(encoded: dict, mesh: list, want, floor: dict, round_us: float, with_prefix: bool = True) -> dict:
+    """``b4_k4_preempt_mix_50k_5k_<m>cards``: B4 over the cards of ``mesh``
+    at K = 1 and BATCHED_K in turns (``b4_batched_over_cards``), the
+    round's split at BATCHED_K (``b4_split``, held to ``want``, the K = 1
+    solve over the cards) with its derived readings against B1's floor and
+    the round probe, the latency bound and B4's share of it, then from a
+    jobs prefix against its plain version and K = 1 (comparison
+    launches; ``with_prefix`` false leaves that comparison out). Returns
+    the record."""
+    m = len(mesh)
+    batched = b4_batched_over_cards(encoded, mesh, BATCHED_K)
+    batched["split"] = b4_split(encoded, mesh, BATCHED_K, want, floor["raw_ms_per_iteration"], round_us)
+    if with_prefix:
+        batched["jobs_prefix"] = b4_vs_plain_prefix(encoded, mesh, list(range(m)), exchange_batch=BATCHED_K,
+                                                    divisor=BATCHED_PREFIX)
+    batched["round_us"] = round_us
+    batched["rounds_per_committed"] = batched["exchange_rounds"] / max(batched["placing_iterations"], 1)
+    batched["latency_bound_ms"] = (batched["iterations"] * floor["raw_ms_per_iteration"]
+                                   + batched["exchange_rounds"] * round_us * 1e-3)
+    batched["share_of_latency_bound"] = batched["latency_bound_ms"] / max(batched["device_ms_by_card"].values())
+    return {"phase": f"b4_k{BATCHED_K}_preempt_mix_50k_5k_{m}cards", **batched}
+
+
+B4_POOL_WORLD = (400_000, 40_000)  # config 7, uniform_pool: long runs of one request shape
+
+
+def b4_pool_phase(mesh: list, floor: dict, round_us: float) -> dict:
+    """``multichip_b4_by_k_400k_40k``: config 7 (``uniform_pool(400_000,
+    40_000)``: byte-identical nodes, 1,600 gangs of 250 pods in two
+    shapes, so a chain's tasks share one record key for 250 iterations),
+    B4 over the cards of ``mesh`` at K = 1 and BATCHED_K in turns (1, K, K,
+    1), every solve field for field B1's on cuda:0 (so K = 1's too); each
+    card's kernel time, the rounds and the speculated placing iterations
+    per committed one, and the round's split at BATCHED_K (``b4_split``,
+    against B1's floor and the round probe). Comparison launches."""
+    import torch
+
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver
+
+    t0 = time.perf_counter()
+    a = encoded_arrays(models.uniform_pool(*B4_POOL_WORLD))
+    setup_s = time.perf_counter() - t0
+    cuda0 = torch.device("cuda", 0)
+    b1 = fs.FusedSolver(a, True, True, device=cuda0).solve()
+    rec = {"phase": f"multichip_b4_by_k_{B4_POOL_WORLD[0] // 1000}k_{B4_POOL_WORLD[1] // 1000}k",
+           "world": f"uniform_pool{B4_POOL_WORLD}", "cards": len(mesh), "setup_s": setup_s, "runs": []}
+    for k in (1, BATCHED_K, BATCHED_K, 1):
+        solver = ShardedBlockSolver(a, mesh, True, True, exchange_batch=k)
+        same_state(f"B4 at K={k} over {len(mesh)} cards on config 7 against B1", b1, solver.solve())
+        counts = dict(solver.counts)
+        rec["runs"].append({"k": k, "device_ms_by_card": {f"cuda:{i}": v for i, v in sorted(solver._mesh.device_ms.items())},
+                            "exchange_rounds": counts["exchange_rounds"], "iterations": counts["iterations"],
+                            "placing_iterations": counts["placing_iterations"],
+                            "speculated_by_card": list(solver._mesh.speculated_by_card) if k > 1 else None,
+                            "rounds_per_committed": counts["exchange_rounds"] / max(counts["placing_iterations"], 1)})
+    rec["split"] = b4_split(a, mesh, BATCHED_K, b1, floor["raw_ms_per_iteration"], round_us)
+    rec["equal_to_b1"] = rec["k1_equal_to_k4"] = True
+    return rec
+
+
+def b4_only(card: str, kind: str, over_cards: bool) -> int:
+    """``--b4``: kernel B4's phases on one card alone, for work on B4: the
+    build (B1, B2, B4 and the exchange probe, at once), the ``cuda`` cases
+    of the two B4 test files, B1's record on ``preempt_mix(2000, 40,
+    seed=1)`` (B4's floor), ``b4_by_k`` with its splits, and at 50k x 5k
+    B1 and B4 (K = 1, four shards of cuda:0) timed around their raw
+    launches, equal, with the split at BATCHED_K over four cards of one
+    solve on cuda:0, and on config 7 the same four cards at K = 1 and (the
+    split) at BATCHED_K. ``--b4 --cards`` (two or more cards): the build, the
+    floor and the probes, then B4 over the cards at 50k x 5k
+    (``b4_batched_phase`` without its jobs prefix), nothing on one card."""
+    import torch
+
+    from kube_batch_tpu_torch import models
+    from kube_batch_tpu_torch.ops import fused_solve as fs
+    from kube_batch_tpu_torch.ops import nvcc
+    from kube_batch_tpu_torch.ops.kernels import init_state
+    from kube_batch_tpu_torch.parallel import ShardedBlockSolver, make_mesh
+
+    t_start = time.perf_counter()
+    m = torch.cuda.device_count()
+    if over_cards and m < 2:
+        raise AssertionError(f"--b4 --cards needs two or more cards, found {m}")
+    logs = nvcc.build(["fused_solve", "block_step", "mesh_solve", "mesh_floor"])
+    emit({"phase": "build", "s": time.perf_counter() - t_start,
+          "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
+    cuda0 = torch.device("cuda", 0)
+    if over_cards:
+        floor, probes = b4_floor_and_probes(m)
+        emit({"phase": "kernel_vs_plain", **floor})
+        big = encoded_arrays(models.preempt_mix(50_000, 5_000))
+        b1 = fs.FusedSolver(big, True, True, device=cuda0).solve()
+        mesh = make_mesh()
+        torch.cuda.set_device(0)
+        emit(b4_batched_phase(big, list(mesh), b1, floor, probes[-1]["exchange_us"], with_prefix=False))
+        del big, b1
+        emit(b4_pool_phase(list(mesh), floor, probes[-1]["exchange_us"]))
+    else:
+        root = os.path.dirname(os.path.abspath(__file__))
+        run = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q", "-m",
+                              "cuda", "tests/test_torch_mesh_solve.py", "tests/test_torch_mesh_batched.py"],
+                             cwd=root, capture_output=True, text=True, timeout=600)
+        tail = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+        emit({"phase": "card_tests", "summary": tail, "rc": run.returncode})
+        if run.returncode != 0:  # reported, and the run fails at its end; the timings still run
+            print(run.stdout[-6000:], run.stderr[-3000:], file=sys.stderr)
+        floor = kernel_vs_plain("preempt_mix_2k_40_seed1", encoded_arrays(models.preempt_mix(2000, 40, seed=1)),
+                                timed_runs=4, raw_runs=4)
+        emit({"phase": "kernel_vs_plain", **floor})
+        small = encoded_arrays(models.preempt_mix(2000, 40, seed=1))
+        want = fs.FusedSolver(small, True, True, device=cuda0).solve()
+        emit(b4_by_k(small, want, cuda0, floor))
+        big = encoded_arrays(models.preempt_mix(50_000, 5_000))
+        packed = fs.pack(big, True, True)
+        init = fs.pack_state(packed.dims, init_state(big, True, True), big["job_queue"])
+        b1_times, _ = b1_raw_times(packed.to("cuda"), init, 3)
+        b1 = fs.FusedSolver(big, True, True, device=cuda0).solve()
+        b4_times = []
+        for _ in range(2):
+            solver = ShardedBlockSolver(big, [cuda0] * 4, True, True)
+            same_state("B4 on one card at 50k x 5k against B1", b1, solver.solve())
+            b4_times.append(solver._mesh.device_ms[0])
+        probe = mesh_floor_probe(4, k=BATCHED_K, on_one_device=True)
+        emit({"phase": "b4_preempt_mix_50k_5k", "b1_raw_ms": b1_times, "b4_one_card_ms": b4_times,
+              "split_four_cards_on_one_device": b4_split(big, [cuda0] * 4, BATCHED_K, b1,
+                                                         floor["raw_ms_per_iteration"], probe["exchange_us"]),
+              "round_probe_on_one_device": probe})
+        del big, b1
+        # config 7 over four cards of one solve on cuda:0, K = 1 against
+        # BATCHED_K, with the split (a stream a card)
+        pool = encoded_arrays(models.uniform_pool(*B4_POOL_WORLD))
+        b1 = fs.FusedSolver(pool, True, True, device=cuda0).solve()
+        k1_state, k1_times, _, _, _ = b4_cards(pool, [cuda0] * 4, 1)
+        same_state("config 7, four cards on cuda:0 at K=1, against B1", b1, k1_state)
+        emit({"phase": "b4_pool_four_cards_on_one_device", "k1_ms_by_card": k1_times,
+              "split": b4_split(pool, [cuda0] * 4, BATCHED_K, b1, floor["raw_ms_per_iteration"],
+                                probe["exchange_us"])})
+        if run.returncode != 0:
+            return 1
+    emit({"phase": "total", "s": time.perf_counter() - t_start})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": m if over_cards else 1}})
+    return 0
 
 
 def distinct_cards(card: str) -> int:
@@ -7661,28 +7990,16 @@ def distinct_cards(card: str) -> int:
     # full width over a prefix of the work (comparison launches)
     encoded = encoded_arrays(cluster)
     prefix = b4_vs_plain_prefix(encoded, list(mesh), list(range(m)))
-    # B4 at K = 4 over the cards, the whole solve against K = 1's, then
-    # from a shorter prefix against its plain version and K = 1
-    # (comparison launches)
-    batched = b4_batched_over_cards(encoded, list(mesh), BATCHED_K)
-    batched["jobs_prefix"] = b4_vs_plain_prefix(encoded, list(mesh), list(range(m)), exchange_batch=BATCHED_K,
-                                                divisor=BATCHED_PREFIX)
-    del cluster, fused, on_last, encoded
+    del cluster, fused, on_last
     # B4's bound over the cards: B1's time per iteration on a 128-node world
     # and the exchange's latency from the probe, both measured here
-    floor = kernel_vs_plain("preempt_mix_2k_40_seed1", encoded_arrays(models.preempt_mix(2000, 40, seed=1)),
-                            timed_runs=4, raw_runs=4)
-    probes = [mesh_floor_probe(n) for n in sorted({2, m})] + [mesh_floor_probe(m, k=BATCHED_K)]
-    for rec in probes:
-        emit(rec)
+    floor, probes = b4_floor_and_probes(m)
     exchange_us = probes[-2]["exchange_us"]
     iterations = int(res.state.it)
     latency_ms = iterations * floor["raw_ms_per_iteration"] + placing * exchange_us * 1e-3
-    batched["round_us"] = probes[-1]["exchange_us"]
-    batched["latency_bound_ms"] = (batched["iterations"] * floor["raw_ms_per_iteration"]
-                                   + batched["exchange_rounds"] * batched["round_us"] * 1e-3)
-    batched["share_of_latency_bound"] = batched["latency_bound_ms"] / max(batched["device_ms_by_card"].values())
-    emit({"phase": f"b4_k{BATCHED_K}_preempt_mix_50k_5k_{m}cards", **batched})
+    emit(b4_batched_phase(encoded, list(mesh), res.state, floor, probes[-1]["exchange_us"]))
+    del encoded
+    emit(b4_pool_phase(list(mesh), floor, probes[-1]["exchange_us"]))
     emit({
         "phase": f"allocate_mesh_preempt_mix_50k_5k_{m}cards", "mesh": [str(d) for d in mesh],
         "total_s": total_s, **res.timings, "iterations": iterations, "placing_iterations": placing,
@@ -7785,14 +8102,18 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"], ["--streaming"], ["--operator"],
-                ["--classes"], ["--uploads"]) or (
-            argv[:1] == ["--ab-warm"] and len(argv) == 2):
+                ["--classes"], ["--uploads"], ["--b4"], ["--b4", "--cards"]) or (
+            argv[:1] in (["--ab-warm"], ["--ab-b4"]) and len(argv) == 2):
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
         if argv == ["--cards"]:
             return distinct_cards(card)
+        if argv[0] == "--b4":
+            return b4_only(card, torch.cuda.get_device_name(0), argv[1:] == ["--cards"])
         if argv[0] == "--ab-warm":
             return ab_warm(argv[1])
+        if argv[0] == "--ab-b4":
+            return ab_b4(argv[1])
         if argv == ["--federation"]:
             return federation_only(card, torch.cuda.get_device_name(0))
         if argv == ["--streaming"]:
@@ -7806,7 +8127,9 @@ def main(argv: list[str]) -> int:
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--federation | --streaming | --operator | --classes | --uploads | --ab-warm DIR | --rehearse CUT [--cards]]", file=sys.stderr)
+              "--federation | --streaming | --operator | --classes | --uploads | --b4 [--cards] | --ab-warm DIR | "
+              "--ab-b4 DIR | "
+              "--rehearse CUT [--cards]]", file=sys.stderr)
         return 2
     from kube_batch_tpu_torch import models
     from kube_batch_tpu_torch.analysis.trace import guard_calls
@@ -7980,7 +8303,7 @@ def main(argv: list[str]) -> int:
     # -- K = 1 through the JAX GSPMD rung's surface -------------------------
     small = encoded_arrays(models.preempt_mix(2000, 40, seed=1))
     want = fs.FusedSolver(small, True, True, device=cuda0).solve()
-    exchange_recs, surface_launches, b2_launches = exchange_phase(small, want)
+    exchange_recs, surface_launches, b2_launches = exchange_phase(small, want, floor=floor)
     for rec in exchange_recs:
         emit(rec)
     b4_k = next(r for r in exchange_recs if r["phase"] == "b4_by_k")

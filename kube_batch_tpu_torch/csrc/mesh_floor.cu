@@ -18,8 +18,11 @@
 // With K > 0 it times one round of B4's K-deep batched exchange instead:
 // thread c < m writes K 16-byte records and the count into this card's
 // slot on card c, fences and stamps; every warp polls its own buffer's
-// stamps; lane c reads card c's count and its K records, one after
-// another, as a replay that consumes every record would.
+// stamps, then copies its share of every card's 2K record slots into
+// shared memory with 16-byte system-scope loads, as B4 stages a round's
+// records; after a barrier lane c reads card c's count and its K records
+// from shared memory, one after another, as a replay that consumes every
+// record would.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,7 +34,7 @@
 #define MAX_CARDS 8
 #define REC 4
 #define BATCH_MAX 64                     // as csrc/mesh_solve.cu
-#define SLOT (REC + BATCH_MAX * REC)     // one card's records of a round
+#define SLOT (REC + 2 * BATCH_MAX * REC)  // one card's records of a round: chain, then round-start
 #define BATCH_OFF (2 * MAX_CARDS * REC)  // the rounds' slots
 
 extern "C" {
@@ -59,7 +62,17 @@ __device__ __forceinline__ int floor_ld_relaxed(const int* p) {
   return v;
 }
 
+__device__ __forceinline__ int4 floor_ld_relaxed_v4(const int* p) {
+  int4 v;
+  asm volatile("ld.relaxed.sys.global.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
 __global__ void __launch_bounds__(NT, 1) mesh_floor_kernel(const MeshFloorArgs a) {
+  __shared__ int4 stage[MAX_CARDS * 2 * BATCH_MAX];
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int* mine = a.xbuf[a.card];
@@ -97,16 +110,25 @@ __global__ void __launch_bounds__(NT, 1) mesh_floor_kernel(const MeshFloorArgs a
           }
         }
       }
-      if (late) continue;
-      const int nrec = lane < a.m ? floor_ld_relaxed(slot + 1) : 0;
+      if (!late) {
+        __syncwarp();
+        const int per_card = 2 * a.K;
+        for (int e = threadIdx.x; e < a.m * per_card; e += NT) {
+          const int c = e / per_card, j = e - c * per_card;
+          stage[e] = floor_ld_relaxed_v4(mine + BATCH_OFF + (par * MAX_CARDS + c) * SLOT + REC +
+                                         (j < a.K ? j : BATCH_MAX + j - a.K) * REC);
+        }
+      }
+      const int nrec = !late && lane < a.m ? floor_ld_relaxed(slot + 1) : 0;
+      if (__syncthreads_or(late)) break;  // the staged records, as B4's settle barrier orders them
       for (int d = 0; d < a.K; ++d) {
         Best rec = {-INFINITY, NONE, 0, 0};
         if (d < nrec) {
-          const int* r = slot + REC + d * REC;
-          rec.idx = floor_ld_relaxed(r + 1);
-          rec.score = __int_as_float(floor_ld_relaxed(r));
-          rec.fits = floor_ld_relaxed(r + 2);
-          sum += floor_ld_relaxed(r + 3);  // the key, read as a replay reads it
+          const int4 r = stage[lane * 2 * a.K + d];
+          rec.idx = r.y;
+          rec.score = __int_as_float(r.x);
+          rec.fits = r.z;
+          sum += r.w;  // the key, read as a replay reads it
         }
         sum += warp_max_best(rec).idx;
       }

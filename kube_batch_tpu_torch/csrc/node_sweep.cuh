@@ -136,6 +136,93 @@ __device__ __forceinline__ Best thread_best(const NodeAxis& v, int n_local, int 
   return best;
 }
 
+// One node's fields as node_score reads them: its static verdict and
+// affinity score for the task's group, its room, ports, scalar-map flags,
+// used rows and capacity, and its idle and releasing rows (the first R).
+struct NodeView {
+  int cnode, ntasks, nmax, nports, nihs, nrhs;
+  float used_c, used_m, cap_c, cap_m, affw;
+  float idle[R8], rel[R8];
+};
+
+// Local node n's fields, loaded at once.
+__device__ __forceinline__ NodeView load_node(const NodeAxis& v, int n, int R) {
+  const int N = v.N, S = v.S;
+  NodeView x;
+  x.cnode = v.cnode[n];
+  x.ntasks = v.ntasks[n];
+  x.nmax = v.nmax[n];
+  x.nports = v.nports[n];
+  x.nihs = v.nihs[n];
+  x.nrhs = v.nrhs[n];
+  x.used_c = v.used[n];
+  x.used_m = v.used[S + n];
+  x.cap_c = v.nalloc[n];
+  x.cap_m = v.nalloc[N + n];
+  x.affw = v.affw[n];
+#pragma unroll
+  for (int r = 0; r < R8; ++r) {
+    if (r >= R) break;
+    x.idle[r] = v.idle[r * S + n];
+    x.rel[r] = v.rel[r * S + n];
+  }
+  return x;
+}
+
+// node_score's verdict, score and fits-idle bit for a node whose fields
+// are loaded (the multi-key sweep scores one NodeView for several tasks):
+// the same operations in the same order, so the same bits. node_score
+// keeps its own copy: written as score_node(load_node(...)), it took B1 to
+// 112 registers and 212.36-212.38 ms at 50k x 5k, from 105 and 203-206 ms
+// (H100, chip_smoke.py --b4), as every row load then precedes every test.
+__device__ __forceinline__ bool score_node(const NodeView& x, const TaskView& t, float* score, bool* fits_idle) {
+  bool fi = !(t.has_sc && x.nihs == 0);
+  bool fr = !(t.has_sc && x.nrhs == 0);
+#pragma unroll
+  for (int r = 0; r < R8; ++r) {
+    if (r >= t.R) break;
+    fi = fi & (t.req[r] < __fadd_rn(x.idle[r], t.eps[r]));
+    fr = fr & (t.req[r] < __fadd_rn(x.rel[r], t.eps[r]));
+  }
+  *fits_idle = fi;
+  if (x.cnode == 0 || x.ntasks >= x.nmax || (x.nports & t.tports) != 0 || !(fi || fr)) return false;
+  const float req_c = __fadd_rn(x.used_c, t.res[0]);
+  const float req_m = __fadd_rn(x.used_m, t.res[1]);
+  const int least = (least_dim(req_c, x.cap_c) + least_dim(req_m, x.cap_m)) / 2;
+  const int bal = balanced_score(req_c, req_m, x.cap_c, x.cap_m);
+  *score = score_sum(least, bal, t.w_least, t.w_bal, x.affw);
+  return true;
+}
+
+// The multi-key sweep's per-thread part: this thread's best for each of
+// the first nk (<= KC) tasks of `tasks`, over the same nodes as
+// thread_best, each node read once and scored for every task. The static
+// verdict and the affinity score are the task's group's row (`group[j]`),
+// so they are loaded for each task from `cnode` and `affw`, the [GT, N]
+// statics at the slice's first node; every other field once a node.
+template <int KC>
+__device__ __forceinline__ void thread_best_keys(const NodeAxis& v, const int* cnode, const float* affw, int n_local,
+                                                 int base, const TaskView* tasks, const int* group, int nk,
+                                                 Best (&best)[KC]) {
+#pragma unroll
+  for (int j = 0; j < KC; ++j) best[j] = Best{-INFINITY, NONE, 0, 0};
+  for (int n = threadIdx.x; n < n_local; n += blockDim.x) {
+    NodeView x = load_node(v, n, tasks[0].R);
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if (j >= nk) break;
+      const size_t row = (size_t)group[j] * v.N;
+      x.cnode = cnode[row + n];
+      x.affw = affw[row + n];
+      float score;
+      bool fits;
+      if (!score_node(x, tasks[j], &score, &fits)) continue;
+      const Best cand = {score, base + n, fits ? 1 : 0, 0};
+      if (best_better(cand, best[j])) best[j] = cand;
+    }
+  }
+}
+
 // An int whose order is the float order of `s` (not NaN), with -0.0 and
 // +0.0 on one key, as they tie.
 __device__ __forceinline__ int score_key(float s) {

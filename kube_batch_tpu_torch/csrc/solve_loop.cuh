@@ -224,9 +224,18 @@ __device__ __forceinline__ bool loop_cond(const SolveArgs& a, const Scalars& L) 
   return (L.cur >= 0 || L.n_active > 0) && L.it < a.max_iter && L.paused < 0;
 }
 
+// What select_job calls before an overused queue's drop writes anything,
+// in every thread alike: whether the drop goes ahead. Always, in B1 and at
+// K = 1; mesh_solve.cu's speculation saves the runs the drop retires, and
+// refuses a second drop in one chain (select_job then writes nothing).
+struct NoDropHook {
+  __device__ __forceinline__ bool operator()() const { return true; }
+};
+
 // Queue and job selection, when no job is current.
+template <class OnDrop = NoDropHook>
 __device__ __forceinline__ void select_job(const SolveArgs& a, const Rep& rep, Scalars& L, LoopShared& sh,
-                                           Phases& ph) {
+                                           Phases& ph, OnDrop on_drop = OnDrop()) {
   if (L.cur >= 0) return;
   const int tid = threadIdx.x, J = a.J, Q = a.Q, R = a.R;
   __syncthreads();  // the updates of earlier iterations are visible
@@ -265,6 +274,7 @@ __device__ __forceinline__ void select_job(const SolveArgs& a, const Rep& rep, S
 
   if (q_any && overused) {
     // the overused queue retires all its jobs for the cycle
+    if (!on_drop()) return;
     for (int j = tid; j < J; j += NT)
       if (rep.jqueue[j] == qsel) rep.jactive[j] = 0;
     L.n_active -= rep.qcount[qsel];
@@ -334,23 +344,154 @@ __device__ __forceinline__ Best sweep(const SolveArgs& a, const Rep& rep, const 
   return cluster_max_best(thread_best(nodes, sl.n, lo, task), sh.best_scratch, sh.slots, ph.best++);
 }
 
+// The multi-key sweep's task rows a chunk (mesh_solve.cu's round-start
+// records): at most KEY_CHUNK keys a cluster barrier, one warp a key for
+// the CTA's reduction.
+#define KEY_CHUNK 8
+static_assert(KEY_CHUNK <= NWARPS, "a warp reduces each key of a chunk");
+#define TASK_WORDS 32  // shared words kept for each staged TaskView
+static_assert(sizeof(TaskView) <= 4 * TASK_WORDS, "KEY_CHUNK TaskViews fit their staged rows");
+
+// The best node of this launch's slice, over the whole cluster, for each of
+// nk task classes `cls` (every CTA passes the same list), into out[0, nk)
+// of CTA 0: one sweep that reads each node of the CTA's slice once and
+// scores it for up to KEY_CHUNK classes (thread_best_keys), a warp
+// reduction of each class's (score, index) pairs, one warp a class for the
+// CTA's, then every CTA's bests into CTA 0's `slots` through distributed
+// shared memory behind one cluster barrier, and CTA 0 reduces them; past
+// KEY_CHUNK classes, one such pass a chunk. The arithmetic and the order
+// are sweep()'s, so each result is the single-class sweep's bit for bit.
+// Shared scratch: `tasks` [KEY_CHUNK][TASK_WORDS], `group` [KEY_CHUNK],
+// `warps` [KEY_CHUNK][NWARPS], `slots` [2][KEY_CHUNK][MAX_CLUSTER] (a
+// chunk writes slots[chunk & 1] only after the barrier of the chunk before,
+// which CTA 0 passes only after reading the chunk before that). The
+// caller orders `out` for CTA 0's readers (a __syncthreads) and the
+// slice's state before the call.
+__device__ __forceinline__ void sweep_keys(const SolveArgs& a, const Rep& rep, const Slice& sl, const int* cls, int nk,
+                                           const float* eps, float w_least, float w_bal, int* tasks_words,
+                                           int* group, Best* warps, Best* slots, Best* out) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, N = a.N, lo = sl.lo;
+  TaskView* tasks = reinterpret_cast<TaskView*>(tasks_words);
+  const Best none = {-INFINITY, NONE, 0, 0};
+  for (int base = 0, chunk = 0; base < nk; base += KEY_CHUNK, ++chunk) {
+    const int n = min(KEY_CHUNK, nk - base);
+    if (tid < n) {
+      TaskView t;
+      t.R = a.R;
+      t.w_least = w_least;
+      t.w_bal = w_bal;
+      load_task(t, rep, cls[base + tid], eps);
+      tasks[tid] = t;
+      group[tid] = rep.cgid[cls[base + tid]];
+    }
+    __syncthreads();
+    const int g0 = group[0];
+    const NodeAxis nodes = {N,         sl.S,      a.cnode + (size_t)g0 * N + lo,
+                            a.nmax + lo, a.nihs + lo, a.nrhs + lo,
+                            sl.ntasks, sl.nports, a.affw + (size_t)g0 * N + lo,
+                            a.nalloc + lo, sl.idle, sl.rel,
+                            sl.used};
+    Best best[KEY_CHUNK];
+    thread_best_keys<KEY_CHUNK>(nodes, a.cnode + lo, a.affw + lo, sl.n, lo, tasks, group, n, best);
+#pragma unroll
+    for (int j = 0; j < KEY_CHUNK; ++j) {
+      if (j >= n) break;
+      const Best b = warp_max_best(best[j]);
+      if (lane == 0) warps[j * NWARPS + warp] = b;
+    }
+    __syncthreads();
+    Best* slot = slots + (chunk & 1) * KEY_CHUNK * MAX_CLUSTER;
+    if (warp < n) {
+      const Best b = warp_max_best(lane < NWARPS ? warps[warp * NWARPS + lane] : none);
+      if (lane == 0) {
+        if (k == 1)
+          out[base + warp] = b;
+        else
+          *cluster.map_shared_rank(&slot[warp * MAX_CLUSTER + rank], 0) = b;
+      }
+    }
+    if (k > 1) {
+      cluster_arrive_release();
+      cluster_wait();
+      if (rank == 0 && warp < n) {
+        const Best b = warp_max_best(lane < k ? slot[warp * MAX_CLUSTER + lane] : none);
+        if (lane == 0) out[base + warp] = b;
+      }
+    }
+  }
+}
+
 // Words of one entry of a speculation's node undo log (mesh_solve.cu): the
 // node's slice index, pod count and port mask, then its idle, releasing and
 // used rows (R8 each).
 #define UNDO_WORDS (3 + 3 * R8)
 
+// A speculation's journal of the replicated region (mesh_solve.cu's
+// batched exchange): before commit writes a word of the region, the thread
+// that writes it logs the word's old value, one entry an iteration and
+// writer. Thread 0: the job, then its jptr, jready, jactive and its
+// queue's qcount (LOG0_WORDS); thread 32: the job, its jshare and its
+// jalloc column (LOG_ROW_WORDS); thread 64: the queue, its qahs and its
+// qalloc column. The counts advance in every thread alike (the decisions
+// are replicated), so every thread knows how far each log runs.
+#define LOG0_WORDS 5
+#define LOG_ROW_WORDS (2 + R8)
+
+struct RegionLog {
+  int *j0, *j32, *j64;
+  int n0, n32, n64;
+};
+
 // The state update of one iteration: the winner's owner thread updates its
 // node, three lanes the replicated vectors, every thread the scalars.
 // `place`: this thread records the placement (CTA 0 of the primary launch,
 // outside speculation). `undo`, when not null, is where the node's owner
-// thread saves the node's old values before it changes them.
+// thread saves the node's old values before it changes them; `log`, when
+// not null, the region journal the writers of the replicated words log
+// their old values in first.
 __device__ __forceinline__ void commit(const SolveArgs& a, const Rep& rep, const Slice& sl, Scalars& L, const Pop& p,
-                                       const TaskView& task, const Won& won, bool place, int* undo) {
+                                       const TaskView& task, const Won& won, bool place, int* undo,
+                                       RegionLog* log = nullptr) {
   const int tid = threadIdx.x, R = a.R, J = a.J, Q = a.Q, S = sl.S;
   const int cur = L.cur;
   const bool assign = p.proc && won.idx != NONE;
   const bool abandon = p.proc && won.idx == NONE;  // serial `break`
   const bool fits_idle = assign && won.fits != 0;
+  if (log != nullptr) {
+    if (p.proc || p.drop) {  // a current job: its words may change
+      if (tid == 0) {
+        int* e = log->j0 + log->n0 * LOG0_WORDS;
+        e[0] = cur;
+        e[1] = rep.jptr[cur];
+        e[2] = rep.jready[cur];
+        e[3] = rep.jactive[cur];
+        e[4] = rep.qcount[rep.jqueue[cur]];
+      }
+      log->n0 += 1;
+    }
+    if (assign && a.drf) {
+      if (tid == 32) {
+        int* e = log->j32 + log->n32 * LOG_ROW_WORDS;
+        e[0] = cur;
+        e[1] = __float_as_int(rep.jshare[cur]);
+        for (int r = 0; r < R; ++r) e[2 + r] = __float_as_int(rep.jalloc[r * J + cur]);
+      }
+      log->n32 += 1;
+    }
+    if (assign && a.proportion) {
+      if (tid == 64) {
+        const int qc = rep.jqueue[cur];
+        int* e = log->j64 + log->n64 * LOG_ROW_WORDS;
+        e[0] = qc;
+        e[1] = rep.qahs[qc];
+        for (int r = 0; r < R; ++r) e[2 + r] = __float_as_int(rep.qalloc[r * Q + qc]);
+      }
+      log->n64 += 1;
+    }
+  }
   if (assign) {
     const int nb = won.idx, ln = won.local - sl.lo;
     if (won.local != NONE && ln >= 0 && ln < sl.n && ln % NT == tid) {  // this thread swept the winner

@@ -26,8 +26,11 @@ the JAX program's K-deep batched exchange instead (sharded_pallas.py
 :495-621), the card the unit of speculation: each card speculates up to K
 placing iterations with its own best winning and writes a record of each
 (score, row, local index and fits-idle bit, the task class's key,
-``class_keys``) into every card's buffer; one exchange a round; then every
-card replays the true iterations from the records (csrc/mesh_solve.cu's
+``class_keys``) into every card's buffer, with a round-start record for
+each other key its chain met (its best over its unchanged nodes); one
+exchange a round; then every card replays the true iterations from the
+records, a card that has won nothing in the round answering from its
+round-start records (``_batched_plain``'s rule; csrc/mesh_solve.cu's
 header). ``scal[6]`` is then the rounds and ``scal[7]`` the card's
 speculated placing iterations. One card exchanges nothing and runs its
 K = 1 loop at any K.
@@ -65,11 +68,22 @@ from kube_batch_tpu_torch.parallel.sharded import node_blocks
 MAX_CARDS = 8  # csrc/mesh_solve.cu MAX_CARDS: the most cards one host joins all to all
 REC = 4  # int32 words of one exchange record
 BATCH_MAX = 64  # the deepest batched exchange (csrc/mesh_solve.cu BATCH_MAX; the K rule's clamp)
-SLOT = REC + BATCH_MAX * REC  # one card's records of a round: a header, then BATCH_MAX records
+# one card's records of a round: a header (stamp, chain records, round-start
+# records, pad), BATCH_MAX chain records, then BATCH_MAX round-start records
+SLOT = REC + 2 * BATCH_MAX * REC
 # K = 1's records for both parities, the rounds' slots for both parities,
 # then the abort word and pad (the last REC words)
 XBUF_WORDS = 2 * MAX_CARDS * REC + 2 * MAX_CARDS * SLOT + REC
 UNDO_WORDS = 3 + 3 * fs.R8  # csrc/solve_loop.cuh UNDO_WORDS: one node's old values
+# csrc/solve_loop.cuh: the region journal's entries (thread 0's; threads 32
+# and 64's), the multi-key sweep's chunk and its staged task rows
+LOG0_WORDS = 5
+LOG_ROW_WORDS = 2 + fs.R8
+KEY_CHUNK = 8
+TASK_WORDS = 32
+PLOG_WORDS = 14  # csrc/mesh_solve.cu: one chain iteration's log (7 words, then its 7 scalars)
+NWARPS = CTA_WIDTH // 32
+MAX_CLUSTER = 16
 TIMEOUT_MS = 5_000  # a poll's bound: a live peer answers in microseconds
 
 # The packed fields that run over the node axis, [X, N] with X rows: the
@@ -203,16 +217,72 @@ def class_keys(packed: fs.Packed) -> torch.Tensor:
     return torch.from_numpy(inv.reshape(-1).astype(np.int32))
 
 
+def spec_iterations(exchange_batch: int) -> int:
+    """The most iterations, placing or not, one card speculates in a round
+    of the batched exchange (csrc/mesh_solve.cu SPEC_ITERS): 4 K, the
+    capacity of the round's journal of the replicated region. A chain that
+    reaches it stops, as at a pause; the replay runs on through iterations
+    that need no record."""
+    return 4 * exchange_batch
+
+
+def _speculate(g: GangLoop, s, mask: torch.Tensor, key: list[int], it: int, step: int, cur: int, paused: int,
+               K: int) -> tuple[list, list[int], bool]:
+    """One card's chain of a round: up to K placing iterations (at most
+    ``spec_iterations(K)`` iterations) from the true state ``s`` on a copy
+    of it, this card's best (over ``mask``) always winning. Returns the
+    records (score, row or None, fits-idle, key), their tasks, and whether
+    the chain stopped before a second overused-queue drop: the kernel saves
+    the runs a drop retires once a chain, so a chain meets at most one drop
+    and ends before the next, as at a pause."""
+    sc = type(s)(*(x.clone() for x in s))
+    rc, tasks, n, dropped = [], [], 0, int(sc.q_dropped.sum())
+    while len(rc) < K and n < spec_iterations(K) and g.cond(sc, cur, it, paused):
+        cur = g.select(sc, cur)  # drops at most one queue
+        if int(sc.q_dropped.sum()) > dropped + 1:  # the chain's second drop (the copy is thrown away)
+            return rc, tasks, True
+        t, drop, pause, proc = g.pop(sc, cur)
+        any_cand, nb, fits = False, 0, False
+        if proc:
+            any_cand, nb, fits, score = g.sweep(sc, t, mask)
+            rc.append((score, nb if any_cand else None, fits, key[t]))
+            tasks.append(t)
+        cur, paused, assign = g.commit(sc, cur, t, drop, pause, proc, any_cand, nb, fits, step)
+        it += 1
+        step += int(assign)
+        n += 1
+    return rc, tasks, False
+
+
 def _batched_plain(packed: fs.Packed, state: fs.PackedState, rows: list[torch.Tensor], K: int) -> tuple[int, list]:
     """The JAX program's K-deep batched exchange (sharded_pallas.py
     :495-621) over full-width buffers, a card (``rows``) the unit of
-    speculation: each card speculates up to K placing iterations on a copy
-    of the state with its own best always winning and records (score, row,
-    fits-idle, key) for each; the replay then runs the true iterations from
-    the records at each card's depth pointer, while every card has a record
-    left whose key is the task's, and stops before the first that has not
-    (the next round speculates it again). Updates ``state`` in place;
-    returns the rounds and each card's speculated placing iterations."""
+    speculation, with exact records past a mismatch. A round:
+
+    - each card speculates up to K placing iterations on a copy of the
+      state with its own best always winning, and records (score, row,
+      fits-idle, key) for each (the chain, ``_speculate``); then, over its
+      round-start block, one round-start record for each distinct key
+      among the chain's records after the first (the first is the
+      round-start record of its own key);
+    - the replay runs the true iterations. Card c answers a placing
+      iteration of key k from its chain record at its pointer when it has
+      won only through its chain so far and that record's key is k (the
+      JAX rule), else, while it has won nothing this round, from its
+      round-start record of key k; a card that can answer neither way
+      stops the replay before the iteration (the next round speculates it
+      again). The winner is the highest score, then the lowest row. A
+      winner that answered from its chain advances its pointer; one that
+      answered from a round-start record leaves its chain (its block is
+      no longer any of the chain's). A global abandon (no candidate on any
+      card) changes no block: the cards that answered from their chains
+      advance their pointers.
+
+    Every record the replay reads is a card's best over its block as it
+    truly stands, so the result is the JAX program's (and K = 1's) bit for
+    bit; a round commits at least what the JAX rule commits from the same
+    state. Updates ``state`` in place; returns the rounds and each card's
+    speculated placing iterations."""
     d = packed.dims
     g = GangLoop(fs._twin_arrays(packed), d.drf, d.proportion)
     s = fs._state_of(state)
@@ -224,44 +294,68 @@ def _batched_plain(packed: fs.Packed, state: fs.PackedState, rows: list[torch.Te
     key = class_keys(packed)[packed.views()["tcls"].long()].tolist()
     it, step, cur, paused = int(s.it), int(s.step), int(s.cur), int(s.paused_at)
     rounds, speculated = 0, [0] * len(rows)
-    while g.cond(s, cur, it, paused):
-        recs = []
+    while True:
+        # the iterations before the next placing one place nothing: every
+        # card's chain and the replay would run them alike, so they commit
+        proc = False
+        while g.cond(s, cur, it, paused):
+            cur = g.select(s, cur)
+            t, drop, pause, proc = g.pop(s, cur)
+            if proc:
+                break
+            cur, paused, _ = g.commit(s, cur, t, drop, pause, proc, False, 0, False, step)
+            it += 1
+        if not proc:
+            break
+        chains, starts = [], []
         for c, mask in enumerate(masks):
-            sc = type(s)(*(x.clone() for x in s))
-            c_it, c_step, c_cur, c_paused, rc = it, step, cur, paused, []
-            while len(rc) < K and g.cond(sc, c_cur, c_it, c_paused):
-                c_cur = g.select(sc, c_cur)
-                t, drop, pause, proc = g.pop(sc, c_cur)
-                any_cand, nb, fits = False, 0, False
-                if proc:
-                    any_cand, nb, fits, score = g.sweep(sc, t, mask)
-                    rc.append((score, nb if any_cand else None, fits, key[t]))
-                c_cur, c_paused, assign = g.commit(sc, c_cur, t, drop, pause, proc, any_cand, nb, fits, c_step)
-                c_it += 1
-                c_step += int(assign)
-            recs.append(rc)
+            rc, tasks, _ = _speculate(g, s, mask, key, it, step, cur, paused, K)
+            start = {}
+            if rc:  # the round-start records: the chain's first, then one sweep for every other key
+                start[rc[0][3]] = rc[0]
+                for t in tasks[1:]:
+                    if key[t] not in start:
+                        any_cand, nb, fits, score = g.sweep(s, t, mask)
+                        start[key[t]] = (score, nb if any_cand else None, fits, key[t])
+            chains.append(rc)
+            starts.append(start)
             speculated[c] += len(rc)
         rounds += 1
-        depth, it0 = [0] * len(rows), it
+        m = len(rows)
+        depth, fresh, chained, it0 = [0] * m, [True] * m, [True] * m, it
         while g.cond(s, cur, it, paused):
             cur0 = cur
             cur = g.select(s, cur)  # a placing iteration's selection changes no state
             t, drop, pause, proc = g.pop(s, cur)
             any_cand, nb, fits = False, 0, False
             if proc:
-                if not all(p < len(rc) and rc[p][3] == key[t] for p, rc in zip(depth, recs)):
+                k, now, from_chain = key[t], [], []
+                for c in range(m):
+                    p, rc = depth[c], chains[c]
+                    if chained[c] and p < len(rc) and rc[p][3] == k:
+                        now.append(rc[p])
+                        from_chain.append(True)
+                    elif fresh[c] and k in starts[c]:
+                        now.append(starts[c][k])
+                        from_chain.append(False)
+                    else:
+                        break
+                if len(now) < m:
                     cur = cur0
                     break
-                now = [rc[p] for p, rc in zip(depth, recs)]
                 top = max(r[0] for r in now)
                 any_cand = top > float("-inf")
                 if any_cand:
                     nb = min(r[1] for r in now if r[0] == top)
                     win = next(c for c, r in enumerate(now) if r[1] == nb)
                     fits = now[win][2]
-                    depth[win] += 1
+                    fresh[win] = False
+                    if from_chain[win]:
+                        depth[win] += 1
+                    else:
+                        chained[win] = False
                 else:  # a global abandon: every card's record was -inf
-                    depth = [p + 1 for p in depth]
+                    depth = [p + int(f) for p, f in zip(depth, from_chain)]
             cur, paused, assign = g.commit(s, cur, t, drop, pause, proc, any_cand, nb, fits, step)
             it += 1
             step += int(assign)
@@ -329,21 +423,73 @@ class _Args(ctypes.Structure):
     _fields_ = [
         ("s", fs._Args), ("gidx", ctypes.c_void_p), ("xbuf", ctypes.c_void_p * MAX_CARDS),
         ("card", ctypes.c_int), ("m", ctypes.c_int), ("timeout_ms", ctypes.c_int), ("epoch", ctypes.c_uint),
-        ("K", ctypes.c_int), ("spec_words", ctypes.c_int), ("ckey", ctypes.c_void_p), ("spec", ctypes.c_void_p),
+        ("K", ctypes.c_int), ("spec_words", ctypes.c_int), ("batch_words", ctypes.c_int), ("ckey", ctypes.c_void_p),
+        ("spec", ctypes.c_void_p), ("split", ctypes.c_void_p),
     ]
 
 
-def spec_words(dims: fs.Dims, exchange_batch: int) -> int:
+# The parts of a round of the batched exchange that the kernel's timed
+# instantiation stamps (csrc/mesh_solve.cu SplitPart, same order), then the
+# rounds timed: ``launch_timed`` returns them by card.
+SPLIT_PARTS = ("chain", "save", "node_undo", "restore", "top_barrier", "multikey", "exchange", "replay")
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def spec_words(dims: fs.Dims) -> int:
     """Words of one CTA's slice of the batched exchange's ``spec`` buffer
-    (csrc/mesh_solve.cu save_region and the undo log): the replicated
-    runs a speculation writes, J (4 + R) + Q (3 + R), then K entries of
-    UNDO_WORDS."""
-    return dims.J * (4 + dims.R) + dims.Q * (3 + dims.R) + exchange_batch * UNDO_WORDS
+    (csrc/mesh_solve.cu spec_words_of): the runs an overused queue's drop
+    writes (jactive [J], qdropped and qcount [Q], with up to 3 words to
+    match the region's alignment), 16-byte aligned."""
+    return _round4(4 + dims.J + 2 * dims.Q)
+
+
+def batch_words(exchange_batch: int, cards: int) -> int:
+    """Shared words of the batched exchange's scratch a CTA
+    (csrc/mesh_solve.cu batch_layout): the round's staged records [m][2K]
+    (int4), the multi-key sweep's warp bests and cluster slots, CTA 0's
+    round-start bests [K], the sweep's task rows and groups, the
+    round-start classes [K], the chain's log [K][PLOG_WORDS], the region
+    journal, the node undo log [K][UNDO_WORDS] and the round-start key
+    count."""
+    k = exchange_batch
+    return (4 * cards * 2 * k + 4 * KEY_CHUNK * NWARPS + 4 * 2 * KEY_CHUNK * MAX_CLUSTER + 4 * k
+            + KEY_CHUNK * TASK_WORDS + KEY_CHUNK + k + k * PLOG_WORDS + spec_iterations(k) * LOG0_WORDS
+            + 2 * k * LOG_ROW_WORDS + k * UNDO_WORDS + 4)
+
+
+def _card_args(dims: fs.Dims, cards: int, exchange_batch: int) -> tuple[bool, int, int, _Args]:
+    """One card's launch: whether its replicated region lies in shared
+    memory, its words, the cluster's CTAs, and the argument block
+    (pointers unset). The batched exchange (K > 1 over two or more cards)
+    adds its shared scratch after B1's layout, 16-byte aligned; where the
+    region no longer fits beside it, the region moves to the global
+    scratch (a ValueError where even the node slice does not fit)."""
+    geo, sargs = fs._launch_args(dims)
+    rep_in_smem = geo.rep_in_smem
+    args = _Args(s=sargs, m=cards, K=exchange_batch)
+    if exchange_batch > 1 and cards > 1:
+        words = batch_words(exchange_batch, cards)
+        extra = 4 * words
+        if rep_in_smem and (geo.smem_bytes + 15) // 16 * 16 + extra > fs.SMEM_BUDGET:
+            rep_in_smem = False
+            sargs.rep_in_smem, sargs.smem_bytes = 0, 4 * geo.node_words
+            args.s = sargs
+        if (sargs.smem_bytes + 15) // 16 * 16 + extra > fs.SMEM_BUDGET:
+            raise ValueError(f"the batched exchange at K = {exchange_batch} over {cards} cards needs {extra} B of "
+                             f"shared memory beside the node slice's {sargs.smem_bytes} B; the limit is "
+                             f"{fs.SMEM_BUDGET} B per CTA")
+        args.spec_words, args.batch_words = spec_words(dims), words
+    return rep_in_smem, geo.rep_words, geo.shape.k, args
 
 
 def _bind(lib) -> None:
     lib.kbt_mesh_solve.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
     lib.kbt_mesh_solve.restype = ctypes.c_int
+    lib.kbt_mesh_solve_timed.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
+    lib.kbt_mesh_solve_timed.restype = ctypes.c_int
     lib.kbt_mesh_solve_max_clusters.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.kbt_mesh_solve_max_clusters.restype = ctypes.c_int
     lib.kbt_mesh_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -386,7 +532,7 @@ def enable_peer_access(devices: Sequence[torch.device]) -> None:
 
 
 def _check_occupancy(index: int, args: _Args) -> None:
-    key = (index, args.s.k, args.s.smem_bytes, args.K > 1 and args.m > 1)
+    key = (index, args.s.k, args.s.smem_bytes, args.batch_words if args.K > 1 and args.m > 1 else -1)
     if key in _fits_card:
         return
     n = ctypes.c_int(0)
@@ -461,20 +607,19 @@ def _prepare(cards: Sequence[Card], epoch: int, timeout_ms: int = TIMEOUT_MS, ex
     xbuf = (ctypes.c_void_p * MAX_CARDS)(*[c.xbuf.data_ptr() if c.xbuf is not None else 0 for c in cards])
     prepared = []
     for i, c in enumerate(cards):
-        geo, sargs = fs._launch_args(c.packed.dims)
+        rep_in_smem, rep_words, k, args = _card_args(c.packed.dims, m, int(exchange_batch))
         for name, view in {**c.packed.views(), **c.state.views()}.items():
-            setattr(sargs, name, view.data_ptr())
+            setattr(args.s, name, view.data_ptr())
         # freed on return: handed out again only to work queued on this
         # card's stream after the kernel
         scratch = []
-        if not geo.rep_in_smem:
-            scratch.append(torch.empty(geo.shape.k * geo.rep_words, dtype=torch.int32, device=c.device))
-            sargs.scratch = scratch[-1].data_ptr()
-        args = _Args(s=sargs, gidx=c.gidx.data_ptr(), xbuf=xbuf, card=i, m=m, timeout_ms=int(timeout_ms),
-                     epoch=int(epoch) & 0xFFFFFFFF, K=int(exchange_batch))
+        if not rep_in_smem:
+            scratch.append(torch.empty(k * rep_words, dtype=torch.int32, device=c.device))
+            args.s.scratch = scratch[-1].data_ptr()
+        args.gidx, args.xbuf, args.card = c.gidx.data_ptr(), xbuf, i
+        args.timeout_ms, args.epoch = int(timeout_ms), int(epoch) & 0xFFFFFFFF
         if batched:
-            args.spec_words = spec_words(c.packed.dims, exchange_batch)
-            scratch.append(torch.empty(geo.shape.k * args.spec_words, dtype=torch.int32, device=c.device))
+            scratch.append(torch.empty(k * args.spec_words, dtype=torch.int32, device=c.device))
             args.spec, args.ckey = scratch[-1].data_ptr(), c.ckey.data_ptr()
         _check_occupancy(index[i], args)
         prepared.append((args, scratch, torch.cuda.current_stream(index[i])))
@@ -498,6 +643,35 @@ def _launch_cards(lib, prepared: list, index: list[int], timers: list | None) ->
                     timers.append((index[i], start, end))
             mesh_solve.launches += 1
             mesh_solve.launches_by_card[index[i]] += 1
+
+
+def launch_timed(lib, prepared: list, index: list[int], timers: list | None = None) -> list[torch.Tensor]:
+    """The batched exchange's timed instantiation on every card, as
+    ``_launch_cards`` launches the kernel (K > 1, two or more cards): each
+    card's thread 0 of CTA 0 stamps every part of every round. Returns each
+    card's int64 [len(SPLIT_PARTS) + 1] (nanoseconds a part, then the
+    rounds), filled when the card's stream has run. A measurement for
+    chip_smoke.py, not a solve: no wrapper count moves."""
+    out = []
+    with _LAUNCH_LOCK:
+        for i, (args, scratch, stream) in enumerate(prepared):
+            # every word written by the kernel at exit; held with the
+            # launch's scratch until the caller has waited on the card
+            split = torch.empty(len(SPLIT_PARTS) + 1, dtype=torch.int64, device=torch.device("cuda", index[i]))
+            scratch.append(split)
+            args.split = split.data_ptr()
+            with torch.cuda.device(index[i]):
+                if timers is not None:
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record(stream)
+                err = lib.kbt_mesh_solve_timed(ctypes.byref(args), index[i], stream.cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"mesh_solve (timed) launch on cuda:{index[i]} failed: {_library.error(err)}")
+                if timers is not None:
+                    end.record(stream)
+                    timers.append((index[i], start, end))
+            out.append(split)
+    return out
 
 
 mesh_solve.launches = 0
@@ -596,7 +770,7 @@ class MeshSolve:
                 # each card's cluster (solve_geometry at its node count) and
                 # the card's room for it, before any solve
                 try:
-                    args = _Args(s=fs._launch_args(c.packed.dims)[1], m=len(devices), K=self.exchange_batch)
+                    args = _card_args(c.packed.dims, len(devices), self.exchange_batch)[3]
                 except ValueError as e:
                     raise ValueError(f"{c.device}: {e}") from e
                 _check_occupancy(c.device.index, args)
