@@ -527,6 +527,16 @@ runs instead ``warm_cycles_50k_5k`` of the checkout at DIR (the parent
 commit, unpacked with ``git archive``) and of this one, in the order DIR,
 this, this, DIR, each in a process of its own.
 
+    python3 chip_smoke.py --verify
+
+runs only the port's verify gate on the card (``python -m
+kube_batch_tpu_torch.verify --device cuda --json --interleave --federation
+--chaos``, after the kernels' build) and then the preempt and backfill
+worlds (``verify_worlds``): the twin pipeline on ``preempt_contended()``
+and on ``besteffort_mix(2000, 1000)``, torch_allocate on cuda:0, against
+the same cycle with the serial reclaim, backfill and preempt; the evicts
+and the binds must be equal.
+
     python3 chip_smoke.py --rehearse CUT
 
 needs no card: the pipeline phases (step 8), the fast paths' (step 9),
@@ -8092,6 +8102,104 @@ def upload_probe(card: str, kind: str) -> int:
     return 0
 
 
+VERIFY_ARGS = ["--device", "cuda", "--json", "--interleave", "--federation", "--chaos"]
+VERIFY_TIMEOUT_S = 900
+# the preempt and backfill worlds of --verify: (phase, the generator in
+# kube_batch_tpu_torch.models, its arguments, the vector action, its serial twin)
+VERIFY_WORLDS = (
+    ("preempt_contended", "preempt_contended", {}, "torch_preempt", "preempt"),
+    ("besteffort_mix_2k_1k", "besteffort_mix", {"n_pods": 2000, "n_nodes": 1000}, "torch_backfill", "backfill"),
+)
+
+
+def verify_gate() -> list[dict]:
+    """The port's verify gate in a subprocess, on the card; its whole
+    output goes to ``chiprun_out/verify.log``. Raises unless every gate
+    is ok."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "kube_batch_tpu_torch.verify", *VERIFY_ARGS],
+        cwd=root, capture_output=True, text=True, timeout=VERIFY_TIMEOUT_S,
+    )
+    s = time.perf_counter() - t0
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(root, "chiprun_out", "verify.log"), "w") as f:
+        f.write(run.stdout + "\n--- stderr ---\n" + run.stderr)
+    try:
+        summary = json.loads(run.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        summary = {}
+    gates = summary.get("gates", {})
+    rec = {
+        "phase": "verify_gate", "args": VERIFY_ARGS, "rc": run.returncode, "s": s, "ok": summary.get("ok", False),
+        "gates": {name: {"ok": g["ok"], "seconds": g["seconds"],
+                         "launches": {k: n for k, n in g.get("launches", {}).items() if n}}
+                  for name, g in gates.items()},
+        "launches": summary.get("launches"),
+    }
+    if run.returncode != 0 or not rec["ok"]:
+        raise AssertionError(f"verify gate failed ({run.returncode}): {rec}\n{run.stdout[-3000:]}\n{run.stderr[-2000:]}")
+    return [rec]
+
+
+def verify_worlds(device: str = "cuda") -> list[dict]:
+    """Each of ``VERIFY_WORLDS`` through one cycle of the twin pipeline
+    (torch_allocate on ``device``, ``cuda:0`` on the card) and one of the
+    same pipeline with the serial reclaim, backfill and preempt, each over
+    a fresh world: the binds, the evicts in order and every task's final
+    state must be equal. The record holds each cycle's time of the vector
+    action and of its serial twin."""
+    from kube_batch_tpu_torch import models
+
+    dev = "cuda:0" if device == "cuda" else device
+    twin = conf_file(base=PIPELINE_CONF, device=dev)
+    serial = conf_file(actions=SERIAL_SCANS_ACTIONS, base=PIPELINE_CONF, device=dev)
+    out = []
+    for phase, gen, kwargs, vector, plain in VERIFY_WORLDS:
+        got, cache_v, states_v = pipeline_cycle(phase, getattr(models, gen)(**kwargs), twin, device)
+        want, cache_s, states_s = pipeline_cycle(phase + "_serial", getattr(models, gen)(**kwargs), serial, device)
+        if dict(cache_v.binder.binds) != dict(cache_s.binder.binds):
+            raise AssertionError(f"{phase}: {vector}'s binds differ from {plain}'s")
+        if list(cache_v.evictor.evicts) != list(cache_s.evictor.evicts):
+            raise AssertionError(f"{phase}: {vector}'s evicts differ from {plain}'s")
+        if states_v != states_s:
+            raise AssertionError(f"{phase}: the task states differ")
+        out.append({
+            "phase": phase, "world": dict(kwargs), "binds": got["binds"], "evicts": got["evicts"],
+            f"{vector}_s": got["cycle"].get(f"{vector}_s"), f"{plain}_s": want["cycle"].get(f"{plain}_s"),
+            "run_once_s": got["run_once_s"], "serial_run_once_s": want["run_once_s"], "tier": got["tier"],
+            "b1_launches": got["b1_launches"], "serial_b1_launches": want["b1_launches"],
+        })
+    return out
+
+
+def verify_only(card: str, kind: str) -> int:
+    """``--verify``: the kernels' build, the port's verify gate and the
+    preempt and backfill worlds on the card."""
+    from kube_batch_tpu_torch.ops import nvcc
+
+    t_start = time.perf_counter()
+    nvcc.build(["fused_solve", "block_step", "class_step", "mesh_solve"])
+    emit({"phase": "build", "s": time.perf_counter() - t_start})
+    failures = []
+    for name, fn in (("verify_gate", verify_gate), ("verify_worlds", verify_worlds)):
+        try:
+            recs = fn()
+        except Exception as e:  # noqa: BLE001 - report every phase
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            continue
+        for rec in recs:
+            emit(rec)
+    emit({"phase": "total", "s": time.perf_counter() - t_start})
+    if failures:
+        print("chip_smoke: failed phases:\n  " + "\n  ".join(failures), file=sys.stderr, flush=True)
+        return 1
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}})
+    return 0
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -8102,7 +8210,7 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if argv in (["--cards"], ["--pipeline-uncut"], ["--federation"], ["--streaming"], ["--operator"],
-                ["--classes"], ["--uploads"], ["--b4"], ["--b4", "--cards"]) or (
+                ["--classes"], ["--uploads"], ["--b4"], ["--b4", "--cards"], ["--verify"]) or (
             argv[:1] in (["--ab-warm"], ["--ab-b4"]) and len(argv) == 2):
         card = card_line()
         emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -8124,10 +8232,13 @@ def main(argv: list[str]) -> int:
             return classes_only(card, torch.cuda.get_device_name(0))
         if argv == ["--uploads"]:
             return upload_probe(card, torch.cuda.get_device_name(0))
+        if argv == ["--verify"]:
+            return verify_only(card, torch.cuda.get_device_name(0))
         return pipeline_uncut(card, torch.cuda.get_device_name(0))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--cards | --pipeline-uncut | "
-              "--federation | --streaming | --operator | --classes | --uploads | --b4 [--cards] | --ab-warm DIR | "
+              "--federation | --streaming | --operator | --classes | --uploads | --verify | --b4 [--cards] | "
+              "--ab-warm DIR | "
               "--ab-b4 DIR | "
               "--rehearse CUT [--cards]]", file=sys.stderr)
         return 2

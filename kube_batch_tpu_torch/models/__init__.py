@@ -19,6 +19,10 @@ BASELINE.md "Benchmark configs to reproduce":
 7. `uniform_pool`      — 400k x 40k interchangeable fleet, 250-task gangs
                          (the node-class compression world)
 
+and the worlds of the preempt and backfill actions: `preempt_contended`
+(every node slot held by low-priority gang members) and `besteffort_mix`
+(zero-request pods over a labeled, tainted fleet).
+
 All quantities are milli-CPU / MiB granular so float32 device arithmetic
 is exact (see ops/encode.py).
 """
@@ -28,7 +32,7 @@ from __future__ import annotations
 import random
 
 from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
-from kube_batch_tpu_torch.apis.types import PodPhase
+from kube_batch_tpu_torch.apis.types import PodPhase, Taint, Toleration
 from kube_batch_tpu_torch.testing import (
     build_cluster,
     build_node,
@@ -204,6 +208,58 @@ def multi_tenant_ml(
     return build_cluster(pods, nodes, pgs, queues)
 
 
+def preempt_contended(
+    n_nodes: int = 200, victim_tasks: int = 4, n_preemptor_jobs: int = 150,
+    tasks_per_job: int = 4, seed: int = 0
+) -> ClusterInfo:
+    """A preemption-heavy scene for the preempt actions: every node slot
+    held by low-priority gang members, higher-priority gangs starved
+    behind them (the preempt.go:81-170 working set)."""
+    rng = random.Random(seed)
+    nodes = [
+        build_node(f"node-{i:05d}", build_resource_list(cpu=2, memory="4096Mi", pods=10))
+        for i in range(n_nodes)
+    ]
+    pods, pgs = [], []
+    slots = [(i, s) for i in range(n_nodes) for s in range(2)]
+    si = 0
+    j = 0
+    while si < len(slots):
+        name = f"low-{j:04d}"
+        pgs.append(build_pod_group(name, min_member=0))
+        for t in range(victim_tasks):
+            if si >= len(slots):
+                break
+            node_i, _ = slots[si]
+            si += 1
+            pods.append(
+                build_pod(
+                    name=f"{name}-t{t}",
+                    group_name=name,
+                    node_name=f"node-{node_i:05d}",
+                    phase=PodPhase.RUNNING,
+                    req=build_resource_list(cpu=1, memory="2048Mi"),
+                    priority=1,
+                )
+            )
+        j += 1
+    for j in range(n_preemptor_jobs):
+        name = f"high-{j:04d}"
+        pgs.append(build_pod_group(name, min_member=max(tasks_per_job // 2, 1)))
+        for t in range(tasks_per_job):
+            pods.append(
+                build_pod(
+                    name=f"{name}-t{t}",
+                    group_name=name,
+                    req=build_resource_list(
+                        cpu=1, memory=f"{rng.choice([1024, 2048])}Mi"
+                    ),
+                    priority=9,
+                )
+            )
+    return build_cluster(pods, nodes, pgs, [build_queue("default")])
+
+
 def uniform_pool(
     n_pods: int = 400_000, n_nodes: int = 40_000, tasks_per_job: int = 250,
     churn: float = 0.0, churn_salt: int = 0,
@@ -255,10 +311,55 @@ def uniform_pool(
     return build_cluster(pods, nodes, pgs, [build_queue("default")])
 
 
+def besteffort_mix(
+    n_pods: int = 2000, n_nodes: int = 1000, seed: int = 0
+) -> ClusterInfo:
+    """A backfill-heavy scene: zero-request (BestEffort) pods with mixed
+    selector/toleration shapes over a labeled fleet whose nodes hold few
+    pods (the backfill.go:41-76 working set). Early nodes fill to their
+    pod capacity, so the serial first-fit walk re-scans the full prefix
+    for every later task, and zone-selector pods whose zone sits late in
+    node-name order walk most of the cluster per task."""
+    rng = random.Random(seed)
+    zones = ["a", "b", "c", "d"]
+    nodes = []
+    block = max(n_nodes // len(zones), 1)
+    for i in range(n_nodes):
+        # contiguous zone blocks: zone "d" occupies the name-order tail
+        node = build_node(
+            f"node-{i:05d}",
+            build_resource_list(cpu=4, memory="8192Mi", pods=8),
+            labels={"zone": zones[min(i // block, len(zones) - 1)]},
+        )
+        if i % 17 == 0:
+            node.taints.append(Taint(key="dedicated", effect="NoSchedule"))
+        nodes.append(node)
+    pods, pgs = [], []
+    n_jobs = max(n_pods // 20, 1)
+    for j in range(n_jobs):
+        name = f"be-{j:04d}"
+        pgs.append(build_pod_group(name, min_member=1))
+        for t in range(20):
+            pod = build_pod(name=f"{name}-t{t}", group_name=name)
+            shape = rng.random()
+            if shape < 0.3:
+                # selector pods biased to the tail zones: the serial walk
+                # rejects the whole name-order prefix every time
+                pod.node_selector["zone"] = rng.choice(["c", "d", "d", "d"])
+            elif shape < 0.4:
+                pod.tolerations.append(
+                    Toleration(key="dedicated", operator="Exists")
+                )
+            pods.append(pod)
+    return build_cluster(pods, nodes, pgs, [build_queue("default")])
+
+
 CONFIGS = {
     "gang_example": gang_example,
     "synthetic_1k_100": lambda: synthetic(1000, 100),
     "multi_queue_10k_1k": lambda: multi_queue(10_000, 1000),
     "preempt_50k_5k": lambda: preempt_mix(50_000, 5000),
     "multi_tenant_ml": lambda: multi_tenant_ml(),
+    "besteffort_2k_1k": lambda: besteffort_mix(2000, 1000),
+    "uniform_pool_50k_5k": lambda: uniform_pool(50_000, 5000),
 }

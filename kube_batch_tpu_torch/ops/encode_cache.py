@@ -678,3 +678,241 @@ def put(arena: Optional[TensorArena], name: str, host, device, mesh=None):
             arena.failures += 1
             arena.clear()
     return _put(np.asarray(host), mesh, name, None if mesh is not None else _indexed(device))
+
+
+# -- parity smokes (the verify gate's encode-cache and pipeline checks) ------
+
+_SMOKE_TIERS = (
+    "tiers:\n"
+    "- plugins:\n"
+    "  - name: priority\n"
+    "  - name: gang\n"
+    "  - name: conformance\n"
+    "- plugins:\n"
+    "{second}"
+)
+
+
+def smoke(device: str = "cuda", out: Optional[dict] = None) -> int:
+    """Cold-vs-warm parity on a seeded snapshot: a warm encode (and a
+    1%-node-churn encode) must be byte-identical to a fresh cold encode,
+    and the warm encode must reuse more than half of its units. The cold
+    and warm arrays then go up to ``device`` through one ``TensorArena``:
+    the warm upload must reuse every slab, and each device copy must equal
+    its host array byte for byte. Returns 0 when clean; prints one line
+    per failure; fills ``out`` (when given) with the summary."""
+    import torch
+
+    from kube_batch_tpu_torch.streaming import _check_device
+
+    _check_device(device)
+
+    from kube_batch_tpu_torch import actions, plugins  # noqa: F401  (registries)
+    from kube_batch_tpu_torch.conf import parse_scheduler_conf
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    from kube_batch_tpu_torch.models import multi_queue
+    from kube_batch_tpu_torch.ops.encode import encode_session
+    from kube_batch_tpu_torch.testing import FakeCache, build_node, build_resource_list
+
+    conf = parse_scheduler_conf(_SMOKE_TIERS.format(second=(
+        "  - name: drf\n  - name: predicates\n  - name: proportion\n  - name: nodeorder\n"
+    )))
+
+    def encode(ssn):
+        return encode_session(
+            ssn.jobs, ssn.nodes, ssn.queues, dtype=np.float64,
+            drf=ssn.plugins.get("drf"), proportion=ssn.plugins.get("proportion"),
+            session=ssn,
+        )
+
+    def diff(a, b, what: str) -> list[str]:
+        if set(a.arrays) != set(b.arrays):
+            return [f"{what}: array key sets differ"]
+        bad = []
+        for k in a.arrays:
+            x, y = np.asarray(a.arrays[k]), np.asarray(b.arrays[k])
+            if x.shape != y.shape or x.dtype != y.dtype or not np.array_equal(x, y):
+                bad.append(f"{what}: arrays[{k!r}] diverges")
+        return bad
+
+    ec = get()
+    cache = FakeCache(multi_queue(600, 96))
+    ssn = open_session(cache, conf.tiers)
+    try:
+        ec.invalidate_all("smoke")
+        cold = encode(ssn)
+        warm = encode(ssn)
+        warm_fraction = get().warm_fraction
+        problems = diff(cold, warm, "warm-vs-cold")
+        if warm_fraction <= 0.5:
+            problems.append(f"warm encode reused only {warm_fraction:.0%} of units")
+        # 1% node churn: replace one node object (a label flip), re-encode,
+        # compare against a fully cold encode of the same world
+        churned = sorted(ssn.nodes)[0]
+        ssn.nodes[churned].set_node(
+            build_node(
+                churned,
+                build_resource_list(cpu=8, memory="16Gi", pods=110),
+                labels={"smoke/churned": "1"},
+            )
+        )
+        churn = encode(ssn)
+        ec.invalidate_all("smoke")
+        cold2 = encode(ssn)
+        problems += diff(cold2, churn, "churn-vs-cold")
+    finally:
+        close_session(ssn)
+
+    arena = TensorArena(device)
+    for name, host in cold.arrays.items():
+        arena.upload(name, host)
+    before = arena.reuses
+    for name, host in warm.arrays.items():
+        dev = arena.upload(name, host)
+        got = dev.cpu().numpy()
+        if got.dtype != host.dtype or got.shape != host.shape or got.tobytes() != np.ascontiguousarray(host).tobytes():
+            problems.append(f"arena on {device}: {name!r} differs from its host array")
+    if arena.reuses - before != len(warm.arrays):
+        problems.append(
+            f"arena on {device}: the warm upload reused {arena.reuses - before} of {len(warm.arrays)} slabs"
+        )
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+    for p in problems:
+        print(f"encode-cache smoke: {p}")
+    if not problems:
+        print("encode-cache smoke: ok (warm + 1%-churn encodes byte-identical to cold)")
+    if out is not None:
+        out.update(
+            ok=not problems, device=device, warm_fraction=warm_fraction,
+            slabs=len(warm.arrays), arena=arena.counters(), problems=problems,
+        )
+    return 1 if problems else 0
+
+
+def smoke_pipeline(device: str = "cuda", out: Optional[dict] = None) -> int:
+    """Pipelined-vs-synchronous parity: one seeded world (600 pods on 96
+    nodes, 57,600 pairs: above torch_allocate's size floor, so the fused
+    rung solves it) scheduled for two cycles with ``KBT_PIPELINE`` off,
+    then on. Cycle 1's binds must be equal in both runs, the pipelined
+    dispatch deferred through the fence, the arena's banks ping-pong when
+    pipelined and stay put when synchronous, and the fence never degrade.
+    On a card each run must launch kernel B1. Returns 0 when clean;
+    fills ``out`` (when given) with the summary."""
+    import os
+
+    import torch
+
+    from kube_batch_tpu_torch.streaming import _check_device
+
+    _check_device(device)
+
+    from kube_batch_tpu_torch import actions, pipeline, plugins  # noqa: F401  (registries)
+    from kube_batch_tpu_torch.conf import parse_scheduler_conf
+    from kube_batch_tpu_torch.framework import close_session, get_action, open_session
+    from kube_batch_tpu_torch.models import multi_queue
+    from kube_batch_tpu_torch.ops.fused_solve import fused_solve
+    from kube_batch_tpu_torch.testing import FakeCache
+
+    conf = parse_scheduler_conf(_SMOKE_TIERS.format(second="  - name: predicates\n  - name: nodeorder\n"))
+    action = get_action("torch_allocate")
+    args = {"torch_allocate": {"device": device}}
+
+    def run(pipelined: bool):
+        save = os.environ.get(pipeline.ENV)
+        os.environ[pipeline.ENV] = "1" if pipelined else "0"
+        pipeline.reset()
+        get().invalidate_all("smoke")
+        launches0 = fused_solve.launches
+        try:
+            cache = FakeCache(multi_queue(600, 96))
+            banks, deferred, tiers = [], [], []
+            cycle1_binds = None
+            for _ in range(2):  # two cycles: the bank must ping-pong
+                ssn = open_session(cache, conf.tiers, args)
+                action.execute(ssn)
+                banks.append(action._arena.bank if action._arena is not None else None)
+                tiers.append(action.last_solver_tier)
+                deferred.append(getattr(ssn, "deferred_dispatch", None) is not None)
+                close_session(ssn)  # joins the deferred dispatch first
+                if cycle1_binds is None:
+                    cycle1_binds = dict(cache.binder.binds)
+            degraded = pipeline.fence.degraded_reason
+            return cycle1_binds, banks, deferred, tiers, fused_solve.launches - launches0, degraded
+        finally:
+            if save is None:
+                os.environ.pop(pipeline.ENV, None)
+            else:
+                os.environ[pipeline.ENV] = save
+            pipeline.reset()
+
+    problems = []
+    sync_binds, sync_banks, sync_deferred, sync_tiers, sync_b1, sync_degraded = run(False)
+    pipe_binds, pipe_banks, pipe_deferred, pipe_tiers, pipe_b1, pipe_degraded = run(True)
+    if not sync_binds:
+        problems.append("synchronous run bound nothing")
+    if any(sync_deferred):
+        problems.append("synchronous run unexpectedly deferred its dispatch")
+    if not all(pipe_deferred):
+        problems.append("pipelined run never deferred its dispatch")
+    if len(set(pipe_banks)) != 2:
+        problems.append(f"arena banks did not ping-pong across pipelined cycles: {pipe_banks}")
+    if len(set(sync_banks)) != 1:
+        problems.append(f"synchronous run flipped arena banks: {sync_banks}")
+    if pipe_binds != sync_binds:
+        diverged = {
+            k: (sync_binds.get(k), pipe_binds.get(k))
+            for k in set(sync_binds) | set(pipe_binds)
+            if sync_binds.get(k) != pipe_binds.get(k)
+        }
+        problems.append(f"pipelined binds diverge from synchronous: {diverged}")
+    for reason in (sync_degraded, pipe_degraded):
+        if reason is not None:
+            problems.append(f"pipeline degraded during smoke: {reason}")
+    if torch.device(device).type == "cuda" and not (sync_b1 and pipe_b1):
+        problems.append(f"kernel B1 launched {sync_b1} times synchronous, {pipe_b1} pipelined")
+    for p in problems:
+        print(f"pipeline smoke: {p}")
+    if not problems:
+        print(
+            "pipeline smoke: ok (pipelined cycle bind-for-bind identical to "
+            f"synchronous, dispatch deferred, arena banks {pipe_banks})"
+        )
+    if out is not None:
+        out.update(
+            ok=not problems, device=device, binds=len(sync_binds or {}),
+            banks={"sync": sync_banks, "pipelined": pipe_banks},
+            tiers={"sync": sync_tiers, "pipelined": pipe_tiers},
+            b1_launches={"sync": sync_b1, "pipelined": pipe_b1}, problems=problems,
+        )
+    return 1 if problems else 0
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser(
+        description="encode-cache parity smoke (default) or the pipelined-cycle parity smoke (--pipeline)"
+    )
+    parser.add_argument("--pipeline", action="store_true", help="run the pipelined-vs-synchronous smoke")
+    parser.add_argument(
+        "--device", default="cuda", choices=("cuda", "cpu"), help="where the smoke runs (default: the card)"
+    )
+    parser.add_argument("--json", action="store_true", help="print the summary as JSON on the last line")
+    args = parser.parse_args(argv)
+    summary: dict = {}
+    rc = (smoke_pipeline if args.pipeline else smoke)(device=args.device, out=summary)
+    if args.json:
+        print(json.dumps(summary, sort_keys=True))
+    return rc
+
+
+if __name__ == "__main__":
+    # re-enter through the canonical module: `python -m` executes this
+    # file as __main__, whose module-level singleton would otherwise be
+    # a different object than the one encode_session uses
+    from kube_batch_tpu_torch.ops.encode_cache import main as _canonical_main
+
+    raise SystemExit(_canonical_main())

@@ -5,6 +5,11 @@ with the card has none); on every conf the repo ships and every conf
 string the allocate parity suites use, it must give the JAX parser's
 `SchedulerConfiguration` field for field, and it must refuse YAML outside
 the schema's subset, naming the line.
+
+The cases of tests/test_conf.py have twins of the same name at the end of
+this file (TestConfParse's six, TestRound1Fixes's six), each run on both
+packages with equal readings; the port's conf names ``torch_allocate``
+where the JAX conf names ``xla_allocate``.
 """
 
 import ast
@@ -197,3 +202,171 @@ def test_the_conf_module_does_not_import_yaml():
     env["PYTHONPATH"] = ROOT
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# -- twins of tests/test_conf.py ----------------------------------------------
+
+
+def _pkg(root: str):
+    import importlib
+    import types
+
+    conf = importlib.import_module(f"{root}.conf")
+    importlib.import_module(f"{root}.actions")  # registers the package's actions
+    return types.SimpleNamespace(
+        conf=conf, helpers=importlib.import_module(f"{root}.api.helpers"),
+        resource=importlib.import_module(f"{root}.api.resource_info"),
+        types=importlib.import_module(f"{root}.api.types"), testing=importlib.import_module(f"{root}.testing"),
+        device_action="xla_allocate" if root == "kube_batch_tpu" else "torch_allocate",
+    )
+
+
+JAX_PKG, PORT_PKG = _pkg("kube_batch_tpu"), _pkg("kube_batch_tpu_torch")
+
+
+def both(case):
+    want, got = case(JAX_PKG), case(PORT_PKG)
+    assert got == want
+    return got
+
+
+class TestConfParse:
+    def test_default_conf(self):
+        def case(P):
+            actions_list, tiers, action_args = P.conf.load_scheduler_conf(P.conf.DEFAULT_SCHEDULER_CONF)
+            assert action_args == {}
+            assert [a.name for a in actions_list] == ["allocate", "backfill"]
+            assert len(tiers) == 2
+            assert [p.name for p in tiers[0].plugins] == ["priority", "gang"]
+            assert [p.name for p in tiers[1].plugins] == ["drf", "predicates", "proportion", "nodeorder"]
+            return [[dataclasses.asdict(p) for p in t.plugins] for t in tiers]
+
+        both(case)
+
+    def test_enable_flags_default_true(self):
+        def case(P):
+            conf = P.conf.parse_scheduler_conf(P.conf.DEFAULT_SCHEDULER_CONF)
+            for tier in conf.tiers:
+                for option in tier.plugins:
+                    assert option.enabled_job_order is True
+                    assert option.enabled_predicate is True
+            return _as_dict(conf)
+
+        both(case)
+
+    def test_explicit_flag_respected(self):
+        text = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: gang
+    enableJobOrder: false
+    arguments:
+      foo: "7"
+"""
+
+        def case(P):
+            option = P.conf.parse_scheduler_conf(text).tiers[0].plugins[0]
+            assert option.enabled_job_order is False
+            assert option.enabled_job_ready is True
+            assert option.arguments == {"foo": "7"}
+            return dataclasses.asdict(option)
+
+        both(case)
+
+    def test_action_arguments_parsed(self):
+        def case(P):
+            conf = P.conf.parse_scheduler_conf(
+                f'actions: "enqueue, {P.device_action}, backfill"\n'
+                f"actionArguments:\n  {P.device_action}:\n    mesh: auto\n"
+                "tiers:\n- plugins:\n  - name: gang\n"
+            )
+            assert conf.action_arguments == {P.device_action: {"mesh": "auto"}}
+            return conf.action_arguments[P.device_action]
+
+        both(case)
+
+    def test_unknown_action_raises(self):
+        def case(P):
+            with pytest.raises(ValueError):
+                P.conf.load_scheduler_conf('actions: "no-such-action"')
+            return True
+
+        both(case)
+
+    def test_full_pipeline_order(self):
+        def case(P):
+            actions_list, _, _ = P.conf.load_scheduler_conf('actions: "enqueue, reclaim, allocate, backfill, preempt"')
+            names = [a.name for a in actions_list]
+            assert names == ["enqueue", "reclaim", "allocate", "backfill", "preempt"]
+            return names
+
+        both(case)
+
+
+class TestRound1Fixes:
+    def test_build_resource_list_kwarg_translation(self):
+        def case(P):
+            rl = P.testing.build_resource_list(cpu=1, nvidia__com__gpu=2)
+            assert rl == {"cpu": 1.0, "nvidia.com/gpu": 2.0}
+            rl2 = P.testing.build_resource_list(google__com__tpu=8)
+            assert rl2 == {"google.com/tpu": 8.0}
+            return rl, rl2
+
+        both(case)
+
+    def test_from_resource_list_ignores_non_scalar_names(self):
+        def case(P):
+            r = P.resource.Resource.from_resource_list({"cpu": 1, "ephemeral-storage": 10_000_000, "nvidia.com/gpu": 2})
+            assert r.scalars == {"nvidia.com/gpu": 2000.0}
+            return r.milli_cpu, r.memory, r.scalars
+
+        both(case)
+
+    def test_sub_scalar_onto_scalar_free_receiver_raises(self):
+        def case(P):
+            Resource = P.resource.Resource
+            r = Resource(milli_cpu=1000, memory=1000)
+            with pytest.raises(ValueError):
+                r.sub(Resource(milli_cpu=500, memory=500, scalars={"g": 5}))
+            assert r.scalars == {}
+            return r.milli_cpu, r.memory
+
+        both(case)
+
+    def test_min_resource_drops_scalars_when_either_side_nil(self):
+        def case(P):
+            Resource = P.resource.Resource
+            left = Resource(milli_cpu=100, memory=100, scalars={"g": 5})
+            out = P.helpers.min_resource(left, Resource(milli_cpu=200, memory=50))
+            assert out.milli_cpu == 100 and out.memory == 50
+            assert out.scalars == {}
+            both_sides = P.helpers.min_resource(left, Resource(milli_cpu=0, memory=0, scalars={"g": 2}))
+            assert both_sides.scalars == {"g": 2}
+            return (out.milli_cpu, out.memory), both_sides.scalars
+
+        both(case)
+
+    def test_validate_status_update_rejects_terminal_reentry(self):
+        def case(P):
+            TaskStatus, validate = P.types.TaskStatus, P.types.validate_status_update
+            with pytest.raises(ValueError):
+                validate(TaskStatus.SUCCEEDED, TaskStatus.ALLOCATED)
+            validate(TaskStatus.PENDING, TaskStatus.ALLOCATED)
+            validate(TaskStatus.ALLOCATED, TaskStatus.BINDING)
+            validate(TaskStatus.RUNNING, TaskStatus.RELEASING)
+            return True
+
+        both(case)
+
+    def test_fake_binder_signals_once_per_bind(self):
+        def case(P):
+            binder = P.testing.FakeBinder()
+            binder.bind(P.testing.build_pod(name="a"), "n1")
+            binder.bind(P.testing.build_pod(name="b"), "n2")
+            got = [binder.channel.get_nowait(), binder.channel.get_nowait()]
+            assert got == ["default/a", "default/b"]
+            assert binder.channel.empty()
+            return got, binder.binds
+
+        both(case)

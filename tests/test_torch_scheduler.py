@@ -5,6 +5,32 @@ The port runs `examples/scheduler-conf-torch.yaml` with
 ``device: cpu`` (the kernels' plain versions); the JAX scheduler runs the
 same tiers with ``actions: "xla_allocate, backfill"`` under jax x64 off.
 Binds and the PodGroup statuses the cycle writes back must be equal.
+
+The cases of tests/test_scheduler.py and their twins (the process, its
+HTTP surface and `kbt-ctl` live in tests/test_torch_server.py, the
+electors in tests/test_torch_leader.py):
+
+- test_loop_schedules_live_mutating_cluster, test_gang_larger_than_cluster_stays_pending,
+  test_metrics_endpoint_scrapes_live_latencies, test_queue_api_crud,
+  test_conf_hot_reload, test_workload_ingestion_over_http,
+  test_example_confs_load_and_schedule, test_ingestion_rejects_type_poisoned_pods,
+  test_watch_gone_when_client_falls_behind, test_cli_queue_list_watch,
+  test_add_flags_snapshot: test_torch_server.py, each under the same name;
+- test_healthz_and_version: test_torch_server.py::test_healthz_version_and_debug_endpoints;
+- test_loop_with_xla_allocate_pipeline:
+  test_torch_server.py::test_loop_with_the_device_allocate_pipeline;
+- test_leader_election_mutual_exclusion:
+  test_torch_leader.py::test_flock_pair_second_blocks_until_first_releases;
+- TestCLI::test_queue_create_list_delete and TestCLI::test_create_duplicate_errors:
+  test_torch_server.py::test_cli_queue_create_list_delete (its third step
+  creates the queue again and exits 1);
+- TestCLI::test_version_command: test_torch_server.py::test_cli_version;
+- test_pdb_and_priorityclass_ingestion:
+  test_torch_server.py::test_pdb_priorityclass_and_volume_ingestion;
+- test_watch_observes_bind_event_without_polling:
+  test_torch_server.py::test_watch_observes_bind_events_without_polling;
+- test_watch_unknown_kind_404: test_torch_server.py::test_watch_bad_requests;
+- test_select_best_node: here, under the same name.
 """
 
 import os
@@ -154,3 +180,28 @@ def test_a_spent_hard_budget_discards_the_cycle(tmp_path):
     assert cache.binder.binds == {}
     phases = {uid: s[:4] for uid, s in _statuses(cache.cluster).items()}
     assert phases == {uid: s[:4] for uid, s in before.items()}
+
+
+def test_select_best_node():
+    """scheduler_helper_test.go:26 TestSelectBestNode, on both packages:
+    the highest score bucket wins, its first entry picked."""
+    from kube_batch_tpu.api.node_info import NodeInfo as JaxNodeInfo
+    from kube_batch_tpu.utils import select_best_node as jax_select
+
+    from kube_batch_tpu_torch.api.node_info import NodeInfo
+    from kube_batch_tpu_torch.utils import select_best_node
+
+    def picks(node_info, select):
+        def node(name):
+            n = node_info()
+            n.name = name
+            return n
+
+        n1, n2, n3, n4, n5 = (node(f"node{i}") for i in range(1, 6))
+        first = select({1.0: [n1, n2], 2.0: [n3, n4]})
+        assert first in (n3, n4)
+        assert select({1.0: [n1, n2], 3.0: [n3], 2.0: [n4, n5]}) is n3
+        assert select({}) is None
+        return first.name
+
+    assert picks(NodeInfo, select_best_node) == picks(JaxNodeInfo, jax_select)

@@ -326,8 +326,8 @@ def test_the_fault_smoke_passes_every_drill_on_the_cpu(capsys):
     process_ladder = torch_faults.solver_ladder
     assert smoke.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert out.count("): ok (") == len(smoke.DRILLS) == 5
-    assert out.rstrip().endswith("chaos smoke: ok (5 drills)")
+    assert out.count("): ok (") == len(smoke.DRILLS) == 9
+    assert out.rstrip().endswith("chaos smoke: ok (9 drills)")
     assert torch_faults.solver_ladder is process_ladder
 
 

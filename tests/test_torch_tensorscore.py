@@ -11,6 +11,17 @@ port's `nodeorder`, and `torch_allocate` under a conf naming it.
   nodeorder.
 - The bulk replay bumps ``state_seq``: with two host-stepped pods apart,
   the second is scored against the replayed fillers' Used vectors.
+
+The cases of tests/test_tensorscore.py and their twins:
+test_allocate_synthetic, test_allocate_scalar_resources,
+test_property_sweep and test_preempt_with_tensorscore under the same names
+at the end of this file (each package's serial action under tensorscore
+and under nodeorder, the four outcomes equal);
+test_xla_allocate_tensorscore_multi_pause_pod_affinity is
+test_second_host_step_sees_the_replayed_fillers; and
+test_xla_allocate_accepts_tensorscore_conf is
+test_tensorscore_conf_solves_on_the_device_rung (its ``synthetic_200_20``
+world among the others).
 """
 
 import pytest
@@ -172,3 +183,128 @@ def test_bulk_replay_bumps_state_seq():
     assert ssn.node_order_fn(task, node) != before
     torch_close(ssn)
     torch_close(fresh)
+
+
+# -- twins of tests/test_tensorscore.py's serial cases --------------------------
+
+
+def assert_same_outcome(make, action="allocate"):
+    """``action`` under nodeorder and under tensorscore, in both packages:
+    four equal outcomes (task states, binds, evicts)."""
+    want = jax_run([action], make(JAX), NODEORDER)
+    assert jax_run([action], make(JAX), TENSORSCORE) == want
+    assert torch_run([action], make(TORCH), NODEORDER) == want
+    assert torch_run([action], make(TORCH), TENSORSCORE) == want
+    return want
+
+
+def test_allocate_synthetic():
+    _, binds, _ = assert_same_outcome(lambda P: P.models.synthetic(300, 30))
+    assert binds
+
+
+def test_allocate_scalar_resources():
+    _, binds, _ = assert_same_outcome(lambda P: P.models.multi_tenant_ml(n_jobs=10, n_nodes=10, n_queues=4))
+    assert binds
+
+
+def gen_cluster(P, seed: int):
+    """tests/test_xla_allocate.py's ``gen_cluster`` with P's builders: the
+    same draws in the same order."""
+    import random
+
+    rng = random.Random(seed)
+    t, apis = P.t, P.apis
+    queues = [t.build_queue(f"q{i}", weight=rng.randint(1, 3)) for i in range(rng.randint(1, 3))]
+    for i, q in enumerate(queues):
+        q.metadata.creation_timestamp = float(i)
+    with_scalars = rng.random() < 0.35
+    nodes = []
+    for i in range(rng.randint(3, 10)):
+        labels = {}
+        if rng.random() < 0.4:
+            labels["zone"] = rng.choice(["a", "b"])
+        rl = t.build_resource_list(
+            cpu=rng.randint(1, 8), memory=f"{rng.choice([1024, 2048, 4096, 8192])}Mi", pods=rng.randint(3, 12)
+        )
+        if with_scalars and rng.random() < 0.6:
+            rl[P.models.GPU] = float(rng.choice([1, 2, 4]))
+        node = t.build_node(f"n{i:02d}", rl, labels=labels)
+        if rng.random() < 0.15:
+            node.taints = [apis.Taint(key="dedicated", value="infra", effect="NoSchedule")]
+        if rng.random() < 0.1:
+            node.unschedulable = True
+        nodes.append(node)
+    pods, pgs = [], []
+    for j in range(rng.randint(1, 7)):
+        name = f"job{j}"
+        n_tasks = rng.randint(1, 5)
+        min_member = rng.randint(1, n_tasks + (1 if rng.random() < 0.2 else 0))
+        pg = t.build_pod_group(name, queue=rng.choice(queues).name, min_member=min_member)
+        pg.metadata.creation_timestamp = float(rng.randint(0, 3))
+        pgs.append(pg)
+        prio = rng.choice([None, 1, 5, 9])
+        for k in range(n_tasks):
+            req = t.build_resource_list(
+                cpu=f"{rng.randint(1, 16) * 250}m", memory=f"{rng.choice([128, 256, 512, 1024, 2048])}Mi"
+            )
+            if with_scalars and rng.random() < 0.4:
+                req[P.models.GPU] = float(rng.choice([1, 2]))
+            pod = t.build_pod(
+                name=f"{name}-t{k}", group_name=name, req=req,
+                priority=prio if rng.random() < 0.8 else rng.choice([1, 5, 9]),
+            )
+            pod.metadata.creation_timestamp = float(rng.randint(0, 3))
+            if rng.random() < 0.2:
+                pod.node_selector = {"zone": rng.choice(["a", "b"])}
+            if rng.random() < 0.15:
+                pod.tolerations = [
+                    apis.Toleration(key="dedicated", operator="Equal", value="infra", effect="NoSchedule")
+                ]
+            if rng.random() < 0.1:
+                pod.affinity = apis.Affinity(node_affinity_preferred=[
+                    (rng.randint(1, 10), apis.NodeSelectorTerm(key="zone", operator="In", values=["a"]))
+                ])
+            pods.append(pod)
+    headroom = {
+        n.name: [n.allocatable.get("cpu", 0.0) * 1000.0, n.allocatable.get("memory", 0.0)] for n in nodes
+    }
+    for r in range(rng.randint(0, 6)):
+        node = rng.choice(nodes)
+        cpu_m = rng.randint(1, 4) * 250
+        mem_mi = rng.choice([128, 256, 512])
+        room = headroom[node.name]
+        if room[0] < cpu_m or room[1] < mem_mi * 1024 * 1024:
+            continue
+        room[0] -= cpu_m
+        room[1] -= mem_mi * 1024 * 1024
+        pod = t.build_pod(
+            name=f"resident{r}", node_name=node.name, phase=apis.PodPhase.RUNNING,
+            req=t.build_resource_list(cpu=f"{cpu_m}m", memory=f"{mem_mi}Mi"),
+        )
+        if rng.random() < 0.3:
+            pod.metadata.deletion_timestamp = 1.0
+        pods.append(pod)
+    return t.build_cluster(pods, nodes, pgs, queues)
+
+
+def test_gen_cluster_copy_draws_the_jax_worlds():
+    from test_xla_allocate import gen_cluster as jax_gen_cluster
+
+    for seed in range(16):
+        want = jax_run(["allocate"], jax_gen_cluster(seed), NODEORDER)
+        assert jax_run(["allocate"], gen_cluster(JAX, seed), NODEORDER) == want
+
+
+def test_property_sweep():
+    for seed in range(16):
+        assert_same_outcome(lambda P: gen_cluster(P, seed))
+
+
+def test_preempt_with_tensorscore():
+    import test_xla_preempt
+
+    for seed in range(8):
+        assert_same_outcome(
+            lambda P: (test_xla_preempt if P is JAX else torch_testing).gen_contended_cluster(seed), "preempt"
+        )
